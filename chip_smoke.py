@@ -16,6 +16,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. serve    — the ServeScheduler at full width, bf16, random weights:
               16 requests, 8 slots, dispatch depth "auto"; the kernels'
               launch counters are reset before and read after this run.
+6. algorithms — the paper's parallel algorithms and their four 1-d
+              kernels (reduce_sum, inclusive_scan, adjacent_difference,
+              artificial_work).  Each kernel against its plain version at
+              n = 2^20, 2^24, 2^26 (f32, and bf16 where the reference
+              takes it), timed like phase 3; reduce_sum and
+              inclusive_scan also against the float64 exact sum
+              (``sum_limit``) and, on signed integers, bit for bit.
+              The measured block plan (``KernelTuner``) for two of
+              them.  Then adjacent_difference,
+              reduce, inclusive_scan, exclusive_scan, artificial_work and
+              transform at n = 2^24 and 2^26 under seq, static par and
+              acc par (8 workers), each held against the plain function,
+              with the acc decisions printed; the 1-d kernels' launch
+              counters are reset before and read after this run.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -24,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,6 +48,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_BF16 = 989e12             # dense tensor-core bf16, data sheet
 PEAK_F32 = 67e12               # f32 outside the tensor cores, data sheet
+KERNEL_SIZES_1D = (2 ** 20, 2 ** 24, 2 ** 26)   # the paper's sizes and 4x
+ALGORITHM_SIZES = (2 ** 24, 2 ** 26)
 
 
 def log(msg: str) -> None:
@@ -334,18 +351,40 @@ def main() -> None:
         + ", ".join(f"{e.key[:40]}={e.self_device_time_total / 1e3:.1f}"
                     for e in top))
 
+    del sched, params, caches, logits
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 6. algorithms
+    algo_records, algo_launches = _algorithms_phase(torch, dev)
+    records.update(algo_records)
+    launches.update(algo_launches)
+
     srcs = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:19"),
             "flash_attention": (
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "src/repro/kernels/flash_attention.py:93")}
+                "src/repro/kernels/flash_attention.py:93"),
+            "reduce_sum": ("src/repro_torch/kernels/csrc/reduce_scan.cu",
+                           "src/repro/kernels/reduce_scan.py:24"),
+            "inclusive_scan": (
+                "src/repro_torch/kernels/csrc/reduce_scan.cu",
+                "src/repro/kernels/reduce_scan.py:57"),
+            "adjacent_difference": (
+                "src/repro_torch/kernels/csrc/adjacent_difference.cu",
+                "src/repro/kernels/adjacent_difference.py:31"),
+            "artificial_work": (
+                "src/repro_torch/kernels/csrc/artificial_work.cu",
+                "src/repro/kernels/artificial_work.py:22")}
     kernels = []
     for name, recs in records.items():
-        head = recs[0]    # the decode shape in bf16: the serve path's own
+        # Serve kernels: the decode shape in bf16, the serve path's own.
+        # 1-d kernels: n = 2^24 in f32, the paper's largest size.
+        head = recs[0] if name in ("rmsnorm", "flash_attention") else next(
+            r for r in recs if r["shape"] == f"n={KERNEL_SIZES_1D[1]} float32")
         kernels.append({
             "name": name, "route": "cuda", "source": srcs[name][0],
             "replaces": srcs[name][1], "launches": launches[name],
-            "max_abs_err": max(r["err"] for r in recs),
+            "max_abs_err": head["err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"]})
@@ -353,6 +392,344 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+U32, U16 = 2.0 ** -24, 2.0 ** -8     # unit roundoff of f32 and of bf16
+
+
+def sum_limit(torch, x, exact, prefix: bool, local=None):
+    """Largest |out - exact| that a sound f32-accumulated sum of ``x``
+    (``prefix`` False: ``exact`` is 0-d) or prefix sum (``prefix`` True)
+    may show against the float64 ``exact``, element by element:
+
+    * 2·u32·|exact|: the rounding of the result and of its last add;
+    * u32·log2(n)·rms(x)·sqrt(m): the roundings of the partial sums on
+      the way, for a result of m terms (m = n for the sum, i + 1 at
+      element i of the scan).  A partial sum of m terms is about
+      rms(x)·sqrt(m), the plan's sums are at most about log2(n) levels
+      deep, and roundings of random sign add as a square root, so this
+      is a statistical limit; PERF.md gives the readings it is held to;
+    * bf16: 2·u16·|exact| for the rounding of the f32 result to bf16,
+      and 2·u16·|local| where the scan rounds the in-block prefix
+      ``local`` to bf16 before its block's offset is added.
+
+    On randn data the limit stays far below one element's size, so a
+    result that is 0, or that drops or repeats an element, fails."""
+    n = x.numel()
+    xd = x.double()
+    rms = float(xd.square().mean().sqrt())
+    m = (torch.arange(1, n + 1, device=x.device, dtype=torch.float64)
+         if prefix else torch.tensor(float(n), device=x.device,
+                                     dtype=torch.float64))
+    lim = 2 * U32 * exact.abs() + U32 * math.log2(max(n, 2)) * rms * m.sqrt()
+    if x.dtype == torch.bfloat16:
+        lim = lim + 2 * U16 * exact.abs()
+        if local is not None:
+            lim = lim + 2 * U16 * local.abs()
+    return lim
+
+
+def in_block(torch, exact, block: int):
+    """The exact prefix sum within each block of ``block`` elements."""
+    starts = torch.arange(block, exact.numel(), block, device=exact.device)
+    base = torch.cat([exact.new_zeros(1), exact[starts - 1]])
+    return exact - base.repeat_interleave(block)[:exact.numel()]
+
+
+def signed_ints(torch, n, gen, dev):
+    """n integers in ±[1, 8], as float32: every sum and prefix sum of
+    them is exact in f32 at the sizes here (|partial| << 2^24), so a
+    sound sum or scan of them equals the exact one bit for bit, and one
+    dropped or repeated element shows."""
+    mag = torch.randint(1, 9, (n,), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (n,), generator=gen, device=dev) * 2 - 1
+    return (mag * sign).float()
+
+
+def affine(c):
+    """transform's body in phase 6: one function object, so that acc's
+    calibration, keyed by it, is made once."""
+    return c * 2 + 1
+
+
+def _algorithms_phase(torch, dev):
+    """Phase 6: the four 1-d kernels against their plain versions, then
+    the algorithms under three policies with the launch counters read.
+    Returns ({kernel: [record, ...]}, {kernel: launches})."""
+    from repro_torch import algorithms as alg
+    from repro_torch.core import (HostParallelExecutor, StaticCoreChunk,
+                                  adaptive, par, seq)
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.kernels import adjacent_difference as kad
+    from repro_torch.kernels import artificial_work as kaw
+    from repro_torch.kernels import autotune, ops, tuning
+    from repro_torch.kernels import reduce_scan as krs
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    iters = 256
+    cases = {
+        "reduce_sum": dict(
+            kernel=ops.reduce_sum, plain=krs.reduce_sum_ref,
+            library=lambda x: torch.sum(x, dtype=torch.float32),
+            bytes=lambda n, item: n * item + item, ops=lambda n: n,
+            dtypes=(torch.float32, torch.bfloat16)),
+        "inclusive_scan": dict(
+            kernel=ops.inclusive_scan, plain=krs.inclusive_scan_ref,
+            library=lambda x: torch.cumsum(x, 0, dtype=torch.float32),
+            bytes=lambda n, item: 2 * n * item, ops=lambda n: n,
+            dtypes=(torch.float32, torch.bfloat16)),
+        "adjacent_difference": dict(
+            kernel=ops.adjacent_difference, plain=kad.adjacent_difference_ref,
+            library=lambda x: torch.diff(x, prepend=x.new_zeros(1)),
+            bytes=lambda n, item: 2 * n * item, ops=lambda n: n,
+            dtypes=(torch.float32, torch.bfloat16)),
+        "artificial_work": dict(
+            kernel=lambda x: ops.artificial_work(x, iters=iters),
+            plain=lambda x: kaw.artificial_work_ref(x, iters),
+            library=None,        # no one PyTorch call computes it
+            bytes=lambda n, item: 2 * n * item,
+            ops=lambda n: 2 * iters * n, dtypes=(torch.float32,)),
+    }
+
+    # Tolerances, with their reasons:
+    # - adjacent_difference: the same one subtraction, rounded once: exact.
+    # - reduce_sum, inclusive_scan: sum_limit against the float64 exact
+    #   sum, for the kernel and for the plain version, so kernel against
+    #   plain within twice it; on signed integers, exact bit for bit
+    #   (f32, and the bf16 sum: one rounding of an exact f32 sum).
+    # - artificial_work: both round each step once (FMA; f64 then f32):
+    #   rtol 1e-5, atol 1e-6.
+    def check(name, x, out, ref):
+        """(ok, max |out - ref|, None or (max |out - exact| / limit,
+        the largest limit))."""
+        diff = (out.double() - ref.double()).abs()
+        err = float(diff.max())
+        if name == "adjacent_difference":
+            return bool((diff == 0).all()), err, None
+        if name == "artificial_work":
+            return (bool((diff <= 1e-6 + 1e-5 * ref.double().abs()).all()),
+                    err, None)
+        prefix = name == "inclusive_scan"
+        exact = (torch.cumsum(x.double(), 0) if prefix
+                 else x.double().sum())
+        local = None
+        if prefix and x.dtype == torch.bfloat16:
+            block = tuning.plan_1d(x.numel(), num_sms=ops.num_sms(x),
+                                   bytes_per_elem=x.element_size()).block
+            local = in_block(torch, exact, block)
+        lim = sum_limit(torch, x, exact, prefix, local)
+        off = (out.double() - exact).abs()
+        ok = bool((off <= lim).all()) and bool((diff <= 2 * lim).all())
+        return ok, err, (float((off / lim).max()), float(lim.max()))
+
+    records = {name: [] for name in cases}
+    exact_bad = []
+    for name, c in cases.items():
+        for dtype in c["dtypes"]:
+            for n in KERNEL_SIZES_1D:
+                x = torch.randn(n, generator=gen, device=dev).to(dtype)
+                out = c["kernel"](x)
+                ref = c["plain"](x)
+                torch.cuda.synchronize()
+                ok, err, ratio = check(name, x, out, ref)
+                del out, ref
+                if name in ("reduce_sum", "inclusive_scan"):
+                    xi = signed_ints(torch, n, gen, dev).to(dtype)
+                    out = c["kernel"](xi)
+                    exact = (torch.cumsum(xi.double(), 0)
+                             if name == "inclusive_scan"
+                             else xi.double().sum())
+                    if dtype == torch.float32 or name == "reduce_sum":
+                        good = torch.equal(out, exact.to(dtype))
+                    else:
+                        good, _, _ = check(name, xi, out, c["plain"](xi))
+                    if not good:
+                        exact_bad.append(f"{name} n={n} {dtype}")
+                    del xi, out, exact
+                item = x.element_size()
+                t_bytes = c["bytes"](n, item) / HBM_BYTES_PER_S
+                t_ops = c["ops"](n) / PEAK_F32
+                heavy = name == "artificial_work" and n >= 2 ** 24
+                rec = dict(
+                    shape=f"n={n} {str(dtype)[6:]}", err=err, ok=ok,
+                    err_over_limit=None if ratio is None else ratio[0],
+                    limit=None if ratio is None else ratio[1],
+                    ms=time_ms(torch, lambda: c["kernel"](x), flush=flush),
+                    plain_ms=time_ms(torch, lambda: c["plain"](x),
+                                     iters=3 if heavy else 20, flush=flush),
+                    library_ms=None if c["library"] is None else time_ms(
+                        torch, lambda: c["library"](x), flush=flush),
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    plan=str(tuning.plan_1d(
+                        n, num_sms=ops.num_sms(x), bytes_per_elem=item)))
+                records[name].append(rec)
+                log(f"[kernel {name}] {rec}")
+                del x
+    bad = [f"{name} {r['shape']}" for name, rs in records.items()
+           for r in rs if not r["ok"]]
+    if bad or exact_bad:
+        fail(f"1-d kernels disagree with their plain versions or the exact "
+             f"sums: {bad}; on signed integers: {exact_bad}")
+
+    # The measured block plan (kernels/autotune.py) on the card: one
+    # search per kernel, then a hit in the store for the same bucket.
+    tuner = autotune.KernelTuner(CalibrationCache())
+    x = torch.randn(KERNEL_SIZES_1D[1], generator=gen, device=dev)
+    for name in ("reduce_sum", "adjacent_difference"):
+        c = cases[name]
+        for _ in range(2):
+            ok, err, _ = check(name, x, getattr(ops, name)(x, tuner=tuner),
+                               c["plain"](x))
+            if not ok:
+                fail(f"{name} with the tuner's block disagrees: {err}")
+        r = tuner.reports[-2]
+        log(f"[tuner] {name} n={x.numel()}: prior block {r.prior[0]}, "
+            f"winner {r.winner[0]}; wall-clock per candidate (ms): "
+            + ", ".join(f"{b[0]}={t * 1e3:.3f}" for b, t in r.timings))
+    log(f"[tuner] searches {tuner.searches}, store hits "
+        f"{tuner.cache_hits}")
+    if (tuner.searches, tuner.cache_hits) != (2, 2):
+        fail("the kernel tuner searched again for a stored bucket")
+    del x
+
+    counters = {"reduce_sum": krs.reduce_launches,
+                "inclusive_scan": krs.scan_launches,
+                "adjacent_difference": kad.launches,
+                "artificial_work": kaw.launches}
+    static_ex = HostParallelExecutor(max_workers=8)
+    adapt_ex = adaptive(HostParallelExecutor(max_workers=8))
+    policies = {"seq": seq,
+                "par-static(8,4)": par.on(static_ex).with_(
+                    StaticCoreChunk(8, 4)),
+                "par-acc": par.on(adapt_ex)}
+
+    def exclusive(x):
+        return torch.cat([x.new_zeros(1), x[:-1]])
+
+    algos = {
+        "adjacent_difference": (alg.adjacent_difference,
+                                kad.adjacent_difference_ref),
+        "reduce": (alg.reduce, krs.reduce_sum_ref),
+        "inclusive_scan": (alg.inclusive_scan, krs.inclusive_scan_ref),
+        "exclusive_scan": (
+            lambda p, x: alg.exclusive_scan(p, x, 0.0),
+            lambda x: exclusive(krs.inclusive_scan_ref(x))),
+        "artificial_work": (lambda p, x: alg.artificial_work(p, x, iters),
+                            lambda x: kaw.artificial_work_ref(x, iters)),
+        "transform": (lambda p, x: alg.transform(p, x, affine), affine),
+    }
+    sums = ("reduce", "inclusive_scan", "exclusive_scan")
+
+    def limits(aname, x):
+        """(float64 exact result, sum_limit) of a sum algorithm."""
+        if aname == "reduce":
+            exact = x.double().sum()
+            return exact, sum_limit(torch, x, exact, False)
+        exact = torch.cumsum(x.double(), 0)
+        lim = sum_limit(torch, x, exact, True)
+        if aname == "exclusive_scan":
+            return exclusive(exact), torch.cat([lim[:1], lim[:-1]])
+        return exact, lim
+
+    problems = []
+    for c in counters.values():
+        c.reset()
+    for n in ALGORITHM_SIZES:
+        x = torch.randn(n, generator=gen, device=dev)
+        xi = signed_ints(torch, n, gen, dev)
+        for aname, (fn, plain) in algos.items():
+            ref = plain(x)
+            if aname in sums:
+                exact, lim = limits(aname, x)
+                exact_i = limits(aname, xi)[0].float()
+            for pname, pol in policies.items():
+                walls = []
+                calibrations = []
+                for _ in range(2):          # the first call calibrates acc
+                    calibrations.append(len(adapt_ex.params.cache))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(pol, x)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                diff = (out.double() - ref.double()).abs()
+                ok = out.shape == ref.shape and \
+                    bool(torch.isfinite(out).all())
+                ratio = ""
+                if aname in sums:
+                    off = (out.double() - exact).abs()
+                    ok = ok and bool((off <= lim).all()) and \
+                        bool((diff <= 2 * lim).all()) and \
+                        torch.equal(fn(pol, xi), exact_i)
+                    ratio = f", max |out - exact| / limit " \
+                        f"{float((off / lim).max()):.3g}"
+                elif aname == "artificial_work":
+                    ok = ok and bool((diff <= 1e-6 + 1e-5 *
+                                      ref.double().abs()).all())
+                else:
+                    ok = ok and bool((diff == 0).all())
+                decision = ""
+                if pname == "par-acc":
+                    d = adapt_ex.params.model.trace.entries()[-1].decision
+                    again = len(adapt_ex.params.cache) > calibrations[1]
+                    decision = (f" acc: key={d.key} t_iter="
+                                f"{d.input('t_iter'):.3e}s T0="
+                                f"{d.input('t0'):.3e}s cores={d.cores} "
+                                f"chunk={d.chunk}; second call calibrated "
+                                f"again: {again}")
+                    if again:
+                        problems.append(f"{aname} n={n}: acc calibrated "
+                                        f"again on its second call")
+                log(f"[algorithm] {aname} n={n} {pname}: wall "
+                    f"{walls[0] * 1e3:.3f} ms (first), {walls[1] * 1e3:.3f}"
+                    f" ms (second); max |out - plain| {float(diff.max()):.3g}"
+                    f"{ratio} ok={ok}{decision}")
+                if not ok:
+                    problems.append(f"{aname} n={n} {pname}")
+                del out, diff
+            del ref
+            if aname in sums:
+                del exact, lim, exact_i
+        del x, xi
+    launches = {name: c.count for name, c in counters.items()}
+    log(f"[algorithms] kernel launches in this run: {launches}")
+
+    # Device busy share of one adjacent_difference call per policy at
+    # n = 2^24, from a profiler trace (kernel events only); outside the
+    # counted run.
+    x = torch.randn(ALGORITHM_SIZES[0], generator=gen, device=dev)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    for pname, pol in policies.items():
+        alg.adjacent_difference(pol, x)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t_win = time.perf_counter()
+            alg.adjacent_difference(pol, x)
+            torch.cuda.synchronize()
+            t_win = time.perf_counter() - t_win
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        log(f"[algorithms] profiled adjacent_difference n={x.numel()} "
+            f"{pname}: wall {t_win * 1e3:.3f} ms, device busy "
+            f"{busy_us / 1e3:.3f} ms, "
+            + (f"idle share {1 - busy_us / 1e6 / t_win:.3f}" if busy_us > 0
+               else "idle share not measured (no device time in the trace)"))
+    del x
+    static_ex.shutdown()
+    adapt_ex.inner.shutdown()
+    for name, count in launches.items():
+        if count <= 0:
+            problems.append(f"the algorithms launched no {name} kernel")
+    if problems:
+        fail("algorithms phase: " + "; ".join(problems))
+    return records, launches
 
 
 def _to_device(tree, dev):

@@ -4,8 +4,10 @@ An execution-parameters object that overloads the three customization
 points (it simply defines methods with the tag names; see
 core/customization.py for the dispatch rule):
 
-* ``measure_iteration``       — wall-clock a sample chunk (host) or evaluate
-  the analytic roofline (mesh / WorkloadProfile), cached per workload key;
+* ``measure_iteration``       — wall-clock a sample chunk (host), time its
+  work on the card between CUDA events (``calibration.DeviceBody``), or
+  evaluate the analytic roofline (mesh / WorkloadProfile), cached per
+  workload key;
 * ``processing_units_count``  — Eq. 7, clamped to the executor's units;
 * ``get_chunk_size``          — Eq. 10 with the T_m floor.
 
@@ -94,8 +96,10 @@ class AdaptiveCoreChunk:
             return t_iter_analytic(body, self.hardware)
         k = key if key is not None else ("t_iter", getattr(body, "__name__", id(body)))
         self._last_workload_key = k
-        return self.model.measured_t_iter(
-            k, lambda: calibration.measure_iteration_wallclock(body, count))
+        measure = (calibration.measure_iteration_device
+                   if isinstance(body, calibration.DeviceBody)
+                   else calibration.measure_iteration_wallclock)
+        return self.model.measured_t_iter(k, lambda: measure(body, count))
 
     # -- customization point: processing_units_count ------------------------
     def processing_units_count(self, executor: Executor, t_iter: float,

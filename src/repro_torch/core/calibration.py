@@ -4,7 +4,10 @@ The paper: "The time (T_i) will be calculated once for each workload, and
 then will be used to find T1 ... HPX runs a benchmark on an empty thread to
 calculate overhead which is T0."
 
-Host backend: both are wall-clock measured here, once, and cached.
+Host backend: both are measured here, once, and cached: T0 on the
+wall-clock; t_iter on the wall-clock for a body that runs on the host,
+and between CUDA events for one whose work runs on the card
+(``DeviceBody``).
 Mesh backend: wall-clock is meaningless on the dry-run container, so the
 analytic path (core/cost_model.py) derives the same quantities from
 compiled FLOPs/bytes and the hardware constants.  Both paths produce plain
@@ -331,6 +334,62 @@ def measure_t0_empty_task(executor: Executor, repeats: int = 32) -> float:
     for _ in range(repeats):
         when_all(executor.bulk_async_execute(empty, chunks)).result()
     return (time.perf_counter() - start) / repeats
+
+
+DEVICE_SAMPLE = 1 << 20       # elements: enough thread blocks to fill an H100
+SPIN_CYCLES = 2_000_000       # ~1 ms of spin at ~2 GHz
+
+
+class DeviceBody:
+    """A chunk thunk ``body(start, size)`` whose work runs on a CUDA
+    stream.  Calling it queues the work on ``stream`` and waits for it,
+    as a host body returns once done; ``queue`` only queues it, so that
+    ``measure_iteration_device`` can bracket it with CUDA events."""
+
+    def __init__(self, queue: Callable[[int, int], Any], stream: Any):
+        self.queue = queue
+        self.stream = stream
+
+    def __call__(self, start: int, size: int) -> Any:
+        import torch
+
+        with torch.cuda.stream(self.stream):
+            out = self.queue(start, size)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        done.synchronize()
+        return out
+
+
+def measure_iteration_device(body: DeviceBody, count: int,
+                             sample: int | None = None,
+                             repeats: int = 3) -> float:
+    """Seconds per element of ``body``'s work on the card.
+
+    The same basis as T0 needs: the launch and the wait for completion
+    are per-task costs, so they stay out of the per-element time.  A spin
+    holds the stream busy while the host queues the start event, the
+    body's launches and the end event, so the span between the events is
+    the card's time alone.  The sample (default: min(count, 2^20)) gives
+    the kernel enough thread blocks to fill the card; best of
+    ``repeats``, divided by the sample size.
+    """
+    import torch
+
+    n = min(count, sample or DEVICE_SAMPLE)
+    best = float("inf")
+    with torch.cuda.stream(body.stream):
+        body.queue(0, n)  # build the kernel, warm the allocator
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            body.queue(0, n)
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) * 1e-3)
+    return best / n
 
 
 def measure_iteration_wallclock(

@@ -16,11 +16,13 @@ with a pointer to the ``when_all(bulk_async_execute(...))`` spelling.
 Backends:
 
 * ``SequentialExecutor``  — in-order, inline, no parallel overhead.
-* ``HostParallelExecutor``— a thread pool over jit-compiled chunk thunks.
-  PyTorch releases the GIL during computation, so on a multi-core host this is
-  genuine parallelism; it is the faithful analogue of HPX's thread pool and
-  the backend used for the paper-figure wall-clock benchmarks.  Supports
-  ``with`` for deterministic pool shutdown.
+* ``HostParallelExecutor``— a thread pool over chunk thunks.  On the CPU
+  a thunk runs PyTorch ops, which release the GIL, so on a multi-core host
+  this is genuine parallelism; on the card a thunk launches a kernel on
+  the caller's stream and waits for it (algorithms/detail.py binds the
+  stream), so the pool overlaps the host side of the chunks.  It is the
+  faithful analogue of HPX's thread pool.  Supports ``with`` for
+  deterministic pool shutdown.
 * ``MeshExecutor``        — a device mesh.  It does not run Python
   thunks per chunk (that would serialize an SPMD program); bulk execution
   raises ``UnsupportedOperation`` (the mesh backend of the port is

@@ -1,11 +1,11 @@
 """Hardware descriptions used by the adaptive cost model.
 
 The paper calibrates a single overhead constant ``T0`` on the machine it
-runs on (40-core Skylake / 48-core EPYC).  On a TPU mesh the analogous
-constants are the per-invocation launch latency and the collective path
-(ICI hops + link bandwidth).  Both are captured here so the Overhead-Law
-solver (``overhead_law.py``) can run either against measured numbers or
-against these analytic constants.
+runs on (40-core Skylake / 48-core EPYC).  On a CUDA card the analogous
+constants are the kernel launch latency and the collective path between
+cards (NVLink hops + link bandwidth).  Both are captured here so the
+Overhead-Law solver (``overhead_law.py``) can run either against
+measured numbers or against these analytic constants.
 """
 from __future__ import annotations
 
@@ -19,17 +19,23 @@ class HardwareSpec:
     Attributes
     ----------
     name:            human-readable identifier.
-    num_units:       processing units available (cores or chips).
-    peak_flops:      peak FLOP/s per unit (bf16 for TPU, AVX-512 fp64-ish
-                     notional for the CPU presets — only ratios matter).
-    mem_bw:          HBM/DRAM bandwidth per unit, bytes/s.
-    link_bw:         interconnect bandwidth per unit, bytes/s (ICI for TPU,
-                     inter-socket for CPU presets).
+    num_units:       processing units available (cores or cards; the SMs
+                     of one card are the kernel grid's concern, see
+                     kernels/tuning.py).
+    peak_flops:      peak FLOP/s per unit (dense bf16 tensor-core rate for
+                     the card, AVX-512 fp64-ish notional for the CPU
+                     presets — only ratios matter).
+    mem_bw:          device-memory bandwidth per unit, bytes/s (HBM3 for
+                     the card, DRAM for the CPU presets).
+    link_bw:         interconnect bandwidth per unit, bytes/s (NVLink each
+                     way for the card, inter-socket for the CPU presets).
     launch_overhead: fixed cost of dispatching one parallel region, seconds.
                      This is the paper's ``T0`` seed; on the host backend it
                      is re-measured at runtime (calibration.py).
     hop_latency:     per-hop latency of the interconnect, seconds.
-    vmem_bytes:      fast scratch per unit (VMEM for TPU, L2 for CPU).
+    vmem_bytes:      fast scratch per unit: the shared memory one thread
+                     block may use on the card, L2 for the CPU presets
+                     (the field keeps the reference's name).
     """
 
     name: str
@@ -54,18 +60,6 @@ class HardwareSpec:
         hops = math.ceil(math.log2(n)) if n > 1 else 0
         return self.launch_overhead + hops * self.hop_latency
 
-
-# --- TPU v5e: the production target (per-chip numbers) -------------------
-TPU_V5E = HardwareSpec(
-    name="tpu-v5e",
-    num_units=256,                 # one pod slice (16x16)
-    peak_flops=197e12,             # bf16
-    mem_bw=819e9,                  # HBM
-    link_bw=50e9,                  # per ICI link
-    launch_overhead=5e-6,          # XLA dispatch
-    hop_latency=1e-6,              # ICI hop
-    vmem_bytes=128 * 1024 * 1024,  # ~128 MiB VMEM
-)
 
 # --- NVIDIA H100 SXM: the port's target (per-card numbers) -----------------
 # Data-sheet values (NVIDIA's H100 data sheet and the Hopper white paper),

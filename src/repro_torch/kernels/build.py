@@ -108,11 +108,18 @@ def check(err: int, name: str) -> None:
 
 class LaunchCounter:
     """How many times a wrapper launched its kernel (a plain integer that
-    ``chip_smoke.py`` resets before a run and reads after it)."""
+    ``chip_smoke.py`` resets before a run and reads after it).  Locked:
+    the parallel algorithms launch from several worker threads."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
     def reset(self) -> None:
-        self.count = 0
+        with self._lock:
+            self.count = 0

@@ -123,5 +123,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 0 if window is None else int(window), _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
-    launches.count += 1
+    launches.add()
     return out

@@ -63,5 +63,5 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
                 float(eps), _DTYPES[x.dtype],
                 torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "rmsnorm")
-    launches.count += 1
+    launches.add()
     return out

@@ -46,7 +46,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             "import repro_torch, repro_torch.bridge, repro_torch.core, "
             "repro_torch.kernels.build, repro_torch.kernels.rmsnorm, "
             "repro_torch.kernels.flash_attention, repro_torch.models, "
-            "repro_torch.serve, repro_torch.launch.serve\n"
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.algorithms, repro_torch.kernels.ops, "
+            "repro_torch.kernels.autotune\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
