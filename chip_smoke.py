@@ -30,6 +30,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
               acc par (8 workers), each held against the plain function,
               with the acc decisions printed; the 1-d kernels' launch
               counters are reset before and read after this run.
+7. paged    — qwen3-0.6b at full width, bf16, served from the paged
+              pool with page size, depth and speculation "auto" (16
+              shared-prefix requests from the port's load generator; the
+              launch counters are reset before and read after this run,
+              and every shape kernel 3 ran at is noted).  Then kernel 3
+              (paged flash attention) against its plain version and, bit
+              for bit, against kernel 2 over the same K/V laid out
+              contiguously: decode (B 8, kv 1-1024), verify at every
+              speculation width (Sq 2, 4, 8) and a prefill chunk (Sq 256
+              into kv 700), at page sizes 16, 64 and the one the main run
+              picked, bf16 and f32, permuted tables with garbage in
+              unmapped rows, plus every other shape the main run gave it;
+              timed like phase 3.  Then the same 8 requests in f32
+              contiguous, paged, and paged with speculation at each width
+              (tokens identical, or a first divergence only at a
+              near-tie); the asyncio front end over the paged
+              speculative scheduler with adaptive admission replaying a
+              Poisson trace, its streamed tokens held against the batch
+              path's; and the same replay with every decision "auto"
+              (budgets, vocabulary and launch counters checked).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -359,11 +379,19 @@ def main() -> None:
     records.update(algo_records)
     launches.update(algo_launches)
 
+    # ----------------------------------------------------------- 7. paged
+    paged_records, paged_launches = _paged_phase(torch, dev, base)
+    records.update(paged_records)
+    launches.update(paged_launches)
+
     srcs = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:19"),
             "flash_attention": (
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:93"),
+            "paged_flash_attention": (
+                "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "src/repro/kernels/flash_attention.py:204"),
             "reduce_sum": ("src/repro_torch/kernels/csrc/reduce_scan.cu",
                            "src/repro/kernels/reduce_scan.py:24"),
             "inclusive_scan": (
@@ -379,7 +407,8 @@ def main() -> None:
     for name, recs in records.items():
         # Serve kernels: the decode shape in bf16, the serve path's own.
         # 1-d kernels: n = 2^24 in f32, the paper's largest size.
-        head = recs[0] if name in ("rmsnorm", "flash_attention") else next(
+        head = recs[0] if name in ("rmsnorm", "flash_attention",
+                                   "paged_flash_attention") else next(
             r for r in recs if r["shape"] == f"n={KERNEL_SIZES_1D[1]} float32")
         kernels.append({
             "name": name, "route": "cuda", "source": srcs[name][0],
@@ -387,7 +416,9 @@ def main() -> None:
             "max_abs_err": head["err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "shape": head["shape"]})
+            "library_ms": head["library_ms"], "shape": head["shape"]}
+            | ({"library_note": head["library_note"]}
+               if "library_note" in head else {}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -730,6 +761,439 @@ def _algorithms_phase(torch, dev):
     if problems:
         fail("algorithms phase: " + "; ".join(problems))
     return records, launches
+
+
+def _paged_phase(torch, dev, base):
+    """Phase 7: kernel 3 against its plain version and kernel 2, the
+    paged serve path at full width with its launch counters, token
+    identity in f32 and the front end.  Returns ({kernel: [record]},
+    {kernel: launches in the paged serve run})."""
+    import asyncio
+
+    from repro_torch.core.acc import AdaptiveCoreChunk, StaticCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+    from repro_torch.serve import (SPEC_DEPTH_CANDIDATES, ServeFrontend,
+                                   ServeScheduler, SLOModel, materialize,
+                                   percentile, poisson_trace,
+                                   shared_prefix_trace)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    perm_gen = torch.Generator().manual_seed(6)
+    scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    records = {"paged_flash_attention": []}
+    bit_bad = []
+
+    def paged_case(name, b, hq, hkv, sq, kv_lens, d, ps, dtype,
+                   max_len=1024):
+        nblk = -(-max_len // ps)
+        n_pages = 1 + b * nblk
+        skv = nblk * ps
+        pt = (torch.randperm(n_pages - 1, generator=perm_gen) + 1)[
+            :b * nblk].reshape(b, nblk).to(torch.int32).to(dev)
+        q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
+        kc = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
+        vc = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
+        lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        # Flat stores: rows past each lane's length (its later pages and
+        # the tail of its last one) hold finite garbage, the scratch page
+        # zeros, as the reference's test lays them out.
+        ks = torch.full((n_pages * ps, hkv, d), 7.5e4, dtype=dtype,
+                        device=dev)
+        vs = ks.clone()
+        ks[:ps] = 0
+        vs[:ps] = 0
+        pos = torch.arange(skv, device=dev)
+        rows = pt.long()[:, pos // ps] * ps + pos % ps
+        valid = pos[None] < lens.long()[:, None]
+        ks[rows[valid]] = kc.permute(0, 2, 1, 3)[valid]
+        vs[rows[valid]] = vc.permute(0, 2, 1, 3)[valid]
+        call = lambda: kfa.paged_flash_attention(      # noqa: E731
+            q, ks, vs, pt, lens, page_size=ps)
+        out = call()
+        ref = kfa.paged_attention_ref(q, ks, vs, pt, lens, page_size=ps)
+        contiguous = kfa.flash_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        # Kernel 2's tolerances: f32 exp and sums in another order than
+        # the plain version; bf16 one output rounding.
+        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+        ok, err = within(torch, out, ref, atol, rtol)
+        same = torch.equal(out, contiguous)
+        if not same:
+            bit_bad.append(f"{name} ps={ps} {dtype}")
+        kj = torch.arange(skv, device=dev)
+        lens_l = lens.long()
+        qi = lens_l[:, None] - sq + torch.arange(sq, device=dev)[None]
+        mask = (kj[None, None] < lens_l[:, None, None]) \
+            & (qi[:, :, None] >= kj[None, None])
+        visible = int(mask.sum()) * hq
+        keys_read = int(mask.any(dim=1).sum()) * hkv
+        item = q.element_size()
+        pages_read = int(((lens_l + ps - 1) // ps).sum())
+        byts = (2 * q.numel() + 2 * keys_read * d) * item + 4 * b \
+            + 4 * pages_read
+        ops = 4 * d * visible
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        bound = max(byts / HBM_BYTES_PER_S, ops / peak) * 1e3
+        kg = kfa.gather_pages(ks, pt, ps).contiguous()
+        vg = kfa.gather_pages(vs, pt, ps).contiguous()
+        attn_mask = mask[:, None]
+        rec = dict(
+            shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} kv<={max(kv_lens)} "
+                  f"D={d} ps={ps} {str(dtype)[6:]}",
+            err=err, ok=ok, bit_equal_kernel2=same,
+            tol=f"atol={atol} rtol={rtol}",
+            ms=time_ms(torch, call, flush=flush),
+            plain_ms=time_ms(torch, lambda: kfa.paged_attention_ref(
+                q, ks, vs, pt, lens, page_size=ps), flush=flush),
+            library_ms=None,
+            library_note="no one PyTorch call computes attention through "
+                         "a page table",
+            kernel2_ms=time_ms(torch, lambda: kfa.flash_attention(
+                q, kc, vc, lens), flush=flush),
+            sdpa_gathered_ms=time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kg, vg, attn_mask=attn_mask, enable_gqa=True),
+                flush=flush),
+            bound_ms=bound,
+            bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / peak
+            else "operations")
+        records["paged_flash_attention"].append(rec)
+        log(f"[kernel paged_flash_attention] {rec}")
+        del q, kc, vc, ks, vs, kg, vg
+
+    def decisions(model, kind):
+        seen: dict = {}
+        for e in model.trace.entries(kind):
+            k = (e.decision.chunk if kind != "serve_admission"
+                 else e.decision.cores, e.decision.provenance)
+            seen[k] = seen.get(k, 0) + 1
+        return ", ".join(f"{v}x{n}({p})" for (v, p), n in seen.items()) \
+            or "none"
+
+    # Paged serving at full width: the main path of this slice.  It runs
+    # first, so the kernel checks below follow the page size "auto" picked
+    # and every shape kernel 3 ran at here.
+    t0 = time.perf_counter()
+    params = lm.init_params(0, base, device=dev)
+    cache = CalibrationCache()
+    sched = ServeScheduler(base, params, n_slots=8, max_len=1024,
+                           executor=adaptive(SequentialExecutor(),
+                                             AdaptiveCoreChunk(cache=cache)),
+                           dispatch_depth="auto", paged=True,
+                           page_size="auto", speculate="auto", device=dev)
+    sched.warmup()
+    torch.cuda.synchronize()
+    main_ps = sched.pool.page_size
+    log(f"[paged] weights + warmup {time.perf_counter() - t0:.1f}s, page "
+        f"size {main_ps}, {sched.pool.n_pages} pages")
+    trace = shared_prefix_trace(16, rate_rps=50.0, prefix_len=64,
+                                shared_fraction=1.0, median_suffix=160,
+                                suffix_sigma=0.6, max_suffix=448, seed=8)
+    mat = materialize(trace, base.vocab_size, seed=8)
+    lens = [len(p) for _, p in mat]
+    # The shapes of the run: a spy between the wrapper and the built
+    # function notes (B, Sq, page size, dtype) of every launch; it reads
+    # only host arguments, so the run neither syncs nor launches more.
+    shapes: dict = {}
+    built = kfa._paged_fn
+
+    def spy():
+        fn = built()
+
+        def launch(*args):
+            key = (args[6], args[9], args[11], args[16])
+            shapes[key] = shapes.get(key, 0) + 1
+            return fn(*args)
+        return launch
+
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (krms.launches, kfa.launches, kfa.paged_launches):
+        counter.reset()
+    kfa._paged_fn = spy
+    try:
+        t_start = time.monotonic()
+        rids = [sched.submit(p, max_new_tokens=64) for _, p in mat]
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t_start
+        launches = {"rmsnorm": krms.launches.count,
+                    "flash_attention": kfa.launches.count,
+                    "paged_flash_attention": kfa.paged_launches.count}
+    finally:
+        kfa._paged_fn = built
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    gen_tokens = sum(len(results.get(r, [])) for r in rids)
+    ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
+             for r in rids]
+    stats = sched.pool.prefix_stats()
+    model = sched.decision_model()
+    log(f"[paged] {len(rids)} requests, prompts {min(lens)}-{max(lens)} "
+        f"(shared 64-token prefix), {gen_tokens} tokens in {makespan:.3f}s "
+        f"= {gen_tokens / makespan:.1f} tok/s; ttft p50="
+        f"{percentile(ttfts, 50) * 1e3:.1f}ms p99="
+        f"{percentile(ttfts, 99) * 1e3:.1f}ms; peak memory {peak_mb:.0f} "
+        f"MiB; decode {sched.decode_tokens} tokens in "
+        f"{sched.decode_dispatches} dispatches, {sched.decode_loop_iters} "
+        f"loop iterations, {sched.host_roundtrips} host round trips")
+    log(f"[paged] prefix_stats {stats}; pages_in_use "
+        f"{sched.pool.pages_in_use()}; prefill stall "
+        f"{sched.prefill_stall_s * 1e3:.1f}ms")
+    log(f"[paged] decisions (value x count (provenance)): serve_page_size "
+        f"{decisions(model, 'serve_page_size')}; serve_prefill_interleave "
+        f"{decisions(model, 'serve_prefill_interleave')}; serve_spec_depth "
+        f"{decisions(model, 'serve_spec_depth')}; serve_dispatch_depth "
+        f"{decisions(model, 'serve_dispatch_depth')}")
+    # A dispatch runs all 8 lanes (B = 8), a prefill chunk one (B = 1).
+    dispatch_launches = sum(n for (b, _, _, _), n in shapes.items()
+                            if b == sched.pool.n_slots)
+    per_iter = dispatch_launches / max(sched.decode_loop_iters, 1)
+    log(f"[paged] spec_stats {sched.spec_stats()}; launches {launches}; "
+        f"paged attention in decode and verify: {dispatch_launches} "
+        f"launches over {sched.decode_loop_iters} loop iterations = "
+        f"{per_iter:.2f} per iteration, in prefill: "
+        f"{launches['paged_flash_attention'] - dispatch_launches}")
+    names = {v: str(k)[6:] for k, v in kfa._DTYPES.items()}
+    log("[paged] kernel 3 shapes in this run (B, Sq, page size, dtype: "
+        "launches): " + ", ".join(
+            f"({b}, {sq}, {ps}, {names[dt]}): {n}"
+            for (b, sq, ps, dt), n in sorted(shapes.items())))
+    problems = []
+    for r, n in zip(rids, lens, strict=True):
+        out = results.get(r)
+        if out is None or len(out) != 64:
+            problems.append(f"request {r} (prompt {n}) returned "
+                            f"{None if out is None else len(out)} tokens")
+        elif not all(0 <= t < base.vocab_size for t in out):
+            problems.append(f"request {r} returned a token out of the vocab")
+    if stats["prefix_hits"] < 1:
+        problems.append("no prefix hit on the shared-prefix trace")
+    if launches["paged_flash_attention"] <= 0 or launches["rmsnorm"] <= 0:
+        problems.append(f"the paged serve path skipped a kernel: {launches}")
+    if launches["flash_attention"] != 0:
+        problems.append("the paged serve path ran the contiguous kernel")
+    if sum(shapes.values()) != launches["paged_flash_attention"]:
+        problems.append("the shape spy and the launch counter disagree")
+    if sched.pool.allocations != 1:
+        problems.append("the page pool reallocated")
+    if problems:
+        fail("paged serving: " + "; ".join(problems))
+    del sched, params
+    torch.cuda.empty_cache()
+
+    # Kernel 3 against its plain version and kernel 2: the listed shapes
+    # (decode, a verify at every speculation width the scheduler can
+    # pick, a prefill chunk) at page sizes 16, 64 and the main path's,
+    # then every other shape the main path ran.
+    lens_rng = torch.Generator().manual_seed(7)
+    decode_lens = torch.randint(1, 1025, (8,), generator=lens_rng).tolist()
+    decode_lens[0], decode_lens[1] = 1, 1024
+    widths = [w for w in SPEC_DEPTH_CANDIDATES if w >= 2]
+    checked = set()
+    for dtype in (torch.bfloat16, torch.float32):
+        for ps in dict.fromkeys((main_ps, 16, 64)):
+            paged_case("decode", 8, 16, 8, 1, decode_lens, 128, ps, dtype)
+            for sq in widths:
+                paged_case(f"verify{sq}", 8, 16, 8, sq,
+                           [max(n, sq) for n in decode_lens], 128, ps, dtype)
+            paged_case("prefill", 1, 16, 8, 256, [700], 128, ps, dtype)
+            checked.update((b, sq, ps, kfa._DTYPES[dtype])
+                           for b, sq in [(8, 1), (1, 256)]
+                           + [(8, w) for w in widths])
+    for b, sq, ps, dt in sorted(set(shapes) - checked):
+        dtype = next(k for k, v in kfa._DTYPES.items() if v == dt)
+        if b == 1:      # a prefill chunk, end-aligned after 100 keys
+            paged_case("main-prefill", 1, 16, 8, sq, [min(sq + 100, 1024)],
+                       128, ps, dtype)
+        else:
+            paged_case(f"main-Sq{sq}", b, 16, 8, sq,
+                       [max(n, sq) for n in decode_lens], 128, ps, dtype)
+    bad = [r["shape"] for r in records["paged_flash_attention"]
+           if not r["ok"]]
+    if bad or bit_bad:
+        fail(f"paged_flash_attention disagrees with its plain version: "
+             f"{bad}; differs from kernel 2 over the same K/V: {bit_bad}")
+    del scratch
+    torch.cuda.empty_cache()
+
+    # Token identity in f32 at full width: contiguous, paged, paged with
+    # speculation.  StaticCoreChunk fixes the prefill chunks, so the three
+    # runs run the same GEMM shapes except the speculative verify's.
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    p32 = lm.init_params(0, cfg32, device=dev)
+    rng = torch.Generator().manual_seed(9)
+    lens8 = torch.randint(64, 257, (8,), generator=rng).tolist()
+    prompts8 = [torch.randint(0, base.vocab_size, (n,), generator=rng)
+                for n in lens8]
+
+    def serve32(**kw):
+        s = ServeScheduler(cfg32, p32, n_slots=8, max_len=1024,
+                           acc=StaticCoreChunk(cores=2), dispatch_depth=8,
+                           device=dev, **kw)
+        s.warmup()
+        ids = [s.submit(p, max_new_tokens=32) for p in prompts8]
+        out = s.run_until_idle()
+        toks = [out[i] for i in ids]
+        st = s.spec_stats()
+        del s
+        torch.cuda.empty_cache()
+        return toks, st
+
+    # The paged runs use the page size the main path picked; speculation
+    # runs at every width the scheduler can pick.
+    t0 = time.perf_counter()
+    contiguous, _ = serve32()
+    paged, _ = serve32(paged=True, page_size=main_ps)
+    log(f"[identity] f32, 8 requests x 32 tokens, prompts "
+        f"{min(lens8)}-{max(lens8)}: paged (page size {main_ps}) == "
+        f"contiguous: {paged == contiguous}")
+    if paged != contiguous:
+        fail("paged f32 tokens differ from the contiguous pool's")
+    for width in widths:
+        spec, spec_st = serve32(paged=True, page_size=main_ps,
+                                speculate=width)
+        log(f"[identity] speculative (d={width}, "
+            f"{spec_st['tokens_per_verify']:.2f} tokens/verify) == plain: "
+            f"{spec == paged}")
+        for i, (a, b) in enumerate(zip(paged, spec, strict=True)):
+            if a == b:
+                continue
+            t = next(j for j in range(len(a)) if a[j] != b[j])
+            seq = torch.cat([prompts8[i],
+                             torch.tensor(a[:t], dtype=torch.long)])
+            caches = lm.init_caches(cfg32, 1, 1024, device=dev)
+            logits, _ = lm.forward_cached(p32, seq.to(dev)[None], caches, 0,
+                                          cfg32)
+            top = torch.topk(logits[0, 0].float(), 2).values.tolist()
+            gap = (top[0] - top[1]) / abs(top[0])
+            log(f"[identity] d={width} request {i}: speculative tokens "
+                f"diverge at {t} ({a[t]} vs {b[t]}); the plain run's top-2 "
+                f"logit gap there is {gap:.3e} relative (allowed < 1e-4)")
+            if gap >= 1e-4:
+                fail(f"speculative tokens (d={width}) diverge from plain "
+                     f"decoding away from a near-tie (request {i}, "
+                     f"position {t}, gap {gap})")
+    log(f"[identity] three ways in {time.perf_counter() - t0:.1f}s")
+    del p32
+    torch.cuda.empty_cache()
+
+    # The front end over the paged scheduler (page size and dispatch
+    # depth "auto"), speculation and adaptive admission.  The streamed
+    # and the batch run must go through the same GEMM shapes to agree in
+    # bf16, so the two decisions that set those shapes from timings are
+    # pinned: every prompt (<= 256 tokens) is prefilled in one chunk, and
+    # the speculation width is fixed at 4 (the main run above takes it
+    # "auto").
+    class WholePrompts(AdaptiveCoreChunk):
+        def decide(self, executor, t_iter, count, key=None, evidence=()):
+            d = super().decide(executor, t_iter, count, key=key,
+                               evidence=evidence)
+            return dataclasses.replace(d, chunk_elems=max(d.chunk_elems,
+                                                          256))
+
+    params = lm.init_params(0, base, device=dev)
+    ptrace = poisson_trace(16, rate_rps=8.0, prompt_lens=(64, 128, 256),
+                           new_tokens=32, seed=10,
+                           slo=SLOModel(ttft_s=2.0, per_token_s=0.1))
+    pmat = materialize(ptrace, base.vocab_size, seed=10)
+
+    def front_sched(acc, speculate):
+        s = ServeScheduler(base, params, n_slots=8, max_len=1024,
+                           executor=adaptive(SequentialExecutor(), acc),
+                           dispatch_depth="auto", paged=True,
+                           page_size="auto", speculate=speculate,
+                           admission="adaptive", device=dev)
+        s.warmup()
+        return s
+
+    async def replay(frontend):
+        async with frontend:
+            t_0 = time.monotonic()
+
+            async def one(tr, prompt):
+                delay = tr.arrival_s - (time.monotonic() - t_0)
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                stream = await frontend.submit(
+                    prompt, tr.new_tokens, deadline=t_0 + tr.deadline_s,
+                    wait=True)
+                return [tok async for tok in stream]
+
+            got = await asyncio.gather(*(one(tr, p) for tr, p in pmat))
+            return got, time.monotonic() - t_0
+
+    def report(tag, fsched, frontend, span, extra):
+        st = frontend.stats()
+        spec = fsched.spec_stats()
+        model = fsched.decision_model()
+        log(f"[{tag}] 16 Poisson requests (8 rps, prompts 64/128/256, 32 "
+            f"new tokens) in {span:.3f}s: goodput "
+            f"{st['goodput_tokens'] / span:.1f} tok/s in SLO, completed "
+            f"{st['completed']} (in SLO {st['completed_in_slo']}), deadline "
+            f"misses {st['deadline_misses']}; decisions (value x count "
+            f"(provenance)): serve_admission "
+            f"{decisions(model, 'serve_admission')}; serve_spec_depth "
+            f"{decisions(model, 'serve_spec_depth')}; page size "
+            f"{fsched.pool.page_size}; speculation {spec['verifies']} "
+            f"verifies, {spec['tokens_per_verify']:.2f} tokens/verify; "
+            f"{extra}")
+
+    fsched = front_sched(WholePrompts(cache=CalibrationCache()), 4)
+    frontend = ServeFrontend(fsched, enforce_deadlines=False)
+    streamed, fe_span = asyncio.run(replay(frontend))
+    bsched = front_sched(WholePrompts(cache=CalibrationCache()), 4)
+    bids = [bsched.submit(p, max_new_tokens=tr.new_tokens) for tr, p in pmat]
+    bout = bsched.run_until_idle()
+    batch = [bout[i] for i in bids]
+    del bsched
+    report("frontend", fsched, frontend, fe_span,
+           f"streamed == batch: {streamed == batch}")
+    del fsched, frontend
+    if streamed != batch:
+        fail("the front end's streamed tokens differ from the batch path's")
+
+    # The whole path with nothing pinned: speculation "auto" and the
+    # plain AdaptiveCoreChunk behind the front end.  Its GEMM shapes
+    # follow timings, so its tokens are held to their budgets and the
+    # vocabulary, not to a batch run; the launch counters are reset
+    # before and read after it.
+    asched = front_sched(AdaptiveCoreChunk(cache=CalibrationCache()), "auto")
+    afront = ServeFrontend(asched, enforce_deadlines=False)
+    for counter in (krms.launches, kfa.launches, kfa.paged_launches):
+        counter.reset()
+    auto_streams, a_span = asyncio.run(replay(afront))
+    torch.cuda.synchronize()
+    a_launches = {"rmsnorm": krms.launches.count,
+                  "flash_attention": kfa.launches.count,
+                  "paged_flash_attention": kfa.paged_launches.count}
+    report("frontend auto", asched, afront, a_span,
+           f"launches {a_launches}")
+    problems = [f"request {i} streamed {len(got)} of {tr.new_tokens} tokens"
+                for i, (got, (tr, _)) in enumerate(
+                    zip(auto_streams, pmat, strict=True))
+                if len(got) != tr.new_tokens]
+    if any(not 0 <= t < base.vocab_size for got in auto_streams
+           for t in got):
+        problems.append("a token out of the vocab")
+    if a_launches["paged_flash_attention"] <= 0 \
+            or a_launches["rmsnorm"] <= 0 or a_launches["flash_attention"]:
+        problems.append(f"the path skipped kernel 3 or RMSNorm, or ran "
+                        f"kernel 2: {a_launches}")
+    if problems:
+        fail("front end, everything auto: " + "; ".join(problems))
+    del asched, afront
+    del params
+    torch.cuda.empty_cache()
+    return records, {"paged_flash_attention":
+                     launches["paged_flash_attention"]}
 
 
 def _to_device(tree, dev):

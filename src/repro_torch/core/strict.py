@@ -10,6 +10,11 @@ runtime, where they actually bite.  Two enforcers:
   ``DonatedCacheError`` — the same discipline the JAX package's donated
   buffers need, kept so both serve loops obey one protocol.
 
+* **Stale pages**: the paged pool (``PagedKVCachePool``) poisons a page
+  the moment its refcount drops to zero; under strict mode every table
+  it hands to a dispatch is validated first, and one that still maps a
+  freed page raises ``StalePageError``.
+
 * **Sync guard**: ``hot_dispatch_guard()`` sets
   ``torch.cuda.set_sync_debug_mode("error")`` around the serve tick, so
   any *implicit* device→host synchronisation (``.item()``, ``.cpu()``,
@@ -40,6 +45,29 @@ class DonatedCacheError(RuntimeError):
             f"pool.caches was handed to {consumer!r} and not yet "
             f"re-adopted — it is being updated by that dispatch and "
             f"must not be read (RL001)")
+
+
+class StalePageError(RuntimeError):
+    """A page table references a page that was freed back to the pool.
+
+    The paged KV pool (``serve/kv_cache.PagedKVCachePool``) poisons a
+    page the moment its refcount drops to zero — whether it was released
+    with its slot, evicted from the prefix cache, or left behind as a
+    copy-on-write source.  Until the page is re-acquired from the free
+    list, any dispatch whose page table still maps it would read rows
+    that a *different* request may already be writing — the paged
+    analogue of the donated-buffer read RL001 exists for.  The pool
+    validates every table it hands to a dispatch and raises this instead
+    of silently serving a reused page."""
+
+    def __init__(self, slot: int, page: int):
+        self.slot = slot
+        self.page = page
+        super().__init__(
+            f"slot {slot}'s page table maps page {page}, which was "
+            f"freed back to the pool and not re-acquired — attention "
+            f"through this table would read rows now owned by another "
+            f"request (RL001, paged)")
 
 
 def enabled() -> bool:

@@ -4,7 +4,9 @@ plain PyTorch versions.
 Port of ``repro.kernels.reduce_scan.reduce_sum_pallas`` and
 ``inclusive_scan_pallas`` (the Pallas TPU kernels) and
 ``repro.kernels.ref.reduce_sum_ref`` / ``inclusive_scan_ref`` (their
-oracles).  The kernels live in ``csrc/reduce_scan.cu``.  Each wrapper
+oracles; the plain scan accumulates in f64 where the reference's
+accumulates in f32, see ``inclusive_scan_ref``).  The kernels live in
+``csrc/reduce_scan.cu``.  Each wrapper
 launches them for a CUDA tensor and runs the plain version for a CPU
 tensor; there is no other route.
 
@@ -40,8 +42,12 @@ def reduce_sum_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def inclusive_scan_ref(x: torch.Tensor) -> torch.Tensor:
-    """Prefix sum in f32, cast to x's type."""
-    return torch.cumsum(x, 0, dtype=torch.float32).to(x.dtype)
+    """Prefix sum accumulated in f64 and rounded once to x's type: the
+    exact prefix sum, correctly rounded.  (An f32 ``torch.cumsum`` on the
+    card carries its running sum across tiles in an order that changes
+    from run to run, and at 2^26 elements strays further from the exact
+    sum than a sound f32 scan may; as an oracle it must not.)"""
+    return torch.cumsum(x, 0, dtype=torch.float64).to(x.dtype)
 
 
 @functools.cache

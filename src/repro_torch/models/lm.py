@@ -132,15 +132,23 @@ def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
                    cfg: ArchConfig, *, window: int | None = None,
                    logit_index: int | None = None,
-                   write_rows: torch.Tensor | None = None
+                   write_rows: torch.Tensor | None = None,
+                   write_keep: torch.Tensor | None = None,
+                   all_logits: bool = False,
+                   page_table: torch.Tensor | None = None,
+                   page_size: int | None = None
                    ) -> tuple[torch.Tensor, list]:
     """tokens: (B, L) on the params' device; caches: per-layer
-    {"k","v"} of shape (B, Hkv, S, D), **updated in place** (the returned
-    list is ``caches`` itself); ``pos``: an int, the count of tokens
-    already cached in every row, or a (B,) long tensor of per-lane
-    counts (then ``L == 1``, and ``write_rows`` may restrict which lanes
-    write their K/V).  Returns (logits (B, 1, V) of the last position or
-    of ``logit_index``, caches)."""
+    {"k","v"}, **updated in place** (the returned list is ``caches``
+    itself): contiguous ``(B, Hkv, S, D)``, or, with ``page_table`` (B,
+    n_blocks) int32 and ``page_size``, the paged pool's flat stores
+    ``(n_pages * page_size, Hkv, D)``.  ``pos``: an int, the count of
+    tokens already cached in every row, or a (B,) long tensor of per-lane
+    counts; then ``write_rows`` may restrict which lanes write their K/V
+    and ``write_keep`` (bool, one per written lane, on the device) drops
+    the writes of lanes only the device knows to be done.  Returns
+    (logits (B, 1, V) of the last position or of ``logit_index``, or (B,
+    L, V) of every position with ``all_logits``, caches)."""
     window = window if window is not None else cfg.attn_window
     x = cm.embed(params["embed"], tokens)
     b, length = tokens.shape
@@ -150,13 +158,27 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
         positions = pos[:, None] + steps[None, :]
         rows = write_rows if write_rows is not None \
             else torch.arange(b, device=dev)
-        write = attention.CacheWrite(pos, rows, (pos + length).to(
-            torch.int32))
+        kv_lens = (pos + length).to(torch.int32)
     else:
         pos = int(pos)
         positions = (pos + steps)[None, :].expand(b, length)
-        write = attention.CacheWrite(pos, None, torch.full(
-            (b,), pos + length, dtype=torch.int32, device=dev))
+        rows = None
+        kv_lens = torch.full((b,), pos + length, dtype=torch.int32,
+                             device=dev)
+    if page_table is not None:
+        ps = int(page_size)
+        if not isinstance(pos, torch.Tensor) and (
+                pos < 0 or pos + length > page_table.shape[1] * ps):
+            raise ValueError(
+                f"cache write of {length} rows at {pos} runs past the "
+                f"page table's {page_table.shape[1] * ps} rows")
+        lanes = rows if rows is not None else torch.arange(b, device=dev)
+        flat = attention.page_rows(page_table, lanes, positions[lanes], ps,
+                                   write_keep)
+        write = attention.CacheWrite(pos, rows, kv_lens, None, page_table,
+                                     ps, flat)
+    else:
+        write = attention.CacheWrite(pos, rows, kv_lens, write_keep)
     # Rotary angles depend only on the positions: once per forward, not
     # once per layer (XLA dedupes the per-layer copies; eager would not).
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
@@ -164,8 +186,12 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
         x = _apply_block(kind, params["layers"][layer], x, cfg,
                          rope=rope, window=window,
                          cache=caches[layer], write=write)
-    xs = x[:, -1:] if logit_index is None \
-        else x[:, logit_index:logit_index + 1]
+    if all_logits:
+        xs = x
+    elif logit_index is None:
+        xs = x[:, -1:]
+    else:
+        xs = x[:, logit_index:logit_index + 1]
     return _logits(params, cfg, xs), caches
 
 

@@ -48,7 +48,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.kernels.flash_attention, repro_torch.models, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.algorithms, repro_torch.kernels.ops, "
-            "repro_torch.kernels.autotune\n"
+            "repro_torch.kernels.autotune, repro_torch.serve.frontend, "
+            "repro_torch.serve.loadgen, repro_torch.serve.kv_cache\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
@@ -64,7 +65,8 @@ def test_no_card_means_no_silent_cpu_fallback():
         pytest.skip("needs a machine without a CUDA card")
     from repro_torch.configs import get_config
     from repro_torch.models import lm
-    from repro_torch.serve import ServeScheduler, SlotKVCachePool
+    from repro_torch.serve import (PagedKVCachePool, ServeScheduler,
+                                   SlotKVCachePool)
 
     cfg = get_config("qwen3-0.6b").reduced()
     params = lm.init_params(0, cfg, device="cpu")
@@ -72,6 +74,11 @@ def test_no_card_means_no_silent_cpu_fallback():
         ServeScheduler(cfg, params, n_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SlotKVCachePool(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCachePool(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeScheduler(cfg, params, n_slots=2, max_len=16, paged=True,
+                       speculate=2, dispatch_depth=2, admission="adaptive")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_params(0, cfg)
 

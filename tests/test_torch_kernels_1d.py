@@ -87,6 +87,20 @@ def test_inclusive_scan_plain_matches_pallas(n):
     np.testing.assert_allclose(_np(out), _np(ref)[:n], rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_scan_is_the_exact_prefix_sum_rounded_once(dtype):
+    """The plain scan accumulates in f64 and rounds once: after 1e8 come
+    eight ones, and the prefix 1e8 + 8 is an f32 value that a running
+    sum kept in f32 (spacing 8 at 1e8) never reaches."""
+    x = torch.ones(64, dtype=torch.float32)
+    x[0] = 1e8
+    out = trs.inclusive_scan_ref(x.to(dtype))
+    exact = torch.cumsum(x.to(dtype).double(), 0)
+    assert torch.equal(out, exact.to(dtype))
+    if dtype == torch.float32:
+        assert float(out[8]) == 1e8 + 8
+
+
 @pytest.mark.parametrize("n", [0, 1, 2, 3, 7, 129])
 def test_plain_versions_at_edge_sizes(n):
     x = torch.arange(n, dtype=torch.float32) * 0.5 - 1.0

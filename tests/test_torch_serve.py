@@ -122,13 +122,27 @@ def test_prefill_views_write_the_pool(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(paged=True), dict(speculate=2), dict(mesh=object()),
-    dict(admission="adaptive"), dict(kernel_tuner=object())])
+    dict(mesh=object()), dict(kernel_tuner=object())])
 def test_unported_options_raise(models, kwargs):
     _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeScheduler(tcfg, tparams, n_slots=2, max_len=32,
                        dispatch_depth=2, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(paged=True), dict(speculate=2), dict(admission="adaptive")])
+def test_formerly_unported_options_serve(models, kwargs):
+    """The paged pool, speculation and adaptive admission serve on the
+    CPU, with the plain scheduler's tokens."""
+    _, _, tcfg, tparams = models
+    trace = _trace()
+    ref, _ = _serve(_port(tcfg, tparams, 2), trace)
+    sched = _port(tcfg, tparams, 2, **kwargs)
+    out, _ = _serve(sched, trace)
+    assert out == ref
+    assert sched.pool.allocations == 1
+    assert sched.pool.free_slots() == 2
 
 
 def test_engine_generates_through_the_scheduler(models):
