@@ -10,7 +10,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3. kernels  — each kernel against its plain PyTorch version on the card
               at the serve path's shapes, in bf16 and f32, with times of
               the kernel, the plain version, one PyTorch library call
-              (a yardstick only) and the least time the card could take.
+              (a yardstick only) and the least time the card could take;
+              each attention record names the schedule
+              (``attention_plan``: ``split`` or ``tile``).  Then the edge
+              sweep of kernel 2 (``edge_sweep``): Sq around the split
+              path's 16 packed rows and the tile path's 64, kv lengths
+              around the 64-key tiles and the 128/256-key splits, head
+              groups 2, 1 and 4, windows on the tile path; each case within
+              tolerance of the plain version and bit-identical over two
+              calls (``[sweep flash_attention]`` lines).
 4. model    — qwen3-0.6b at full width, f32, one 64-token prompt through
               forward_cached on the card and on the CPU, same weights.
 5. serve    — the ServeScheduler at full width, bf16, random weights:
@@ -42,7 +50,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               into kv 700), at page sizes 16, 64 and the one the main run
               picked, bf16 and f32, permuted tables with garbage in
               unmapped rows, plus every other shape the main run gave it;
-              timed like phase 3.  Then the same 8 requests in f32
+              timed like phase 3, each bit-identical over two calls.
+              Then the edge sweep of kernel 3 at the picked page size
+              and 16: within tolerance, bit-equal to kernel 2 and
+              deterministic (``[sweep paged_flash_attention]`` lines).
+              Then the same 8 requests in f32
               contiguous, paged, and paged with speculation at each width
               (tokens identical, or a first divergence only at a
               near-tie); the asyncio front end over the paged
@@ -57,6 +69,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -233,6 +246,7 @@ def main() -> None:
         rec = dict(
             shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
                   f"D={d} window={window} {str(dtype)[6:]}",
+            path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
             err=err, ok=ok, tol=f"atol={atol} rtol={rtol}",
             ms=time_ms(torch, lambda: kfa.flash_attention(
                 q, k, v, lens, causal=True, window=window), flush=flush),
@@ -259,6 +273,9 @@ def main() -> None:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     del scratch
+    sweep_problems = edge_sweep(torch, kfa, dev, seed=10)
+    if sweep_problems:
+        fail("kernel 2 edge sweep: " + "; ".join(sweep_problems))
 
     # ----------------------------------------------------------- 4. model
     base = get_config("qwen3-0.6b")
@@ -301,6 +318,9 @@ def main() -> None:
     prompts = [torch.randint(0, base.vocab_size, (n,), generator=rng)
                for n in lens]
     strict.enable()
+    # Peak memory of this run alone: earlier phases' tensors still held
+    # by uncollected reference cycles would count otherwise.
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     krms.launches.reset()
     kfa.launches.reset()
@@ -360,13 +380,19 @@ def main() -> None:
     kernels_run = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels_run)
+    attn_us = sum(e.self_device_time_total for e in kernels_run
+                  if "repro_fa::" in e.key)
     top = sorted(kernels_run, key=lambda e: -e.self_device_time_total)[:6]
+    win_tokens = 8 * 16
     log(f"[serve] profiled window (8 requests, 128-token prompts, 16 new "
         f"tokens): wall {t_win * 1e3:.1f}ms, device busy "
         f"{busy_us / 1e3:.1f}ms = "
         + (f"{busy_us / 1e6 / t_win:.3f} of the wall, idle share "
-           f"{1 - busy_us / 1e6 / t_win:.3f}" if busy_us > 0
-           else "not measured (no device time in the trace)")
+           f"{1 - busy_us / 1e6 / t_win:.3f}, host overhead per token "
+           f"(wall - device busy) / {win_tokens} = "
+           f"{(t_win - busy_us / 1e6) / win_tokens * 1e3:.2f}ms"
+           if busy_us > 0 else "not measured (no device time in the trace)")
+        + f"; attention kernels (repro_fa::*) {attn_us / 1e3:.1f}ms"
         + "; top kernels (ms): "
         + ", ".join(f"{e.key[:40]}={e.self_device_time_total / 1e3:.1f}"
                     for e in top))
@@ -423,6 +449,109 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# The schedules' edges (attention_plan): query rows around the split path's
+# 16 packed rows and the tile path's 64, kv lengths around the 64-key tiles
+# and the 128-key (f32) and 256-key (bf16) splits.  (Hq, Hkv): group 2 as
+# in qwen3-0.6b, then groups 1 and 4 at a small width, so that the row
+# packing changes.
+EDGE_SQ = (1, 3, 8, 9, 16, 17, 63, 64, 65, 100, 256)
+EDGE_KV = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 1023, 1024)
+EDGE_HEADS = ((16, 8), (4, 4), (8, 2))
+EDGE_WINDOWS = ((17, 128), (64, 40), (100, 128), (256, 40))   # (Sq, window)
+
+
+def paged_stores(torch, kc, vc, lens, ps, gen):
+    """Kernel 3's view of contiguous K/V ``(B, Hkv, Skv, D)``: flat stores
+    through a permuted table (from ``gen``); rows past each lane's length
+    (its later pages and the tail of its last one) hold finite garbage,
+    the scratch page zeros, as the reference's test lays them out.
+    Returns (k_store, v_store, table)."""
+    b, hkv, skv, d = kc.shape
+    nblk = -(-skv // ps)
+    n_pages = 1 + b * nblk
+    dev = kc.device
+    pt = (torch.randperm(n_pages - 1, generator=gen) + 1)[
+        :b * nblk].reshape(b, nblk).to(torch.int32).to(dev)
+    ks = torch.full((n_pages * ps, hkv, d), 7.5e4, dtype=kc.dtype, device=dev)
+    vs = ks.clone()
+    ks[:ps] = 0
+    vs[:ps] = 0
+    pos = torch.arange(nblk * ps, device=dev)
+    rows = pt.long()[:, pos // ps] * ps + pos % ps
+    valid = (pos[None] < lens.long()[:, None]) & (pos[None] < skv)
+    ks[rows[valid]] = kc.permute(0, 2, 1, 3)[valid[:, :skv]]
+    vs[rows[valid]] = vc.permute(0, 2, 1, 3)[valid[:, :skv]]
+    return ks, vs, pt
+
+
+def edge_sweep(torch, kfa, dev, seed, page_sizes=()):
+    """Kernels 2 and 3 at the schedules' edges.  For each (Hq, Hkv) of
+    EDGE_HEADS, dtype and Sq of EDGE_SQ, one call whose lanes sit at every
+    kv length of EDGE_KV that is at least Sq (queries are end-aligned);
+    and kernel 2 on the tile path with sliding windows.  Kernel 2 is held
+    against its plain version (phase 3's tolerances) and two calls must
+    give the same bits.  With ``page_sizes``, kernel 3 over the same K/V
+    at each page size is held against its plain version, bit for bit
+    against kernel 2, and two calls must give the same bits.  Logs one
+    record per case, naming the path ``attention_plan`` chose, and returns
+    the problems found."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.Generator().manual_seed(seed + 1)
+    kernel = "paged_flash_attention" if page_sizes else "flash_attention"
+    problems = []
+    n_cases = 0
+    cases = [(hq, hkv, sq, None) for hq, hkv in EDGE_HEADS for sq in EDGE_SQ]
+    if not page_sizes:
+        cases += [(16, 8, sq, w) for sq, w in EDGE_WINDOWS]
+    for dtype in (torch.bfloat16, torch.float32):
+        # f32: exp and sums in another order; bf16: P and the output
+        # rounded to bf16.
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        for hq, hkv, sq, window in cases:
+            lens_l = [kv for kv in EDGE_KV if kv >= sq]
+            b, d, skv = len(lens_l), 128, max(EDGE_KV)
+            q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
+            kc = torch.randn(b, hkv, skv, d, generator=gen,
+                             device=dev).to(dtype)
+            vc = torch.randn(b, hkv, skv, d, generator=gen,
+                             device=dev).to(dtype)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+            out = kfa.flash_attention(q, kc, vc, lens, window=window)
+            again = kfa.flash_attention(q, kc, vc, lens, window=window)
+            ref = kfa.attention_ref(q, kc, vc, lens, window=window)
+            ok, err = within(torch, out, ref, tol, tol)
+            rec = dict(
+                case=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} kv={lens_l[0]}.."
+                     f"{lens_l[-1]} window={window} {str(dtype)[6:]}",
+                path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
+                kernel2_err=err, kernel2_ok=ok,
+                kernel2_deterministic=torch.equal(out, again))
+            for ps in page_sizes:
+                ks, vs, pt = paged_stores(torch, kc, vc, lens, ps, perm)
+                po = kfa.paged_flash_attention(q, ks, vs, pt, lens,
+                                               page_size=ps)
+                po2 = kfa.paged_flash_attention(q, ks, vs, pt, lens,
+                                                page_size=ps)
+                pref = kfa.paged_attention_ref(q, ks, vs, pt, lens,
+                                               page_size=ps)
+                pok, perr = within(torch, po, pref, tol, tol)
+                rec[f"ps{ps}"] = dict(
+                    err=perr, ok=pok, bit_equal_kernel2=torch.equal(po, out),
+                    deterministic=torch.equal(po, po2))
+            torch.cuda.synchronize()
+            log(f"[sweep {kernel}] {rec}")
+            n_cases += 1
+            bad = [k for k in ("kernel2_ok", "kernel2_deterministic")
+                   if not rec[k]]
+            bad += [f"ps{ps} {k}" for ps in page_sizes
+                    for k, v in rec[f"ps{ps}"].items()
+                    if k != "err" and not v]
+            if bad:
+                problems.append(f"{rec['case']}: {bad}")
+    log(f"[sweep] {n_cases} cases, {len(problems)} with a problem")
+    return problems
 
 
 U32, U16 = 2.0 ** -24, 2.0 ** -8     # unit roundoff of f32 and of bf16
@@ -794,31 +923,16 @@ def _paged_phase(torch, dev, base):
 
     def paged_case(name, b, hq, hkv, sq, kv_lens, d, ps, dtype,
                    max_len=1024):
-        nblk = -(-max_len // ps)
-        n_pages = 1 + b * nblk
-        skv = nblk * ps
-        pt = (torch.randperm(n_pages - 1, generator=perm_gen) + 1)[
-            :b * nblk].reshape(b, nblk).to(torch.int32).to(dev)
+        skv = -(-max_len // ps) * ps
         q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
         kc = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
         vc = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
         lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-        # Flat stores: rows past each lane's length (its later pages and
-        # the tail of its last one) hold finite garbage, the scratch page
-        # zeros, as the reference's test lays them out.
-        ks = torch.full((n_pages * ps, hkv, d), 7.5e4, dtype=dtype,
-                        device=dev)
-        vs = ks.clone()
-        ks[:ps] = 0
-        vs[:ps] = 0
-        pos = torch.arange(skv, device=dev)
-        rows = pt.long()[:, pos // ps] * ps + pos % ps
-        valid = pos[None] < lens.long()[:, None]
-        ks[rows[valid]] = kc.permute(0, 2, 1, 3)[valid]
-        vs[rows[valid]] = vc.permute(0, 2, 1, 3)[valid]
+        ks, vs, pt = paged_stores(torch, kc, vc, lens, ps, perm_gen)
         call = lambda: kfa.paged_flash_attention(      # noqa: E731
             q, ks, vs, pt, lens, page_size=ps)
         out = call()
+        again = call()
         ref = kfa.paged_attention_ref(q, ks, vs, pt, lens, page_size=ps)
         contiguous = kfa.flash_attention(q, kc, vc, lens)
         torch.cuda.synchronize()
@@ -827,7 +941,8 @@ def _paged_phase(torch, dev, base):
         atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
         ok, err = within(torch, out, ref, atol, rtol)
         same = torch.equal(out, contiguous)
-        if not same:
+        deterministic = torch.equal(out, again)
+        if not (same and deterministic):
             bit_bad.append(f"{name} ps={ps} {dtype}")
         kj = torch.arange(skv, device=dev)
         lens_l = lens.long()
@@ -849,8 +964,9 @@ def _paged_phase(torch, dev, base):
         rec = dict(
             shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} kv<={max(kv_lens)} "
                   f"D={d} ps={ps} {str(dtype)[6:]}",
+            path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
             err=err, ok=ok, bit_equal_kernel2=same,
-            tol=f"atol={atol} rtol={rtol}",
+            deterministic=deterministic, tol=f"atol={atol} rtol={rtol}",
             ms=time_ms(torch, call, flush=flush),
             plain_ms=time_ms(torch, lambda: kfa.paged_attention_ref(
                 q, ks, vs, pt, lens, page_size=ps), flush=flush),
@@ -910,11 +1026,12 @@ def _paged_phase(torch, dev, base):
         fn = built()
 
         def launch(*args):
-            key = (args[6], args[9], args[11], args[16])
+            key = (args[7], args[10], args[12], args[17])
             shapes[key] = shapes.get(key, 0) + 1
             return fn(*args)
         return launch
 
+    gc.collect()                     # as in phase 5
     torch.cuda.reset_peak_memory_stats()
     for counter in (krms.launches, kfa.launches, kfa.paged_launches):
         counter.reset()
@@ -1020,7 +1137,12 @@ def _paged_phase(torch, dev, base):
            if not r["ok"]]
     if bad or bit_bad:
         fail(f"paged_flash_attention disagrees with its plain version: "
-             f"{bad}; differs from kernel 2 over the same K/V: {bit_bad}")
+             f"{bad}; differs from kernel 2 over the same K/V or between "
+             f"two calls: {bit_bad}")
+    sweep_problems = edge_sweep(torch, kfa, dev, seed=11,
+                                page_sizes=tuple(dict.fromkeys((main_ps, 16))))
+    if sweep_problems:
+        fail("kernel 3 edge sweep: " + "; ".join(sweep_problems))
     del scratch
     torch.cuda.empty_cache()
 

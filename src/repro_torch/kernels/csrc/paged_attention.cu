@@ -1,6 +1,6 @@
-// Paged flash attention forward for Hopper (sm_90a).
+// Paged flash attention forward for Hopper (sm_90a) (kernel 3).
 //
-// Replaces: src/repro/kernels/flash_attention.py
+// Replaces: src/repro/kernels/flash_attention.py:204
 // `paged_flash_attention_pallas` (its `_paged_kernel`).  Same function:
 // kernel 2's causal online softmax with K/V read through a page table
 // (B, n_blocks) from the paged pool's flat token-major stores
@@ -10,18 +10,19 @@
 // one slot (B = 1), the fused decode over the pool (Sq = 1) and the
 // speculative verify (Sq = d).
 //
-// What bounds it on this card: bytes, as for kernel 2 (one flop per byte
-// of K/V at decode).  Design: the TPU kernel aims each kv tile's DMA at its
-// page through scalar-prefetched indices, one tile per page.  Here the
-// loop is kernel 2's (flash_attention.cuh) with one change: a key row's
-// address goes through the table (PagedKV), so each 64-key tile gathers
-// its rows from however many pages it spans, with the same 16-byte vector
-// loads (a row never straddles a page).  Tile schedule, warp split and
-// summation order are kernel 2's, so over a permuted table it returns what
-// kernel 2 returns over the same K/V laid out contiguously, bit for bit,
-// for any page size.  Paged serving therefore emits the contiguous pool's
-// tokens.  The table is read per row from global memory (cached in L1);
-// staging it in shared memory, TMA and wgmma are later work.
+// What bounds it: as kernel 2 (bytes at decode and verify, products at
+// prefill).  Design: the TPU kernel aims each kv tile's DMA at its page
+// through scalar-prefetched indices, one tile per page.  Here the loop is
+// kernel 2's (flash_attention.cuh): the same two schedules, tiles, splits,
+// shared-memory contents and summation order, with one change in how
+// bytes arrive: before a tile's cp.async copies are issued, the store
+// row of each of its keys is staged in shared memory from the table (the
+// entries loaded a tile ahead), and each 16-byte copy is aimed through
+// them (a store row is contiguous along D, so a copy never straddles a
+// page).  So over a permuted table
+// it returns what kernel 2 returns over the same K/V laid out
+// contiguously, bit for bit, for any page size, and paged serving emits
+// the contiguous pool's tokens.
 
 #include "flash_attention.cuh"
 
@@ -31,13 +32,14 @@ using repro_fa::PagedKV;
 
 // q (B, Hq, Sq, D), k_store/v_store (n_pages * page_size, Hkv, D), out like
 // q, all contiguous and 16-byte aligned; page_table (B, n_blocks) and
-// kv_lens (B,) int32 on the device.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the CUDA error code of the launch (0 on success).
+// kv_lens (B,) int32 on the device; scratch as for kernel 2 with Skv =
+// n_blocks * page_size.  dtype: 0 = float32, 1 = bfloat16.  Returns the
+// CUDA error code of the first launch that failed (0 on success).
 extern "C" int repro_paged_flash_attention(
     const void* q, const void* k_store, const void* v_store,
-    const void* page_table, const void* kv_lens, void* out, int B, int Hq,
-    int Hkv, int Sq, int n_blocks, int page_size, int n_pages, int D,
-    float scale, int causal, int dtype, void* stream) {
+    const void* page_table, const void* kv_lens, void* out, void* scratch,
+    int B, int Hq, int Hkv, int Sq, int n_blocks, int page_size, int n_pages,
+    int D, float scale, int causal, int dtype, void* stream) {
   if (D > kMaxD || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       page_size <= 0 || n_pages <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -50,12 +52,12 @@ extern "C" int repro_paged_flash_attention(
     PagedKV<float> kv{static_cast<const float*>(k_store),
                       static_cast<const float*>(v_store), table, n_blocks,
                       page_size, n_pages, Hkv, D};
-    return launch<float>(q, kv, lens, out, B, Hq, Hkv, Sq, skv, D, scale,
-                         causal, 0, s);
+    return launch<float>(q, kv, lens, out, scratch, B, Hq, Hkv, Sq, skv, D,
+                         scale, causal, 0, s);
   }
   PagedKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k_store),
                             static_cast<const __nv_bfloat16*>(v_store), table,
                             n_blocks, page_size, n_pages, Hkv, D};
-  return launch<__nv_bfloat16>(q, kv, lens, out, B, Hq, Hkv, Sq, skv, D,
-                               scale, causal, 0, s);
+  return launch<__nv_bfloat16>(q, kv, lens, out, scratch, B, Hq, Hkv, Sq,
+                               skv, D, scale, causal, 0, s);
 }

@@ -15,12 +15,20 @@ stores (``csrc/paged_attention.cu``; both kernels instantiate the one
 template in ``csrc/flash_attention.cuh``, so they agree bit for bit over
 the same K/V).  It is every attention of the paged serve path.
 
+Both kernels run one of two schedules, which ``attention_plan`` picks
+from (B, Hq, Hkv, Sq, dtype) alone: split-KV decode for at most
+``SPLIT_ROWS`` packed query rows per kv head (decode and verify), the
+tile path above it (prefill chunks; tensor cores in bf16).  The C side
+(``csrc/flash_attention.cuh``, ``use_split`` and its constants) makes the
+same choice; the wrapper uses the plan to size the split path's scratch.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``attention_ref``, ``paged_attention_ref``) for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -32,6 +40,87 @@ launches = build.LaunchCounter("flash_attention")
 paged_launches = build.LaunchCounter("paged_flash_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The schedule's constants, as in csrc/flash_attention.cuh.
+SPLIT_ROWS = 16        # kSplitRows: packed rows of a split-path block
+# Keys per split, at absolute multiples (Vec<T>::kChunk): bf16 reads half
+# the bytes a key and takes longer splits.
+SPLIT_CHUNK = {torch.bfloat16: 256, torch.float32: 128}
+TILE_ROWS = 64         # kTileRows: packed rows of a tensor-core block
+MAX_D = 128            # kMaxD
+PART_BYTES = 4 * SPLIT_ROWS * (MAX_D + 2)   # one split's (m, l, acc)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How one attention call runs.  ``path`` is ``"split"`` (split-KV
+    decode: grid of kv chunks of ``chunk`` keys at absolute multiples of
+    it, partials merged in split order) or ``"tile"`` (blocks of
+    ``block_rows`` packed rows over the whole kv range; wgmma in bf16,
+    CUDA cores in f32).  ``rows`` = Sq * group packed rows per kv head."""
+
+    path: str
+    b: int
+    hkv: int
+    rows: int
+    block_rows: int
+    kv_tile: int
+    chunk: int | None
+    tensor_cores: bool
+
+    def n_splits(self, skv: int) -> int:
+        """Splits of a kv extent ``skv`` (1 on the tile path)."""
+        return -(-skv // self.chunk) if self.path == "split" else 1
+
+    def splits(self, skv: int) -> list[tuple[int, int]]:
+        """The key ranges of the splits over ``[0, skv)``."""
+        if self.path != "split":
+            return [(0, skv)]
+        return [(s * self.chunk, min((s + 1) * self.chunk, skv))
+                for s in range(self.n_splits(skv))]
+
+    def scratch_bytes(self, skv: int) -> int:
+        """Bytes of partials the split path writes for a kv extent
+        ``skv`` (kernel 2: the cache length; kernel 3: n_blocks * ps)."""
+        if self.path != "split":
+            return 0
+        return self.b * self.hkv * self.n_splits(skv) * PART_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(b: int, hq: int, hkv: int, sq: int,
+                   dtype: torch.dtype) -> AttentionPlan:
+    """The schedule of one call, from its batch, heads, query rows and
+    dtype only: never from the kv extent, the page size or the layout,
+    so kernels 2 and 3 always get the same plan for the same call."""
+    rows = sq * (hq // hkv)
+    bf16 = dtype == torch.bfloat16
+    kv_tile = 64 if bf16 else 32
+    if rows <= SPLIT_ROWS:
+        return AttentionPlan("split", b, hkv, rows, SPLIT_ROWS, kv_tile,
+                             SPLIT_CHUNK[dtype], False)
+    return AttentionPlan("tile", b, hkv, rows,
+                         TILE_ROWS if bf16 else SPLIT_ROWS, kv_tile, None,
+                         bf16)
+
+
+_scratch: dict = {}
+
+
+def _scratch_ptr(plan: AttentionPlan, skv: int, device: torch.device,
+                 stream: int) -> int:
+    """Address of a grow-only scratch buffer for ``plan`` on ``device``
+    and ``stream`` (0 when the plan needs none).  One buffer per stream:
+    the kernels of one call, and calls on one stream, run in order."""
+    need = plan.scratch_bytes(skv)
+    if need == 0:
+        return 0
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.empty(need, dtype=torch.uint8, device=device)
+        _scratch[key] = buf
+    return buf.data_ptr()
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,7 +167,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -127,12 +216,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              device=q.device)
     _check(q, k, v, kv_lens)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    hkv, skv = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan = attention_plan(b, hq, hkv, sq, q.dtype)
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
-                out.data_ptr(), b, hq, k.shape[1], sq, k.shape[2], d,
-                float(scale), int(causal),
+                out.data_ptr(), _scratch_ptr(plan, skv, q.device, stream), b,
+                hq, hkv, sq, skv, d, float(scale), int(causal),
                 0 if window is None else int(window), _DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream)
     build.check(err, "flash_attention")
     launches.add()
     return out
@@ -168,7 +260,7 @@ def paged_attention_ref(q: torch.Tensor, k_store: torch.Tensor,
 @functools.cache
 def _paged_fn():
     fn = build.library("paged_attention").repro_paged_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -242,14 +334,17 @@ def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
                          f"{q.device}")
     b, hq, sq, d = q.shape
     ps = int(page_size)
+    hkv, n_blocks = k_store.shape[1], page_table.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan = attention_plan(b, hq, hkv, sq, q.dtype)
     out = torch.empty_like(q)
     err = _paged_fn()(
         q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, hq,
-        k_store.shape[1], sq, page_table.shape[1], ps,
-        k_store.shape[0] // ps, d, float(scale), int(causal),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        _scratch_ptr(plan, n_blocks * ps, q.device, stream), b, hq, hkv, sq,
+        n_blocks, ps, k_store.shape[0] // ps, d, float(scale), int(causal),
+        _DTYPES[q.dtype], stream)
     build.check(err, "paged_flash_attention")
     paged_launches.add()
     return out
