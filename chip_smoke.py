@@ -30,9 +30,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
               n = 2^20, 2^24, 2^26 (f32, and bf16 where the reference
               takes it), timed like phase 3; reduce_sum and
               inclusive_scan also against the float64 exact sum
-              (``sum_limit``) and, on signed integers, bit for bit.
-              The measured block plan (``KernelTuner``) for two of
-              them.  Then adjacent_difference,
+              (``sum_limit``; the bf16 scan rounds once), on signed
+              integers bit for bit, and five calls bit-identical, with
+              two yardsticks: their times after an L2 flush that leaves
+              no dirty lines, and a copy of the scan's bytes.  Then
+              their edge sweep (``sum_sweep``): misaligned views, n
+              around a tile and the scan's largest segment, groups of
+              31-33 segments, blocks below and above a segment, each
+              case in f32 and bf16 within ``sum_limit`` and
+              deterministic, and both kernels on two streams at once
+              (``[sweep reduce_sum]`` / ``[sweep inclusive_scan]``
+              lines).  The measured block plan (``KernelTuner``) for two
+              of them.  Then adjacent_difference,
               reduce, inclusive_scan, exclusive_scan, artificial_work and
               transform at n = 2^24 and 2^26 under seq, static par and
               acc par (8 workers), each held against the plain function,
@@ -557,10 +566,11 @@ def edge_sweep(torch, kfa, dev, seed, page_sizes=()):
 U32, U16 = 2.0 ** -24, 2.0 ** -8     # unit roundoff of f32 and of bf16
 
 
-def sum_limit(torch, x, exact, prefix: bool, local=None):
+def sum_limit(torch, x, exact, prefix: bool):
     """Largest |out - exact| that a sound f32-accumulated sum of ``x``
-    (``prefix`` False: ``exact`` is 0-d) or prefix sum (``prefix`` True)
-    may show against the float64 ``exact``, element by element:
+    (``prefix`` False: ``exact`` is 0-d) or prefix sum (``prefix`` True),
+    rounded once to x's type, may show against the float64 ``exact``,
+    element by element:
 
     * 2·u32·|exact|: the rounding of the result and of its last add;
     * u32·log2(n)·rms(x)·sqrt(m): the roundings of the partial sums on
@@ -569,9 +579,7 @@ def sum_limit(torch, x, exact, prefix: bool, local=None):
       rms(x)·sqrt(m), the plan's sums are at most about log2(n) levels
       deep, and roundings of random sign add as a square root, so this
       is a statistical limit; PERF.md gives the readings it is held to;
-    * bf16: 2·u16·|exact| for the rounding of the f32 result to bf16,
-      and 2·u16·|local| where the scan rounds the in-block prefix
-      ``local`` to bf16 before its block's offset is added.
+    * bf16: 2·u16·|exact| for the one rounding of the f32 result to bf16.
 
     On randn data the limit stays far below one element's size, so a
     result that is 0, or that drops or repeats an element, fails."""
@@ -584,16 +592,7 @@ def sum_limit(torch, x, exact, prefix: bool, local=None):
     lim = 2 * U32 * exact.abs() + U32 * math.log2(max(n, 2)) * rms * m.sqrt()
     if x.dtype == torch.bfloat16:
         lim = lim + 2 * U16 * exact.abs()
-        if local is not None:
-            lim = lim + 2 * U16 * local.abs()
     return lim
-
-
-def in_block(torch, exact, block: int):
-    """The exact prefix sum within each block of ``block`` elements."""
-    starts = torch.arange(block, exact.numel(), block, device=exact.device)
-    base = torch.cat([exact.new_zeros(1), exact[starts - 1]])
-    return exact - base.repeat_interleave(block)[:exact.numel()]
 
 
 def signed_ints(torch, n, gen, dev):
@@ -604,6 +603,110 @@ def signed_ints(torch, n, gen, dev):
     mag = torch.randint(1, 9, (n,), generator=gen, device=dev)
     sign = torch.randint(0, 2, (n,), generator=gen, device=dev) * 2 - 1
     return (mag * sign).float()
+
+
+def sum_sweep(torch, dev, seed):
+    """Kernels 4 and 5 at their edges, in f32 and bf16: n around one tile
+    and around ``scan_seg_max`` (the scan's largest segment), views
+    x[o:] for o = 1-7 (a misaligned head and, for the scan, an output
+    whose alignment differs from the input's), several segments, groups
+    of 31, 32 and 33 segments, and ``block`` at one tile, three tiles
+    (both below the scan's least segment) and above ``scan_seg_max``.  Each case: within ``sum_limit`` of the
+    float64 exact sum, within twice that of the plain version, bit-exact
+    on ``signed_ints``, and two calls bit-identical.  Then reduce and
+    scan run concurrently on two streams and are held bit for bit
+    against the sequential calls.  Logs one record per case and returns
+    the problems found."""
+    from repro_torch.kernels import ops, tuning
+    from repro_torch.kernels import reduce_scan as krs
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernels = {"reduce_sum": (krs.reduce_sum, krs.reduce_sum_ref),
+               "inclusive_scan": (krs.inclusive_scan, krs.inclusive_scan_ref)}
+    problems = []
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.empty((), dtype=dtype).element_size()
+        tile, smax = tuning.tile_elems(item), krs.scan_seg_max(item)
+        # (n, offset of the view, block; None: the plan's)
+        cases = [(n, 0, None) for n in (1, 255, 256, 1023, 1024, 1025)]
+        cases += [(n, 0, smax) for n in (smax - 1, smax, smax + 1)]
+        # Full segments behind a misaligned head fill all 17 stage tiles.
+        cases += [(3 * smax + 5, o, smax) for o in range(1, 8)]
+        cases += [(3 * smax + 5, 3, None)]
+        # Blocks of one tile and of three: the scan raises both to its
+        # least segment; groups of 31, 32 and 33 of those segments.
+        seg = krs.scan_plan(2 ** 20, tile, item).seg
+        cases += [(5 * seg + 17, 0, tile),                # several segments
+                  (31 * seg + 7, 0, tile), (32 * seg, 0, tile),
+                  (33 * seg + 1, 0, tile), (32 * seg + 1, 3, tile),
+                  (40 * 3 * tile + 5, 0, 3 * tile),
+                  (5 * (2 * smax + tile) + 3, 0, 2 * smax + tile),
+                  (5 * (2 * smax + tile) + 3, 5, 2 * smax + tile),
+                  (2 ** 22, 0, None)]
+        for n, o, block in cases:
+            base = torch.randn(n + o, generator=gen, device=dev).to(dtype)
+            ints = signed_ints(torch, n + o, gen, dev).to(dtype)
+            x, xi = base[o:], ints[o:]
+            b = block or tuning.plan_1d(n, num_sms=ops.num_sms(x),
+                                        bytes_per_elem=item).block
+            for name, (kernel, plain) in kernels.items():
+                prefix = name == "inclusive_scan"
+                out, again = kernel(x, block=b), kernel(x, block=b)
+                exact = (torch.cumsum(x.double(), 0) if prefix
+                         else x.double().sum())
+                exact_i = (torch.cumsum(xi.double(), 0) if prefix
+                           else xi.double().sum())
+                lim = sum_limit(torch, x, exact, prefix)
+                off = (out.double() - exact).abs()
+                diff = (out.double() - plain(x).double()).abs()
+                rec = dict(
+                    case=f"n={n} x[{o}:] block={b} {str(dtype)[6:]}",
+                    segments=krs.scan_plan(n, b, item).n_segs if prefix
+                    else math.ceil(n / b),
+                    err_over_limit=float((off / lim).max()),
+                    within_limit=bool((off <= lim).all()),
+                    within_plain=bool((diff <= 2 * lim).all()),
+                    signed_ints_exact=torch.equal(kernel(xi, block=b),
+                                                  exact_i.to(dtype)),
+                    deterministic=torch.equal(out, again))
+                torch.cuda.synchronize()
+                log(f"[sweep {name}] {rec}")
+                n_cases += 1
+                bad = [k for k, v in rec.items() if v is False]
+                if bad:
+                    problems.append(f"{name} {rec['case']}: {bad}")
+            del base, ints, x, xi
+    # Two streams at once: the per-call counters and status words of one
+    # call never meet another's.
+    x = torch.randn(3 * 2 ** 20 + 7, generator=gen, device=dev)
+    y = torch.randn(2 ** 21 + 3, generator=gen,
+                    device=dev).to(torch.bfloat16)[1:]
+    b_x = tuning.plan_1d(x.numel(), num_sms=ops.num_sms(x)).block
+    b_y = tuning.plan_1d(y.numel(), num_sms=ops.num_sms(y),
+                         bytes_per_elem=2).block
+    want = [krs.inclusive_scan(x, block=b_x), krs.reduce_sum(y, block=b_y),
+            krs.reduce_sum(x, block=b_x), krs.inclusive_scan(y, block=b_y)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    torch.cuda.synchronize()
+    for _ in range(4):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(streams[0]):
+            a = [krs.inclusive_scan(x, block=b_x), krs.reduce_sum(y, block=b_y)]
+        with torch.cuda.stream(streams[1]):
+            c = [krs.reduce_sum(x, block=b_x), krs.inclusive_scan(y, block=b_y)]
+        got.append(a + c)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for gs in got for g, w in zip(gs, want,
+                                                                strict=True))
+    log(f"[sweep reduce_sum+inclusive_scan] two streams, 4 rounds: "
+        f"bit-equal to the sequential calls: {same}")
+    if not same:
+        problems.append("two streams: results differ from sequential calls")
+    log(f"[sweep] {n_cases} cases, {len(problems)} with a problem")
+    return problems
 
 
 def affine(c):
@@ -630,6 +733,11 @@ def _algorithms_phase(torch, dev):
 
     def flush():
         scratch.zero_()
+
+    def flush_clean():
+        # Reads 96 MB: evicts L2 like `flush`, but leaves no dirty lines
+        # for the timed call to write back.
+        scratch.view(torch.float32).sum()
 
     iters = 256
     cases = {
@@ -677,12 +785,7 @@ def _algorithms_phase(torch, dev):
         prefix = name == "inclusive_scan"
         exact = (torch.cumsum(x.double(), 0) if prefix
                  else x.double().sum())
-        local = None
-        if prefix and x.dtype == torch.bfloat16:
-            block = tuning.plan_1d(x.numel(), num_sms=ops.num_sms(x),
-                                   bytes_per_elem=x.element_size()).block
-            local = in_block(torch, exact, block)
-        lim = sum_limit(torch, x, exact, prefix, local)
+        lim = sum_limit(torch, x, exact, prefix)
         off = (out.double() - exact).abs()
         ok = bool((off <= lim).all()) and bool((diff <= 2 * lim).all())
         return ok, err, (float((off / lim).max()), float(lim.max()))
@@ -697,6 +800,12 @@ def _algorithms_phase(torch, dev):
                 ref = c["plain"](x)
                 torch.cuda.synchronize()
                 ok, err, ratio = check(name, x, out, ref)
+                same = None
+                if name in ("reduce_sum", "inclusive_scan"):
+                    # Five calls, the same bits (the sums' order is fixed).
+                    same = all(torch.equal(out, c["kernel"](x))
+                               for _ in range(4))
+                    ok = ok and same
                 del out, ref
                 if name in ("reduce_sum", "inclusive_scan"):
                     xi = signed_ints(torch, n, gen, dev).to(dtype)
@@ -704,11 +813,7 @@ def _algorithms_phase(torch, dev):
                     exact = (torch.cumsum(xi.double(), 0)
                              if name == "inclusive_scan"
                              else xi.double().sum())
-                    if dtype == torch.float32 or name == "reduce_sum":
-                        good = torch.equal(out, exact.to(dtype))
-                    else:
-                        good, _, _ = check(name, xi, out, c["plain"](xi))
-                    if not good:
+                    if not torch.equal(out, exact.to(dtype)):
                         exact_bad.append(f"{name} n={n} {dtype}")
                     del xi, out, exact
                 item = x.element_size()
@@ -717,6 +822,7 @@ def _algorithms_phase(torch, dev):
                 heavy = name == "artificial_work" and n >= 2 ** 24
                 rec = dict(
                     shape=f"n={n} {str(dtype)[6:]}", err=err, ok=ok,
+                    deterministic_5=same,
                     err_over_limit=None if ratio is None else ratio[0],
                     limit=None if ratio is None else ratio[1],
                     ms=time_ms(torch, lambda: c["kernel"](x), flush=flush),
@@ -728,6 +834,18 @@ def _algorithms_phase(torch, dev):
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     plan=str(tuning.plan_1d(
                         n, num_sms=ops.num_sms(x), bytes_per_elem=item)))
+                if name in ("reduce_sum", "inclusive_scan"):
+                    # Yardsticks: the same calls after a flush that leaves
+                    # L2 clean, and (scan) a copy of x, the same bytes.
+                    rec["ms_clean_l2"] = time_ms(
+                        torch, lambda: c["kernel"](x), flush=flush_clean)
+                    rec["library_ms_clean_l2"] = time_ms(
+                        torch, lambda: c["library"](x), flush=flush_clean)
+                if name == "inclusive_scan":
+                    y = torch.empty_like(x)
+                    rec["copy_ms"] = time_ms(torch, lambda: y.copy_(x),
+                                             flush=flush)
+                    del y
                 records[name].append(rec)
                 log(f"[kernel {name}] {rec}")
                 del x
@@ -735,7 +853,11 @@ def _algorithms_phase(torch, dev):
            for r in rs if not r["ok"]]
     if bad or exact_bad:
         fail(f"1-d kernels disagree with their plain versions or the exact "
-             f"sums: {bad}; on signed integers: {exact_bad}")
+             f"sums, or differ between calls: {bad}; on signed integers: "
+             f"{exact_bad}")
+    sweep_problems = sum_sweep(torch, dev, seed=12)
+    if sweep_problems:
+        fail("kernels 4 and 5 edge sweep: " + "; ".join(sweep_problems))
 
     # The measured block plan (kernels/autotune.py) on the card: one
     # search per kernel, then a hit in the store for the same bucket.

@@ -10,19 +10,21 @@ accumulates in f32, see ``inclusive_scan_ref``).  The kernels live in
 launches them for a CUDA tensor and runs the plain version for a CPU
 tensor; there is no other route.
 
-``reduce_sum`` launches the partial-sum kernel over x, then once more
-over the (grid,) f32 partials as a single block; ``inclusive_scan``
-launches the local scan, scans the (grid,) block totals with
-``torch.cumsum`` (phase 2, which the reference also runs outside its
-kernel), and launches the offset pass.  With one block the second launch
-is not needed.  Each launch counts.  The scratch vectors (partials,
-totals, offsets) may be freed as soon as a wrapper returns: PyTorch's
-caching allocator hands their memory out again only to work queued after
-the kernels on the same stream.
+Each wrapper makes one zeroed scratch vector on the call's stream and
+launches one kernel, which counts once.  ``reduce_sum``: the blocks'
+f32 partials and a counter; the last block to finish sums the partials
+and writes the 0-d result in x's type.  ``inclusive_scan``: one pass
+over the segments of ``scan_plan``, which hold their aggregates, the
+groups' totals and a ticket in the scratch (the look-back is described
+in the source).  The scratch may be freed as soon as a wrapper returns:
+PyTorch's caching allocator hands its memory out again only to work
+queued after the kernel on the same stream, and no status word outlives
+the call.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -34,6 +36,45 @@ reduce_launches = build.LaunchCounter("reduce_sum")
 scan_launches = build.LaunchCounter("inclusive_scan")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The scan's segment plan, mirrored by the constants of csrc/reduce_scan.cu.
+SCAN_SEG_BYTES = 8 * tuning.THREADS * tuning.BYTES_PER_THREAD  # kScanSegTiles tiles
+SCAN_GROUP = 32          # segments per group of the look-back (kGroup)
+SCAN_SEG_MIN_TILES = 4   # the least segment, in tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """Segment k covers [k * seg, min((k + 1) * seg, n)), whatever block
+    takes ticket k, and lies in group k // SCAN_GROUP."""
+
+    seg: int             # elements of one segment (the last may be shorter)
+    n_segs: int
+    n_groups: int
+
+    @property
+    def scratch_words(self) -> int:
+        """64-bit status words: the aggregates, the group totals, the
+        ticket."""
+        return self.n_segs + self.n_groups + 1
+
+
+def scan_seg_max(itemsize: int) -> int:
+    """Elements of the largest segment: 8192 f32, 16384 bf16."""
+    return SCAN_SEG_BYTES // int(itemsize)
+
+
+def scan_plan(n: int, block: int, itemsize: int) -> ScanPlan:
+    """Segments of a scan of ``n`` elements at ``block``: min(block,
+    ``scan_seg_max``), a block below ``SCAN_SEG_MIN_TILES`` tiles raised
+    to that.  Each segment pays a ticket and a look-back whatever its
+    size, so a smaller one costs more than it balances (PERF.md)."""
+    seg = min(max(int(block),
+                  SCAN_SEG_MIN_TILES * tuning.tile_elems(itemsize)),
+              scan_seg_max(itemsize))
+    n_segs = max(math.ceil(int(n) / seg), 1)
+    return ScanPlan(seg=seg, n_segs=n_segs,
+                    n_groups=math.ceil(n_segs / SCAN_GROUP))
 
 
 def reduce_sum_ref(x: torch.Tensor) -> torch.Tensor:
@@ -54,11 +95,9 @@ def inclusive_scan_ref(x: torch.Tensor) -> torch.Tensor:
 def _lib():
     lib = build.library("reduce_scan")
     vp, sz, i = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
-    for name, args in (("repro_reduce_sum_partials", [vp, vp, sz, sz, i, vp]),
-                       ("repro_scan_local", [vp, vp, vp, sz, sz, i, vp]),
-                       ("repro_scan_add_offsets", [vp, vp, sz, sz, i, vp])):
+    for name in ("repro_reduce_sum", "repro_inclusive_scan"):
         fn = getattr(lib, name)
-        fn.argtypes = args
+        fn.argtypes = [vp, vp, vp, sz, sz, i, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -72,27 +111,19 @@ def reduce_sum(x: torch.Tensor, *, block: int) -> torch.Tensor:
     n = x.numel()
     if n == 0:
         return torch.zeros((), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty((), dtype=x.dtype, device=x.device)
     grid = math.ceil(n / int(block))
-    partials = torch.empty(grid, dtype=torch.float32, device=x.device)
-    build.check(lib.repro_reduce_sum_partials(
-        x.data_ptr(), partials.data_ptr(), n, int(block), code, stream),
-        "reduce_sum")
+    scratch = torch.zeros(grid + 1, dtype=torch.int32, device=x.device)
+    build.check(_lib().repro_reduce_sum(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, int(block),
+        code, torch.cuda.current_stream(x.device).cuda_stream), "reduce_sum")
     reduce_launches.add()
-    if grid > 1:
-        total = torch.empty(1, dtype=torch.float32, device=x.device)
-        build.check(lib.repro_reduce_sum_partials(
-            partials.data_ptr(), total.data_ptr(), grid, grid, 0, stream),
-            "reduce_sum")
-        reduce_launches.add()
-        partials = total
-    return partials[0].to(x.dtype)
+    return out
 
 
 def inclusive_scan(x: torch.Tensor, *, block: int) -> torch.Tensor:
-    """Prefix sum of x (n,), f32 or bf16, in f32 inside each block, cast
-    to x's type; ``block`` elements per thread block."""
+    """Prefix sum of x (n,), f32 or bf16, accumulated in f32 and rounded
+    once to x's type; segments of ``scan_plan(n, block, itemsize)``."""
     if x.device.type == "cpu":
         return inclusive_scan_ref(x)
     code = tuning.check_1d("inclusive_scan", x, block, _DTYPES)
@@ -100,19 +131,11 @@ def inclusive_scan(x: torch.Tensor, *, block: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0:
         return out
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    grid = math.ceil(n / int(block))
-    totals = torch.empty(grid, dtype=torch.float32, device=x.device)
-    build.check(lib.repro_scan_local(
-        x.data_ptr(), out.data_ptr(), totals.data_ptr(), n, int(block), code,
-        stream), "inclusive_scan")
+    plan = scan_plan(n, int(block), x.element_size())
+    status = torch.zeros(plan.scratch_words, dtype=torch.int64,
+                         device=x.device)
+    build.check(_lib().repro_inclusive_scan(
+        x.data_ptr(), out.data_ptr(), status.data_ptr(), n, plan.seg, code,
+        torch.cuda.current_stream(x.device).cuda_stream), "inclusive_scan")
     scan_launches.add()
-    if grid > 1:
-        offsets = torch.cat([totals.new_zeros(1),
-                             torch.cumsum(totals, 0)[:-1]])
-        build.check(lib.repro_scan_add_offsets(
-            out.data_ptr(), offsets.data_ptr(), n, int(block), code, stream),
-            "inclusive_scan")
-        scan_launches.add()
     return out

@@ -15,10 +15,13 @@ resident on each.  The paper's quantities map as:
   ``THREADS`` threads with 16 bytes a thread, so no thread idles and each
   warp's loads are whole transactions.  Blocks are whole tiles.
 
-The TPU's VMEM budget bounds a block only where a kernel stages the whole
-block in fast memory.  None of the port's 1-d kernels does: the scan
-stages one tile at a time in shared memory and carries the running sum
-across tiles in a register, so no block size is too large for it.
+The TPU's VMEM budget bounds a block where a kernel stages the whole block
+in fast memory (``max_block_1d`` in the reference).  The port's
+counterpart is the scan's segment: the scan stages a segment in shared
+memory, at most 32 KiB (``reduce_scan.scan_seg_max``, kScanSegMax in the
+CUDA source), and walks a larger block as several segments
+(``reduce_scan.scan_plan``), so every block stays legal.  The other 1-d
+kernels stream their block and take any size.
 """
 from __future__ import annotations
 
