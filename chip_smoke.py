@@ -10,8 +10,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3. kernels  — each kernel against its plain PyTorch version on the card
               at the serve path's shapes, in bf16 and f32, with times of
               the kernel, the plain version, one PyTorch library call
-              (a yardstick only) and the least time the card could take;
-              each attention record names the schedule
+              (a yardstick only) and the least time the card could take.
+              Kernel 1's three entries (``[kernel rmsnorm]``, ``entry``:
+              rmsnorm; add_rmsnorm at 8 and 4096 rows of 1024;
+              qk_norm_rope at decode B 8 and prefill L 256), each fused
+              launch bit for bit against its unfused card composition,
+              the fused ones timed beside the chain of library calls they
+              replace; every kernel 1 time also after a clean L2 flush.
+              Each attention record names the schedule
               (``attention_plan``: ``split`` or ``tile``).  Then the edge
               sweep of kernel 2 (``edge_sweep``): Sq around the split
               path's 16 packed rows and the tile path's 64, kv lengths
@@ -23,7 +29,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               forward_cached on the card and on the CPU, same weights.
 5. serve    — the ServeScheduler at full width, bf16, random weights:
               16 requests, 8 slots, dispatch depth "auto"; the kernels'
-              launch counters are reset before and read after this run.
+              launch counters are reset before and read after this run,
+              and every forward must launch kernel 1 exactly 85 times
+              (``ForwardSpy``).  A profiled window, and a profiled fused
+              dispatch of 16 decode steps (``decode_census``: CUDA
+              kernels and kernel 1 launches per decode-loop iteration).
 6. algorithms — the paper's parallel algorithms and their four 1-d
               kernels (reduce_sum, inclusive_scan, adjacent_difference,
               artificial_work).  Each kernel against its plain version at
@@ -40,7 +50,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               case in f32 and bf16 within ``sum_limit`` and
               deterministic, and both kernels on two streams at once
               (``[sweep reduce_sum]`` / ``[sweep inclusive_scan]``
-              lines).  The measured block plan (``KernelTuner``) for two
+              lines), and kernel 6's (``adjdiff_sweep``: misaligned views,
+              n around a vector and a tile, blocks below a tile and of no
+              whole number of vectors, a `par` call's interior chunks),
+              each bit-equal to its plain version.  The measured block
+              plan (``KernelTuner``) for two
               of them.  Then adjacent_difference,
               reduce, inclusive_scan, exclusive_scan, artificial_work and
               transform at n = 2^24 and 2^26 under seq, static par and
@@ -51,7 +65,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
               pool with page size, depth and speculation "auto" (16
               shared-prefix requests from the port's load generator; the
               launch counters are reset before and read after this run,
-              and every shape kernel 3 ran at is noted).  Then kernel 3
+              every forward must launch kernel 1 85 times, and every
+              shape kernel 3 ran at is noted).  Then kernel 3
               (paged flash attention) against its plain version and, bit
               for bit, against kernel 2 over the same K/V laid out
               contiguously: decode (B 8, kv 1-1024), verify at every
@@ -189,7 +204,36 @@ def main() -> None:
     def flush():
         scratch.zero_()
 
+    def flush_clean():
+        # Reads 96 MB: evicts L2 like `flush`, but leaves no dirty lines
+        # for the timed call to write back.
+        scratch.view(torch.float32).sum()
+
     records = {"rmsnorm": [], "flash_attention": []}
+    bit_bad = []
+
+    def bound_of(byts, ops):
+        t_b, t_o = byts / HBM_BYTES_PER_S, ops / PEAK_F32
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    def kernel1_times(rec, kernel, plain, library=None, chain=None):
+        """Kernel 1's times, each after a dirty and after a clean L2
+        flush: the kernel, its plain version, and the yardstick -- one
+        library call, or for a fused entry (no one call computes it) the
+        chain of library calls it replaces."""
+        rec["ms"] = time_ms(torch, kernel, flush=flush)
+        rec["ms_clean_l2"] = time_ms(torch, kernel, flush=flush_clean)
+        rec["plain_ms"] = time_ms(torch, plain, flush=flush)
+        rec["library_ms"] = library and time_ms(torch, library, flush=flush)
+        rec["library_ms_clean_l2"] = library and time_ms(
+            torch, library, flush=flush_clean)
+        if chain is not None:
+            rec["chain_ms"] = time_ms(torch, chain, flush=flush)
+            rec["chain_ms_clean_l2"] = time_ms(torch, chain,
+                                               flush=flush_clean)
+
+    # f32: the row's sum in another order; bf16: one rounding step.
+    rms_tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
     def rms_case(rows, d, dtype):
         x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
@@ -198,25 +242,119 @@ def main() -> None:
         out = krms.rmsnorm(x, g, eps=1e-6)
         ref = krms.rmsnorm_ref(x, g, eps=1e-6)
         torch.cuda.synchronize()
-        # f32: the sums run in another order; bf16: one rounding step.
-        atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+        atol, rtol = rms_tol[dtype]
         ok, err = within(torch, out, ref, atol, rtol)
         item = x.element_size()
-        byts = 2 * rows * d * item + 4 * d
-        ops = 4 * rows * d
-        bound = max(byts / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
-        rec = dict(
-            shape=f"rows={rows} d={d} {str(dtype)[6:]}", err=err, ok=ok,
-            tol=f"atol={atol} rtol={rtol}",
-            ms=time_ms(torch, lambda: krms.rmsnorm(x, g, eps=1e-6),
-                       flush=flush),
-            plain_ms=time_ms(torch, lambda: krms.rmsnorm_ref(x, g, 1e-6),
-                             flush=flush),
-            library_ms=time_ms(torch, lambda: torch.nn.functional.rms_norm(
-                x, (d,), g_lib, 1e-6), flush=flush),
-            bound_ms=bound,
-            bound_by="bytes" if byts / HBM_BYTES_PER_S
-            >= ops / PEAK_F32 else "operations")
+        bound, by = bound_of(2 * rows * d * item + 4 * d, 4 * rows * d)
+        rec = dict(entry="rmsnorm", shape=f"rows={rows} d={d} "
+                   f"{str(dtype)[6:]}", err=err, ok=ok,
+                   tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
+                   bound_by=by)
+        kernel1_times(
+            rec, lambda: krms.rmsnorm(x, g, eps=1e-6),
+            lambda: krms.rmsnorm_ref(x, g, 1e-6),
+            library=lambda: torch.nn.functional.rms_norm(x, (d,), g_lib,
+                                                         1e-6))
+        records["rmsnorm"].append(rec)
+        log(f"[kernel rmsnorm] {rec}")
+
+    def add_case(rows, d, dtype):
+        """add_rmsnorm against its plain version, and bit for bit against
+        its unfused card composition: PyTorch's x + y, then kernel 1."""
+        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        y = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        g_lib = g.to(dtype)
+        s, h = krms.add_rmsnorm(x, y, g, eps=1e-6)
+        s_ref, h_ref = krms.add_rmsnorm_ref(x, y, g, eps=1e-6)
+        s_two = x + y
+        h_two = krms.rmsnorm(s_two, g, eps=1e-6)
+        torch.cuda.synchronize()
+        atol, rtol = rms_tol[dtype]
+        ok, err = within(torch, h, h_ref, atol, rtol)
+        bit_equal = torch.equal(s, s_two) and torch.equal(h, h_two)
+        if not bit_equal:
+            bit_bad.append(f"add_rmsnorm rows={rows} d={d} {dtype}")
+        item = x.element_size()
+        bound, by = bound_of(4 * rows * d * item + 4 * d, 5 * rows * d)
+
+        def chain():
+            torch.nn.functional.rms_norm(x + y, (d,), g_lib, 1e-6)
+
+        def unfused():
+            krms.rmsnorm(x + y, g, eps=1e-6)
+
+        rec = dict(entry="add_rmsnorm", shape=f"rows={rows} d={d} "
+                   f"{str(dtype)[6:]}", err=err,
+                   ok=ok and torch.equal(s, s_ref),
+                   bit_equal_unfused=bit_equal,
+                   tol=f"h: atol={atol} rtol={rtol}; s: exact",
+                   bound_ms=bound, bound_by=by,
+                   library_note="no one PyTorch call; chain_ms: x + y, "
+                                "F.rms_norm")
+        kernel1_times(rec, lambda: krms.add_rmsnorm(x, y, g, eps=1e-6),
+                      lambda: krms.add_rmsnorm_ref(x, y, g, 1e-6),
+                      chain=chain)
+        rec["unfused_ms"] = time_ms(torch, unfused, flush=flush)
+        records["rmsnorm"].append(rec)
+        log(f"[kernel rmsnorm] {rec}")
+
+    def qk_case(name, b, length, hq, hkv, d, dtype):
+        """qk_norm_rope against its plain version, and bit for bit against
+        its unfused card composition: kernel 1 on q and on k, then the
+        model's rotary embedding on each."""
+        from repro_torch.models import common as cm
+
+        q = torch.randn(b, length, hq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, length, hkv, d, generator=gen,
+                        device=dev).to(dtype)
+        gq = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        gk = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        gq_lib, gk_lib = gq.to(dtype), gk.to(dtype)
+        pos = torch.randint(0, 1024, (b, length), generator=gen, device=dev)
+        cos, sin = cm.rope_angles(pos, d, 1e6)
+        qo, ko = krms.qk_norm_rope(q, k, gq, gk, cos, sin, eps=1e-6)
+        q_ref, k_ref = krms.qk_norm_rope_ref(q, k, gq, gk, cos, sin, 1e-6)
+        q_two = cm.apply_rope(krms.rmsnorm(q, gq, eps=1e-6), cos, sin)
+        k_two = cm.apply_rope(krms.rmsnorm(k, gk, eps=1e-6), cos, sin)
+        torch.cuda.synchronize()
+        # f32: the row's sum in another order.  bf16: a normed element
+        # may differ by one step (2^-8 relative, |h| up to ~4) and carry
+        # through the rotation, plus the output's own rounding.
+        atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (3e-2, 1e-2)
+        ok_q, err_q = within(torch, qo, q_ref, atol, rtol)
+        ok_k, err_k = within(torch, ko, k_ref, atol, rtol)
+        bit_equal = torch.equal(qo, q_two) and torch.equal(ko, k_two)
+        if not bit_equal:
+            bit_bad.append(f"qk_norm_rope {name} {dtype}")
+        item = q.element_size()
+        elems = q.numel() + k.numel()
+        bound, by = bound_of(2 * elems * item + 2 * cos.numel() * 4
+                             + 2 * 4 * d, 10 * elems)
+
+        def chain():
+            qn = torch.nn.functional.rms_norm(q, (d,), gq_lib, 1e-6)
+            kn = torch.nn.functional.rms_norm(k, (d,), gk_lib, 1e-6)
+            cm.apply_rope(qn, cos, sin)
+            cm.apply_rope(kn, cos, sin)
+
+        def unfused():
+            cm.apply_rope(krms.rmsnorm(q, gq, eps=1e-6), cos, sin)
+            cm.apply_rope(krms.rmsnorm(k, gk, eps=1e-6), cos, sin)
+
+        rec = dict(entry="qk_norm_rope",
+                   shape=f"{name} B={b} L={length} Hq={hq} Hkv={hkv} D={d} "
+                         f"{str(dtype)[6:]}", err=max(err_q, err_k),
+                   ok=ok_q and ok_k, bit_equal_unfused=bit_equal,
+                   tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
+                   bound_by=by,
+                   library_note="no one PyTorch call; chain_ms: F.rms_norm "
+                                "x2, apply_rope x2")
+        kernel1_times(
+            rec, lambda: krms.qk_norm_rope(q, k, gq, gk, cos, sin, eps=1e-6),
+            lambda: krms.qk_norm_rope_ref(q, k, gq, gk, cos, sin, 1e-6),
+            chain=chain)
+        rec["unfused_ms"] = time_ms(torch, unfused, flush=flush)
         records["rmsnorm"].append(rec)
         log(f"[kernel rmsnorm] {rec}")
 
@@ -224,6 +362,10 @@ def main() -> None:
         rms_case(8, 1024, dtype)          # decode pre-norms, 8 lanes
         rms_case(8 * 16, 128, dtype)      # decode q-norm: 8 lanes x 16 heads
         rms_case(4096, 1024, dtype)       # a long prefill's pre-norm
+        add_case(8, 1024, dtype)          # decode residual + norm
+        add_case(4096, 1024, dtype)       # a long prefill's
+        qk_case("decode", 8, 1, 16, 8, 128, dtype)
+        qk_case("prefill", 1, 256, 16, 8, 128, dtype)
 
     def attn_case(name, b, hq, hkv, sq, skv, d, kv_lens, window, dtype):
         q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
@@ -279,8 +421,10 @@ def main() -> None:
         attn_case("prefill", 1, 16, 8, 256, 1024, 128, [700], None, dtype)
         attn_case("window", 1, 16, 8, 256, 1024, 128, [700], 128, dtype)
     bad = [r["shape"] for rs in records.values() for r in rs if not r["ok"]]
-    if bad:
-        fail(f"kernels disagree with their plain versions: {bad}")
+    if bad or bit_bad:
+        fail(f"kernels disagree with their plain versions: {bad}; fused "
+             f"kernel 1 differs from its unfused card composition: "
+             f"{bit_bad}")
     del scratch
     sweep_problems = edge_sweep(torch, kfa, dev, seed=10)
     if sweep_problems:
@@ -331,15 +475,17 @@ def main() -> None:
     # by uncollected reference cycles would count otherwise.
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    krms.launches.reset()
+    krms.reset_counts()
     kfa.launches.reset()
-    t_start = time.monotonic()
-    rids = [sched.submit(p, max_new_tokens=64) for p in prompts]
-    results = sched.run_until_idle()
-    torch.cuda.synchronize()
-    makespan = time.monotonic() - t_start
+    with ForwardSpy(lm, krms) as fspy:
+        t_start = time.monotonic()
+        rids = [sched.submit(p, max_new_tokens=64) for p in prompts]
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t_start
     launches = {"rmsnorm": krms.launches.count,
                 "flash_attention": kfa.launches.count}
+    entries = {k: c.count for k, c in krms.entry_launches.items()}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     gen_tokens = sum(len(results.get(r, [])) for r in rids)
     ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
@@ -354,7 +500,8 @@ def main() -> None:
         f"{percentile(ttfts, 99) * 1e3:.1f}ms; peak memory {peak_mb:.0f} "
         f"MiB; launches {launches}")
     log(f"[serve] serve_dispatch_depth decisions: {depths}")
-    problems = []
+    k1_line, problems = fspy.report(8, base.n_layers)
+    log(f"[serve] {k1_line}; kernel 1 launches by entry {entries}")
     for r, n in zip(rids, lens, strict=True):
         out = results.get(r)
         if out is None or len(out) != 64:
@@ -379,11 +526,13 @@ def main() -> None:
         sched.submit(p[:128], max_new_tokens=16)
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
+    iters_before = sched.decode_loop_iters
     with torch.profiler.profile(activities=activities) as prof:
         t_win = time.perf_counter()
         sched.run_until_idle()
         torch.cuda.synchronize()
         t_win = time.perf_counter() - t_win
+    win_iters = sched.decode_loop_iters - iters_before
     # Kernel events only: the CPU ops that launched them carry the same
     # device time again.
     kernels_run = [e for e in prof.key_averages()
@@ -402,9 +551,19 @@ def main() -> None:
            f"{(t_win - busy_us / 1e6) / win_tokens * 1e3:.2f}ms"
            if busy_us > 0 else "not measured (no device time in the trace)")
         + f"; attention kernels (repro_fa::*) {attn_us / 1e3:.1f}ms"
+        + f"; CUDA kernels {sum(e.count for e in kernels_run)} over "
+          f"{win_iters} decode-loop iterations = "
+          f"{sum(e.count for e in kernels_run) / max(win_iters, 1):.1f} per "
+          f"iteration (prefill included)"
         + "; top kernels (ms): "
         + ", ".join(f"{e.key[:40]}={e.self_device_time_total / 1e3:.1f}"
                     for e in top))
+    census = decode_census(torch, dev, base, params)
+    log(f"[serve] decode-loop census (one fused dispatch, 8 lanes, 16 "
+        f"steps, profiled): {json.dumps(census)}")
+    if census["kernel1_launches_per_iteration"] != 3 * base.n_layers + 1:
+        fail(f"kernel 1 launched {census['kernel1_launches_per_iteration']}"
+             f" times per decode-loop iteration, not {3 * base.n_layers + 1}")
 
     del sched, params, caches, logits
     torch.cuda.empty_cache()
@@ -458,6 +617,106 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+class ForwardSpy:
+    """Counts kernel 1's launches inside each ``lm.forward_cached`` call,
+    keyed by the call's (B, L): a decode-loop iteration is one forward
+    over every slot (B = n_slots), a prefill chunk one over one lane.
+    Reads only host counters and shapes, so the run neither syncs nor
+    launches more.  ``with ForwardSpy(lm, krms) as spy:`` patches the
+    module attribute every caller goes through."""
+
+    def __init__(self, lm, krms):
+        self.lm, self.krms = lm, krms
+        self.per_call: dict = {}
+
+    def __enter__(self):
+        real = self.real = self.lm.forward_cached
+
+        def spy(params, tokens, *args, **kwargs):
+            before = self.krms.launches.count
+            out = real(params, tokens, *args, **kwargs)
+            key = (int(tokens.shape[0]), int(tokens.shape[1]))
+            self.per_call.setdefault(key, []).append(
+                self.krms.launches.count - before)
+            return out
+
+        self.lm.forward_cached = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.forward_cached = self.real
+
+    def report(self, n_slots: int, n_layers: int) -> tuple[str, list]:
+        """A log line and the problems: every forward must launch kernel
+        1 exactly 3 * n_layers + 1 times (layer 0's ln1, an add+ln2 per
+        layer, an add+ln1 for every later layer, a q/k-norm + rotary
+        launch per layer, the final norm)."""
+        want = 3 * n_layers + 1
+        loop = [n for (b, _), ns in self.per_call.items() if b == n_slots
+                for n in ns]
+        per_iter = sum(loop) / max(len(loop), 1)
+        seen = {k: sorted(set(v)) for k, v in sorted(self.per_call.items())}
+        line = (f"kernel 1 launches per decode-loop iteration {per_iter:.2f} "
+                f"over {len(loop)} iterations (want {want}); per forward by "
+                f"(B, L): {seen}")
+        bad = [f"forward {k} launched kernel 1 {v} times, not {want}"
+               for k, v in seen.items() if v != [want]]
+        if not loop:
+            bad.append("no decode-loop forward ran")
+        return line, bad
+
+
+def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
+    """CUDA kernels per decode-loop iteration: one fused dispatch of
+    ``iters`` steps over 8 lanes of qwen3-0.6b at full width (bf16,
+    random weights, lanes at cache positions 100-800), profiled; the
+    device kernel events over ``iters``, and kernel 1's launch counter
+    over ``iters``.  Uses only APIs the port has had since slice 1, so
+    the same function counts a parent tree's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+    from repro_torch.serve.decode_loop import make_fused_decode_step
+
+    if cfg is None:
+        cfg = get_config("qwen3-0.6b")
+        params = lm.init_params(0, cfg, device=dev)
+    caches = lm.init_caches(cfg, 8, 1024, device=dev)
+    step = make_fused_decode_step(cfg)
+    gen = torch.Generator().manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen).to(dev)
+    poss = torch.randint(100, 800, (8,), generator=gen).to(dev)
+    step(params, caches, toks, poss, [2] * 8)        # warm
+    torch.cuda.synchronize()
+    krms.launches.reset()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        step(params, caches, toks, poss, [iters] * 8)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in kernels)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    return {"cuda_kernels_per_iteration": n_kernels / iters,
+            "kernel1_launches_per_iteration": krms.launches.count / iters,
+            "device_us_per_iteration": busy_us / iters,
+            "top": {e.key[:40]: e.count / iters for e in sorted(
+                kernels, key=lambda e: -e.count)[:8]}}
+
+
+def census_main(src: str) -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.census_main('<tree>/src')"``:
+    ``decode_census`` for the port under ``src`` (a parent's tree, to
+    compare in one call); prints one ``[census]`` line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(src))
+    dev = torch.device("cuda")
+    log(f"[census] {os.path.abspath(src)}: "
+        f"{json.dumps(decode_census(torch, dev))}")
 
 
 # The schedules' edges (attention_plan): query rows around the split path's
@@ -709,6 +968,59 @@ def sum_sweep(torch, dev, seed):
     return problems
 
 
+def adjdiff_sweep(torch, dev, seed):
+    """Kernel 6 at its edges, in f32 and bf16: n around one vector and
+    one tile, views x[o:] for o = 1-7 (a misaligned head; the output is
+    allocated at the same offset), blocks below a tile and blocks that are
+    no whole number of vectors (every chunk then starts off a boundary),
+    and the interior chunks of a `par` call (x[c.start - 1:...]).  Each
+    case bit-equal to the plain version.  Logs one record per case and
+    returns the problems found."""
+    from repro_torch.kernels import adjacent_difference as kad
+    from repro_torch.kernels import ops, tuning
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    problems = []
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.empty((), dtype=dtype).element_size()
+        tile, vec = tuning.tile_elems(item), 16 // item
+        # (n, offset of the view, block; None: the plan's)
+        cases = [(n, 0, None) for n in (1, 2, vec - 1, vec, vec + 1,
+                                         tile - 1, tile, tile + 1)]
+        cases += [(3 * tile + 5, o, None) for o in range(1, 8)]
+        cases += [(5 * tile + 3, 0, tile // 2), (5 * tile + 3, 3, 100),
+                  (1000, 1, 7), (7 * tile + 9, 5, 3 * tile + 1),
+                  (2 ** 20 + 3, 1, None)]
+        for n, o, block in cases:
+            base = torch.randn(n + o, generator=gen, device=dev).to(dtype)
+            x = base[o:]
+            b = block or tuning.plan_1d(n, num_sms=ops.num_sms(x),
+                                        bytes_per_elem=item).block
+            out = kad.adjacent_difference(x, block=b)
+            ref = kad.adjacent_difference_ref(x)
+            # Interior par chunks: a view one element left of the chunk,
+            # the first element of the result dropped.
+            chunk = max(b, 1)
+            pieces = [kad.adjacent_difference(x[:chunk], block=b)] + [
+                kad.adjacent_difference(x[c - 1:c + chunk], block=b)[1:]
+                for c in range(chunk, n, chunk)]
+            torch.cuda.synchronize()
+            rec = dict(case=f"n={n} x[{o}:] block={b} {str(dtype)[6:]}",
+                       bit_equal=torch.equal(out, ref),
+                       chunks_bit_equal=torch.equal(torch.cat(pieces), ref),
+                       out_aligned_like_x=out.data_ptr() % 16
+                       == x.data_ptr() % 16)
+            log(f"[sweep adjacent_difference] {rec}")
+            n_cases += 1
+            bad = [k for k, v in rec.items() if v is False]
+            if bad:
+                problems.append(f"{rec['case']}: {bad}")
+            del base, x, out, ref, pieces
+    log(f"[sweep] {n_cases} cases, {len(problems)} with a problem")
+    return problems
+
+
 def affine(c):
     """transform's body in phase 6: one function object, so that acc's
     calibration, keyed by it, is made once."""
@@ -834,7 +1146,8 @@ def _algorithms_phase(torch, dev):
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     plan=str(tuning.plan_1d(
                         n, num_sms=ops.num_sms(x), bytes_per_elem=item)))
-                if name in ("reduce_sum", "inclusive_scan"):
+                if name in ("reduce_sum", "inclusive_scan",
+                            "adjacent_difference"):
                     # Yardsticks: the same calls after a flush that leaves
                     # L2 clean, and (scan) a copy of x, the same bytes.
                     rec["ms_clean_l2"] = time_ms(
@@ -858,6 +1171,9 @@ def _algorithms_phase(torch, dev):
     sweep_problems = sum_sweep(torch, dev, seed=12)
     if sweep_problems:
         fail("kernels 4 and 5 edge sweep: " + "; ".join(sweep_problems))
+    sweep_problems = adjdiff_sweep(torch, dev, seed=14)
+    if sweep_problems:
+        fail("kernel 6 edge sweep: " + "; ".join(sweep_problems))
 
     # The measured block plan (kernels/autotune.py) on the card: one
     # search per kernel, then a hit in the store for the same bucket.
@@ -1155,15 +1471,17 @@ def _paged_phase(torch, dev, base):
 
     gc.collect()                     # as in phase 5
     torch.cuda.reset_peak_memory_stats()
-    for counter in (krms.launches, kfa.launches, kfa.paged_launches):
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
         counter.reset()
     kfa._paged_fn = spy
     try:
-        t_start = time.monotonic()
-        rids = [sched.submit(p, max_new_tokens=64) for _, p in mat]
-        results = sched.run_until_idle()
-        torch.cuda.synchronize()
-        makespan = time.monotonic() - t_start
+        with ForwardSpy(lm, krms) as fspy:
+            t_start = time.monotonic()
+            rids = [sched.submit(p, max_new_tokens=64) for _, p in mat]
+            results = sched.run_until_idle()
+            torch.cuda.synchronize()
+            makespan = time.monotonic() - t_start
         launches = {"rmsnorm": krms.launches.count,
                     "flash_attention": kfa.launches.count,
                     "paged_flash_attention": kfa.paged_launches.count}
@@ -1205,7 +1523,9 @@ def _paged_phase(torch, dev, base):
         "launches): " + ", ".join(
             f"({b}, {sq}, {ps}, {names[dt]}): {n}"
             for (b, sq, ps, dt), n in sorted(shapes.items())))
-    problems = []
+    k1_line, problems = fspy.report(sched.pool.n_slots, base.n_layers)
+    log(f"[paged] {k1_line}; kernel 1 launches by entry "
+        f"{ {k: c.count for k, c in krms.entry_launches.items()} }")
     for r, n in zip(rids, lens, strict=True):
         out = results.get(r)
         if out is None or len(out) != 64:
@@ -1411,7 +1731,8 @@ def _paged_phase(torch, dev, base):
     # before and read after it.
     asched = front_sched(AdaptiveCoreChunk(cache=CalibrationCache()), "auto")
     afront = ServeFrontend(asched, enforce_deadlines=False)
-    for counter in (krms.launches, kfa.launches, kfa.paged_launches):
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
         counter.reset()
     auto_streams, a_span = asyncio.run(replay(afront))
     torch.cuda.synchronize()

@@ -15,22 +15,25 @@ from typing import Callable
 
 import torch
 
+from ..core.calibration import function_key
 from ..device import resolve_device
 from . import detail
 
 
-def _chunk_key(fn: Callable, x: torch.Tensor, tag: str):
-    return (tag, id(fn), str(x.dtype))
+def _map(policy, fn: Callable, key, *arrays: torch.Tensor) -> torch.Tensor:
+    body = detail.measured_body(fn, *arrays)
+    p = detail.plan(policy, arrays[0].shape[0], body, key=key)
+    return detail.run_map_chunks(p, fn, *arrays)
 
 
 def transform(policy, x: torch.Tensor, fn: Callable,
               y: torch.Tensor | None = None) -> torch.Tensor:
-    """out[i] = fn(x[i])  (or fn(x[i], y[i]) for the binary overload)."""
+    """out[i] = fn(x[i])  (or fn(x[i], y[i]) for the binary overload).
+    The calibration is keyed by ``fn`` itself (``function_key``), where
+    the reference keys by its ``id()``."""
     arrays = (x,) if y is None else (x, y)
-    body = detail.measured_body(fn, *arrays)
-    p = detail.plan(policy, x.shape[0], body,
-                    key=_chunk_key(fn, x, "transform"))
-    return detail.run_map_chunks(p, fn, *arrays)
+    return _map(policy, fn, ("transform", function_key(fn), str(x.dtype)),
+                *arrays)
 
 
 def for_each(policy, x: torch.Tensor, fn: Callable) -> torch.Tensor:
@@ -44,7 +47,9 @@ def copy(policy, x: torch.Tensor) -> torch.Tensor:
 
 
 def fill(policy, x: torch.Tensor, value) -> torch.Tensor:
-    return transform(policy, x, lambda a: torch.full_like(a, value))
+    """Keyed by x's type alone: the body costs the same for any value."""
+    return _map(policy, lambda a: torch.full_like(a, value),
+                ("fill", str(x.dtype)), x)
 
 
 def generate(policy, count: int, fn: Callable, dtype=torch.float32,

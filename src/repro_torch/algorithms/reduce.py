@@ -13,6 +13,7 @@ from typing import Callable
 
 import torch
 
+from ..core.calibration import function_key
 from ..core.future import when_all
 from ..kernels import ops
 from . import detail
@@ -87,29 +88,41 @@ def _fold(op, c: torch.Tensor, identity: torch.Tensor) -> torch.Tensor:
     return acc[0]
 
 
-def transform_reduce(policy, x: torch.Tensor, transform_fn: Callable,
-                     op: Callable = torch.add, init=None):
+def _transform_reduce(policy, x, transform_fn, op, init, tag):
     identity = _identity_for(op, x.dtype, init)
 
     def partial(c):
         t = transform_fn(c)
         return _fold(op, t, identity.to(t.dtype))
 
-    p = _plan_for(policy, x, partial, ("transform_reduce", id(transform_fn)))
+    p = _plan_for(policy, x, partial, tag)
     return detail.run_reduce_chunks(p, partial, op, x)
 
 
+def transform_reduce(policy, x: torch.Tensor, transform_fn: Callable,
+                     op: Callable = torch.add, init=None):
+    """Keyed by ``transform_fn`` and ``op`` themselves
+    (``function_key``), where the reference keys by ``id(transform_fn)``."""
+    return _transform_reduce(
+        policy, x, transform_fn, op, init,
+        ("transform_reduce", function_key(transform_fn), function_key(op)))
+
+
 def count_if(policy, x: torch.Tensor, pred: Callable):
-    return transform_reduce(
-        policy, x, lambda c: pred(c).to(torch.int32), torch.add)
+    """Keyed by ``pred``, not by the wrapper made here on every call."""
+    return _transform_reduce(
+        policy, x, lambda c: pred(c).to(torch.int32), torch.add, None,
+        ("count_if", function_key(pred)))
 
 
 def all_of(policy, x: torch.Tensor, pred: Callable):
-    return transform_reduce(policy, x, pred, torch.logical_and)
+    return _transform_reduce(policy, x, pred, torch.logical_and, None,
+                             ("all_of", function_key(pred)))
 
 
 def any_of(policy, x: torch.Tensor, pred: Callable):
-    return transform_reduce(policy, x, pred, torch.logical_or)
+    return _transform_reduce(policy, x, pred, torch.logical_or, None,
+                             ("any_of", function_key(pred)))
 
 
 def none_of(policy, x: torch.Tensor, pred: Callable):

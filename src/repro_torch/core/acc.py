@@ -94,7 +94,9 @@ class AdaptiveCoreChunk:
                 if smoothed is not None:
                     return smoothed
             return t_iter_analytic(body, self.hardware)
-        k = key if key is not None else ("t_iter", getattr(body, "__name__", id(body)))
+        k = key if key is not None else (
+            "t_iter", getattr(body, "__name__", None)
+            or calibration.function_key(body))
         self._last_workload_key = k
         measure = (calibration.measure_iteration_device
                    if isinstance(body, calibration.DeviceBody)

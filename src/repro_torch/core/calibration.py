@@ -45,11 +45,13 @@ through ``ExecutionModel.observe``, not this method.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import tempfile
 import threading
 import time
+import weakref
 from typing import Any, Callable, Hashable
 
 from .executor import Chunk, Executor, make_chunks
@@ -73,9 +75,69 @@ def _key_str(key: Hashable) -> str:
     Keys are small hashables (strings / tuples of strings and ints); their
     ``repr`` round-trips identically within and across processes, which is
     all persistence needs (the JSON file maps key-strings to floats; we
-    never parse the string back into a tuple).
+    never parse the string back into a tuple).  A key that holds a
+    ``FunctionKey`` means something in this process only and is never
+    written to disk.
     """
     return repr(key)
+
+
+class FunctionKey:
+    """The identity of a user's function inside a calibration key.
+
+    One per live function object (``function_key``): the same object
+    gets the same key on every call, two live objects get two keys, and
+    serials are never reused, so a function allocated where a collected
+    one lived (the same ``id()``) starts with a key of its own.  It names
+    an object of this process, so a cache does not persist it."""
+
+    __slots__ = ("serial", "name")
+
+    def __init__(self, serial: int, name: str):
+        self.serial = serial
+        self.name = name
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, FunctionKey) and other.serial == self.serial
+
+    def __hash__(self) -> int:
+        return hash(("FunctionKey", self.serial))
+
+    def __repr__(self) -> str:
+        return f"FunctionKey({self.name!r}, {self.serial})"
+
+
+_fn_keys: "weakref.WeakKeyDictionary[Any, FunctionKey]" = \
+    weakref.WeakKeyDictionary()
+_pinned: dict[int, tuple[Any, FunctionKey]] = {}
+_serials = itertools.count(1)
+_fn_lock = threading.Lock()
+
+
+def function_key(fn: Callable) -> FunctionKey:
+    """The ``FunctionKey`` of ``fn``.  Held weakly: the entry goes with
+    the function.  A callable that takes no weak reference is pinned
+    instead (kept alive, so its ``id()`` is never reused)."""
+    name = (f"{getattr(fn, '__module__', None)}."
+            f"{getattr(fn, '__qualname__', type(fn).__qualname__)}")
+    with _fn_lock:
+        try:
+            key = _fn_keys.get(fn)
+            if key is None:
+                key = _fn_keys[fn] = FunctionKey(next(_serials), name)
+            return key
+        except TypeError:            # no weak reference, or unhashable
+            pinned = _pinned.get(id(fn))
+            if pinned is None:
+                pinned = _pinned[id(fn)] = (fn, FunctionKey(next(_serials),
+                                                            name))
+            return pinned[1]
+
+
+def _process_local(key: Any) -> bool:
+    if isinstance(key, FunctionKey):
+        return True
+    return isinstance(key, tuple) and any(_process_local(k) for k in key)
 
 
 class CalibrationCache:
@@ -91,15 +153,25 @@ class CalibrationCache:
         self._t0: dict[str, float] = {}
         self._tuned: dict[str, dict] = {}
         self._provenance: dict[str, str] = {}
+        self._local: set[str] = set()      # keys naming a FunctionKey
         self._lock = threading.Lock()
         self._last_smooth_save = 0.0
         self.path = path
         if path:
             self.load(path)
 
+    def _k(self, key: Hashable) -> str:
+        """``_key_str(key)`` of a key about to be stored, noted as
+        process-local when it holds a ``FunctionKey``."""
+        k = _key_str(key)
+        if _process_local(key):
+            with self._lock:
+                self._local.add(k)
+        return k
+
     # -- memoised measurement ------------------------------------------------
     def t_iter(self, key: Hashable, measure: Callable[[], float]) -> float:
-        k = _key_str(key)
+        k = self._k(key)
         if k not in self._t_iter:
             value = measure()
             with self._lock:
@@ -108,7 +180,7 @@ class CalibrationCache:
         return self._t_iter[k]
 
     def t0(self, key: Hashable, measure: Callable[[], float]) -> float:
-        k = _key_str(key)
+        k = self._k(key)
         if k not in self._t0:
             value = measure()
             with self._lock:
@@ -138,7 +210,7 @@ class CalibrationCache:
         arrive per chunk/tick, on the hot path.  The first observation
         for a key always persists immediately.
         """
-        k = _key_str(key)
+        k = self._k(key)
         now = time.monotonic()
         with self._lock:
             old = self._t_iter.get(k)
@@ -166,8 +238,9 @@ class CalibrationCache:
 
     def set_tuned(self, key: Hashable, record: dict) -> None:
         """Persist a winner record (overwrites any previous one)."""
+        k = self._k(key)
         with self._lock:
-            self._tuned[_key_str(key)] = dict(record)
+            self._tuned[k] = dict(record)
         self._autosave()
 
     # -- provenance ----------------------------------------------------------
@@ -182,7 +255,7 @@ class CalibrationCache:
         effect."""
         if level not in _PROVENANCE_ORDER:
             raise ValueError(f"unknown provenance level {level!r}")
-        k = _key_str(key)
+        k = self._k(key)
         changed = False
         with self._lock:
             old = self._provenance.get(k, _PROVENANCE_ORDER[0])
@@ -202,6 +275,7 @@ class CalibrationCache:
             self._t0.clear()
             self._tuned.clear()
             self._provenance.clear()
+            self._local.clear()
 
     def __len__(self) -> int:
         return len(self._t_iter) + len(self._t0) + len(self._tuned)
@@ -230,7 +304,8 @@ class CalibrationCache:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with self._lock:
             # v3: one unified table — each key's record carries whichever
-            # quantities exist for it plus its provenance level.
+            # quantities exist for it plus its provenance level.  Keys of
+            # one process's function objects stay out of the file.
             entries: dict[str, dict] = {}
             for k, v in self._t0.items():
                 entries.setdefault(k, {})["t0"] = v
@@ -241,6 +316,8 @@ class CalibrationCache:
             for k, p in self._provenance.items():
                 if k in entries:
                     entries[k]["provenance"] = p
+            for k in self._local:
+                entries.pop(k, None)
             blob = {"version": SCHEMA_VERSION, "entries": entries}
         # Atomic replace so a crashed writer never leaves a torn file.
         fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",

@@ -35,12 +35,26 @@ def _fn():
     return fn
 
 
+def out_like(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of x's shape and type whose first element lies at
+    x's offset from a 16-byte boundary: a view into a buffer one vector
+    longer.  The kernel's body then loads and stores whole vectors of
+    both (an interior ``par`` chunk is a view one element left of a
+    boundary, where a fresh tensor would start on one)."""
+    per_vec = 16 // x.element_size()
+    buf = torch.empty(x.numel() + per_vec, dtype=x.dtype, device=x.device)
+    want = x.data_ptr() % 16 // x.element_size()
+    have = buf.data_ptr() % 16 // x.element_size()
+    off = (want - have) % per_vec
+    return buf[off:off + x.numel()]
+
+
 def adjacent_difference(x: torch.Tensor, *, block: int) -> torch.Tensor:
     """x: (n,), f32 or bf16; ``block`` elements per thread block."""
     if x.device.type == "cpu":
         return adjacent_difference_ref(x)
     code = tuning.check_1d("adjacent_difference", x, block, _DTYPES)
-    out = torch.empty_like(x)
+    out = out_like(x)
     if x.numel() == 0:
         return out
     err = _fn()(x.data_ptr(), out.data_ptr(), x.numel(), int(block), code,

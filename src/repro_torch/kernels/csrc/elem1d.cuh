@@ -8,11 +8,11 @@
 // kernel: there is no padded copy of the input.  Sizes are 64-bit.
 //
 // A chunk of a parallel algorithm is a view that starts at any element, so
-// its first element need not lie on a 16-byte boundary.  adjacent_difference
-// and artificial_work load element by element (thread t holding elements
-// t, t + kThreads, ... of a tile, so each warp load reads neighbouring
-// addresses).  reduce_sum and inclusive_scan split a range into a scalar
-// head up to the first 16-byte boundary (`head_elems`), a body of 16-byte
+// its first element need not lie on a 16-byte boundary.  artificial_work
+// loads element by element (thread t holding elements t, t + kThreads, ...
+// of a tile, so each warp load reads neighbouring addresses).  reduce_sum,
+// inclusive_scan and adjacent_difference split a range into a scalar head
+// up to the first 16-byte boundary (`head_elems`), a body of 16-byte
 // vectors (`ldg16`, `unpack`, `pack`) and a scalar tail, so a misaligned
 // view still takes the vector path after at most kItems<T> - 1 elements.
 #pragma once

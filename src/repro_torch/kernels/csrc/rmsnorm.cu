@@ -1,4 +1,4 @@
-// RMSNorm forward for Hopper (sm_90a).
+// RMSNorm forward for Hopper (sm_90a): three launches over one row body.
 //
 // Replaces: src/repro/kernels/rmsnorm.py `rmsnorm_pallas` (its `_kernel`):
 //   out = (x / sqrt(mean(x^2) + eps)) * gamma, in f32, cast back to x's type.
@@ -6,18 +6,41 @@
 // kernel's formula, and nvcc's default IEEE division and square root give
 // the same rounding as the plain PyTorch version.
 //
-// What bounds it on this card: bytes.  It reads x and gamma once and writes
-// out once: 2 * rows * d * itemsize + 4 * d bytes, one multiply-add per
-// element, far below the card's ops-per-byte balance.  On the decode path
-// rows are 8..128 (a few tens of KB), so the launch, not the memory, sets
-// its time; fusing it into the neighbouring matmul is later work.
+// Entry points (kernels/rmsnorm.py):
+//   repro_rmsnorm       rows of x normed;
+//   repro_add_rmsnorm   s = x + y rounded to the type (the residual stream,
+//                       PyTorch's `x + y` bit for bit), h = rmsnorm(s);
+//   repro_qk_norm_rope  the q- and k-norms of one attention layer, each
+//                       row rounded to the type and then rotated
+//                       (rotate-half) with __fmul_rn / __fsub_rn /
+//                       __fadd_rn, no FMA contraction, and rounded once:
+//                       rmsnorm followed by the plain rotary embedding bit
+//                       for bit.  q rows and k rows in one launch.
+// The three share one row body per width, so a row normed by any of them
+// has the same bits: add_rmsnorm's h equals repro_rmsnorm on its s.
 //
-// Design: one warp per row, 8 rows per 256-thread block.  Each lane reads
-// 16-byte vectors (8 bf16 or 4 f32) at neighbouring addresses, sums the
-// squares in f32, and the warp reduces with shuffles (no shared memory, no
-// __syncthreads).  The second pass reads the row again (it is in L1 by
-// then) and writes the normalised values with 16-byte stores.  No
-// allocation, no synchronisation; launched on the caller's stream.
+// What bounds it on this card: bytes, and at decode the launch.  It reads
+// x (and y, cos, sin) and gamma once and writes each output once, a few
+// flops per element.  On the decode path rows are 8 (d 1024) and 192 (d
+// 128, q and k heads): tens of KB, so the launch and one round trip to
+// memory set its time, and the lever is fewer launches.  Fusing the
+// residual adds and the rotary embedding takes 28 norm launches and about
+// 20 elementwise launches per layer off each decode step of qwen3-0.6b.
+//
+// Design.  A row is held in registers by a group of LPR lanes of one warp:
+// a row of NV 16-byte vectors takes LPR = min(NV, 32) lanes, each with
+// VPL = NV / LPR vectors (d 1024: 32 lanes x 4 vectors in bf16, x 8 in
+// f32; d 128: 16 lanes x 1 in bf16, 32 x 1 in f32), so a warp holds
+// 32 / LPR rows.  NV is a compile-time constant for 8..256 vectors (8..128
+// for the rotary entry: a head row); every load of a lane -- x, y, gamma
+// as float4, cos and sin -- is issued before the reduction, x is read
+// once, and the sum of squares is reduced by butterfly shuffles within
+// the row's lanes (no shared memory, no __syncthreads).  Rows of other
+// widths (a multiple of 8 elements) take one warp per row in a runtime
+// loop that reads x again.  The rotary
+// partner of an element, d/2 away, sits in lane ^ (NV/2) for NV <= 32 and
+// in vector k ^ (NV/2/LPR) of the same lane above.  No allocation, no
+// synchronisation; launched on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -25,7 +48,9 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Vec;
 
@@ -60,59 +85,339 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T>
-__global__ void rmsnorm_kernel(const T* __restrict__ x,
-                               const float* __restrict__ gamma,
-                               T* __restrict__ out, int rows, int d,
-                               float eps) {
+// v rounded to T and widened back (exact for f32).
+template <typename T> __device__ __forceinline__ float rounded(float v);
+template <> __device__ __forceinline__ float rounded<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// N f32 values from a 16-byte aligned address, as float4 loads.
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* o) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+    o[4 * i] = v.x; o[4 * i + 1] = v.y; o[4 * i + 2] = v.z; o[4 * i + 3] = v.w;
+  }
+}
+
+// A row of NV 16-byte vectors: LPR lanes, VPL vectors each, RPW rows per
+// warp, RPB per block.  Lane `sub` of a row holds vectors k * LPR + sub.
+template <int NV> struct Layout {
+  static constexpr int LPR = NV < 32 ? NV : 32;
+  static constexpr int VPL = NV / LPR;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int RPB = RPW * kWarps;
+};
+
+// The row's sum of squares over its LPR lanes: each lane's terms in order
+// by FMA, then a butterfly, so every lane of the row ends with the same
+// bits.
+template <int LPR, int VPL, int N>
+__device__ __forceinline__ float row_sumsq(const float (&v)[VPL][N]) {
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k)
+#pragma unroll
+    for (int i = 0; i < N; ++i) ss = fmaf(v[k][i], v[k][i], ss);
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) ss += __shfl_xor_sync(kFull, ss, off);
+  return ss;
+}
+
+// sqrt(ss / d + eps) and (v / rms) * g, each step rounded in f32 by an
+// intrinsic, so no launch contracts them differently from another.
+__device__ __forceinline__ float rms_of(float ss, int d, float eps) {
+  return __fsqrt_rn(__fadd_rn(__fdiv_rn(ss, static_cast<float>(d)), eps));
+}
+__device__ __forceinline__ float normed(float v, float rms, float g) {
+  return __fmul_rn(__fdiv_rn(v, rms), g);
+}
+
+struct RowSlot {
+  int row;    // this lane's row
+  int sub;    // its lane within the row's LPR lanes
+  bool live;  // row < rows (a dead lane still joins the shuffles)
+};
+
+template <int NV>
+__device__ __forceinline__ RowSlot row_slot(int rows) {
+  using L = Layout<NV>;
+  const int lane = threadIdx.x & 31;
+  RowSlot s;
+  s.sub = lane % L::LPR;
+  s.row = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * L::RPW + lane / L::LPR;
+  s.live = s.row < rows;
+  return s;
+}
+
+// rmsnorm (kAdd false) or add_rmsnorm (kAdd true) over rows of NV vectors.
+template <typename T, int NV, bool kAdd>
+__global__ void __launch_bounds__(kThreads)
+norm_rows(const T* __restrict__ x, const T* __restrict__ y,
+          const float* __restrict__ gamma, T* __restrict__ s_out,
+          T* __restrict__ out, int rows, float eps) {
+  using L = Layout<NV>;
+  constexpr int N = Vec<T>::N;
+  constexpr int D = NV * N;
+  const RowSlot rs = row_slot<NV>(rows);
+  const int64_t base = static_cast<int64_t>(rs.row) * D;
+  float v[L::VPL][N], g[L::VPL][N];
+  if (rs.live) {
+    float w[L::VPL][N];
+#pragma unroll
+    for (int k = 0; k < L::VPL; ++k) {
+      const int e = (k * L::LPR + rs.sub) * N;
+      Vec<T>::load(x + base + e, v[k]);
+      if constexpr (kAdd) Vec<T>::load(y + base + e, w[k]);
+      load_f32<N>(gamma + e, g[k]);
+    }
+    if constexpr (kAdd) {
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[k][i] = rounded<T>(__fadd_rn(v[k][i], w[k][i]));
+        Vec<T>::store(s_out + base + (k * L::LPR + rs.sub) * N, v[k]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < L::VPL; ++k)
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[k][i] = 0.f;
+  }
+  const float ss = row_sumsq<L::LPR>(v);
+  const float rms = rms_of(ss, D, eps);
+  if (!rs.live) return;
+#pragma unroll
+  for (int k = 0; k < L::VPL; ++k) {
+    float o[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = normed(v[k][i], rms, g[k][i]);
+    Vec<T>::store(out + base + (k * L::LPR + rs.sub) * N, o);
+  }
+}
+
+// q rows [0, nq) then k rows [nq, nq + nk), each of NV vectors; token t's
+// cos/sin row (D/2 f32) serves its hq q heads and its hkv k heads.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+qk_norm_rope_rows(const T* __restrict__ q, const T* __restrict__ k,
+                  const float* __restrict__ gq, const float* __restrict__ gk,
+                  const float* __restrict__ cosp, const float* __restrict__ sinp,
+                  T* __restrict__ qo, T* __restrict__ ko, int nq, int nk,
+                  int hq, int hkv, float eps) {
+  using L = Layout<NV>;
+  constexpr int N = Vec<T>::N;
+  constexpr int D = NV * N;
+  constexpr int H = D / 2;
+  const RowSlot rs = row_slot<NV>(nq + nk);
+  const bool is_q = rs.row < nq;
+  const int r = is_q ? rs.row : rs.row - nq;
+  const T* src = is_q ? q : k;
+  T* dst = is_q ? qo : ko;
+  const float* gamma = is_q ? gq : gk;
+  const int64_t tok = is_q ? r / hq : r / hkv;
+  const int64_t base = static_cast<int64_t>(r) * D;
+  float v[L::VPL][N], g[L::VPL][N], c[L::VPL][N], s[L::VPL][N];
+  if (rs.live) {
+#pragma unroll
+    for (int kk = 0; kk < L::VPL; ++kk) {
+      const int e = (kk * L::LPR + rs.sub) * N;
+      Vec<T>::load(src + base + e, v[kk]);
+      load_f32<N>(gamma + e, g[kk]);
+      load_f32<N>(cosp + tok * H + (e & (H - 1)), c[kk]);
+      load_f32<N>(sinp + tok * H + (e & (H - 1)), s[kk]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < L::VPL; ++kk)
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[kk][i] = g[kk][i] = c[kk][i] = s[kk][i] = 0.f;
+  }
+  const float ss = row_sumsq<L::LPR>(v);
+  const float rms = rms_of(ss, D, eps);
+  // The normed row rounded to T, as the unfused norm stores it.
+  float h[L::VPL][N], p[L::VPL][N];
+#pragma unroll
+  for (int kk = 0; kk < L::VPL; ++kk)
+#pragma unroll
+    for (int i = 0; i < N; ++i) h[kk][i] = rounded<T>(normed(v[kk][i], rms, g[kk][i]));
+  // Each element's partner d/2 away.
+#pragma unroll
+  for (int kk = 0; kk < L::VPL; ++kk)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if constexpr (NV / 2 < L::LPR) {
+        p[kk][i] = __shfl_xor_sync(kFull, h[kk][i], NV / 2);
+      } else {
+        p[kk][i] = h[kk ^ (NV / 2 / L::LPR)][i];
+      }
+    }
+  if (!rs.live) return;
+#pragma unroll
+  for (int kk = 0; kk < L::VPL; ++kk) {
+    const int e = (kk * L::LPR + rs.sub) * N;
+    float o[N];
+    if (e < H) {        // first half: x1 cos - x2 sin
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        o[i] = __fsub_rn(__fmul_rn(h[kk][i], c[kk][i]), __fmul_rn(p[kk][i], s[kk][i]));
+    } else {            // second half: x2 cos + x1 sin
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        o[i] = __fadd_rn(__fmul_rn(h[kk][i], c[kk][i]), __fmul_rn(p[kk][i], s[kk][i]));
+    }
+    Vec<T>::store(dst + base + e, o);
+  }
+}
+
+// Rows of any width d (a multiple of 8): one warp per row, a runtime loop
+// over the row's vectors; pass 2 reads x (and y) again.
+template <typename T, bool kAdd>
+__global__ void __launch_bounds__(kThreads)
+norm_rows_generic(const T* __restrict__ x, const T* __restrict__ y,
+                  const float* __restrict__ gamma, T* __restrict__ s_out,
+                  T* __restrict__ out, int rows, int d, float eps) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const T* xr = x + static_cast<int64_t>(row) * d;
-  T* orow = out + static_cast<int64_t>(row) * d;
+  const int64_t base = static_cast<int64_t>(row) * d;
   const int nvec = d / N;
-
   float ss = 0.f;
-  for (int v = lane; v < nvec; v += 32) {
+  for (int vi = lane; vi < nvec; vi += 32) {
     float f[N];
-    Vec<T>::load(xr + v * N, f);
+    Vec<T>::load(x + base + vi * N, f);
+    if constexpr (kAdd) {
+      float w[N];
+      Vec<T>::load(y + base + vi * N, w);
 #pragma unroll
-    for (int i = 0; i < N; ++i) ss += f[i] * f[i];
+      for (int i = 0; i < N; ++i) f[i] = rounded<T>(__fadd_rn(f[i], w[i]));
+      Vec<T>::store(s_out + base + vi * N, f);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) ss = fmaf(f[i], f[i], ss);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float rms = sqrtf(ss / static_cast<float>(d) + eps);
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(kFull, ss, off);
+  const float rms = rms_of(ss, d, eps);
+  for (int vi = lane; vi < nvec; vi += 32) {
+    float f[N], g[N];
+    Vec<T>::load(x + base + vi * N, f);
+    if constexpr (kAdd) {       // the same rounded sum again, not s_out
+      float w[N];
+      Vec<T>::load(y + base + vi * N, w);
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = rounded<T>(__fadd_rn(f[i], w[i]));
+    }
+    load_f32<N>(gamma + vi * N, g);
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = normed(f[i], rms, g[i]);
+    Vec<T>::store(out + base + vi * N, f);
+  }
+}
 
-  for (int v = lane; v < nvec; v += 32) {
-    float f[N];
-    Vec<T>::load(xr + v * N, f);
-#pragma unroll
-    for (int i = 0; i < N; ++i) f[i] = (f[i] / rms) * gamma[v * N + i];
-    Vec<T>::store(orow + v * N, f);
+template <typename T, int NV, bool kAdd>
+void launch_fixed(const void* x, const void* y, const float* gamma, void* s,
+                  void* out, int rows, float eps, cudaStream_t st) {
+  const int grid = (rows + Layout<NV>::RPB - 1) / Layout<NV>::RPB;
+  norm_rows<T, NV, kAdd><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), gamma,
+      static_cast<T*>(s), static_cast<T*>(out), rows, eps);
+}
+
+template <typename T, bool kAdd>
+void launch_norm(const void* x, const void* y, const float* gamma, void* s,
+                 void* out, int rows, int d, float eps, cudaStream_t st) {
+  switch (d * static_cast<int>(sizeof(T)) / 16) {
+    case 8: return launch_fixed<T, 8, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    case 16: return launch_fixed<T, 16, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    case 32: return launch_fixed<T, 32, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    case 64: return launch_fixed<T, 64, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    case 128: return launch_fixed<T, 128, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    case 256: return launch_fixed<T, 256, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    default: {
+      const int grid = (rows + kWarps - 1) / kWarps;
+      norm_rows_generic<T, kAdd><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(x), static_cast<const T*>(y), gamma,
+          static_cast<T*>(s), static_cast<T*>(out), rows, d, eps);
+    }
   }
+}
+
+template <typename T, int NV>
+void launch_qk(const void* q, const void* k, const float* gq, const float* gk,
+               const float* cs, const float* sn, void* qo, void* ko, int nq,
+               int nk, int hq, int hkv, float eps, cudaStream_t st) {
+  const int grid = (nq + nk + Layout<NV>::RPB - 1) / Layout<NV>::RPB;
+  qk_norm_rope_rows<T, NV><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), gq, gk, cs, sn,
+      static_cast<T*>(qo), static_cast<T*>(ko), nq, nk, hq, hkv, eps);
+}
+
+template <typename T>
+int launch_qk_any(const void* q, const void* k, const float* gq,
+                  const float* gk, const float* cs, const float* sn, void* qo,
+                  void* ko, int nq, int nk, int hq, int hkv, int d, float eps,
+                  cudaStream_t st) {
+  switch (d * static_cast<int>(sizeof(T)) / 16) {
+    case 8: launch_qk<T, 8>(q, k, gq, gk, cs, sn, qo, ko, nq, nk, hq, hkv, eps, st); break;
+    case 16: launch_qk<T, 16>(q, k, gq, gk, cs, sn, qo, ko, nq, nk, hq, hkv, eps, st); break;
+    case 32: launch_qk<T, 32>(q, k, gq, gk, cs, sn, qo, ko, nq, nk, hq, hkv, eps, st); break;
+    case 64: launch_qk<T, 64>(q, k, gq, gk, cs, sn, qo, ko, nq, nk, hq, hkv, eps, st); break;
+    case 128: launch_qk<T, 128>(q, k, gq, gk, cs, sn, qo, ko, nq, nk, hq, hkv, eps, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Requires d % 8 == 0 and 16-byte
-// aligned, contiguous x/out (the wrapper checks).  Returns the CUDA error
-// code of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Every row pointer contiguous and
+// 16-byte aligned, d a multiple of 8 (the wrapper checks).  Each returns
+// the CUDA error code of its launch (0 on success).
 extern "C" int repro_rmsnorm(const void* x, const void* gamma, void* out,
                              int rows, int d, float eps, int dtype,
                              void* stream) {
   if (rows == 0) return 0;
-  dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  dim3 block(32 * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    rmsnorm_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gamma),
-        static_cast<float*>(out), rows, d, eps);
-  } else {
-    rmsnorm_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-        static_cast<__nv_bfloat16*>(out), rows, d, eps);
-  }
+  const float* g = static_cast<const float*>(gamma);
+  if (dtype == 0) launch_norm<float, false>(x, nullptr, g, nullptr, out, rows, d, eps, s);
+  else launch_norm<__nv_bfloat16, false>(x, nullptr, g, nullptr, out, rows, d, eps, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_add_rmsnorm(const void* x, const void* y,
+                                 const void* gamma, void* s_out, void* out,
+                                 int rows, int d, float eps, int dtype,
+                                 void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gamma);
+  if (dtype == 0) launch_norm<float, true>(x, y, g, s_out, out, rows, d, eps, s);
+  else launch_norm<__nv_bfloat16, true>(x, y, g, s_out, out, rows, d, eps, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (nq rows = B*L*hq), k (nk rows = B*L*hkv), rows of d; cos/sin (B*L,
+// d/2) f32.  d * itemsize / 16 must be 8..128, a power of two.
+extern "C" int repro_qk_norm_rope(const void* q, const void* k,
+                                  const void* gamma_q, const void* gamma_k,
+                                  const void* cosv, const void* sinv,
+                                  void* q_out, void* k_out, int nq, int nk,
+                                  int hq, int hkv, int d, float eps,
+                                  int dtype, void* stream) {
+  if (nq + nk == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gq = static_cast<const float*>(gamma_q);
+  const float* gk = static_cast<const float*>(gamma_k);
+  const float* cs = static_cast<const float*>(cosv);
+  const float* sn = static_cast<const float*>(sinv);
+  const int bad = dtype == 0
+      ? launch_qk_any<float>(q, k, gq, gk, cs, sn, q_out, k_out, nq, nk, hq, hkv, d, eps, s)
+      : launch_qk_any<__nv_bfloat16>(q, k, gq, gk, cs, sn, q_out, k_out, nq, nk, hq, hkv, d, eps, s);
+  if (bad) return bad;
   return static_cast<int>(cudaGetLastError());
 }

@@ -102,12 +102,13 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     q = _heads(cm.linear(p["wq"], x), cfg.n_heads, hd)
     k = _heads(cm.linear(p["wk"], x), cfg.n_kv_heads, hd)
     v = _heads(cm.linear(p["wv"], x), cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = cm.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = cm.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     cos, sin = rope
-    q = cm.apply_rope(q, cos, sin)
-    k = cm.apply_rope(k, cos, sin)
+    if cfg.qk_norm:
+        q, k = cm.qk_norm_rope(p["q_norm"], p["k_norm"], q, k, cos, sin,
+                               cfg.norm_eps)
+    else:
+        q = cm.apply_rope(q, cos, sin)
+        k = cm.apply_rope(k, cos, sin)
 
     ck, cv = cache["k"], cache["v"]
     qt = q.transpose(1, 2).contiguous()

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from ..kernels import rmsnorm as krms
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +31,22 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim: the CUDA kernel for a CUDA tensor, its
     plain version for a CPU tensor (``kernels/rmsnorm.py``)."""
-    return rmsnorm_kernel(x, p["g"], eps=eps)
+    return krms.rmsnorm(x, p["g"], eps=eps)
+
+
+def add_rmsnorm(p: dict, x: torch.Tensor, y: torch.Tensor,
+                eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual ``x + y`` and its RMSNorm in one launch of kernel 1:
+    returns (x + y, rmsnorm(x + y))."""
+    return krms.add_rmsnorm(x, y, p["g"], eps=eps)
+
+
+def qk_norm_rope(pq: dict, pk: dict, q: torch.Tensor, k: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor, eps: float = 1e-5
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q- and k-norm, then the rotary embedding of both, in one launch
+    of kernel 1: the values of ``apply_rope(rmsnorm(...))``."""
+    return krms.qk_norm_rope(q, k, pq["g"], pk["g"], cos, sin, eps=eps)
 
 
 def act_fn(name: str):
@@ -53,12 +68,6 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, D); cos/sin: (B, S, D/2), broadcast over the heads."""
-    d = x.shape[-1]
-    cos, sin = cos[:, :, None], sin[:, :, None]
-    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
-    out1 = xf1 * cos - xf2 * sin
-    out2 = xf2 * cos + xf1 * sin
-    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+# x: (B, S, H, D); cos/sin: (B, S, D/2), broadcast over the heads.  The
+# arithmetic's one definition is kernel 1's plain version.
+apply_rope = krms.rope_ref

@@ -101,20 +101,30 @@ def init_params(seed: int, cfg: ArchConfig, *,
 # block application
 # ---------------------------------------------------------------------------
 
-def _apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
+                 cfg: ArchConfig, *, next_norm: dict | None,
                  rope: tuple[torch.Tensor, torch.Tensor],
                  window: int | None, cache: dict,
-                 write: attention.CacheWrite) -> torch.Tensor:
+                 write: attention.CacheWrite
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One block on the residual stream ``x`` whose ln1 norm ``h`` the
+    caller made.  Each residual add runs in one launch with the norm
+    that follows it (``add_rmsnorm``): the attention residual with ln2,
+    the FFN residual with ``next_norm`` (the next block's ln1).  Returns
+    the residual after the block and its ``next_norm`` norm; for the
+    last block (``next_norm`` None) a plain add and None: the final norm
+    reads only the rows whose logits are taken."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    h = cm.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attention.self_attention(
+    out = attention.self_attention(
         p["attn"], h, cfg, rope=rope, window=window, cache=cache,
         write=write)
     if cfg.d_ff:
-        h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + ffn.apply(p["ffn"], h, cfg)
-    return x
+        x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
+        out = ffn.apply(p["ffn"], h, cfg)
+    if next_norm is None:
+        return x + out, None
+    return cm.add_rmsnorm(next_norm, x, out, cfg.norm_eps)
 
 
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -182,10 +192,13 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     # Rotary angles depend only on the positions: once per forward, not
     # once per layer (XLA dedupes the per-layer copies; eager would not).
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    layers = params["layers"]
+    h = cm.rmsnorm(layers[0]["ln1"], x, cfg.norm_eps)
     for layer, kind in enumerate(cfg.layer_kinds()):
-        x = _apply_block(kind, params["layers"][layer], x, cfg,
-                         rope=rope, window=window,
-                         cache=caches[layer], write=write)
+        nxt = layers[layer + 1]["ln1"] if layer + 1 < len(layers) else None
+        x, h = _apply_block(kind, layers[layer], x, h, cfg, next_norm=nxt,
+                            rope=rope, window=window, cache=caches[layer],
+                            write=write)
     if all_logits:
         xs = x
     elif logit_index is None:

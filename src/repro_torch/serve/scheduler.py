@@ -206,6 +206,11 @@ class ServeScheduler:
         self.window = window if window is not None else cfg.attn_window
         if self.window is not None and self.window <= 0:
             self.window = None
+        if self.window is not None:
+            # Before any slot is given out: the ring cache is not ported.
+            raise _not_ported(
+                f"sliding-window attention (window={self.window})",
+                "remaining architectures")
         self.max_len = max_len
         self.executor = executor if executor is not None \
             else SequentialExecutor()

@@ -385,14 +385,25 @@ def test_measured_body_times_the_card_only_for_a_card_tensor(monkeypatch):
     assert seen == [(dev_body, 1 << 24)]
 
 
+def _positive(c):
+    return c > 0
+
+
 @pytest.mark.parametrize("call", [
     lambda p, x: talg.artificial_work(p, x, iters=8),
     lambda p, x: talg.transform(p, x, torch.neg),
-], ids=["artificial_work", "transform_same_fn"])
+    lambda p, x: talg.count_if(p, x, _positive),
+    lambda p, x: talg.all_of(p, x, _positive),
+    lambda p, x: talg.any_of(p, x, _positive),
+    lambda p, x: talg.none_of(p, x, _positive),
+    lambda p, x: talg.fill(p, x, 2.5),
+], ids=["artificial_work", "transform_same_fn", "count_if", "all_of",
+        "any_of", "none_of", "fill"])
 def test_second_call_reuses_the_calibration(monkeypatch, call):
-    """artificial_work keys its calibration by ``iters`` and transform by
-    its function object, so a second call with the same body measures
-    nothing again."""
+    """artificial_work keys its calibration by ``iters``, transform and
+    the predicate algorithms by the user's function object (not a wrapper
+    made per call) and fill by the type alone, so a second call with the
+    same body measures nothing again."""
     from repro_torch.core import calibration as tcal
 
     measured = []
@@ -407,3 +418,60 @@ def test_second_call_reuses_the_calibration(monkeypatch, call):
         assert len(measured) == 1
         torch.testing.assert_close(call(pol, x), first, rtol=0, atol=0)
     assert len(measured) == 1
+
+
+def test_a_new_function_does_not_inherit_a_dead_ones_calibration(
+        monkeypatch):
+    """Python reuses the ``id()`` of a collected object.  A calibration
+    keyed by ``function_key`` is never read by a later function at the
+    same address: each new function measures for itself."""
+    import gc
+
+    from repro_torch.core import calibration as tcal
+
+    keys, ids = set(), set()
+    for i in range(200):
+        fn = (lambda c, i=i: c + i)
+        keys.add(tcal.function_key(fn))
+        ids.add(id(fn))
+        assert tcal.function_key(fn) is tcal.function_key(fn)
+        del fn
+        gc.collect()
+    assert len(keys) == 200
+    assert len(ids) < 200           # addresses were reused
+
+    measured = []
+    real = tcal.measure_iteration_wallclock
+    monkeypatch.setattr(
+        tcal, "measure_iteration_wallclock",
+        lambda body, count: measured.append(count) or real(body, count))
+    x = torch.from_numpy(_x())
+    with THost(max_workers=2) as ex:
+        pol = tpar.on(adaptive(ex, TAcc(t0_override=1e-5)))
+        for i in range(4):
+            fn = (lambda c, i=i: c * i)
+            talg.transform(pol, x, fn)
+            talg.count_if(pol, x, fn)
+            del fn
+            gc.collect()
+    assert len(measured) == 8
+
+
+def test_function_keys_stay_out_of_the_persisted_file(tmp_path):
+    """A key that names a function object of one process is not written
+    to disk, where another process could read it for another function;
+    keys of plain values are."""
+    from repro_torch.core import calibration as tcal
+
+    path = str(tmp_path / "calibration.json")
+    cache = tcal.CalibrationCache(path=path)
+    fkey = ("transform", tcal.function_key(_positive), "torch.float32")
+    cache.t_iter(fkey, lambda: 1e-9)
+    cache.note_provenance(fkey, "measured")
+    cache.smooth_t_iter(fkey, 2e-9)
+    cache.t_iter(("fill", "torch.float32"), lambda: 3e-9)
+    cache.save()
+    again = tcal.CalibrationCache(path=path)
+    assert again.peek_t_iter(("fill", "torch.float32")) == 3e-9
+    assert len(again) == 1
+    assert cache.peek_t_iter(fkey) is not None

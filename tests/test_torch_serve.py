@@ -130,6 +130,23 @@ def test_unported_options_raise(models, kwargs):
                        dispatch_depth=2, device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("where", ["argument", "config"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_window_raises_in_the_constructor(models, where, paged):
+    """A sliding window (the ring cache is not ported) is refused before
+    any request is admitted or any slot given out, whether passed or
+    taken from the config."""
+    _, _, tcfg, tparams = models
+    kw = dict(n_slots=2, max_len=32, dispatch_depth=2, paged=paged,
+              device="cpu")
+    with pytest.raises(NotImplementedError, match="window=8.*ROADMAP"):
+        if where == "argument":
+            ServeScheduler(tcfg, tparams, window=8, **kw)
+        else:
+            ServeScheduler(dataclasses.replace(tcfg, attn_window=8), tparams,
+                           **kw)
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(paged=True), dict(speculate=2), dict(admission="adaptive")])
 def test_formerly_unported_options_serve(models, kwargs):
