@@ -28,12 +28,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
 4. model    — qwen3-0.6b at full width, f32, one 64-token prompt through
               forward_cached on the card and on the CPU, same weights.
 5. serve    — the ServeScheduler at full width, bf16, random weights:
-              16 requests, 8 slots, dispatch depth "auto"; the kernels'
-              launch counters are reset before and read after this run,
-              and every forward must launch kernel 1 exactly 85 times
-              (``ForwardSpy``).  A profiled window, and a profiled fused
-              dispatch of 16 decode steps (``decode_census``: CUDA
-              kernels and kernel 1 launches per decode-loop iteration).
+              16 requests, 8 slots, dispatch depth "auto", every decode
+              step a replay of a captured CUDA graph
+              (``serve/graphs.py``); the kernels' launch counters are
+              reset before and read after this run, and every forward
+              must launch kernel 1 exactly 85 times (``ForwardSpy``,
+              which hears of replays).  A profiled window, and a profiled
+              fused dispatch of 16 decode steps (``decode_census``: CUDA
+              kernels, kernel 1 launches and host launch calls per
+              decode-loop iteration, then the synced wall of the same
+              dispatch).  ``[graph]`` lines: captures per kind, replays,
+              the reserved attention scratch and the graph pool's bytes,
+              and the census (at most 5 host launch calls per iteration);
+              then the graphs against their eager body over the same
+              kernels (``graph_identity``: one fused dispatch contiguous
+              and paged, one speculative dispatch at d = 2, 4, 8, and at
+              4 paged, twice each: tokens, history, stats and K/V rows
+              bit-identical).
 6. algorithms — the paper's parallel algorithms and their four 1-d
               kernels (reduce_sum, inclusive_scan, adjacent_difference,
               artificial_work).  Each kernel against its plain version at
@@ -63,10 +74,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
               counters are reset before and read after this run.
 7. paged    — qwen3-0.6b at full width, bf16, served from the paged
               pool with page size, depth and speculation "auto" (16
-              shared-prefix requests from the port's load generator; the
-              launch counters are reset before and read after this run,
-              every forward must launch kernel 1 85 times, and every
-              shape kernel 3 ran at is noted).  Then kernel 3
+              shared-prefix requests from the port's load generator,
+              decoding through the graphs, a ``[graph] phase 7`` line;
+              the launch counters are reset before and read after this
+              run, every forward must launch kernel 1 85 times, and
+              every shape kernel 3 ran at is noted from its counter's
+              keys).  Then kernel 3
               (paged flash attention) against its plain version and, bit
               for bit, against kernel 2 over the same K/V laid out
               contiguously: decode (B 8, kv 1-1024), verify at every
@@ -490,8 +503,7 @@ def main() -> None:
     gen_tokens = sum(len(results.get(r, [])) for r in rids)
     ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
              for r in rids]
-    depths = [d.decision.chunk for d in
-              sched.decision_model().trace.entries("serve_dispatch_depth")]
+    depths = decisions(sched.decision_model(), "serve_dispatch_depth")
     log(f"[serve] {len(rids)} requests, prompts {min(lens)}-{max(lens)}, "
         f"{gen_tokens} tokens in {makespan:.3f}s = "
         f"{gen_tokens / makespan:.1f} tok/s; decode {sched.decode_tokens} "
@@ -499,7 +511,8 @@ def main() -> None:
         f"{percentile(ttfts, 50) * 1e3:.1f}ms p99="
         f"{percentile(ttfts, 99) * 1e3:.1f}ms; peak memory {peak_mb:.0f} "
         f"MiB; launches {launches}")
-    log(f"[serve] serve_dispatch_depth decisions: {depths}")
+    log(f"[serve] serve_dispatch_depth decisions (value x count "
+        f"(provenance)): {depths}")
     k1_line, problems = fspy.report(8, base.n_layers)
     log(f"[serve] {k1_line}; kernel 1 launches by entry {entries}")
     for r, n in zip(rids, lens, strict=True):
@@ -564,6 +577,27 @@ def main() -> None:
     if census["kernel1_launches_per_iteration"] != 3 * base.n_layers + 1:
         fail(f"kernel 1 launched {census['kernel1_launches_per_iteration']}"
              f" times per decode-loop iteration, not {3 * base.n_layers + 1}")
+    graphs = sched.graphs
+    log(f"[graph] phase 5: captures {dict(graphs.captures)}, replays "
+        f"{graphs.replays}, reserved attention scratch "
+        f"{graphs.scratch_bytes} B, graph pool {graphs.pool_bytes()} B; "
+        f"decode census (one 16-step dispatch over 8 lanes): host launch "
+        f"calls {census['host_launch_calls_per_iteration']:.2f}, device "
+        f"kernels {census['cuda_kernels_per_iteration']:.2f}, device time "
+        f"{census['device_us_per_iteration']:.1f} us (busy "
+        f"{census['device_busy_us_per_iteration']:.1f} us), synced wall "
+        f"{census['synced_wall_us_per_iteration']:.1f} us per iteration "
+        f"(median of 5: {[round(w, 1) for w in census['walls_us']]}) = "
+        f"{census['wall_over_device']:.3f} x the device time")
+    if not graphs.replays or "fused" not in graphs.captures:
+        fail(f"phase 5 did not decode through the graphs: captures "
+             f"{dict(graphs.captures)}, replays {graphs.replays}")
+    if census["host_launch_calls_per_iteration"] > 5:
+        fail(f"{census['host_launch_calls_per_iteration']} host launch calls "
+             f"per decode-loop iteration (at most 5: one graph replay)")
+    problems = graph_identity(torch, dev, base, params)
+    if problems:
+        fail("graphs vs their eager body: " + "; ".join(problems))
 
     del sched, params, caches, logits
     torch.cuda.empty_cache()
@@ -619,34 +653,163 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def decisions(model, kind: str) -> str:
+    """An ExecutionModel's decisions of ``kind`` as "value x count
+    (provenance)"."""
+    seen: dict = {}
+    for e in model.trace.entries(kind):
+        k = (e.decision.chunk if kind != "serve_admission"
+             else e.decision.cores, e.decision.provenance)
+        seen[k] = seen.get(k, 0) + 1
+    return ", ".join(f"{v}x{n}({p})" for (v, p), n in seen.items()) \
+        or "none"
+
+
+def graph_identity(torch, dev, cfg, params) -> list:
+    """The decode graphs against their eager body on the card, over the
+    same kernels: one fused dispatch over the contiguous and over the
+    paged pool, one speculative dispatch at every verify width over the
+    contiguous pool (and at 4 over the paged), each twice in a row (the
+    first captures, the second only replays), from the same random K/V,
+    tokens, positions and mixed budgets (one lane with none).  Tokens,
+    the history, the stats and every K/V row must be bit-identical —
+    except the paged stores' scratch page 0, which no table maps: every
+    spent lane writes its garbage there, several to one row, and which
+    write lands last is not defined.  Returns the problems; prints one
+    ``[graph] identity`` line per case."""
+    from repro_torch.models import lm
+    from repro_torch.serve import SPEC_DEPTH_CANDIDATES
+    from repro_torch.serve.decode_loop import (make_fused_decode_step,
+                                               make_paged_decode_step,
+                                               make_paged_spec_decode_step,
+                                               make_spec_decode_step)
+    from repro_torch.serve.graphs import DecodeGraphs
+
+    n, cap, ps = 8, 1024, 16
+    gen = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (n,), generator=gen).to(dev)
+    poss = torch.randint(100, 800, (n,), generator=gen).to(dev)
+    budgets = [16, 0, 5, 16, 9, 1, 16, 12]
+    hist = torch.randint(0, 64, (n, 64), generator=gen)
+    hist[:, -1] = toks.cpu()
+    hist = hist.to(dev)
+    dgen = torch.Generator(device=dev).manual_seed(22)
+    contiguous = lm.init_caches(cfg, n, cap, device=dev)
+    for c in contiguous:
+        for t in c.values():
+            t.normal_(generator=dgen)
+    n_blk = cap // ps
+    rows = (1 + n * n_blk) * ps
+    paged = [{name: torch.randn(rows, cfg.n_kv_heads, cfg.head_dim_,
+                                dtype=contiguous[0]["k"].dtype, device=dev,
+                                generator=dgen) for name in ("k", "v")}
+             for _ in contiguous]
+    table = (1 + torch.randperm(n * n_blk, generator=gen)).view(
+        n, n_blk).to(torch.int32).to(dev)
+    widths = [w for w in SPEC_DEPTH_CANDIDATES if w >= 2]
+    cases = [("fused", None, False), ("fused", None, True)] \
+        + [("spec", d, False) for d in widths] + [("spec", 4, True)]
+    problems = []
+    for kind, d, is_paged in cases:
+        runs = []
+        for capture in (True, False):
+            graphs = DecodeGraphs(capture=capture)
+            caches = [{k: t.clone() for k, t in c.items()}
+                      for c in (paged if is_paged else contiguous)]
+            pt = (table,) if is_paged else ()
+            if kind == "fused":
+                step = make_paged_decode_step(cfg, page_size=ps,
+                                              graphs=graphs) \
+                    if is_paged else make_fused_decode_step(cfg,
+                                                            graphs=graphs)
+            else:
+                step = make_paged_spec_decode_step(
+                    cfg, depth=d, page_size=ps, graphs=graphs) \
+                    if is_paged else make_spec_decode_step(
+                        cfg, depth=d, graphs=graphs)
+            outs = []
+            t, p, h = toks, poss, hist
+            for _ in range(2):
+                if kind == "fused":
+                    _, out, t = step(params, caches, *pt, t, p, budgets)
+                    outs += [out, t]
+                else:
+                    _, h, out, t, stats, reads = step(
+                        params, caches, *pt, h, t, p, budgets)
+                    outs += [out, t, h, stats, torch.tensor(reads)]
+                p = p + torch.tensor(budgets, device=dev)
+            torch.cuda.synchronize()
+            runs.append((outs, caches, dict(graphs.captures),
+                         graphs.replays))
+        (g_out, g_caches, g_caps, g_reps), (e_out, e_caches, _, e_reps) = runs
+        same_out = all(torch.equal(a, b) for a, b in zip(g_out, e_out,
+                                                          strict=True))
+        skip = ps if is_paged else 0
+        same_kv = all(torch.equal(a[k][skip:], b[k][skip:]) for a, b in
+                      zip(g_caches, e_caches, strict=True) for k in a)
+        name = f"{kind}{d or ''} {'paged' if is_paged else 'contiguous'}"
+        log(f"[graph] identity {name}: two dispatches, budgets {budgets}, "
+            f"captures {g_caps} replays {g_reps} (eager: {e_reps}); tokens"
+            f"{' and history' if kind == 'spec' else ''} bit-identical: "
+            f"{same_out}, every K/V row"
+            f"{' outside the scratch page' if is_paged else ''} "
+            f"bit-identical: {same_kv}")
+        if not (same_out and same_kv):
+            problems.append(f"{name}: tokens equal {same_out}, K/V equal "
+                            f"{same_kv}")
+        if not g_reps or e_reps:
+            problems.append(f"{name}: the graph run replayed {g_reps} times"
+                            f", the eager run {e_reps}")
+        del runs, g_caches, e_caches
+    del contiguous, paged
+    torch.cuda.empty_cache()
+    return problems
+
+
 class ForwardSpy:
     """Counts kernel 1's launches inside each ``lm.forward_cached`` call,
     keyed by the call's (B, L): a decode-loop iteration is one forward
     over every slot (B = n_slots), a prefill chunk one over one lane.
     Reads only host counters and shapes, so the run neither syncs nor
     launches more.  ``with ForwardSpy(lm, krms) as spy:`` patches the
-    module attribute every caller goes through."""
+    module attribute every caller goes through.  A decode step on the
+    card is a graph replay, which calls no Python: the spy hears of each
+    replay (``graphs.replay_listeners``) with the forward its capture
+    held and the kernel-1 launches the capture counted, and skips the
+    forward a capture traces (it launches nothing)."""
 
     def __init__(self, lm, krms):
-        self.lm, self.krms = lm, krms
+        from repro_torch.serve import graphs
+
+        self.lm, self.krms, self.graphs = lm, krms, graphs
         self.per_call: dict = {}
 
+    def _note(self, key, n):
+        self.per_call.setdefault(key, []).append(n)
+
+    def _replayed(self, cap):
+        self._note(cap.forward, cap.tally.get(self.krms.launches, (0,))[0])
+
     def __enter__(self):
+        import torch
+
         real = self.real = self.lm.forward_cached
 
         def spy(params, tokens, *args, **kwargs):
             before = self.krms.launches.count
             out = real(params, tokens, *args, **kwargs)
-            key = (int(tokens.shape[0]), int(tokens.shape[1]))
-            self.per_call.setdefault(key, []).append(
-                self.krms.launches.count - before)
+            if not torch.cuda.is_current_stream_capturing():
+                self._note((int(tokens.shape[0]), int(tokens.shape[1])),
+                           self.krms.launches.count - before)
             return out
 
         self.lm.forward_cached = spy
+        self.graphs.replay_listeners.append(self._replayed)
         return self
 
     def __exit__(self, *exc):
         self.lm.forward_cached = self.real
+        self.graphs.replay_listeners.remove(self._replayed)
 
     def report(self, n_slots: int, n_layers: int) -> tuple[str, list]:
         """A log line and the problems: every forward must launch kernel
@@ -668,13 +831,23 @@ class ForwardSpy:
         return line, bad
 
 
+# Host calls that launch device work, as the profiler names them.
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
+               "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+               "cudaLaunchCooperativeKernel")
+
+
 def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
     """CUDA kernels per decode-loop iteration: one fused dispatch of
     ``iters`` steps over 8 lanes of qwen3-0.6b at full width (bf16,
     random weights, lanes at cache positions 100-800), profiled; the
-    device kernel events over ``iters``, and kernel 1's launch counter
-    over ``iters``.  Uses only APIs the port has had since slice 1, so
-    the same function counts a parent tree's launches."""
+    device kernel events and the host's launch calls (``LAUNCH_APIS``)
+    over ``iters``, and kernel 1's launch counter over ``iters``; the
+    device time both as the sum of kernel times and as the union of their
+    intervals (busy time: overlapping kernels count once).  Then
+    the synced wall of the same dispatch, five times unprofiled, per
+    iteration.  Uses only APIs the port has had since slice 1, so the
+    same function counts a parent tree's launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.models import lm
@@ -696,15 +869,44 @@ def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
     with torch.profiler.profile(activities=activities) as prof:
         step(params, caches, toks, poss, [iters] * 8)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_launches = sum(e.count for e in events if e.key in LAUNCH_APIS
+                        and e.device_type != torch.autograd.DeviceType.CUDA)
     n_kernels = sum(e.count for e in kernels)
     busy_us = sum(e.self_device_time_total for e in kernels)
+    k1 = krms.launches.count
+    # Kernels that overlap (kernel 2's merge starts while its splits run)
+    # count once in the busy time: the union of their intervals.
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    union_us, reach = 0.0, float("-inf")
+    for lo, hi in spans:
+        union_us += max(hi - max(lo, reach), 0.0)
+        reach = max(reach, hi)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, caches, toks, poss, [iters] * 8)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6 / iters)
+    wall = sorted(walls)[len(walls) // 2]
     return {"cuda_kernels_per_iteration": n_kernels / iters,
-            "kernel1_launches_per_iteration": krms.launches.count / iters,
+            "kernel1_launches_per_iteration": k1 / iters,
+            "host_launch_calls_per_iteration": host_launches / iters,
             "device_us_per_iteration": busy_us / iters,
+            "device_busy_us_per_iteration": union_us / iters,
+            "synced_wall_us_per_iteration": wall,
+            "wall_over_device": wall / (busy_us / iters) if busy_us else None,
+            "walls_us": walls,
             "top": {e.key[:40]: e.count / iters for e in sorted(
-                kernels, key=lambda e: -e.count)[:8]}}
+                kernels, key=lambda e: -e.count)[:8]},
+            "top_us": {e.key[:40]: round(e.self_device_time_total / iters, 1)
+                       for e in sorted(kernels, key=lambda e:
+                                       -e.self_device_time_total)[:12]}}
 
 
 def census_main(src: str) -> None:
@@ -1424,18 +1626,13 @@ def _paged_phase(torch, dev, base):
         log(f"[kernel paged_flash_attention] {rec}")
         del q, kc, vc, ks, vs, kg, vg
 
-    def decisions(model, kind):
-        seen: dict = {}
-        for e in model.trace.entries(kind):
-            k = (e.decision.chunk if kind != "serve_admission"
-                 else e.decision.cores, e.decision.provenance)
-            seen[k] = seen.get(k, 0) + 1
-        return ", ".join(f"{v}x{n}({p})" for (v, p), n in seen.items()) \
-            or "none"
-
     # Paged serving at full width: the main path of this slice.  It runs
     # first, so the kernel checks below follow the page size "auto" picked
-    # and every shape kernel 3 ran at here.
+    # and every shape kernel 3 ran at here.  What earlier phases leave
+    # allocated counts in this run's peak memory.
+    gc.collect()
+    log(f"[paged] device memory allocated at the phase's start: "
+        f"{torch.cuda.memory_allocated() / 2 ** 20:.0f} MiB")
     t0 = time.perf_counter()
     params = lm.init_params(0, base, device=dev)
     cache = CalibrationCache()
@@ -1454,39 +1651,30 @@ def _paged_phase(torch, dev, base):
                                 suffix_sigma=0.6, max_suffix=448, seed=8)
     mat = materialize(trace, base.vocab_size, seed=8)
     lens = [len(p) for _, p in mat]
-    # The shapes of the run: a spy between the wrapper and the built
-    # function notes (B, Sq, page size, dtype) of every launch; it reads
-    # only host arguments, so the run neither syncs nor launches more.
-    shapes: dict = {}
-    built = kfa._paged_fn
-
-    def spy():
-        fn = built()
-
-        def launch(*args):
-            key = (args[7], args[10], args[12], args[17])
-            shapes[key] = shapes.get(key, 0) + 1
-            return fn(*args)
-        return launch
-
+    # The shapes of the run: kernel 3's counter keys each launch by (B,
+    # Sq, page size, dtype), and a graph replay adds what its capture
+    # counted, so the run neither syncs nor launches more to note them.
     gc.collect()                     # as in phase 5
     torch.cuda.reset_peak_memory_stats()
     krms.reset_counts()
     for counter in (kfa.launches, kfa.paged_launches):
         counter.reset()
-    kfa._paged_fn = spy
-    try:
-        with ForwardSpy(lm, krms) as fspy:
-            t_start = time.monotonic()
-            rids = [sched.submit(p, max_new_tokens=64) for _, p in mat]
-            results = sched.run_until_idle()
-            torch.cuda.synchronize()
-            makespan = time.monotonic() - t_start
-        launches = {"rmsnorm": krms.launches.count,
-                    "flash_attention": kfa.launches.count,
-                    "paged_flash_attention": kfa.paged_launches.count}
-    finally:
-        kfa._paged_fn = built
+    replays0 = sched.graphs.replays
+    with ForwardSpy(lm, krms) as fspy:
+        t_start = time.monotonic()
+        rids = [sched.submit(p, max_new_tokens=64) for _, p in mat]
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t_start
+    launches = {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+    shapes = dict(kfa.paged_launches.by_key)
+    graphs = sched.graphs
+    log(f"[graph] phase 7: captures {dict(graphs.captures)}, replays "
+        f"{graphs.replays - replays0} in the counted run "
+        f"({graphs.replays} with warmup), reserved attention scratch "
+        f"{graphs.scratch_bytes} B, graph pool {graphs.pool_bytes()} B")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     gen_tokens = sum(len(results.get(r, [])) for r in rids)
     ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
@@ -1540,7 +1728,10 @@ def _paged_phase(torch, dev, base):
     if launches["flash_attention"] != 0:
         problems.append("the paged serve path ran the contiguous kernel")
     if sum(shapes.values()) != launches["paged_flash_attention"]:
-        problems.append("the shape spy and the launch counter disagree")
+        problems.append("kernel 3's launches by shape and its launch count "
+                        "disagree")
+    if graphs.replays == replays0:
+        problems.append("the paged run did not decode through the graphs")
     if sched.pool.allocations != 1:
         problems.append("the page pool reallocated")
     if problems:

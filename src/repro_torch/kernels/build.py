@@ -106,20 +106,65 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+_counters: list[LaunchCounter] = []
+
+
 class LaunchCounter:
     """How many times a wrapper launched its kernel (a plain integer that
-    ``chip_smoke.py`` resets before a run and reads after it).  Locked:
-    the parallel algorithms launch from several worker threads."""
+    ``chip_smoke.py`` resets before a run and reads after it), and, where
+    the wrapper names one, how many times at each key (``by_key``: kernel
+    3 keys its launches by shape).  Locked: the parallel algorithms
+    launch from several worker threads.  Every counter is registered, so
+    a CUDA graph can take back what its capture counted and count it
+    again at each replay (``snapshot`` / ``restore`` / ``add_tally``)."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_key: dict = {}
         self._lock = threading.Lock()
+        _counters.append(self)
 
-    def add(self) -> None:
+    def add(self, key=None) -> None:
         with self._lock:
             self.count += 1
+            if key is not None:
+                self.by_key[key] = self.by_key.get(key, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+            self.by_key = {}
+
+
+def snapshot() -> dict:
+    """Every counter's count and keyed counts, to ``restore`` or to diff
+    against (``tally_since``)."""
+    return {c: (c.count, dict(c.by_key)) for c in _counters}
+
+
+def restore(snap: dict) -> None:
+    for c, (count, by_key) in snap.items():
+        with c._lock:
+            c.count, c.by_key = count, dict(by_key)
+
+
+def tally_since(snap: dict) -> dict:
+    """What every counter gained since ``snap``: ``{counter: (launches,
+    {key: launches})}``, counters that gained nothing left out."""
+    out = {}
+    for c, (count, by_key) in snap.items():
+        keys = {k: n - by_key.get(k, 0) for k, n in c.by_key.items()
+                if n != by_key.get(k, 0)}
+        if c.count != count or keys:
+            out[c] = (c.count - count, keys)
+    return out
+
+
+def add_tally(tally: dict) -> None:
+    """Count ``tally`` (from ``tally_since``) once more."""
+    for c, (count, by_key) in tally.items():
+        with c._lock:
+            c.count += count
+            for k, n in by_key.items():
+                c.by_key[k] = c.by_key.get(k, 0) + n

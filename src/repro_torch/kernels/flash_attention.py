@@ -24,13 +24,16 @@ same choice; the wrapper uses the plan to size the split path's scratch.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``attention_ref``, ``paged_attention_ref``) for CPU tensors.
+Kernel 3's counter keys each launch by (B, Sq, page size, dtype code).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import torch
 
@@ -105,16 +108,50 @@ def attention_plan(b: int, hq: int, hkv: int, sq: int,
 
 
 _scratch: dict = {}
+_bound = threading.local()
+
+
+@contextlib.contextmanager
+def scratch_buffer(buf: torch.Tensor):
+    """Give the attention calls inside the block ``buf`` as their scratch,
+    in place of the per-stream buffer.  A CUDA graph bakes the scratch
+    address into every attention it captures, so whoever captures owns a
+    buffer sized for its largest call and holds it as long as its graphs
+    (``serve/graphs.DecodeGraphs``)."""
+    prev = getattr(_bound, "buf", None)
+    _bound.buf = buf
+    try:
+        yield buf
+    finally:
+        _bound.buf = prev
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
 
 
 def _scratch_ptr(plan: AttentionPlan, skv: int, device: torch.device,
                  stream: int) -> int:
-    """Address of a grow-only scratch buffer for ``plan`` on ``device``
-    and ``stream`` (0 when the plan needs none).  One buffer per stream:
-    the kernels of one call, and calls on one stream, run in order."""
+    """Address of the scratch for ``plan`` (0 when the plan needs none):
+    the buffer bound by ``scratch_buffer``, which must be large enough,
+    or else a grow-only buffer per ``device`` and ``stream`` (the kernels
+    of one call, and calls on one stream, run in order).  A graph
+    capture must run on a bound buffer: growing a per-stream one would
+    free an address an earlier capture baked in."""
     need = plan.scratch_bytes(skv)
     if need == 0:
         return 0
+    bound = getattr(_bound, "buf", None)
+    if bound is not None:
+        if bound.numel() < need:
+            raise RuntimeError(
+                f"attention scratch: the bound buffer holds "
+                f"{bound.numel()} bytes, the call needs {need}")
+        return bound.data_ptr()
+    if _capturing():
+        raise RuntimeError("attention scratch: a graph capture must bind "
+                           "its own buffer (scratch_buffer)")
     key = (device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < need:
@@ -164,6 +201,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def _require_card(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").repro_flash_attention
@@ -208,8 +250,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, kv_lens, causal=causal, window=window,
                              scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _require_card("flash_attention", q)
     b, hq, sq, d = q.shape
     if kv_lens is None:
         kv_lens = torch.full((b,), k.shape[2], dtype=torch.int32,
@@ -329,9 +370,7 @@ def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
         return paged_attention_ref(q, k_store, v_store, page_table, kv_lens,
                                    page_size=page_size, causal=causal,
                                    scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_attention: unsupported device "
-                         f"{q.device}")
+    _require_card("paged_flash_attention", q)
     b, hq, sq, d = q.shape
     ps = int(page_size)
     hkv, n_blocks = k_store.shape[1], page_table.shape[1]
@@ -346,5 +385,5 @@ def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
         n_blocks, ps, k_store.shape[0] // ps, d, float(scale), int(causal),
         _DTYPES[q.dtype], stream)
     build.check(err, "paged_flash_attention")
-    paged_launches.add()
+    paged_launches.add((b, sq, ps, _DTYPES[q.dtype]))
     return out

@@ -15,6 +15,12 @@ pool with prefix reuse (every attention through the paged kernel),
 replays a seeded open-loop trace through the asyncio ``ServeFrontend``
 with streaming, deadlines and adaptive admission, leading its report
 with SLO-goodput.  Runs on the CUDA card unless ``--device cpu``.
+Calibrations persist under ``--cal-cache-dir`` unless ``--no-cal-cache``;
+``--strict`` turns on strict mode (``core/strict.py``), and
+``--print-launch-profile`` prints the serving process's environment as
+shell ``export`` lines and exits:
+
+    eval "$(PYTHONPATH=src python -m repro_torch.launch.serve --print-launch-profile)"
 """
 from __future__ import annotations
 
@@ -28,12 +34,40 @@ import torch
 from ..configs import ARCH_NAMES, get_config
 from ..core.acc import AdaptiveCoreChunk
 from ..core.adaptive import adaptive
+from ..core import strict
 from ..core.calibration import CalibrationCache
 from ..core.executor import SequentialExecutor
 from ..device import resolve_device
 from ..models import lm
 from ..serve import (ServeFrontend, ServeScheduler, SLOModel,
                      heavy_tailed_trace, materialize, percentile)
+
+
+# The serving process's environment: (variable, value, why).  CUDA and
+# PyTorch settings only; the JAX package's profile tunes XLA instead.
+LAUNCH_PROFILE = (
+    ("CUDA_MODULE_LOADING", "LAZY",
+     "load each kernel at its first launch: the fused and paged paths "
+     "use a few of the libraries' kernels, so start-up and context "
+     "memory stay small"),
+    ("CUBLAS_WORKSPACE_CONFIG", ":4096:8",
+     "a fixed cuBLAS workspace: the decode graphs' GEMMs capture with the "
+     "same workspace every time, and repeated runs give the same bits"),
+    ("NVIDIA_TF32_OVERRIDE", "0",
+     "keep float32 GEMMs in full float32 whatever a library defaults to: "
+     "the f32 identity checks (contiguous == paged == speculative) need it"),
+    ("CUDA_LAUNCH_BLOCKING", "0",
+     "launches stay asynchronous: a debugging value of 1 would make every "
+     "launch a host sync and undo the one-launch-per-step decode graphs"),
+    ("OMP_NUM_THREADS", "1",
+     "the scheduler's host work is one Python thread; more OpenMP threads "
+     "only contend with the executor's workers for the host's cores"),
+)
+
+
+def print_launch_profile() -> None:
+    for var, value, why in LAUNCH_PROFILE:
+        print(f"export {var}={value}  # {why}")
 
 
 def parse_depth(text: str):
@@ -127,7 +161,7 @@ def print_paged_stats(sched: ServeScheduler) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=list(ARCH_NAMES), required=True)
+    ap.add_argument("--arch", choices=list(ARCH_NAMES))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -169,6 +203,17 @@ def main(argv=None) -> None:
                     help="--frontend bounded admission queue")
     ap.add_argument("--no-cal-cache", action="store_true",
                     help="do not persist T0/t_iter calibrations to disk")
+    ap.add_argument("--cal-cache-dir", default=None,
+                    help="calibration cache directory (default: "
+                         "$REPRO_CAL_CACHE_DIR or ~/.cache/repro-torch-acc)")
+    ap.add_argument("--strict", action="store_true",
+                    help="strict mode (as REPRO_STRICT=1): a cache pool "
+                         "read while a dispatch updates it raises, and the "
+                         "serve tick raises on any implicit device->host "
+                         "synchronisation")
+    ap.add_argument("--print-launch-profile", action="store_true",
+                    help="print the serving environment as shell export "
+                         "lines and exit")
     ap.add_argument("--explain-decisions", action="store_true",
                     help="dump the ExecutionModel decision trace")
     ap.add_argument("--device", default="cuda",
@@ -177,6 +222,13 @@ def main(argv=None) -> None:
                     help="seed of the random weights, the prompts and "
                          "the --frontend trace")
     args = ap.parse_args(argv)
+    if args.strict:
+        strict.enable()
+    if args.print_launch_profile:
+        print_launch_profile()
+        return
+    if args.arch is None:
+        ap.error("--arch is required (unless --print-launch-profile)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -184,7 +236,7 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     params = lm.init_params(args.seed, cfg, device=device)
     cache = CalibrationCache() if args.no_cal_cache \
-        else CalibrationCache.persistent()
+        else CalibrationCache.persistent(args.cal_cache_dir)
     acc = AdaptiveCoreChunk(cache=cache)
     executor = adaptive(SequentialExecutor(), acc)
     max_len = args.prompt_len + args.new_tokens + 1

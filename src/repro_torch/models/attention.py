@@ -41,18 +41,20 @@ class CacheWrite:
     (B,) long tensor of per-lane positions (lane ``b`` writes its ``L``
     rows from ``pos[b]``: the decode step with ``L == 1``, the
     speculative verify with ``L == d``); ``rows`` (with per-lane
-    positions) selects the lanes that write at all — the host knows which
-    decode lanes are active, so inactive lanes' cache rows are left
-    untouched instead of merged back; ``keep`` (R,) bool on the device,
-    where given, further drops the writes of selected lanes whose
-    activity only the device knows (a speculative lane whose budget ran
-    out inside the dispatch); ``kv_lens`` (B,) int32 is the attention
-    length of each lane after the write.
+    positions) selects the lanes that write at all (None: every lane);
+    ``keep`` (R,) bool on the device, where given, drops the writes of
+    lanes whose activity only the device knows — the decode graphs run
+    every lane and keep only the active ones: a dropped lane's rows are
+    read back and written unchanged (contiguous) or go to the scratch
+    page (paged); ``kv_lens`` (B,) int32 is the attention length of each
+    lane after the write.
 
     For a paged cache, ``page_table`` (B, n_blocks) int32 and
     ``page_size`` address the stores, and ``flat`` holds the store row of
     every written (lane, step) in that order, computed once per forward
-    (``page_rows``).
+    (``page_rows``).  For a contiguous cache with per-lane positions,
+    ``lanes`` (R, 1) and ``at`` (R, L) are the written lanes and their
+    positions, also computed once per forward.
     """
 
     pos: int | torch.Tensor
@@ -62,6 +64,8 @@ class CacheWrite:
     page_table: torch.Tensor | None = None
     page_size: int = 0
     flat: torch.Tensor | None = None
+    lanes: torch.Tensor | None = None
+    at: torch.Tensor | None = None
 
 
 def page_rows(page_table: torch.Tensor, lanes: torch.Tensor,
@@ -133,16 +137,13 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             ck[:, :, write.pos:write.pos + length] = kt
             cv[:, :, write.pos:write.pos + length] = vt
         else:
-            rows = write.rows
-            at = write.pos[rows][:, None] + torch.arange(
-                length, device=x.device)[None, :]        # (R, L)
-            r2 = rows[:, None]
-            new_k = kt[rows].transpose(1, 2)             # (R, L, Hkv, D)
-            new_v = vt[rows].transpose(1, 2)
+            r2, at = write.lanes, write.at               # (R, 1), (R, L)
+            if write.rows is not None:
+                kt, vt = kt[write.rows], vt[write.rows]
+            new_k = kt.transpose(1, 2)                   # (R, L, Hkv, D)
+            new_v = vt.transpose(1, 2)
             if write.keep is not None:
-                # Lanes the device dropped keep their old rows (read back
-                # at in-range positions: a dropped lane may sit at the end).
-                at = at.clamp(max=ck.shape[2] - 1)
+                # Lanes the device dropped keep their old rows.
                 k4 = write.keep[:, None, None, None]
                 new_k = torch.where(k4, new_k, ck[r2, :, at])
                 new_v = torch.where(k4, new_v, cv[r2, :, at])

@@ -164,31 +164,39 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     b, length = tokens.shape
     dev = tokens.device
     steps = torch.arange(length, device=dev)
-    if isinstance(pos, torch.Tensor):
+    per_lane = isinstance(pos, torch.Tensor)
+    if per_lane:
         positions = pos[:, None] + steps[None, :]
-        rows = write_rows if write_rows is not None \
-            else torch.arange(b, device=dev)
         kv_lens = (pos + length).to(torch.int32)
     else:
         pos = int(pos)
         positions = (pos + steps)[None, :].expand(b, length)
-        rows = None
         kv_lens = torch.full((b,), pos + length, dtype=torch.int32,
                              device=dev)
+    rows = write_rows if per_lane else None
+    if per_lane or page_table is not None:
+        # The written lanes and their positions, once per forward.
+        lanes = rows if rows is not None else torch.arange(b, device=dev)
+        at = positions if rows is None else positions[rows]
     if page_table is not None:
         ps = int(page_size)
-        if not isinstance(pos, torch.Tensor) and (
+        if not per_lane and (
                 pos < 0 or pos + length > page_table.shape[1] * ps):
             raise ValueError(
                 f"cache write of {length} rows at {pos} runs past the "
                 f"page table's {page_table.shape[1] * ps} rows")
-        lanes = rows if rows is not None else torch.arange(b, device=dev)
-        flat = attention.page_rows(page_table, lanes, positions[lanes], ps,
-                                   write_keep)
+        flat = attention.page_rows(page_table, lanes, at, ps, write_keep)
         write = attention.CacheWrite(pos, rows, kv_lens, None, page_table,
                                      ps, flat)
+    elif per_lane:
+        if write_keep is not None:
+            # A dropped lane may sit at the end of its cache: its rows
+            # are read back and written unchanged at in-range positions.
+            at = at.clamp(max=caches[0]["k"].shape[2] - 1)
+        write = attention.CacheWrite(pos, rows, kv_lens, write_keep,
+                                     lanes=lanes[:, None], at=at)
     else:
-        write = attention.CacheWrite(pos, rows, kv_lens, write_keep)
+        write = attention.CacheWrite(pos, rows, kv_lens)
     # Rotary angles depend only on the positions: once per forward, not
     # once per layer (XLA dedupes the per-layer copies; eager would not).
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)

@@ -1,11 +1,13 @@
 """Serve layer of the port: slot and paged pools, fused and speculative
-decode loops, scheduler, async front end and load generators."""
+decode loops (one CUDA graph replay per step on the card), scheduler,
+lock-step engine, async front end and load generators."""
 from .decode_loop import (DEFAULT_MAX_DEPTH, DEFAULT_SPEC_HISTORY,
                           SPEC_DEPTH_CANDIDATES, draft_from_history,
                           make_fused_decode_step, make_lane_step,
                           make_paged_decode_step, make_paged_spec_decode_step,
-                          make_spec_decode_step)
-from .engine import ServeEngine, prefill_segments
+                          make_spec_decode_step, masked_merge)
+from .engine import ServeEngine, make_decode_step, prefill_segments
+from .graphs import DecodeGraphs
 from .frontend import QueueFullError, RequestRecord, ServeFrontend, TokenStream
 from .kv_cache import (CacheLayoutError, PagedKVCachePool,
                        PagePoolExhaustedError, SlotKVCachePool,
@@ -21,8 +23,8 @@ __all__ = [
     "DEFAULT_MAX_DEPTH", "DEFAULT_SPEC_HISTORY", "SPEC_DEPTH_CANDIDATES",
     "draft_from_history", "make_fused_decode_step", "make_lane_step",
     "make_paged_decode_step", "make_paged_spec_decode_step",
-    "make_spec_decode_step",
-    "ServeEngine", "prefill_segments",
+    "make_spec_decode_step", "masked_merge", "DecodeGraphs",
+    "ServeEngine", "make_decode_step", "prefill_segments",
     "QueueFullError", "RequestRecord", "ServeFrontend", "TokenStream",
     "CacheLayoutError", "PagedKVCachePool", "PagePoolExhaustedError",
     "SlotKVCachePool", "SlotOverflowError",

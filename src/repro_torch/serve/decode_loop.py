@@ -3,19 +3,23 @@
 
 The JAX package compiles one ``lax.fori_loop`` whose trip count rides in
 as data and vmaps a per-lane step over the pool.  Here the lane axis is
-the batch dimension of one forward, and the loop is a host loop over
-``max(steps)`` — the host already knows every lane's step budget, so it
-also knows, at every iteration, which lanes are still active.  That
-knowledge replaces the reference's ``masked_merge`` (a ``where`` over
-the whole pool per step, which XLA aliases away but which would copy the
-full KV pool per token eagerly): inactive lanes simply do not write
-their K/V rows.  Nothing in the loop waits for the card: the next
-tokens stay on the device and feed the next iteration and the next
-dispatch; the emitted tokens come back in one copy per dispatch when
-the scheduler drains it.
+the batch dimension of one forward, and the loop body is a function of
+static buffers (``graphs.StepState``): ``fused_body`` is the reference's
+body — ``active = rem > 0``, the next token of every lane, writes kept
+only for active lanes, ``toks = where(active, next, toks)``, ``out[j] =
+toks``, ``poss += active``, ``rem -= active``, ``j += 1`` — and nothing
+in it reads the card from the host or takes a shape from the host's
+active list.  A ``graphs.StepRunner`` copies a dispatch's inputs in and
+runs the body ``max(steps)`` times: eagerly on the CPU, and on the card
+as replays of one captured CUDA graph, so the host makes one graph
+launch per step.  The emitted tokens come back in one copy per dispatch
+when the scheduler drains it.
 
-Token semantics match the per-tick path: both run ``make_lane_step``,
-greedy argmax, and the same active-lane writes.
+Inactive lanes compute like the reference's, and their K/V writes are
+dropped where they land (``lm.forward_cached``'s ``write_keep``): the
+contiguous pool reads the old rows back and writes them unchanged, the
+paged pool sends them to the scratch page 0.  ``masked_merge`` is the
+reference's merge, which those writes agree with.
 
 Over the paged pool (``make_paged_decode_step``) the loop is the same;
 the page table rides in as data, fixed for the dispatch (the host
@@ -31,9 +35,8 @@ many rounds a dispatch needs depends on acceptance, which only the card
 knows.  The first ``ceil(max_take / d)`` rounds are always needed (a
 round emits at most ``d`` tokens per lane) and run without a read; after
 them the host reads ``max(rem)`` back once per round (``to_host``, a
-counted round trip) and stops at 0.  Lanes whose budget runs out inside
-the dispatch are known only on the card: their K/V writes are dropped
-there (``write_keep``).
+counted round trip) and stops at 0.  Each round is one replay of the
+graph captured for its width.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import strict
 from ..models import lm
-from .kv_cache import host_to_device
+from .graphs import DecodeGraphs, StepRunner
 
 # One fused step serves every depth up to this; the scheduler clamps
 # adaptive depth decisions against it.
@@ -56,6 +59,9 @@ DEFAULT_MAX_DEPTH = 32
 # ``serve_spec_depth`` decision picks between.
 DEFAULT_SPEC_HISTORY = 64
 SPEC_DEPTH_CANDIDATES = (1, 2, 4, 8)
+# Every query length a decode graph attends with: the plain step and each
+# verify width (``DecodeGraphs`` reserves scratch for the largest).
+STEP_WIDTHS = (1,) + tuple(w for w in SPEC_DEPTH_CANDIDATES if w >= 2)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -78,18 +84,17 @@ def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
                    page_size: int | None = None) -> Callable:
     """The decode step over the slot pool.
 
-    ``lanes(params, caches, toks, poss, write_rows, page_table) ->
-    next_toks``: every leading dim is ``n_slots``; ``caches`` (the pool)
-    is updated in place for the lanes in ``write_rows`` (None: all).
-    With ``page_size`` the caches are the paged pool's stores, read
-    through ``page_table``.  Both the per-tick step and the fused loop
-    call exactly this function.
+    ``lanes(params, caches, toks, poss, page_table, keep) -> next_toks``:
+    every leading dim is ``n_slots``; ``caches`` (the pool) is updated in
+    place for the lanes whose ``keep`` flag (on the device; None: all) is
+    set.  With ``page_size`` the caches are the paged pool's stores, read
+    through ``page_table``.  Every decode step body calls exactly this
+    function.
     """
 
-    def lanes(params, caches, toks, poss, write_rows=None, page_table=None):
+    def lanes(params, caches, toks, poss, page_table=None, keep=None):
         logits, _ = lm.forward_cached(params, toks[:, None], caches, poss,
-                                      cfg, window=window,
-                                      write_rows=write_rows,
+                                      cfg, window=window, write_keep=keep,
                                       page_table=page_table,
                                       page_size=page_size)
         return torch.argmax(logits[:, 0], dim=-1)
@@ -97,40 +102,74 @@ def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
     return lanes
 
 
-def _fused_loop(lanes: Callable, max_depth: int) -> Callable:
-    """The host loop over budgets shared by the contiguous and the paged
-    fused steps; ``page_table`` is None for the contiguous pool."""
+def masked_merge(caches: list, new_caches: list,
+                 active: torch.Tensor) -> list:
+    """Keep ``new`` rows only for active lanes (the reference's merge):
+    per layer and store, ``where(active, new, old)`` over the lane axis.
+    The step bodies never call it — they drop inactive lanes' writes
+    where they land (``write_keep``) — but it is the function those
+    writes must agree with."""
+
+    def keep(old, new):
+        if old is None:
+            return None
+        return torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)),
+                           new, old)
+
+    return [{name: keep(c[name], nc[name]) for name in c}
+            for c, nc in zip(caches, new_caches, strict=True)]
+
+
+def _budgets(steps, max_depth: int) -> list[int]:
+    return [min(max(int(s), 0), max_depth) for s in steps]
+
+
+def fused_body(lanes: Callable) -> Callable:
+    """One decode step over a ``StepState`` (the reference's loop body):
+    every lane runs, ``keep`` drops the writes of lanes whose budget is
+    spent, and only active lanes take their next token and advance."""
+
+    def body(params, caches, st):
+        active = st.rem > 0
+        nxt = lanes(params, caches, st.toks, st.poss, page_table=st.table,
+                    keep=active)
+        st.toks.copy_(torch.where(active, nxt, st.toks))
+        st.out.index_copy_(0, st.j, st.toks[None])
+        step = active.long()
+        st.poss.add_(step)
+        st.rem.sub_(step)
+        st.j.add_(1)
+
+    return body
+
+
+def _fused_loop(cfg: ArchConfig, lanes: Callable, max_depth: int,
+                graphs: DecodeGraphs | None,
+                page_size: int | None) -> Callable:
+    """The dispatch shared by the contiguous and the paged fused steps
+    (``page_table`` None for the contiguous pool): the inputs copied into
+    the runner's state, ``max(steps)`` steps, the outputs copied out (a
+    later dispatch reuses the state while this one's are still read)."""
+    max_depth = max(int(max_depth), 1)
+    runner = StepRunner(graphs or DecodeGraphs(), "fused",
+                        fused_body(lanes), length=1,
+                        heads=(cfg.n_heads, cfg.n_kv_heads),
+                        widths=STEP_WIDTHS, page_size=page_size)
 
     def fused(params, caches, page_table, toks, poss, steps):
-        n = toks.shape[0]
-        dev = toks.device
-        budget = [min(max(int(s), 0), max_depth) for s in steps]
-        out_buf = torch.zeros((max_depth, n), dtype=torch.long, device=dev)
-        trip = max(budget, default=0)
-        prev: list[int] | None = None
-        rows = mask = step = None
-        for j in range(trip):
-            act = [i for i, s in enumerate(budget) if s > j]
-            if act != prev:
-                # The active set shrinks at most n times per dispatch.
-                prev = act
-                rows = host_to_device(act, torch.long, dev)
-                flags = [i in act for i in range(n)]
-                mask = host_to_device(flags, torch.bool, dev)
-                step = host_to_device(flags, torch.long, dev)
-            next_toks = lanes(params, caches, toks, poss,
-                              None if len(act) == n else rows, page_table)
-            toks = next_toks if len(act) == n \
-                else torch.where(mask, next_toks, toks)
-            out_buf[j] = toks
-            poss = poss + step
-        return caches, out_buf, toks
+        budget = _budgets(steps, max_depth)
+        st = runner.load(params, caches, toks, poss, budget, max_depth,
+                         table=page_table)
+        for _ in range(max(budget, default=0)):
+            runner.step()
+        return caches, st.out.clone(), st.toks.clone()
 
     return fused
 
 
 def make_fused_decode_step(cfg: ArchConfig, *, window: int | None = None,
-                           max_depth: int = DEFAULT_MAX_DEPTH) -> Callable:
+                           max_depth: int = DEFAULT_MAX_DEPTH,
+                           graphs: DecodeGraphs | None = None) -> Callable:
     """Build the fused decode step.
 
     ``fused(params, caches, toks, poss, steps)`` advances lane ``i`` by
@@ -140,11 +179,17 @@ def make_fused_decode_step(cfg: ArchConfig, *, window: int | None = None,
     * ``caches``     — the pool, updated in place (the caller adopts it);
     * ``out_buf``    — ``(max_depth, n_slots)`` long on the device; row
       ``j`` holds lane ``i``'s ``j``-th token for ``j < steps[i]`` (rows
-      past a lane's budget repeat its last token);
+      past a lane's budget repeat its last token, rows past the deepest
+      budget are 0);
     * ``final_toks`` — each lane's last token, ready for the next dispatch.
+
+    On the card each step is one replay of a captured graph
+    (``serve/graphs.py``); ``graphs`` shares a memory pool and the
+    attention scratch between steps (the scheduler passes one for all of
+    its own).
     """
-    loop = _fused_loop(make_lane_step(cfg, window=window),
-                       max(int(max_depth), 1))
+    loop = _fused_loop(cfg, make_lane_step(cfg, window=window), max_depth,
+                       graphs, None)
 
     def fused(params, caches, toks, poss, steps):
         return loop(params, caches, None, toks, poss, steps)
@@ -153,7 +198,8 @@ def make_fused_decode_step(cfg: ArchConfig, *, window: int | None = None,
 
 
 def make_paged_decode_step(cfg: ArchConfig, *, page_size: int,
-                           max_depth: int = DEFAULT_MAX_DEPTH) -> Callable:
+                           max_depth: int = DEFAULT_MAX_DEPTH,
+                           graphs: DecodeGraphs | None = None) -> Callable:
     """The fused decode step over a paged pool.
 
     ``fused(params, caches, page_tables, toks, poss, steps)`` — the
@@ -161,9 +207,10 @@ def make_paged_decode_step(cfg: ArchConfig, *, page_size: int,
     (``(n_slots, pages_per_slot)`` int32 on the device) riding in as
     data, fixed for the dispatch: the host resolves allocation and
     copy-on-write before it.  Each active lane writes its new K/V row at
-    ``table[pos // ps] * ps + pos % ps``; inactive lanes write nothing."""
-    return _fused_loop(make_lane_step(cfg, page_size=page_size),
-                       max(int(max_depth), 1))
+    ``table[pos // ps] * ps + pos % ps``; an inactive lane's row goes to
+    the scratch page 0."""
+    return _fused_loop(cfg, make_lane_step(cfg, page_size=page_size),
+                       max_depth, graphs, page_size)
 
 
 # ---------------------------------------------------------------------------
@@ -268,75 +315,89 @@ def _spec_write_out(out_buf: torch.Tensor, verified: torch.Tensor,
 def make_spec_lane_step(cfg: ArchConfig, *, window: int | None = None,
                         page_size: int | None = None) -> Callable:
     """The verify step over the pool: ``lanes(params, caches, seqs, poss,
-    write_rows, keep, page_table) -> verified`` where ``seqs`` is
+    page_table, keep) -> verified`` where ``seqs`` is
     ``(n_slots, d)`` — each lane's carry token followed by its ``d - 1``
     drafts — and ``verified`` ``(n_slots, d)`` the greedy argmax after
     every fed position.  It is the same ``lm.forward_cached`` the plain
     lane runs, fed a chunk."""
     _check_spec_arch(cfg, window)
 
-    def lanes(params, caches, seqs, poss, write_rows=None, keep=None,
-              page_table=None):
+    def lanes(params, caches, seqs, poss, page_table=None, keep=None):
         logits, _ = lm.forward_cached(
-            params, seqs, caches, poss, cfg, window=window,
-            write_rows=write_rows, write_keep=keep, all_logits=True,
-            page_table=page_table, page_size=page_size)
+            params, seqs, caches, poss, cfg, window=window, write_keep=keep,
+            all_logits=True, page_table=page_table, page_size=page_size)
         return torch.argmax(logits, dim=-1)
 
     return lanes
 
 
-def _spec_loop(lanes: Callable, depth: int, max_depth: int) -> Callable:
-    """The speculative round loop shared by the contiguous and the paged
-    steps (``page_table`` None for the contiguous pool)."""
+def spec_body(lanes: Callable, depth: int) -> Callable:
+    """One speculative round over a ``StepState`` (the reference's
+    ``while_loop`` body): draft, verify all ``depth`` positions of every
+    lane in one forward (``keep`` drops the writes of lanes whose budget
+    is spent), accept, emit into ``out`` at each lane's cursor, shift the
+    history and advance."""
     d = depth
 
+    def body(params, caches, st):
+        active = st.rem > 0
+        drafts = _draft_batch(st.hist, d)
+        seqs = torch.cat([st.toks[:, None], drafts], dim=1)
+        verified = lanes(params, caches, seqs, st.poss, page_table=st.table,
+                         keep=active)
+        n_emit, new_toks = _spec_emit(drafts, verified, st.rem)
+        st.out.copy_(_spec_write_out(st.out, verified, st.rem0 - st.rem,
+                                     n_emit))
+        st.hist.copy_(_shift_history(st.hist, verified, n_emit))
+        st.toks.copy_(torch.where(active, new_toks, st.toks))
+        st.poss.add_(n_emit)
+        st.rem.sub_(n_emit)
+        st.rounds.add_(active.long())
+
+    return body
+
+
+def _spec_loop(cfg: ArchConfig, lanes: Callable, depth: int, max_depth: int,
+               graphs: DecodeGraphs | None,
+               page_size: int | None) -> Callable:
+    """The speculative dispatch shared by the contiguous and the paged
+    steps (``page_table`` None for the contiguous pool)."""
+    d = depth
+    max_depth = max(int(max_depth), 1)
+    runner = StepRunner(graphs or DecodeGraphs(), f"spec{d}",
+                        spec_body(lanes, d), length=d,
+                        heads=(cfg.n_heads, cfg.n_kv_heads),
+                        widths=STEP_WIDTHS, page_size=page_size)
+
     def fused(params, caches, page_table, hist, toks, poss, steps):
-        n = toks.shape[0]
-        dev = toks.device
-        budget = [min(max(int(s), 0), max_depth) for s in steps]
-        out_buf = torch.zeros((max_depth, n), dtype=torch.long, device=dev)
-        rem0 = host_to_device(budget, torch.long, dev)
-        rem = rem0
-        lane_rounds = torch.zeros(n, dtype=torch.long, device=dev)
-        writers = [i for i, s in enumerate(budget) if s > 0]
-        rows = None if len(writers) == n \
-            else host_to_device(writers, torch.long, dev)
+        budget = _budgets(steps, max_depth)
+        st = runner.load(params, caches, toks, poss, budget, max_depth,
+                         table=page_table, hist=hist)
         blind = -(-max(budget, default=0) // d)   # rounds surely needed
         reads = 0
         rnd = 0
-        while writers:
+        while any(budget):
             if rnd >= blind:
                 reads += 1
-                if to_host(rem.amax()).tolist() <= 0:
+                if to_host(st.rem.amax()).tolist() <= 0:
                     break
-            active = rem > 0
-            drafts = _draft_batch(hist, d)
-            seqs = torch.cat([toks[:, None], drafts], dim=1)
-            keep = active if rows is None else active[rows]
-            verified = lanes(params, caches, seqs, poss, rows, keep,
-                             page_table)
-            n_emit, new_toks = _spec_emit(drafts, verified, rem)
-            out_buf = _spec_write_out(out_buf, verified, rem0 - rem, n_emit)
-            hist = _shift_history(hist, verified, n_emit)
-            toks = torch.where(active, new_toks, toks)
-            poss = poss + n_emit
-            rem = rem - n_emit
-            lane_rounds = lane_rounds + active.long()
+            runner.step()
             rnd += 1
         # A lane is active for a prefix of the rounds and emits >= 1 token
         # per active round: loop rounds = max lane rounds, verify events =
         # their sum, and every dispatched token is emitted by exit.
-        stats = torch.stack([lane_rounds.amax(), lane_rounds.sum(),
-                             rem0.sum()])
-        return caches, hist, out_buf, toks, stats, reads
+        stats = torch.stack([st.rounds.amax(), st.rounds.sum(),
+                             st.rem0.sum()])
+        return (caches, st.hist.clone(), st.out.clone(), st.toks.clone(),
+                stats, reads)
 
     return fused
 
 
 def make_spec_decode_step(cfg: ArchConfig, *, depth: int,
                           window: int | None = None,
-                          max_depth: int = DEFAULT_MAX_DEPTH) -> Callable:
+                          max_depth: int = DEFAULT_MAX_DEPTH,
+                          graphs: DecodeGraphs | None = None) -> Callable:
     """Build the self-speculative fused decode step.
 
     ``fused(params, caches, hist, toks, poss, steps)`` — the
@@ -351,11 +412,12 @@ def make_spec_decode_step(cfg: ArchConfig, *, depth: int,
     Returns ``(caches, hist, out_buf, final_toks, stats, reads)``:
     ``stats`` is ``(3,)`` long on the device (loop rounds, per-lane
     verify events, tokens emitted) and ``reads`` the number of round-
-    count reads the host made (see the module docstring).
+    count reads the host made (see the module docstring).  On the card
+    each round is one replay of a graph captured per width.
     """
     d = max(int(depth), 2)
-    loop = _spec_loop(make_spec_lane_step(cfg, window=window), d,
-                      max(int(max_depth), 1))
+    loop = _spec_loop(cfg, make_spec_lane_step(cfg, window=window), d,
+                      max_depth, graphs, None)
 
     def fused(params, caches, hist, toks, poss, steps):
         return loop(params, caches, None, hist, toks, poss, steps)
@@ -365,15 +427,16 @@ def make_spec_decode_step(cfg: ArchConfig, *, depth: int,
 
 def make_paged_spec_decode_step(cfg: ArchConfig, *, depth: int,
                                 page_size: int,
-                                max_depth: int = DEFAULT_MAX_DEPTH
+                                max_depth: int = DEFAULT_MAX_DEPTH,
+                                graphs: DecodeGraphs | None = None
                                 ) -> Callable:
     """The self-speculative step over a paged pool: ``fused(params,
     caches, page_tables, hist, toks, poss, steps)``.  Page-refcount
     safety is the caller's pre-dispatch contract: the scheduler's
     ``ensure_writable`` covers the whole speculative window ``[pos, pos
     + take + depth - 1)``, so a rejected draft only ever lands in a page
-    this slot owns alone; a lane done inside the dispatch writes to the
+    this slot owns alone; a lane whose budget is spent writes to the
     scratch page."""
     d = max(int(depth), 2)
-    return _spec_loop(make_spec_lane_step(cfg, page_size=page_size), d,
-                      max(int(max_depth), 1))
+    return _spec_loop(cfg, make_spec_lane_step(cfg, page_size=page_size),
+                      d, max_depth, graphs, page_size)

@@ -1,20 +1,32 @@
 """Serving engine: a thin facade over the continuous-batching scheduler
-(the counterpart of ``repro.serve.engine.ServeEngine``'s scheduled path).
+(the counterpart of ``repro.serve.engine``).
 
 ``generate`` submits one request per prompt row to a ``ServeScheduler``
-and returns the greedy tokens.  The lock-step batch path of the JAX
-engine (``prefill`` / ``decode`` / ``_generate_legacy``, the route of the
-cross-attention archs) is not ported yet (ROADMAP.md).
+and returns the greedy tokens.  The stateful lock-step batch surface
+(``prefill`` / ``decode`` / ``pos`` / ``caches``) is there for callers
+that drive one batch themselves; ``generate`` takes it once the engine
+holds cache state (``pos != 0``), as the reference does.
+``make_decode_step`` is that path's pure step.
+
+Not ported yet (ROADMAP.md A.4): ``make_prefill_step``, which needs the
+full-sequence ``lm.forward``; per-request ``frontend_feats`` and the
+cross-attention archs raise ``NotImplementedError``.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..core.acc import AdaptiveCoreChunk
 from ..core.executor import SequentialExecutor
+from ..core.future import Future
 from ..core.properties import params_of
 from ..device import resolve_device
+from ..models import lm
+from .decode_loop import to_host
+from .scheduler import ServeScheduler, _not_ported
 
 
 def prefill_segments(s: int, chunk: int, *, pos: int = 0,
@@ -38,8 +50,22 @@ def prefill_segments(s: int, chunk: int, *, pos: int = 0,
     return segs
 
 
+def make_decode_step(cfg: ArchConfig, *,
+                     window: int | None = None) -> Callable:
+    """``(params, caches, tokens (B, L), pos) -> (logits (B, 1, V),
+    caches)``: one cached forward at position ``pos`` (an int), the
+    caches updated in place."""
+
+    def decode_step(params, caches, tokens, pos):
+        return lm.forward_cached(params, tokens, caches, pos, cfg,
+                                 window=window)
+
+    return decode_step
+
+
 class ServeEngine:
-    """Stateful wrapper: greedy generation through the scheduler."""
+    """Stateful wrapper: greedy generation through the scheduler, or a
+    lock-step batch the caller drives (``prefill`` / ``decode``)."""
 
     def __init__(self, cfg: ArchConfig, params, *, batch: int, max_len: int,
                  window: int | None = None,
@@ -47,6 +73,9 @@ class ServeEngine:
                  executor=None, kernel_tuner=None,
                  dispatch_depth: int | str | None = None,
                  mesh=None, device: str | torch.device = "cuda"):
+        if kernel_tuner is not None:
+            raise _not_ported("measured kernel blocks (kernel_tuner)",
+                              "tooling")
         self.cfg = cfg
         self.params = params
         self.window = window if window is not None else cfg.attn_window
@@ -56,27 +85,97 @@ class ServeEngine:
         self.executor = executor if executor is not None \
             else SequentialExecutor()
         self.acc = acc or params_of(self.executor) or AdaptiveCoreChunk()
-        self.kernel_tuner = kernel_tuner
         self.dispatch_depth = dispatch_depth
         self.mesh = mesh
+        self._caches = None   # lazy: the scheduled path never builds it
+        self.pos = 0
+        self._decode = make_decode_step(cfg, window=self.window)
         self._sched = None   # lazily built, reused across generate() calls
 
-    def generate(self, prompt, n_new: int) -> torch.Tensor:
-        """Greedy generation; ``prompt`` (B, S) on the host; returns
-        (B, n_new) long token ids on the host."""
-        from .scheduler import ServeScheduler
+    @property
+    def caches(self) -> list:
+        if self._caches is None:
+            self._caches = lm.init_caches(self.cfg, self.batch, self.max_len,
+                                          window=self.window,
+                                          device=self.device)
+        return self._caches
 
-        if "cross_attn" in self.cfg.layer_kinds():
-            raise NotImplementedError(
-                "the lock-step batch path for cross-attention archs is not "
-                "ported yet (ROADMAP.md, remaining architectures)")
+    @caches.setter
+    def caches(self, value: list) -> None:
+        self._caches = value
+
+    def _check_feats(self, frontend_feats) -> None:
+        if frontend_feats is not None \
+                or "cross_attn" in self.cfg.layer_kinds():
+            raise _not_ported("per-request frontend features and the "
+                              "cross-attention archs", "A.4")
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens).to(self.device, torch.long)
+
+    def prefill(self, tokens, frontend_feats=None,
+                chunk: int | None = None) -> torch.Tensor:
+        """Chunked prefill of ``tokens`` (B, S) at the engine's position;
+        the chunk from the acc model unless given.  The chunks' forwards
+        chain through the executor (``then_execute``): each consumes the
+        previous one's (logits, caches, position), joined at the end.
+        Returns the last chunk's logits (B, 1, V)."""
+        self._check_feats(frontend_feats)
+        tokens = self._tokens(tokens)
+        s = tokens.shape[1]
+        if chunk is None:
+            from ..train.autotune import token_profile
+
+            d = self.acc.decide_for_profile(
+                self.executor, token_profile(self.cfg, training=False), s)
+            chunk = max(min(d.chunk_elems, s), 1)
+
+        def step_for(start: int, step: int):
+            piece = tokens[:, start:start + step]
+
+            def run(state):
+                _, caches, pos = state
+                logits, caches = self._decode(self.params, caches, piece,
+                                              pos)
+                return logits, caches, pos + step
+
+            return run
+
+        state = Future.ready((None, self.caches, self.pos))
+        for start, step in prefill_segments(s, chunk, pos=self.pos,
+                                            window=self.window):
+            state = self.executor.then_execute(step_for(start, step), state)
+        logits, self.caches, self.pos = state.result()
+        return logits
+
+    def decode(self, tokens, frontend_feats=None) -> torch.Tensor:
+        """One forward of ``tokens`` (B, L) at the engine's position;
+        returns its last logits (B, 1, V)."""
+        self._check_feats(frontend_feats)
+        tokens = self._tokens(tokens)
+        logits, self.caches = self._decode(self.params, self.caches, tokens,
+                                           self.pos)
+        self.pos += tokens.shape[1]
+        return logits
+
+    def generate(self, prompt, n_new: int,
+                 frontend_feats=None) -> torch.Tensor:
+        """Greedy generation; ``prompt`` (B, S); returns (B, n_new) long
+        token ids on the host.  Through the scheduler (one request per
+        row) while the engine holds no cache state, else the lock-step
+        batch loop, as in the reference."""
+        self._check_feats(frontend_feats)
+        if self.pos == 0:
+            return self._generate_scheduled(prompt, n_new)
+        return self._generate_lockstep(prompt, n_new)
+
+    def _generate_scheduled(self, prompt, n_new: int) -> torch.Tensor:
         prompt = torch.as_tensor(prompt).to("cpu", torch.long)
         bsz = prompt.shape[0]
         if self._sched is None or self._sched.pool.n_slots < bsz:
             self._sched = ServeScheduler(
                 self.cfg, self.params, n_slots=bsz, max_len=self.max_len,
                 window=self.window, executor=self.executor, acc=self.acc,
-                kernel_tuner=self.kernel_tuner,
                 dispatch_depth=self.dispatch_depth, mesh=self.mesh,
                 device=self.device)
         rids = [self._sched.submit(prompt[i], max_new_tokens=n_new)
@@ -85,3 +184,15 @@ class ServeEngine:
         tokens = torch.tensor([outs[rid] for rid in rids], dtype=torch.long)
         self._sched.clear_finished()
         return tokens
+
+    def _generate_lockstep(self, prompt, n_new: int) -> torch.Tensor:
+        """Prefill the prompt after the engine's state, then ``n_new``
+        greedy steps of the whole batch; one token read at the end."""
+        logits = self.prefill(prompt)
+        out = []
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for _ in range(n_new):
+            out.append(tok)
+            logits = self.decode(tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return torch.from_numpy(to_host(torch.cat(out, dim=1)))

@@ -12,7 +12,9 @@ set, decode runs through the fused loop (serve/decode_loop.py): up to
 ``k`` tokens per dispatch, the host one dispatch ahead of the card and
 the emitted tokens drained later; ``k`` is an ExecutionModel decision
 (``serve_dispatch_depth``) from the measured host overhead per tick and
-the measured device time per token.
+the measured device time per token.  On the card every decode step —
+fused, speculative, or the per-tick path's single step — is one replay
+of a CUDA graph (serve/graphs.py), captured in ``warmup``.
 
 With ``paged=True`` the KV lives in a ``PagedKVCachePool``: the page
 size is a ``serve_page_size`` decision at construction, a prompt whose
@@ -63,9 +65,10 @@ from ..models import lm
 from ..train.autotune import serve_profiles
 from .decode_loop import (DEFAULT_MAX_DEPTH, DEFAULT_SPEC_HISTORY,
                           SPEC_DEPTH_CANDIDATES, _check_spec_arch,
-                          device_sync, make_fused_decode_step, make_lane_step,
+                          device_sync, make_fused_decode_step,
                           make_paged_decode_step, make_paged_spec_decode_step,
                           make_spec_decode_step, to_host)
+from .graphs import DecodeGraphs
 from .kv_cache import PagedKVCachePool, SlotKVCachePool, host_to_device
 
 DEFAULT_PAGE_CANDIDATES = (8, 16, 32, 64)
@@ -365,7 +368,9 @@ class ServeScheduler:
         self.requests: dict[int, Request] = {}
         self.trace: list[TickRecord] = []
         self._tick = 0
-        self._lanes = make_lane_step(cfg, window=self.window)
+        # The decode steps' CUDA graphs (capture stream, pool, scratch),
+        # captured in ``warmup`` where it runs.
+        self.graphs = DecodeGraphs()
         # Shapes that have run once: a cold call pays cuBLAS and kernel
         # set-up, which must never be recorded as t_iter.
         self._warm_prefill: set[int] = set()
@@ -453,8 +458,9 @@ class ServeScheduler:
         """Run every shape the steady-state tick touches once (the decode
         step, each speculative width it may pick, the prefill buckets,
         the kernels' first build and launch) into free slot 0, so the
-        first timed tick measures compute.  Slot 0's rows (its scratch
-        pages, when paged) take the garbage; masking hides it."""
+        first timed tick measures compute; on the card this captures
+        every decode graph.  Slot 0's rows (its scratch pages, when
+        paged) take the garbage; masking hides it."""
         if self.pool.free_slots() != self.pool.n_slots:
             raise RuntimeError("warmup must precede admission")
         n = self.pool.n_slots
@@ -495,8 +501,8 @@ class ServeScheduler:
                     self._warm_steps.add(("spec", d))
             self._warm_fused = True
         else:
-            self._lanes(self.params, self.pool.caches, zeros,
-                        self.pool.positions_array())
+            self._fused_step()(self.params, self.pool.caches, zeros,
+                               self.pool.positions_array(), one)
             device_sync(self.device)
             self._warm_decode = True
         if self._pad_ok:
@@ -834,18 +840,20 @@ class ServeScheduler:
             return [], []
         n = self.pool.n_slots
         toks = [0] * n
+        steps = [0] * n
         for r in decs:
             toks[r.slot] = r.out[-1]
-        active = sorted(r.slot for r in decs)
+            steps[r.slot] = 1
         pool, params, dev = self.pool, self.params, self.device
         toks_a = host_to_device(toks, torch.long, dev)
         poss_a = pool.positions_array()
-        rows = None if len(active) == n \
-            else host_to_device(active, torch.long, dev)
+        step = self._fused_step()
 
         def run_decode(_):
-            next_toks = self._lanes(params, pool.caches, toks_a, poss_a,
-                                    rows)
+            # One step of the fused decode (its graph, on the card), as
+            # the reference jits this path as one program too.
+            _, _, next_toks = step(params, pool.caches, toks_a, poss_a,
+                                   steps)
             device_sync(dev)
             return next_toks
 
@@ -878,11 +886,11 @@ class ServeScheduler:
             if self.paged:
                 self._fused_fn = make_paged_decode_step(
                     self.cfg, page_size=self.pool.page_size,
-                    max_depth=self.max_dispatch_depth)
+                    max_depth=self.max_dispatch_depth, graphs=self.graphs)
             else:
                 self._fused_fn = make_fused_decode_step(
                     self.cfg, window=self.window,
-                    max_depth=self.max_dispatch_depth)
+                    max_depth=self.max_dispatch_depth, graphs=self.graphs)
         return self._fused_fn
 
     def _spec_step(self, depth: int):
@@ -893,11 +901,11 @@ class ServeScheduler:
             if self.paged:
                 fn = make_paged_spec_decode_step(
                     self.cfg, depth=depth, page_size=self.pool.page_size,
-                    max_depth=self.max_dispatch_depth)
+                    max_depth=self.max_dispatch_depth, graphs=self.graphs)
             else:
                 fn = make_spec_decode_step(
                     self.cfg, depth=depth, window=self.window,
-                    max_depth=self.max_dispatch_depth)
+                    max_depth=self.max_dispatch_depth, graphs=self.graphs)
             self._spec_fns[depth] = fn
         return fn
 
