@@ -5,7 +5,8 @@ returns, with every leaf already turned into a numpy array by the caller
 (this module imports nothing of JAX or of the JAX package), and returns
 the port's parameter dict: the stacked ``blocks/pos0`` leaves are
 unstacked into one dict per layer, weights are cast once to the compute
-dtype, and norm gains keep the parameter dtype.
+dtype (or to ``dtype``: the f32 masters a training run keeps), and norm
+gains keep the parameter dtype.
 """
 from __future__ import annotations
 
@@ -39,12 +40,14 @@ def _convert(tree: Any, cd: torch.dtype, pd: torch.dtype,
 
 
 def from_reference(arrays: dict, cfg: ArchConfig, *,
-                   device: str | torch.device = "cuda") -> dict:
+                   device: str | torch.device = "cuda",
+                   dtype: torch.dtype | None = None) -> dict:
     """Port parameters from the JAX package's ``init_params`` pytree
-    (leaves as numpy arrays)."""
+    (leaves as numpy arrays); weights in ``dtype``, the compute dtype by
+    default."""
     lm.check_ported(cfg)
     dev = resolve_device(device)
-    cd, pd = lm.compute_dtype(cfg), lm.param_dtype(cfg)
+    cd, pd = dtype or lm.compute_dtype(cfg), lm.param_dtype(cfg)
     period = len(cfg.block_pattern)
     n_groups = cfg.n_layers // period
     params: dict[str, Any] = {

@@ -198,7 +198,10 @@ class HostParallelExecutor(ExecutorBase, PropertySupport):
 
 
 class MeshExecutor(ExecutorBase, PropertySupport):
-    """Executor view of a JAX device mesh.
+    """Executor view of a device mesh: any object with a ``shape``
+    mapping axis names to sizes, such as ``launch.mesh.HostMesh`` (one
+    process, a data axis over its cards; ``torch.distributed`` meshes
+    wait for ROADMAP.md A.6).
 
     ``data_axes`` are the axes over which a data-parallel workload may be
     spread; ``num_units`` is their total extent.  ``submesh_size(n)`` maps
@@ -210,8 +213,7 @@ class MeshExecutor(ExecutorBase, PropertySupport):
     is a silent performance bug, so ``bulk_async_execute`` /
     ``bulk_sync_execute`` raise ``UnsupportedOperation``.  Single-task
     ``sync_execute`` / ``async_execute`` / ``then_execute`` run inline on
-    the host (they launch whole SPMD programs, not per-chunk
-    work).
+    the host (they launch whole programs, not per-chunk work).
     """
 
     def __init__(self, mesh, data_axes: tuple[str, ...] = ("data",)):

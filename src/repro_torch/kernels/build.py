@@ -106,6 +106,31 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``: grad mode is on and
+    one of them requires grad."""
+    import torch
+
+    if torch.is_grad_enabled():
+        for t in tensors:
+            if t.requires_grad:
+                return True
+    return False
+
+
+def refuse_grad(name: str, use: str, *tensors) -> None:
+    """Raise if autograd would record an op on ``tensors``
+    (``records_grad``): a kernel fills its output through a raw pointer,
+    so the output would have no autograd node and every gradient upstream
+    of it would silently be lost.  ``use`` names the differentiable entry
+    to call instead."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel entry has no "
+            f"autograd node (its result would be cut from the graph); use "
+            f"{use}")
+
+
 _counters: list[LaunchCounter] = []
 
 

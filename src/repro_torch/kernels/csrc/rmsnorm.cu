@@ -1,4 +1,5 @@
-// RMSNorm forward for Hopper (sm_90a): three launches over one row body.
+// RMSNorm for Hopper (sm_90a): three forward launches over one row body,
+// and their three backward launches over another (at the end of the file).
 //
 // Replaces: src/repro/kernels/rmsnorm.py `rmsnorm_pallas` (its `_kernel`):
 //   out = (x / sqrt(mean(x^2) + eps)) * gamma, in f32, cast back to x's type.
@@ -373,6 +374,290 @@ int launch_qk_any(const void* q, const void* k, const float* gq,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Backward: the JAX package's custom VJP (src/repro/kernels/ops.py:161),
+// which the TPU side computes in plain jnp after its Pallas forward:
+//   r = 1 / sqrt(mean(x^2) + eps), xh = x * r, g = dy * gamma
+//   dx = (g - xh * mean(g * xh)) * r        (add_rmsnorm: + ds, the residual's
+//                                            own gradient, in the same pass)
+//   dgamma = sum over rows of dy * xh
+// all in f32, dx rounded once to x's type.  The rotary entry first
+// un-rotates dy (rotate-half is orthogonal: its transpose turns by -angle)
+// and keeps the result in f32 for the norm's backward.
+//
+// What bounds it on this card: bytes.  It reads x, dy (and ds) once and
+// writes dx once, plus one f32 partial row of dgamma per block; at the
+// training path's 4096 x 1024 bf16 rows that is 24 MB against ~2 MB of
+// partials.
+//
+// Design.  The forward's row layout (Layout<NV>): a row in the registers of
+// LPR lanes, two row sums by butterfly shuffles.  A block walks row groups
+// grp = blk, blk + blocks, ... so every lane keeps its columns' dy * xh in
+// registers across its rows.  dgamma is reduced without atomics, in a fixed
+// order: the row slots of a warp by shuffles, the warps through shared
+// memory in warp order, one f32 partial row per block; a second kernel in
+// the same call sums the partial rows column by column (sum_partial_rows).
+// The grid depends only on the shape, so two calls give the same bits.
+// The rotary entry runs q rows and k rows in separate blocks (two
+// segments), each with its own partial rows and dgamma.
+// Rows of at most 1024 elements (32 per lane) with a compile-time layout.
+
+constexpr int kBwdMaxBlocks = 264;   // per segment: 2 blocks per SM on 132 SMs
+constexpr int kBwdMaxD = 1024;
+
+struct BwdSeg {
+  const void* x;     // the forward's input rows (add_rmsnorm: its sum s)
+  const void* dy;    // gradient of the normed rows (rotated rows for rope)
+  const void* ds;    // add_rmsnorm: gradient of s, added to dx; else null
+  const float* gamma;
+  void* dx;
+  float* dgamma;     // (D,) f32
+  int rows;
+  int heads;         // rope: heads per token
+  int blocks;        // blocks of this segment
+};
+
+__host__ __device__ inline int bwd_blocks(int rows, int rows_per_block) {
+  const int groups = (rows + rows_per_block - 1) / rows_per_block;
+  return groups < kBwdMaxBlocks ? groups : kBwdMaxBlocks;
+}
+
+// The second pass: dgamma of each segment, the sum of its blocks' partial
+// rows in a fixed order.  Block (x, seg) takes 32 columns of segment seg;
+// its 8 warps sum rows w, w + 8, ... in row order (loads unrolled, adds in
+// order), then warp 0 adds the warps' sums in warp order.
+constexpr int kSumCols = 32;
+constexpr int kSumWarps = kThreads / kSumCols;
+
+__global__ void __launch_bounds__(kThreads)
+sum_partial_rows(const float* __restrict__ partials, int n0, int n1, int d,
+                 float* __restrict__ out0, float* __restrict__ out1) {
+  __shared__ float red[kSumWarps][kSumCols];
+  const int seg = blockIdx.y;
+  const int n = seg == 0 ? n0 : n1;
+  float* out = seg == 0 ? out0 : out1;
+  const int c = threadIdx.x % kSumCols;
+  const int w = threadIdx.x / kSumCols;
+  const int col = blockIdx.x * kSumCols + c;
+  const float* p = partials + static_cast<int64_t>(seg == 0 ? 0 : n0) * d + col;
+  float t = 0.f;
+  if (col < d) {
+#pragma unroll 8
+    for (int b = w; b < n; b += kSumWarps) t += __ldg(p + static_cast<int64_t>(b) * d);
+  }
+  red[w][c] = t;
+  __syncthreads();
+  if (w == 0 && col < d) {
+    for (int k = 1; k < kSumWarps; ++k) t += red[k][c];
+    out[col] = t;
+  }
+}
+
+template <typename T, int NV, bool kRope>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_rows(BwdSeg s0, BwdSeg s1, const float* __restrict__ cosp,
+              const float* __restrict__ sinp, float* __restrict__ partials,
+              float eps) {
+  using L = Layout<NV>;
+  constexpr int N = Vec<T>::N;
+  constexpr int D = NV * N;
+  constexpr int H = D / 2;
+  static_assert(D <= kBwdMaxD, "backward rows hold at most 1024 elements");
+  __shared__ float s_sum[D];
+  const bool first = blockIdx.x < s0.blocks;
+  const BwdSeg sg = first ? s0 : s1;
+  const int blk = first ? blockIdx.x : blockIdx.x - s0.blocks;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane % L::LPR;
+  const T* x = static_cast<const T*>(sg.x);
+  const T* dy = static_cast<const T*>(sg.dy);
+  const T* ds = static_cast<const T*>(sg.ds);
+  T* dx = static_cast<T*>(sg.dx);
+
+  float acc[L::VPL][N];
+#pragma unroll
+  for (int k = 0; k < L::VPL; ++k)
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[k][i] = 0.f;
+
+  const int groups = (sg.rows + L::RPB - 1) / L::RPB;
+  for (int grp = blk; grp < groups; grp += sg.blocks) {   // uniform per block
+    const int row = (grp * kWarps + warp) * L::RPW + lane / L::LPR;
+    const bool live = row < sg.rows;
+    const int64_t base = static_cast<int64_t>(row) * D;
+    float v[L::VPL][N], g[L::VPL][N];
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k) {
+        const int e = (k * L::LPR + sub) * N;
+        Vec<T>::load(x + base + e, v[k]);
+        Vec<T>::load(dy + base + e, g[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k)
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[k][i] = g[k][i] = 0.f;
+    }
+    if constexpr (kRope) {
+      // dh1 = do1 cos + do2 sin, dh2 = do2 cos - do1 sin.
+      float c[L::VPL][N], sn[L::VPL][N], p[L::VPL][N];
+      const int64_t tok = live ? row / sg.heads : 0;
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k) {
+        const int e = (k * L::LPR + sub) * N;
+        if (live) {
+          load_f32<N>(cosp + tok * H + (e & (H - 1)), c[k]);
+          load_f32<N>(sinp + tok * H + (e & (H - 1)), sn[k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < N; ++i) c[k][i] = sn[k][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k)
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          if constexpr (NV / 2 < L::LPR) {
+            p[k][i] = __shfl_xor_sync(kFull, g[k][i], NV / 2);
+          } else {
+            p[k][i] = g[k ^ (NV / 2 / L::LPR)][i];
+          }
+        }
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k) {
+        const bool first_half = (k * L::LPR + sub) * N < H;
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          g[k][i] = first_half ? g[k][i] * c[k][i] + p[k][i] * sn[k][i]
+                               : g[k][i] * c[k][i] - p[k][i] * sn[k][i];
+      }
+    }
+    const float r = 1.f / rms_of(row_sumsq<L::LPR>(v), D, eps);
+    float dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < L::VPL; ++k) {
+      float gam[N];
+      load_f32<N>(sg.gamma + (k * L::LPR + sub) * N, gam);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        v[k][i] *= r;                              // xh
+        acc[k][i] = fmaf(g[k][i], v[k][i], acc[k][i]);
+        g[k][i] *= gam[i];                         // dy * gamma
+        dot = fmaf(g[k][i], v[k][i], dot);
+      }
+    }
+#pragma unroll
+    for (int off = L::LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+    const float m = dot / static_cast<float>(D);
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k) {
+        const int e = (k * L::LPR + sub) * N;
+        float o[N], w[N];
+        if (ds != nullptr) {
+          Vec<T>::load(ds + base + e, w);
+        } else {
+#pragma unroll
+          for (int i = 0; i < N; ++i) w[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) o[i] = (g[k][i] - v[k][i] * m) * r + w[i];
+        Vec<T>::store(dx + base + e, o);
+      }
+    }
+  }
+
+  // The warp's row slots, then the block's warps in order.
+#pragma unroll
+  for (int off = 16; off >= L::LPR; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < L::VPL; ++k)
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[k][i] += __shfl_xor_sync(kFull, acc[k][i], off);
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w && lane < L::LPR) {
+#pragma unroll
+      for (int k = 0; k < L::VPL; ++k)
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int e = (k * L::LPR + lane) * N + i;
+          s_sum[e] = w == 0 ? acc[k][i] : s_sum[e] + acc[k][i];
+        }
+    }
+    __syncthreads();
+  }
+  float* part = partials + static_cast<int64_t>(blockIdx.x) * D;
+  for (int e = threadIdx.x; e < D; e += kThreads) part[e] = s_sum[e];
+}
+
+template <typename T, int NV, bool kRope>
+void launch_bwd(BwdSeg s0, BwdSeg s1, const float* cs, const float* sn,
+                float* partials, float eps, cudaStream_t st) {
+  constexpr int D = NV * Vec<T>::N;
+  s0.blocks = bwd_blocks(s0.rows, Layout<NV>::RPB);
+  s1.blocks = bwd_blocks(s1.rows, Layout<NV>::RPB);
+  norm_bwd_rows<T, NV, kRope><<<s0.blocks + s1.blocks, kThreads, 0, st>>>(
+      s0, s1, cs, sn, partials, eps);
+  const dim3 grid((D + kSumCols - 1) / kSumCols, s1.blocks > 0 ? 2 : 1);
+  sum_partial_rows<<<grid, kThreads, 0, st>>>(partials, s0.blocks, s1.blocks,
+                                               D, s0.dgamma, s1.dgamma);
+}
+
+// Row widths of 8..128 16-byte vectors (256 in f32), at most 1024 elements.
+template <typename T, bool kRope>
+int launch_bwd_any(const BwdSeg& s0, const BwdSeg& s1, int d, const float* cs,
+                   const float* sn, float* partials, float eps,
+                   cudaStream_t st) {
+  switch (d * static_cast<int>(sizeof(T)) / 16) {
+    case 8: launch_bwd<T, 8, kRope>(s0, s1, cs, sn, partials, eps, st); break;
+    case 16: launch_bwd<T, 16, kRope>(s0, s1, cs, sn, partials, eps, st); break;
+    case 32: launch_bwd<T, 32, kRope>(s0, s1, cs, sn, partials, eps, st); break;
+    case 64: launch_bwd<T, 64, kRope>(s0, s1, cs, sn, partials, eps, st); break;
+    case 128: launch_bwd<T, 128, kRope>(s0, s1, cs, sn, partials, eps, st); break;
+    case 256:
+      if constexpr (sizeof(T) == 4 && !kRope) {
+        launch_bwd<T, 256, kRope>(s0, s1, cs, sn, partials, eps, st);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+BwdSeg seg(const void* x, const void* dy, const void* ds, const void* gamma,
+           void* dx, void* dgamma, int rows, int heads) {
+  BwdSeg s;
+  s.x = x; s.dy = dy; s.ds = ds;
+  s.gamma = static_cast<const float*>(gamma);
+  s.dx = dx; s.dgamma = static_cast<float*>(dgamma);
+  s.rows = rows; s.heads = heads; s.blocks = 0;
+  return s;
+}
+
+int run_bwd(const BwdSeg& s0, const BwdSeg& s1, int d, const void* cs,
+            const void* sn, void* partials, float eps, int dtype, bool rope,
+            void* stream) {
+  if (s0.rows + s1.rows == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(cs);
+  const float* s = static_cast<const float*>(sn);
+  float* part = static_cast<float*>(partials);
+  int bad;
+  if (dtype == 0) {
+    bad = rope ? launch_bwd_any<float, true>(s0, s1, d, c, s, part, eps, st)
+               : launch_bwd_any<float, false>(s0, s1, d, c, s, part, eps, st);
+  } else {
+    bad = rope ? launch_bwd_any<__nv_bfloat16, true>(s0, s1, d, c, s, part, eps, st)
+               : launch_bwd_any<__nv_bfloat16, false>(s0, s1, d, c, s, part, eps, st);
+  }
+  if (bad) return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Every row pointer contiguous and
@@ -420,4 +705,45 @@ extern "C" int repro_qk_norm_rope(const void* q, const void* k,
       : launch_qk_any<__nv_bfloat16>(q, k, gq, gk, cs, sn, q_out, k_out, nq, nk, hq, hkv, d, eps, s);
   if (bad) return bad;
   return static_cast<int>(cudaGetLastError());
+}
+
+// Backward entries, two launches each (the rows, then the sum of dgamma's
+// partial rows).  `partials` holds (blocks of all segments) x d floats, at
+// most kBwdMaxBlocks per segment.  dgamma is f32.
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* dy,
+                                 const void* gamma, void* dx, void* dgamma,
+                                 void* partials, int rows, int d, float eps,
+                                 int dtype, void* stream) {
+  const BwdSeg s0 = seg(x, dy, nullptr, gamma, dx, dgamma, rows, 1);
+  const BwdSeg s1 = seg(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1);
+  return run_bwd(s0, s1, d, nullptr, nullptr, partials, eps, dtype,
+                 false, stream);
+}
+
+// s: add_rmsnorm's residual (its norm's input); ds: the gradient of s, or
+// null.  dx is the gradient of both x and y.
+extern "C" int repro_add_rmsnorm_bwd(const void* s, const void* dy,
+                                     const void* ds, const void* gamma,
+                                     void* dx, void* dgamma, void* partials,
+                                     int rows, int d, float eps, int dtype,
+                                     void* stream) {
+  const BwdSeg s0 = seg(s, dy, ds, gamma, dx, dgamma, rows, 1);
+  const BwdSeg s1 = seg(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1);
+  return run_bwd(s0, s1, d, nullptr, nullptr, partials, eps, dtype,
+                 false, stream);
+}
+
+// q, k: the forward's inputs; dq_out, dk_out: gradients of q', k'.
+extern "C" int repro_qk_norm_rope_bwd(const void* q, const void* k,
+                                      const void* dq_out, const void* dk_out,
+                                      const void* gamma_q, const void* gamma_k,
+                                      const void* cosv, const void* sinv,
+                                      void* dq, void* dk, void* dgamma_q,
+                                      void* dgamma_k, void* partials,
+                                      int nq, int nk, int hq, int hkv, int d,
+                                      float eps, int dtype, void* stream) {
+  const BwdSeg s0 = seg(q, dq_out, nullptr, gamma_q, dq, dgamma_q, nq, hq);
+  const BwdSeg s1 = seg(k, dk_out, nullptr, gamma_k, dk, dgamma_k, nk, hkv);
+  return run_bwd(s0, s1, d, cosv, sinv, partials, eps, dtype, true,
+                 stream);
 }

@@ -17,6 +17,15 @@ Each launches the kernel for a CUDA tensor and runs its plain version
 (``*_ref``) for a CPU tensor; there is no other route.  Every launch of
 any entry adds one to ``launches`` (kernel 1's count) and one to its
 entry's counter in ``entry_launches``.
+
+The backward (the JAX package's custom VJP, ``repro.kernels.ops``
+``_rmsnorm_diffable_bwd``) has the same three entries, ``rmsnorm_bwd``,
+``add_rmsnorm_bwd`` and ``qk_norm_rope_bwd``, with plain versions
+``*_bwd_ref`` and counters ``bwd_launches`` / ``bwd_entry_launches``.
+``RMSNormFn``, ``AddRMSNormFn`` and ``QKNormRopeFn`` join each forward
+entry to its backward as a ``torch.autograd.Function``; the model calls
+those.  A raw forward entry called on the card with grad mode on and an
+input that requires grad raises: its output would have no autograd node.
 """
 from __future__ import annotations
 
@@ -24,12 +33,16 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import build
 
+_ENTRIES = ("rmsnorm", "add_rmsnorm", "qk_norm_rope")
 launches = build.LaunchCounter("rmsnorm")
-entry_launches = {name: build.LaunchCounter(name) for name in
-                  ("rmsnorm", "add_rmsnorm", "qk_norm_rope")}
+entry_launches = {name: build.LaunchCounter(name) for name in _ENTRIES}
+bwd_launches = build.LaunchCounter("rmsnorm_backward")
+bwd_entry_launches = {name: build.LaunchCounter(f"{name}_backward")
+                      for name in _ENTRIES}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Row widths with a compile-time register layout in csrc/rmsnorm.cu:
@@ -38,11 +51,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # rotary entry takes head rows of 8..128 vectors (bf16 head dims
 # 64..1024) and no others.
 _ROPE_VECTORS = (8, 16, 32, 64, 128)
+# The backward's layouts: 8..256 vectors (a power of two) of at most
+# BWD_MAX_D elements; partial rows of dγ for at most BWD_MAX_BLOCKS blocks
+# per tensor (both mirror kBwdMaxD and kBwdMaxBlocks in csrc/rmsnorm.cu).
+BWD_MAX_D = 1024
+BWD_MAX_BLOCKS = 264
 
 
 def reset_counts() -> None:
-    launches.reset()
-    for c in entry_launches.values():
+    for c in (launches, bwd_launches, *entry_launches.values(),
+              *bwd_entry_launches.values()):
         c.reset()
 
 
@@ -50,12 +68,18 @@ def reset_counts() -> None:
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in the plain versions' compute type: f32, or f64 for f64 (the
+    gradient checks run there)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     """``(x / sqrt(mean(x²) + eps)) · γ`` in f32, cast back to x's type."""
-    xf = x.float()
+    xf = _wide(x)
     rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return ((xf / rms) * gamma.float()).to(x.dtype)
+    return ((xf / rms) * gamma.to(xf.dtype)).to(x.dtype)
 
 
 def add_rmsnorm_ref(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
@@ -75,7 +99,7 @@ def rope_ref(x: torch.Tensor, cos: torch.Tensor,
     rounded once to x's type."""
     d = x.shape[-1]
     cos, sin = cos[:, :, None], sin[:, :, None]
-    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    xf1, xf2 = _wide(x[..., : d // 2]), _wide(x[..., d // 2:])
     out1 = xf1 * cos - xf2 * sin
     out2 = xf2 * cos + xf1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
@@ -90,6 +114,65 @@ def qk_norm_rope_ref(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
             rope_ref(rmsnorm_ref(k, gamma_k, eps), cos, sin))
 
 
+def _norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The closed form of the reference's custom VJP (``ops.py:161``), in
+    f32 (f64 for f64 x): dx not yet rounded, and dγ."""
+    xf = _wide(x)
+    dyf, gf = dy.to(xf.dtype), gamma.to(xf.dtype)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dg = (dyf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    gdy = dyf * gf
+    dx = (gdy - xhat * torch.mean(gdy * xhat, dim=-1, keepdim=True)) * r
+    return dx, dg
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dγ) of ``rmsnorm_ref`` for the output gradient dy: dx in x's
+    type, dγ in γ's."""
+    dx, dg = _norm_bwd(x, gamma, dy, eps)
+    return dx.to(x.dtype), dg.to(gamma.dtype)
+
+
+def add_rmsnorm_bwd_ref(s: torch.Tensor, gamma: torch.Tensor,
+                        dh: torch.Tensor, ds: torch.Tensor | None,
+                        eps: float = 1e-6
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(d(x + y), dγ) of ``add_rmsnorm_ref``: the norm's dx plus the
+    residual's own gradient ds (None: s was not used), rounded once to
+    s's type; it is the gradient of both x and y."""
+    dx, dg = _norm_bwd(s, gamma, dh, eps)
+    if ds is not None:
+        dx = dx + ds.to(dx.dtype)
+    return dx.to(s.dtype), dg.to(gamma.dtype)
+
+
+def rope_bwd_ref(dy: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """The rotate-half rotation's transpose applied to dy (B, S, H, D):
+    ``dh1 = dy1 cos + dy2 sin``, ``dh2 = dy2 cos − dy1 sin``, kept in the
+    plain versions' compute type."""
+    d = dy.shape[-1]
+    cos, sin = cos[:, :, None], sin[:, :, None]
+    d1, d2 = _wide(dy[..., : d // 2]), _wide(dy[..., d // 2:])
+    return torch.cat([d1 * cos + d2 * sin, d2 * cos - d1 * sin], dim=-1)
+
+
+def qk_norm_rope_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                         gamma_q: torch.Tensor, gamma_k: torch.Tensor,
+                         cos: torch.Tensor, sin: torch.Tensor,
+                         dq_out: torch.Tensor, dk_out: torch.Tensor,
+                         eps: float = 1e-6) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dγq, dγk) of ``qk_norm_rope_ref``: each output gradient
+    un-rotated, then the norm's backward."""
+    dq, dgq = _norm_bwd(q, gamma_q, rope_bwd_ref(dq_out, cos, sin), eps)
+    dk, dgk = _norm_bwd(k, gamma_k, rope_bwd_ref(dk_out, cos, sin), eps)
+    return (dq.to(q.dtype), dk.to(k.dtype), dgq.to(gamma_q.dtype),
+            dgk.to(gamma_k.dtype))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -101,7 +184,11 @@ def _lib():
     sigs = {"repro_rmsnorm": [vp, vp, vp, i, i, f, i, vp],
             "repro_add_rmsnorm": [vp, vp, vp, vp, vp, i, i, f, i, vp],
             "repro_qk_norm_rope": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
-                                   i, i, f, i, vp]}
+                                   i, i, f, i, vp],
+            "repro_rmsnorm_bwd": [vp] * 6 + [i, i, f, i, vp],
+            "repro_add_rmsnorm_bwd": [vp] * 7 + [i, i, f, i, vp],
+            "repro_qk_norm_rope_bwd": [vp] * 13 + [i, i, i, i, i, f, i,
+                                                   vp]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -151,6 +238,8 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
     if x.device.type == "cpu":
         return rmsnorm_ref(x, gamma, eps)
     _require_card("rmsnorm", x)
+    build.refuse_grad("rmsnorm", "kernels.rmsnorm.RMSNormFn.apply",
+                      x, gamma)
     code = _rows_input("rmsnorm", x)
     g = _gamma("rmsnorm", gamma, x)
     out = torch.empty_like(x)
@@ -172,6 +261,8 @@ def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, *,
     if x.device.type == "cpu":
         return add_rmsnorm_ref(x, y, gamma, eps)
     _require_card("add_rmsnorm", x)
+    build.refuse_grad("add_rmsnorm", "kernels.rmsnorm.AddRMSNormFn.apply",
+                      x, y, gamma)
     code = _rows_input("add_rmsnorm", x)
     _rows_input("add_rmsnorm", y, dtype=x.dtype)
     if y.shape != x.shape or y.device != x.device:
@@ -200,6 +291,8 @@ def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
     if q.device.type == "cpu":
         return qk_norm_rope_ref(q, k, gamma_q, gamma_k, cos, sin, eps)
     _require_card("qk_norm_rope", q)
+    build.refuse_grad("qk_norm_rope", "kernels.rmsnorm.QKNormRopeFn.apply",
+                      q, k, gamma_q, gamma_k)
     code = _rows_input("qk_norm_rope", q)
     _rows_input("qk_norm_rope", k, dtype=q.dtype)
     if q.dim() != 4 or k.dim() != 4:
@@ -232,3 +325,199 @@ def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
         _stream(q)), "qk_norm_rope")
     _count("qk_norm_rope")
     return qo, ko
+
+
+# ---------------------------------------------------------------------------
+# backward wrappers
+# ---------------------------------------------------------------------------
+
+def _bwd_rows(name: str, x: torch.Tensor, *grads: torch.Tensor,
+              vectors=None) -> tuple[int, list[torch.Tensor]]:
+    """Checks of a backward launch: x as ``_rows_input`` takes it, a row
+    layout the backward has, each gradient of x's shape and type (made
+    contiguous).  Returns (dtype code, the gradients)."""
+    code = _rows_input(name, x)
+    d = x.shape[-1]
+    nv = d * x.element_size() // 16
+    if nv not in (vectors or _ROPE_VECTORS + (256,)) or d > BWD_MAX_D:
+        raise ValueError(f"{name}: rows of {d} {x.dtype} have no register "
+                         f"layout in the backward kernel")
+    out = []
+    for g in grads:
+        if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+            raise ValueError(f"{name}: gradient {tuple(g.shape)} {g.dtype} "
+                             f"does not match {tuple(x.shape)} {x.dtype}")
+        g = g.contiguous()
+        _rows_input(name, g)
+        out.append(g)
+    return code, out
+
+
+def _bwd_count(entry: str) -> None:
+    bwd_launches.add()
+    bwd_entry_launches[entry].add()
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dγ) of ``rmsnorm`` for the output gradient dy: dx in x's type,
+    dγ in γ's, dγ summed over the rows in a fixed order (two calls give
+    the same bits).  One C call, two kernels: the rows, then the sum of
+    dγ's partial rows."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, gamma, dy, eps)
+    _require_card("rmsnorm_bwd", x)
+    code, (dy,) = _bwd_rows("rmsnorm_bwd", x, dy)
+    g = _gamma("rmsnorm_bwd", gamma, x)
+    d = x.shape[-1]
+    dx = torch.empty_like(x)
+    dg = torch.zeros(d, dtype=torch.float32, device=x.device)
+    if x.numel():
+        stream = _stream(x)
+        part = torch.empty(BWD_MAX_BLOCKS * d, dtype=torch.float32,
+                           device=x.device)
+        build.check(_lib().repro_rmsnorm_bwd(
+            x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dg.data_ptr(), part.data_ptr(), x.numel() // d, d, float(eps),
+            code, stream), "rmsnorm_bwd")
+        _bwd_count("rmsnorm")
+    return dx, dg.to(gamma.dtype)
+
+
+def add_rmsnorm_bwd(s: torch.Tensor, gamma: torch.Tensor, dh: torch.Tensor,
+                    ds: torch.Tensor | None, *, eps: float = 1e-6
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(d(x + y), dγ) of ``add_rmsnorm`` from its residual s, the norm's
+    output gradient dh and the residual's own gradient ds (None: s was
+    not used), added in the same pass."""
+    if s.device.type == "cpu":
+        return add_rmsnorm_bwd_ref(s, gamma, dh, ds, eps)
+    _require_card("add_rmsnorm_bwd", s)
+    grads = (dh,) if ds is None else (dh, ds)
+    code, grads = _bwd_rows("add_rmsnorm_bwd", s, *grads)
+    dh, ds = grads[0], (grads[1] if ds is not None else None)
+    g = _gamma("add_rmsnorm_bwd", gamma, s)
+    d = s.shape[-1]
+    dx = torch.empty_like(s)
+    dg = torch.zeros(d, dtype=torch.float32, device=s.device)
+    if s.numel():
+        stream = _stream(s)
+        part = torch.empty(BWD_MAX_BLOCKS * d, dtype=torch.float32,
+                           device=s.device)
+        build.check(_lib().repro_add_rmsnorm_bwd(
+            s.data_ptr(), dh.data_ptr(), None if ds is None else ds.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dg.data_ptr(), part.data_ptr(),
+            s.numel() // d, d, float(eps), code, stream), "add_rmsnorm_bwd")
+        _bwd_count("add_rmsnorm")
+    return dx, dg.to(gamma.dtype)
+
+
+def qk_norm_rope_bwd(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
+                     gamma_k: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor, dq_out: torch.Tensor,
+                     dk_out: torch.Tensor, *, eps: float = 1e-6
+                     ) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dγq, dγk) of ``qk_norm_rope`` for the gradients of q' and
+    k', both tensors in one launch."""
+    if q.device.type == "cpu":
+        return qk_norm_rope_bwd_ref(q, k, gamma_q, gamma_k, cos, sin,
+                                    dq_out, dk_out, eps)
+    _require_card("qk_norm_rope_bwd", q)
+    code, (dq_out,) = _bwd_rows("qk_norm_rope_bwd", q, dq_out,
+                                vectors=_ROPE_VECTORS)
+    _, (dk_out,) = _bwd_rows("qk_norm_rope_bwd", k, dk_out,
+                             vectors=_ROPE_VECTORS)
+    if k.dtype != q.dtype or k.dim() != 4 or q.dim() != 4 \
+            or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
+        raise ValueError(f"qk_norm_rope_bwd: k {tuple(k.shape)} {k.dtype} "
+                         f"does not match q {tuple(q.shape)} {q.dtype}")
+    b, length, hq, d = q.shape
+    hkv = k.shape[2]
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.shape != (b, length, d // 2) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"qk_norm_rope_bwd: {name} must be (B, L, D/2) "
+                             f"float32, contiguous, on q's device")
+    gq = _gamma("qk_norm_rope_bwd", gamma_q, q)
+    gk = _gamma("qk_norm_rope_bwd", gamma_k, k)
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    dgq = torch.zeros(d, dtype=torch.float32, device=q.device)
+    dgk = torch.zeros(d, dtype=torch.float32, device=q.device)
+    if q.numel():
+        stream = _stream(q)
+        part = torch.empty(2 * BWD_MAX_BLOCKS * d, dtype=torch.float32,
+                           device=q.device)
+        build.check(_lib().repro_qk_norm_rope_bwd(
+            q.data_ptr(), k.data_ptr(), dq_out.data_ptr(), dk_out.data_ptr(),
+            gq.data_ptr(), gk.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dgq.data_ptr(), dgk.data_ptr(),
+            part.data_ptr(), b * length * hq, b * length * hkv, hq, hkv, d,
+            float(eps), code, stream), "qk_norm_rope_bwd")
+        _bwd_count("qk_norm_rope")
+    return dq, dk, dgq.to(gamma_q.dtype), dgk.to(gamma_k.dtype)
+
+
+# ---------------------------------------------------------------------------
+# autograd entries: the forward entry and its backward
+# ---------------------------------------------------------------------------
+
+class RMSNormFn(torch.autograd.Function):
+    """``rmsnorm(x, γ)`` with its backward: the kernel on the card, the
+    plain versions on the CPU.  ``RMSNormFn.apply(x, gamma, eps)``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return rmsnorm(x, gamma, eps=eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dg = rmsnorm_bwd(x, gamma, dy, eps=ctx.eps)
+        return dx, dg, None
+
+
+class AddRMSNormFn(torch.autograd.Function):
+    """``add_rmsnorm(x, y, γ) -> (s, h)`` with its backward; the gradient
+    of s (None when s is not used) joins the norm's in the same launch.
+    ``AddRMSNormFn.apply(x, y, gamma, eps)``."""
+
+    @staticmethod
+    def forward(ctx, x, y, gamma, eps):
+        s, h = add_rmsnorm(x, y, gamma, eps=eps)
+        ctx.save_for_backward(s, gamma)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return s, h
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ds, dh):
+        s, gamma = ctx.saved_tensors
+        if dh is None:
+            dx, dg = ds, torch.zeros_like(gamma)
+        else:
+            dx, dg = add_rmsnorm_bwd(s, gamma, dh, ds, eps=ctx.eps)
+        return dx, dx, dg, None
+
+
+class QKNormRopeFn(torch.autograd.Function):
+    """``qk_norm_rope`` with its backward (q and k in one launch each
+    way).  ``QKNormRopeFn.apply(q, k, gamma_q, gamma_k, cos, sin, eps)``;
+    cos and sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, gamma_q, gamma_k, cos, sin, eps):
+        ctx.save_for_backward(q, k, gamma_q, gamma_k, cos, sin)
+        ctx.eps = eps
+        return qk_norm_rope(q, k, gamma_q, gamma_k, cos, sin, eps=eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dq_out, dk_out):
+        q, k, gq, gk, cos, sin = ctx.saved_tensors
+        dq, dk, dgq, dgk = qk_norm_rope_bwd(q, k, gq, gk, cos, sin, dq_out,
+                                            dk_out, eps=ctx.eps)
+        return dq, dk, dgq, dgk, None, None, None

@@ -1,9 +1,24 @@
-"""Self-attention with a KV cache (the counterpart of
-``repro.models.attention.self_attention`` and ``_cache_attention``).
+"""Self-attention (the counterpart of ``repro.models.attention``):
+full causal self-attention for training and one-shot prefill, and the
+serve path's attention with a KV cache (``self_attention``'s cached
+branch, the counterpart of ``_cache_attention``).
 
-The cache is updated in place: the new K/V rows are written at their
-positions and attention runs over the cache through a flash-attention
-kernel (``kernels/flash_attention.py``).  Two cache layouts:
+Without a cache, q, k and v of the whole sequence go through ``sdpa``,
+whose three implementations share one signature:
+
+* ``chunked`` — ``attention_chunked``: online softmax over kv blocks in
+  plain PyTorch (f32 inside), differentiable by autograd; what training
+  runs, as in the reference;
+* ``naive`` — full softmax (``kernels.flash_attention.attention_ref``);
+* ``flash`` — kernel 2 (``kernels.flash_attention.flash_attention``),
+  forward only: the CUDA kernel has no backward, as ``pallas_call`` has
+  no autodiff rule, so it raises under grad for an input that requires
+  grad.
+
+With a cache, the cache is updated in place: the new K/V rows are
+written at their positions and attention runs over the cache through a
+flash-attention kernel (``kernels/flash_attention.py``).  Two cache
+layouts:
 
 * contiguous (the slot pool): per layer ``{"k","v"}`` of shape
   ``(B, Hkv, S, D)``; attention through ``flash_attention``, whose
@@ -18,19 +33,102 @@ kernel (``kernels/flash_attention.py``).  Two cache layouts:
 ``jax.lax.dynamic_update_slice`` clamps a write that would run past the
 cache; here such a write raises instead.
 
-Not ported yet (ROADMAP.md): the sliding-window ring cache
-(``_ring_attention``), cross-attention, and the cache-free full-sequence
-path (``attention_chunked``).
+Not ported yet (ROADMAP.md A.4): the sliding-window ring cache
+(``_ring_attention``) and cross-attention.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attention import flash_attention, paged_flash_attention
+from ..kernels import build
+from ..kernels.flash_attention import (attention_ref, flash_attention,
+                                       paged_flash_attention)
 from . import common as cm
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention (train / one-shot prefill)
+# ---------------------------------------------------------------------------
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      kv_len: int | None = None, scale: float | None = None,
+                      block_kv: int = 1024) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
+
+    Online softmax over kv blocks in f32 (peak memory O(Sq · block_kv)),
+    GQA by head index without a repeat; ``kv_len`` masks slots at or past
+    it, and q rows are end-aligned: row r sits at ``kv_len - Sq + r``.
+    Differentiable by autograd; a block with no visible key for a row
+    adds nothing to it (no NaN on the way forward or back).
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_len = skv if kv_len is None else kv_len
+    block_kv = min(block_kv, skv)
+    nblocks = -(-skv // block_kv)
+    pad = nblocks * block_kv - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    qg = q.reshape(b, hkv, group, sq, d).float() * scale
+    qi = (kv_len - sq) + torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, group, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, hkv, group, sq), device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, d), device=q.device)
+    for j in range(nblocks):
+        kblk = k[:, :, j * block_kv:(j + 1) * block_kv].float()
+        vblk = v[:, :, j * block_kv:(j + 1) * block_kv].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kblk)
+        kj = j * block_kv + torch.arange(block_kv, device=q.device)
+        mask = (kj[None, :] < kv_len).expand(sq, block_kv)
+        if causal:
+            mask = mask & (qi[:, None] >= kj[None, :])
+        if window is not None:
+            mask = mask & ((qi[:, None] - kj[None, :]) < window)
+        s = s.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # A row with no visible key so far keeps m = -inf; shift it by 0.
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.exp(s - m_safe[..., None])
+        alpha = torch.exp(m - m_safe)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                                    vblk)
+        m = m_new
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (acc / l_safe[..., None]).to(q.dtype)
+    return out.reshape(b, hq, sq, d)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         impl: str = "chunked", causal: bool = True,
+         window: int | None = None, kv_len: int | None = None,
+         scale: float | None = None) -> torch.Tensor:
+    """Full-sequence attention, q: (B, Hq, Sq, D), k, v: (B, Hkv, Skv, D),
+    by ``impl``: "chunked", "naive" or "flash" (kernel 2, forward only)."""
+    if impl == "chunked":
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 kv_len=kv_len, scale=scale)
+    if impl not in ("naive", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    lens = None if kv_len is None else torch.full(
+        (q.shape[0],), kv_len, dtype=torch.int32, device=q.device)
+    if impl == "naive":
+        return attention_ref(q, k, v, lens, causal=causal, window=window,
+                             scale=scale)
+    build.refuse_grad("flash attention (kernel 2, forward only)",
+                      "attn_impl='chunked' to train", q, k, v)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           lens, causal=causal, window=window, scale=scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,21 +189,26 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                    rope: tuple[torch.Tensor, torch.Tensor],
-                   window: int | None, cache: dict,
-                   write: CacheWrite) -> torch.Tensor:
+                   window: int | None, cache: dict | None = None,
+                   write: CacheWrite | None = None,
+                   impl: str = "chunked") -> torch.Tensor:
     """x: (B, L, d); rope: the (cos, sin) of the positions, (B, L, D/2)
-    each, computed once per forward; cache {"k","v"}: (B, Hkv, S, D),
-    or the paged stores (n_pages * ps, Hkv, D) when ``write.page_table``
-    is set."""
-    if window is not None:
+    each, computed once per forward (the counterpart of the reference's
+    ``positions``).  Without a cache: full causal self-attention over the
+    L positions through ``sdpa(impl=...)`` (train / one-shot prefill).
+    With a cache {"k","v"}: (B, Hkv, S, D), or the paged stores
+    (n_pages * ps, Hkv, D) when ``write.page_table`` is set, the new K/V
+    are written as ``write`` says and attention runs over the cache."""
+    if window is not None and cache is not None:
         raise NotImplementedError(
             "sliding-window (ring) KV caches are not ported yet "
             "(ROADMAP.md, remaining architectures)")
     b, length, _ = x.shape
     hd = cfg.head_dim_
-    q = _heads(cm.linear(p["wq"], x), cfg.n_heads, hd)
-    k = _heads(cm.linear(p["wk"], x), cfg.n_kv_heads, hd)
-    v = _heads(cm.linear(p["wv"], x), cfg.n_kv_heads, hd)
+    cd = getattr(torch, cfg.compute_dtype)
+    q = _heads(cm.linear(p["wq"], x, cd), cfg.n_heads, hd)
+    k = _heads(cm.linear(p["wk"], x, cd), cfg.n_kv_heads, hd)
+    v = _heads(cm.linear(p["wv"], x, cd), cfg.n_kv_heads, hd)
     cos, sin = rope
     if cfg.qk_norm:
         q, k = cm.qk_norm_rope(p["q_norm"], p["k_norm"], q, k, cos, sin,
@@ -113,6 +216,12 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         q = cm.apply_rope(q, cos, sin)
         k = cm.apply_rope(k, cos, sin)
+
+    if cache is None:
+        out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   impl=impl, causal=True, window=window)
+        out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
+        return cm.linear(p["wo"], out, cd)
 
     ck, cv = cache["k"], cache["v"]
     qt = q.transpose(1, 2).contiguous()
@@ -151,7 +260,7 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             cv[r2, :, at] = new_v
         out = flash_attention(qt, ck, cv, write.kv_lens, causal=True)
     out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
-    return cm.linear(p["wo"], out)
+    return cm.linear(p["wo"], out, cd)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,

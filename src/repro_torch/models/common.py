@@ -1,36 +1,57 @@
 """Shared model-layer primitives: plain functions on tensors and
 parameter dicts (the counterpart of ``repro.models.common``).
 
-Weights are held in the compute dtype from the moment they are loaded:
-``linear`` and ``embed`` never cast a weight per call (the JAX package
-casts f32 parameters to bf16 inside every jitted call, which XLA folds;
-eagerly that would re-read the f32 weights at every step).  Norm gains
-stay in f32, the dtype the norm computes in.
+``linear`` and ``embed`` take the compute dtype, as the reference's do.
+The serve path holds its weights in that dtype from the moment they are
+loaded, so no cast is launched there (the JAX package casts f32
+parameters to bf16 inside every jitted call, which XLA folds; eagerly
+that would re-read the f32 weights at every step).  Training keeps f32
+master weights (``lm.init_params(..., dtype=...)``) and casts each one
+once per call.  Norm gains stay in f32, the dtype the norm computes in.
+
+The three norms go through kernel 1's autograd entries
+(``kernels/rmsnorm.py``: the kernel forward and backward on the card,
+their plain versions on the CPU) whenever autograd records the call;
+when it records nothing (serving, ``torch.no_grad``), they call the
+same forward entry directly, without the autograd wrapper's host cost
+on every eager prefill forward.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import rmsnorm as krms
+from ..kernels import build, rmsnorm as krms
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w (+ b)`` in the weights' (compute) dtype."""
-    w = p["w"]
-    out = x.to(w.dtype) @ w
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def linear(p: dict, x: torch.Tensor,
+           compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w (+ b)`` in ``compute_dtype``; a weight already in it is
+    used as it is."""
+    out = _cast(x, compute_dtype) @ _cast(p["w"], compute_dtype)
     if "b" in p:
-        out = out + p["b"]
+        out = out + _cast(p["b"], compute_dtype)
     return out
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p: dict, tokens: torch.Tensor,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    """The table's rows of ``tokens`` in ``compute_dtype``.  A gather by
+    ``index_select``, whose backward is an ``index_add_`` (no host
+    synchronisation, so a train step holds under strict mode)."""
+    rows = torch.index_select(p["table"], 0, tokens.reshape(-1))
+    return _cast(rows.view(*tokens.shape, -1), compute_dtype)
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim: the CUDA kernel for a CUDA tensor, its
     plain version for a CPU tensor (``kernels/rmsnorm.py``)."""
+    if build.records_grad(x, p["g"]):
+        return krms.RMSNormFn.apply(x, p["g"], eps)
     return krms.rmsnorm(x, p["g"], eps=eps)
 
 
@@ -38,6 +59,8 @@ def add_rmsnorm(p: dict, x: torch.Tensor, y: torch.Tensor,
                 eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """The residual ``x + y`` and its RMSNorm in one launch of kernel 1:
     returns (x + y, rmsnorm(x + y))."""
+    if build.records_grad(x, y, p["g"]):
+        return krms.AddRMSNormFn.apply(x, y, p["g"], eps)
     return krms.add_rmsnorm(x, y, p["g"], eps=eps)
 
 
@@ -46,6 +69,9 @@ def qk_norm_rope(pq: dict, pk: dict, q: torch.Tensor, k: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """q- and k-norm, then the rotary embedding of both, in one launch
     of kernel 1: the values of ``apply_rope(rmsnorm(...))``."""
+    if build.records_grad(q, k, pq["g"], pk["g"]):
+        return krms.QKNormRopeFn.apply(q, k, pq["g"], pk["g"], cos, sin,
+                                       eps)
     return krms.qk_norm_rope(q, k, pq["g"], pk["g"], cos, sin, eps=eps)
 
 

@@ -8,10 +8,11 @@ from . import common as cm
 
 
 def apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    cd = getattr(torch, cfg.compute_dtype)
     act = cm.act_fn(cfg.act)
-    up = cm.linear(p["w_up"], x)
+    up = cm.linear(p["w_up"], x, cd)
     if cfg.ffn_gated:
-        up = act(cm.linear(p["w_gate"], x)) * up
+        up = act(cm.linear(p["w_gate"], x, cd)) * up
     else:
         up = act(up)
-    return cm.linear(p["w_down"], up)
+    return cm.linear(p["w_down"], up, cd)

@@ -1,26 +1,36 @@
-"""The language model's serve path: embedding → attention blocks → head
-(the counterpart of ``repro.models.lm`` for the ``attn`` block kind).
+"""The language model: embedding → attention blocks → head (the
+counterpart of ``repro.models.lm`` for the ``attn`` block kind).
+
+Two entry points, as in the reference:
+
+* ``forward`` — full sequence (train / one-shot prefill), with
+  ``loss_fn`` on top of it and ``remat`` per layer;
+* ``forward_cached`` — the serve path, with per-layer KV caches.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, an optional
 ``lm_head`` and ``layers``, one dict per layer (the JAX package stacks
 the layers over pattern groups for ``lax.scan``; here the layer loop is a
-Python loop, so they are kept apart).  Weights are made once, in the
-compute dtype, from a seeded ``torch.Generator``; ``bridge.py`` loads the
-JAX package's parameters instead.
+Python loop, so they are kept apart).  Weights are made once from a
+seeded ``torch.Generator``, in the compute dtype for serving or in the
+parameter dtype (f32 masters) for training; ``bridge.py`` loads the JAX
+package's parameters instead.
 
-Not ported yet (ROADMAP.md): the other block kinds (MoE, Mamba2, xLSTM,
-shared and cross attention), the full-sequence ``forward`` and the loss.
+Not ported yet (ROADMAP.md A.4): the other block kinds (MoE and its aux
+loss, Mamba2, xLSTM, shared and cross attention).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import attention, common as cm, ffn
 
+AUX_LOSS_WEIGHT = 0.01
 _PORTED_KINDS = ("attn",)
 
 
@@ -48,14 +58,17 @@ def param_dtype(cfg: ArchConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def init_params(seed: int, cfg: ArchConfig, *,
-                device: str | torch.device = "cuda") -> dict:
-    """Random weights from ``seed``, in the compute dtype on ``device``
-    (norm gains in the parameter dtype).  Drawn on the CPU, so the same
-    seed gives the same weights on every device."""
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype | None = None) -> dict:
+    """Random weights from ``seed`` on ``device``, in ``dtype``: the
+    compute dtype by default (serving), or ``param_dtype(cfg)`` for f32
+    master weights (training).  Norm gains are in the parameter dtype.
+    Drawn on the CPU, so the same seed gives the same weights on every
+    device."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
-    cd, pd = compute_dtype(cfg), param_dtype(cfg)
+    cd, pd = dtype or compute_dtype(cfg), param_dtype(cfg)
 
     def normal(shape, scale):
         t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
@@ -104,21 +117,24 @@ def init_params(seed: int, cfg: ArchConfig, *,
 def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
                  cfg: ArchConfig, *, next_norm: dict | None,
                  rope: tuple[torch.Tensor, torch.Tensor],
-                 window: int | None, cache: dict,
-                 write: attention.CacheWrite
+                 window: int | None, cache: dict | None = None,
+                 write: attention.CacheWrite | None = None,
+                 impl: str = "chunked"
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One block on the residual stream ``x`` whose ln1 norm ``h`` the
     caller made.  Each residual add runs in one launch with the norm
     that follows it (``add_rmsnorm``): the attention residual with ln2,
-    the FFN residual with ``next_norm`` (the next block's ln1).  Returns
-    the residual after the block and its ``next_norm`` norm; for the
-    last block (``next_norm`` None) a plain add and None: the final norm
-    reads only the rows whose logits are taken."""
+    the FFN residual with ``next_norm`` (the next block's ln1, or the
+    final norm).  Returns the residual after the block and its
+    ``next_norm`` norm; with ``next_norm`` None (the serve path's last
+    block) a plain add and None: the final norm reads only the rows
+    whose logits are taken.  Without a cache, attention runs over the
+    full sequence by ``impl``."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     out = attention.self_attention(
         p["attn"], h, cfg, rope=rope, window=window, cache=cache,
-        write=write)
+        write=write, impl=impl)
     if cfg.d_ff:
         x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
         out = ffn.apply(p["ffn"], h, cfg)
@@ -127,12 +143,69 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
     return cm.add_rmsnorm(next_norm, x, out, cfg.norm_eps)
 
 
-def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """Logits of the final-normed rows ``h``, in the compute dtype."""
+    cd = compute_dtype(cfg)
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        return x.to(table.dtype) @ table.t()
-    return cm.linear(params["lm_head"], x)
+        return h.to(cd) @ params["embed"]["table"].to(cd).t()
+    return cm.linear(params["lm_head"], h, cd)
+
+
+def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    return _head(params, cfg, cm.rmsnorm(params["final_norm"], x,
+                                         cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (train / one-shot prefill)
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, batch: dict, cfg: ArchConfig, *,
+            attn_impl: str = "chunked", window: int | None = None,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """batch: {"tokens": (B, S) long}.  Returns (logits (B, S, V) in the
+    compute dtype, aux loss (0-d f32; 0 until MoE is ported)).
+
+    Every norm runs kernel 1 (forward and, under autograd, backward):
+    layer 0's ln1, then per layer the fused q/k-norm + rope and two
+    fused residual adds, the last of them with the final norm.  With
+    ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
+    counterpart of ``jax.checkpoint(group_body)``): only its inputs are
+    kept, and it runs again in the backward."""
+    check_ported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    window = window if window is not None else cfg.attn_window
+    x = cm.embed(params["embed"], tokens, compute_dtype(cfg))
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    layers = params["layers"]
+    h = cm.rmsnorm(layers[0]["ln1"], x, cfg.norm_eps)
+    for layer, kind in enumerate(cfg.layer_kinds()):
+        nxt = layers[layer + 1]["ln1"] if layer + 1 < len(layers) \
+            else params["final_norm"]
+        body = functools.partial(_apply_block, kind, layers[layer],
+                                 cfg=cfg, next_norm=nxt, rope=rope,
+                                 window=window, impl=attn_impl)
+        if remat:
+            x, h = checkpoint(body, x, h, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, h = body(x, h)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return _head(params, cfg, h), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *,
+            attn_impl: str = "chunked", remat: bool = False) -> torch.Tensor:
+    """Mean next-token NLL over the batch, in f32 (logsumexp minus the
+    label's logit), plus ``AUX_LOSS_WEIGHT`` times the aux loss."""
+    logits, aux = forward(params, batch, cfg, attn_impl=attn_impl,
+                          remat=remat)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, batch["labels"][..., None]).squeeze(-1)
+    return torch.mean(lse - picked) + AUX_LOSS_WEIGHT * aux
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +233,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     (logits (B, 1, V) of the last position or of ``logit_index``, or (B,
     L, V) of every position with ``all_logits``, caches)."""
     window = window if window is not None else cfg.attn_window
-    x = cm.embed(params["embed"], tokens)
+    x = cm.embed(params["embed"], tokens, compute_dtype(cfg))
     b, length = tokens.shape
     dev = tokens.device
     steps = torch.arange(length, device=dev)

@@ -6,7 +6,8 @@ from .decode_loop import (DEFAULT_MAX_DEPTH, DEFAULT_SPEC_HISTORY,
                           make_fused_decode_step, make_lane_step,
                           make_paged_decode_step, make_paged_spec_decode_step,
                           make_spec_decode_step, masked_merge)
-from .engine import ServeEngine, make_decode_step, prefill_segments
+from .engine import (ServeEngine, make_decode_step, make_prefill_step,
+                     prefill_segments)
 from .graphs import DecodeGraphs
 from .frontend import QueueFullError, RequestRecord, ServeFrontend, TokenStream
 from .kv_cache import (CacheLayoutError, PagedKVCachePool,
@@ -24,7 +25,8 @@ __all__ = [
     "draft_from_history", "make_fused_decode_step", "make_lane_step",
     "make_paged_decode_step", "make_paged_spec_decode_step",
     "make_spec_decode_step", "masked_merge", "DecodeGraphs",
-    "ServeEngine", "make_decode_step", "prefill_segments",
+    "ServeEngine", "make_decode_step", "make_prefill_step",
+    "prefill_segments",
     "QueueFullError", "RequestRecord", "ServeFrontend", "TokenStream",
     "CacheLayoutError", "PagedKVCachePool", "PagePoolExhaustedError",
     "SlotKVCachePool", "SlotOverflowError",

@@ -6,10 +6,10 @@ and returns the greedy tokens.  The stateful lock-step batch surface
 (``prefill`` / ``decode`` / ``pos`` / ``caches``) is there for callers
 that drive one batch themselves; ``generate`` takes it once the engine
 holds cache state (``pos != 0``), as the reference does.
-``make_decode_step`` is that path's pure step.
+``make_decode_step`` is that path's pure step, and ``make_prefill_step``
+the one-shot prefill over the full-sequence ``lm.forward``.
 
-Not ported yet (ROADMAP.md A.4): ``make_prefill_step``, which needs the
-full-sequence ``lm.forward``; per-request ``frontend_feats`` and the
+Not ported yet (ROADMAP.md A.4): per-request ``frontend_feats`` and the
 cross-attention archs raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -61,6 +61,21 @@ def make_decode_step(cfg: ArchConfig, *,
                                  window=window)
 
     return decode_step
+
+
+def make_prefill_step(cfg: ArchConfig, *, window: int | None = None,
+                      attn_impl: str = "chunked") -> Callable:
+    """One-shot prefill: ``(params, batch {"tokens": (B, S)}) -> logits
+    (B, 1, V)`` of the last position, from the full-sequence forward (no
+    cache is written).  ``attn_impl="flash"`` runs kernel 2 on the card;
+    call it under ``torch.no_grad()`` when the parameters require grad."""
+
+    def prefill_step(params, batch):
+        logits, _ = lm.forward(params, batch, cfg, window=window,
+                               attn_impl=attn_impl)
+        return logits[:, -1:]
+
+    return prefill_step
 
 
 class ServeEngine:

@@ -108,3 +108,27 @@ def test_persistent_store_is_apart_from_the_reference(tmp_path,
     monkeypatch.delenv("REPRO_CAL_CACHE_DIR", raising=False)
     monkeypatch.setenv("HOME", str(tmp_path))
     assert TCache.persistent().path != JCache.persistent().path
+
+
+@pytest.mark.parametrize("machine", ["SKYLAKE_40", "EPYC_48"])
+def test_simmachine_matches_reference(machine):
+    """The port's copy of the discrete-event machine behind the paper's
+    Figures 1-4 gives the reference's times and speed-ups."""
+    from repro.core import simmachine as jsim
+    from repro_torch.core import simmachine as tsim
+
+    jm, tm = getattr(jsim, machine), getattr(tsim, machine)
+    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    for t_iter, count, cores, chunk in ((2e-9, 2 ** 20, 8, 4096),
+                                        (5e-8, 10 ** 6, 40, 3125),
+                                        (1e-9, 1000, 1, 1000)):
+        assert tm.run(t_iter=t_iter, count=count, n_cores=cores,
+                      chunk_elems=chunk) == jm.run(
+            t_iter=t_iter, count=count, n_cores=cores, chunk_elems=chunk)
+        assert tm.speedup(t_iter=t_iter, count=count, n_cores=cores,
+                          chunks_per_core=8, saturation_cores=10) == \
+            jm.speedup(t_iter=t_iter, count=count, n_cores=cores,
+                       chunks_per_core=8, saturation_cores=10)
+    d = tlaw.decide(t_iter=3e-9, n_elements=2 ** 22, t0=4e-6, max_cores=32)
+    jd = jlaw.decide(t_iter=3e-9, n_elements=2 ** 22, t0=4e-6, max_cores=32)
+    assert tm.run_decision(d) == jm.run_decision(jd)

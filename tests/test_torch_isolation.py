@@ -49,7 +49,10 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.algorithms, repro_torch.kernels.ops, "
             "repro_torch.kernels.autotune, repro_torch.serve.frontend, "
-            "repro_torch.serve.loadgen, repro_torch.serve.kv_cache\n"
+            "repro_torch.serve.loadgen, repro_torch.serve.kv_cache, "
+            "repro_torch.optim, repro_torch.train, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.launch.train, repro_torch.core.simmachine\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
