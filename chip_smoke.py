@@ -115,6 +115,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
               Kernel 2's forward-only prefill (f32 and bf16, batch 2 x
               512): each layer's output against the plain version on that
               layer's q/k/v, and the logits against the chunked forward.
+9. dense    — the dense family (``_dense_phase``).  Kernel 1 at rows of
+              1536, 2560, 5120 and 6144 (rmsnorm, add_rmsnorm; 8 and
+              2048 rows, bf16 and f32), timed like phase 3; the sweep of
+              kernels 2 and 3 at head groups (48, 1), (40, 40), (32, 8)
+              and head dims 64, 80, 128 (kernel 3 bit-equal to kernel 2,
+              each case deterministic; windows at danube's heads).  Then
+              per arch, random weights (seed 0) drawn once in f32:
+              h2o-danube-1.8b at full width and depth (f32: logits card
+              vs CPU; a 4600-token prompt prefilled in chunks of 256
+              through the ring of 4096 rows, its last row and the decode
+              step after the wrap against ``lm.forward``, within 2e-3;
+              bf16: 16 requests, 4 of them past the ring, 8 slots,
+              ``max_len`` 8192, contiguous), musicgen-medium at full depth,
+              granite-34b and qwen1.5-32b at 2 layers (``DENSE_DEPTH``),
+              each served in bf16 contiguous and paged (16 requests,
+              prompts 64-512) and held to f32 tokens contiguous ==
+              paged.  Every serve run resets the launch counters before
+              and reads them after, and every forward must launch kernel
+              1 (3 if qk-norm else 2) * layers + 1 times.  Kernels 2 and
+              3 at each arch's decode and main-run prefill shapes, timed
+              like phase 3.  One ``[arch]`` JSON line per arch.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -178,6 +199,327 @@ def within(torch, out, ref, atol, rtol) -> tuple[bool, float]:
     return ok, float(diff.max())
 
 
+class KernelBench:
+    """Kernel cases on the card, each held against its plain version and
+    timed (``time_ms``, L2 flushed before each call) beside the plain
+    version, one PyTorch library call where one computes the function (a
+    yardstick only) and ``bound_ms``, the least time the card could take
+    (inputs read once, outputs written once, over the data sheet's
+    rates).  Inputs come from one seeded device generator (``seed``), so
+    the same calls in the same order draw the same data.  Each case
+    appends its record to ``records[kernel]`` and logs it; ``check``
+    fails the run on any case out of tolerance or not bit-equal where it
+    must be."""
+
+    # f32: the row's sum in another order; bf16: one rounding step.
+    RMS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+
+    def __init__(self, torch, dev, seed: int, kernels: tuple,
+                 perm_seed: int | None = None):
+        self.torch, self.dev = torch, dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.perm = None if perm_seed is None \
+            else torch.Generator().manual_seed(perm_seed)
+        self.scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8,
+                                   device=dev)
+        self.records = {name: [] for name in kernels}
+        self.bit_bad: list = []
+
+    def flush(self):
+        self.scratch.zero_()
+
+    def flush_clean(self):
+        # Reads 96 MB: evicts L2 like `flush`, but leaves no dirty lines
+        # for the timed call to write back.
+        self.scratch.view(self.torch.float32).sum()
+
+    def randn(self, *shape, dtype):
+        return self.torch.randn(*shape, generator=self.gen,
+                                device=self.dev).to(dtype)
+
+    @staticmethod
+    def bound_of(byts, ops, peak=PEAK_F32):
+        t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    def check(self, what: str) -> None:
+        bad = [r["shape"] for rs in self.records.values() for r in rs
+               if not r["ok"]]
+        if bad or self.bit_bad:
+            fail(f"{what} disagree with their plain versions: {bad}; not "
+                 f"bit-equal where they must be: {self.bit_bad}")
+
+    def close(self) -> None:
+        del self.scratch
+        self.torch.cuda.empty_cache()
+
+    def _log(self, kernel, rec):
+        self.records[kernel].append(rec)
+        log(f"[kernel {kernel}] {rec}")
+        return rec
+
+    # ------------------------------------------------------------ kernel 1
+    def kernel1_times(self, rec, kernel, plain, library=None, chain=None):
+        """Kernel 1's times, each after a dirty and after a clean L2
+        flush: the kernel, its plain version, and the yardstick -- one
+        library call, or for a fused entry (no one call computes it) the
+        chain of library calls it replaces."""
+        torch, flush, clean = self.torch, self.flush, self.flush_clean
+        rec["ms"] = time_ms(torch, kernel, flush=flush)
+        rec["ms_clean_l2"] = time_ms(torch, kernel, flush=clean)
+        rec["plain_ms"] = time_ms(torch, plain, flush=flush)
+        rec["library_ms"] = library and time_ms(torch, library, flush=flush)
+        rec["library_ms_clean_l2"] = library and time_ms(
+            torch, library, flush=clean)
+        if chain is not None:
+            rec["chain_ms"] = time_ms(torch, chain, flush=flush)
+            rec["chain_ms_clean_l2"] = time_ms(torch, chain, flush=clean)
+
+    def rms_case(self, rows, d, dtype, name=""):
+        from repro_torch.kernels import rmsnorm as krms
+
+        torch = self.torch
+        x = self.randn(rows, d, dtype=dtype)
+        g = 1.0 + 0.1 * self.randn(d, dtype=torch.float32)
+        g_lib = g.to(dtype)
+        out = krms.rmsnorm(x, g, eps=1e-6)
+        ref = krms.rmsnorm_ref(x, g, eps=1e-6)
+        torch.cuda.synchronize()
+        atol, rtol = self.RMS_TOL[str(dtype)[6:]]
+        ok, err = within(torch, out, ref, atol, rtol)
+        item = x.element_size()
+        bound, by = self.bound_of(2 * rows * d * item + 4 * d, 4 * rows * d)
+        rec = dict(entry="rmsnorm", shape=f"{name}rows={rows} d={d} "
+                   f"{str(dtype)[6:]}", err=err, ok=ok,
+                   tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
+                   bound_by=by)
+        self.kernel1_times(
+            rec, lambda: krms.rmsnorm(x, g, eps=1e-6),
+            lambda: krms.rmsnorm_ref(x, g, 1e-6),
+            library=lambda: torch.nn.functional.rms_norm(x, (d,), g_lib,
+                                                         1e-6))
+        return self._log("rmsnorm", rec)
+
+    def add_case(self, rows, d, dtype, name=""):
+        """add_rmsnorm against its plain version, and bit for bit against
+        its unfused card composition: PyTorch's x + y, then kernel 1."""
+        from repro_torch.kernels import rmsnorm as krms
+
+        torch = self.torch
+        x = self.randn(rows, d, dtype=dtype)
+        y = self.randn(rows, d, dtype=dtype)
+        g = 1.0 + 0.1 * self.randn(d, dtype=torch.float32)
+        g_lib = g.to(dtype)
+        s, h = krms.add_rmsnorm(x, y, g, eps=1e-6)
+        s_ref, h_ref = krms.add_rmsnorm_ref(x, y, g, eps=1e-6)
+        s_two = x + y
+        h_two = krms.rmsnorm(s_two, g, eps=1e-6)
+        torch.cuda.synchronize()
+        atol, rtol = self.RMS_TOL[str(dtype)[6:]]
+        ok, err = within(torch, h, h_ref, atol, rtol)
+        bit_equal = torch.equal(s, s_two) and torch.equal(h, h_two)
+        if not bit_equal:
+            self.bit_bad.append(f"add_rmsnorm rows={rows} d={d} {dtype}")
+        item = x.element_size()
+        bound, by = self.bound_of(4 * rows * d * item + 4 * d, 5 * rows * d)
+
+        def chain():
+            torch.nn.functional.rms_norm(x + y, (d,), g_lib, 1e-6)
+
+        def unfused():
+            krms.rmsnorm(x + y, g, eps=1e-6)
+
+        rec = dict(entry="add_rmsnorm", shape=f"{name}rows={rows} d={d} "
+                   f"{str(dtype)[6:]}", err=err,
+                   ok=ok and torch.equal(s, s_ref),
+                   bit_equal_unfused=bit_equal,
+                   tol=f"h: atol={atol} rtol={rtol}; s: exact",
+                   bound_ms=bound, bound_by=by,
+                   library_note="no one PyTorch call; chain_ms: x + y, "
+                                "F.rms_norm")
+        self.kernel1_times(rec, lambda: krms.add_rmsnorm(x, y, g, eps=1e-6),
+                           lambda: krms.add_rmsnorm_ref(x, y, g, 1e-6),
+                           chain=chain)
+        rec["unfused_ms"] = time_ms(torch, unfused, flush=self.flush)
+        return self._log("rmsnorm", rec)
+
+    def qk_case(self, name, b, length, hq, hkv, d, dtype):
+        """qk_norm_rope against its plain version, and bit for bit against
+        its unfused card composition: kernel 1 on q and on k, then the
+        model's rotary embedding on each."""
+        from repro_torch.kernels import rmsnorm as krms
+        from repro_torch.models import common as cm
+
+        torch, dev = self.torch, self.dev
+        q = self.randn(b, length, hq, d, dtype=dtype)
+        k = self.randn(b, length, hkv, d, dtype=dtype)
+        gq = 1.0 + 0.1 * self.randn(d, dtype=torch.float32)
+        gk = 1.0 + 0.1 * self.randn(d, dtype=torch.float32)
+        gq_lib, gk_lib = gq.to(dtype), gk.to(dtype)
+        pos = torch.randint(0, 1024, (b, length), generator=self.gen,
+                            device=dev)
+        cos, sin = cm.rope_angles(pos, d, 1e6)
+        qo, ko = krms.qk_norm_rope(q, k, gq, gk, cos, sin, eps=1e-6)
+        q_ref, k_ref = krms.qk_norm_rope_ref(q, k, gq, gk, cos, sin, 1e-6)
+        q_two = cm.apply_rope(krms.rmsnorm(q, gq, eps=1e-6), cos, sin)
+        k_two = cm.apply_rope(krms.rmsnorm(k, gk, eps=1e-6), cos, sin)
+        torch.cuda.synchronize()
+        # f32: the row's sum in another order.  bf16: a normed element
+        # may differ by one step (2^-8 relative, |h| up to ~4) and carry
+        # through the rotation, plus the output's own rounding.
+        atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (3e-2, 1e-2)
+        ok_q, err_q = within(torch, qo, q_ref, atol, rtol)
+        ok_k, err_k = within(torch, ko, k_ref, atol, rtol)
+        bit_equal = torch.equal(qo, q_two) and torch.equal(ko, k_two)
+        if not bit_equal:
+            self.bit_bad.append(f"qk_norm_rope {name} {dtype}")
+        item = q.element_size()
+        elems = q.numel() + k.numel()
+        bound, by = self.bound_of(2 * elems * item + 2 * cos.numel() * 4
+                                  + 2 * 4 * d, 10 * elems)
+
+        def chain():
+            qn = torch.nn.functional.rms_norm(q, (d,), gq_lib, 1e-6)
+            kn = torch.nn.functional.rms_norm(k, (d,), gk_lib, 1e-6)
+            cm.apply_rope(qn, cos, sin)
+            cm.apply_rope(kn, cos, sin)
+
+        def unfused():
+            cm.apply_rope(krms.rmsnorm(q, gq, eps=1e-6), cos, sin)
+            cm.apply_rope(krms.rmsnorm(k, gk, eps=1e-6), cos, sin)
+
+        rec = dict(entry="qk_norm_rope",
+                   shape=f"{name} B={b} L={length} Hq={hq} Hkv={hkv} D={d} "
+                         f"{str(dtype)[6:]}", err=max(err_q, err_k),
+                   ok=ok_q and ok_k, bit_equal_unfused=bit_equal,
+                   tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
+                   bound_by=by,
+                   library_note="no one PyTorch call; chain_ms: F.rms_norm "
+                                "x2, apply_rope x2")
+        self.kernel1_times(
+            rec, lambda: krms.qk_norm_rope(q, k, gq, gk, cos, sin, eps=1e-6),
+            lambda: krms.qk_norm_rope_ref(q, k, gq, gk, cos, sin, 1e-6),
+            chain=chain)
+        rec["unfused_ms"] = time_ms(torch, unfused, flush=self.flush)
+        return self._log("rmsnorm", rec)
+
+    # ------------------------------------------------------- kernels 2, 3
+    def _attn_work(self, b, hq, hkv, sq, skv, d, lens, window, dtype,
+                   item, extra_bytes=0):
+        """The visible-key mask of this data, and the bound of the work
+        it needs: q read and the output written once, each kv head's
+        visible keys' K and V read once, the lengths (and ``extra_bytes``),
+        4 * D operations per visible (query row, key)."""
+        torch, dev = self.torch, self.dev
+        kj = torch.arange(skv, device=dev)
+        lens_l = lens.long()
+        qi = lens_l[:, None] - sq + torch.arange(sq, device=dev)[None]
+        mask = (kj[None, None] < lens_l[:, None, None]) \
+            & (qi[:, :, None] >= kj[None, None])
+        if window is not None:
+            mask &= (qi[:, :, None] - kj[None, None]) < window
+        visible = int(mask.sum()) * hq
+        keys_read = int(mask.any(dim=1).sum()) * hkv
+        byts = (2 * b * hq * sq * d + 2 * keys_read * d) * item + 4 * b \
+            + extra_bytes
+        ops = 4 * d * visible
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        bound, by = self.bound_of(byts, ops, peak)
+        return mask, bound, by
+
+    def attn_case(self, name, b, hq, hkv, sq, skv, d, kv_lens, window,
+                  dtype):
+        from repro_torch.kernels import flash_attention as kfa
+
+        torch = self.torch
+        q = self.randn(b, hq, sq, d, dtype=dtype)
+        k = self.randn(b, hkv, skv, d, dtype=dtype)
+        v = self.randn(b, hkv, skv, d, dtype=dtype)
+        lens = torch.tensor(kv_lens, dtype=torch.int32, device=self.dev)
+        out = kfa.flash_attention(q, k, v, lens, causal=True, window=window)
+        ref = kfa.attention_ref(q, k, v, lens, causal=True, window=window)
+        torch.cuda.synchronize()
+        # f32: exp and sums in another order; bf16: one output rounding.
+        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+        ok, err = within(torch, out, ref, atol, rtol)
+        mask, bound, by = self._attn_work(b, hq, hkv, sq, skv, d, lens,
+                                          window, dtype, q.element_size())
+        attn_mask = mask[:, None]
+        flush = self.flush
+        rec = dict(
+            shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
+                  f"D={d} window={window} {str(dtype)[6:]}",
+            path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
+            err=err, ok=ok, tol=f"atol={atol} rtol={rtol}",
+            ms=time_ms(torch, lambda: kfa.flash_attention(
+                q, k, v, lens, causal=True, window=window), flush=flush),
+            plain_ms=time_ms(torch, lambda: kfa.attention_ref(
+                q, k, v, lens, causal=True, window=window), flush=flush),
+            library_ms=time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=attn_mask, enable_gqa=True),
+                flush=flush),
+            bound_ms=bound, bound_by=by)
+        return self._log("flash_attention", rec)
+
+    def paged_case(self, name, b, hq, hkv, sq, kv_lens, d, ps, dtype,
+                   max_len=1024):
+        """Kernel 3 against its plain version, bit for bit against kernel 2
+        over the same K/V laid out contiguously, and over two calls."""
+        from repro_torch.kernels import flash_attention as kfa
+
+        torch = self.torch
+        skv = -(-max_len // ps) * ps
+        q = self.randn(b, hq, sq, d, dtype=dtype)
+        kc = self.randn(b, hkv, skv, d, dtype=dtype)
+        vc = self.randn(b, hkv, skv, d, dtype=dtype)
+        lens = torch.tensor(kv_lens, dtype=torch.int32, device=self.dev)
+        ks, vs, pt = paged_stores(torch, kc, vc, lens, ps, self.perm)
+        call = lambda: kfa.paged_flash_attention(      # noqa: E731
+            q, ks, vs, pt, lens, page_size=ps)
+        out = call()
+        again = call()
+        ref = kfa.paged_attention_ref(q, ks, vs, pt, lens, page_size=ps)
+        contiguous = kfa.flash_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        # Kernel 2's tolerances: f32 exp and sums in another order than
+        # the plain version; bf16 one output rounding.
+        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+        ok, err = within(torch, out, ref, atol, rtol)
+        same = torch.equal(out, contiguous)
+        deterministic = torch.equal(out, again)
+        if not (same and deterministic):
+            self.bit_bad.append(f"{name} ps={ps} {dtype}")
+        pages_read = int(((lens.long() + ps - 1) // ps).sum())
+        mask, bound, by = self._attn_work(
+            b, hq, hkv, sq, skv, d, lens, None, dtype, q.element_size(),
+            extra_bytes=4 * pages_read)
+        kg = kfa.gather_pages(ks, pt, ps).contiguous()
+        vg = kfa.gather_pages(vs, pt, ps).contiguous()
+        attn_mask = mask[:, None]
+        flush = self.flush
+        rec = dict(
+            shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} kv<={max(kv_lens)} "
+                  f"D={d} ps={ps} {str(dtype)[6:]}",
+            path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
+            err=err, ok=ok, bit_equal_kernel2=same,
+            deterministic=deterministic, tol=f"atol={atol} rtol={rtol}",
+            ms=time_ms(torch, call, flush=flush),
+            plain_ms=time_ms(torch, lambda: kfa.paged_attention_ref(
+                q, ks, vs, pt, lens, page_size=ps), flush=flush),
+            library_ms=None,
+            library_note="no one PyTorch call computes attention through "
+                         "a page table",
+            kernel2_ms=time_ms(torch, lambda: kfa.flash_attention(
+                q, kc, vc, lens), flush=flush),
+            sdpa_gathered_ms=time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kg, vg, attn_mask=attn_mask, enable_gqa=True),
+                flush=flush),
+            bound_ms=bound, bound_by=by)
+        return self._log("paged_flash_attention", rec)
+
+
 def main() -> None:
     import torch
 
@@ -227,234 +569,30 @@ def main() -> None:
         f"(nvcc wall {build.build_seconds})")
 
     # --------------------------------------------------------- 3. kernels
-    gen = torch.Generator(device=dev).manual_seed(0)
-    scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.zero_()
-
-    def flush_clean():
-        # Reads 96 MB: evicts L2 like `flush`, but leaves no dirty lines
-        # for the timed call to write back.
-        scratch.view(torch.float32).sum()
-
-    records = {"rmsnorm": [], "flash_attention": []}
-    bit_bad = []
-
-    def bound_of(byts, ops):
-        t_b, t_o = byts / HBM_BYTES_PER_S, ops / PEAK_F32
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
-    def kernel1_times(rec, kernel, plain, library=None, chain=None):
-        """Kernel 1's times, each after a dirty and after a clean L2
-        flush: the kernel, its plain version, and the yardstick -- one
-        library call, or for a fused entry (no one call computes it) the
-        chain of library calls it replaces."""
-        rec["ms"] = time_ms(torch, kernel, flush=flush)
-        rec["ms_clean_l2"] = time_ms(torch, kernel, flush=flush_clean)
-        rec["plain_ms"] = time_ms(torch, plain, flush=flush)
-        rec["library_ms"] = library and time_ms(torch, library, flush=flush)
-        rec["library_ms_clean_l2"] = library and time_ms(
-            torch, library, flush=flush_clean)
-        if chain is not None:
-            rec["chain_ms"] = time_ms(torch, chain, flush=flush)
-            rec["chain_ms_clean_l2"] = time_ms(torch, chain,
-                                               flush=flush_clean)
-
-    # f32: the row's sum in another order; bf16: one rounding step.
-    rms_tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
-
-    def rms_case(rows, d, dtype):
-        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        g_lib = g.to(dtype)
-        out = krms.rmsnorm(x, g, eps=1e-6)
-        ref = krms.rmsnorm_ref(x, g, eps=1e-6)
-        torch.cuda.synchronize()
-        atol, rtol = rms_tol[dtype]
-        ok, err = within(torch, out, ref, atol, rtol)
-        item = x.element_size()
-        bound, by = bound_of(2 * rows * d * item + 4 * d, 4 * rows * d)
-        rec = dict(entry="rmsnorm", shape=f"rows={rows} d={d} "
-                   f"{str(dtype)[6:]}", err=err, ok=ok,
-                   tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
-                   bound_by=by)
-        kernel1_times(
-            rec, lambda: krms.rmsnorm(x, g, eps=1e-6),
-            lambda: krms.rmsnorm_ref(x, g, 1e-6),
-            library=lambda: torch.nn.functional.rms_norm(x, (d,), g_lib,
-                                                         1e-6))
-        records["rmsnorm"].append(rec)
-        log(f"[kernel rmsnorm] {rec}")
-
-    def add_case(rows, d, dtype):
-        """add_rmsnorm against its plain version, and bit for bit against
-        its unfused card composition: PyTorch's x + y, then kernel 1."""
-        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        y = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        g_lib = g.to(dtype)
-        s, h = krms.add_rmsnorm(x, y, g, eps=1e-6)
-        s_ref, h_ref = krms.add_rmsnorm_ref(x, y, g, eps=1e-6)
-        s_two = x + y
-        h_two = krms.rmsnorm(s_two, g, eps=1e-6)
-        torch.cuda.synchronize()
-        atol, rtol = rms_tol[dtype]
-        ok, err = within(torch, h, h_ref, atol, rtol)
-        bit_equal = torch.equal(s, s_two) and torch.equal(h, h_two)
-        if not bit_equal:
-            bit_bad.append(f"add_rmsnorm rows={rows} d={d} {dtype}")
-        item = x.element_size()
-        bound, by = bound_of(4 * rows * d * item + 4 * d, 5 * rows * d)
-
-        def chain():
-            torch.nn.functional.rms_norm(x + y, (d,), g_lib, 1e-6)
-
-        def unfused():
-            krms.rmsnorm(x + y, g, eps=1e-6)
-
-        rec = dict(entry="add_rmsnorm", shape=f"rows={rows} d={d} "
-                   f"{str(dtype)[6:]}", err=err,
-                   ok=ok and torch.equal(s, s_ref),
-                   bit_equal_unfused=bit_equal,
-                   tol=f"h: atol={atol} rtol={rtol}; s: exact",
-                   bound_ms=bound, bound_by=by,
-                   library_note="no one PyTorch call; chain_ms: x + y, "
-                                "F.rms_norm")
-        kernel1_times(rec, lambda: krms.add_rmsnorm(x, y, g, eps=1e-6),
-                      lambda: krms.add_rmsnorm_ref(x, y, g, 1e-6),
-                      chain=chain)
-        rec["unfused_ms"] = time_ms(torch, unfused, flush=flush)
-        records["rmsnorm"].append(rec)
-        log(f"[kernel rmsnorm] {rec}")
-
-    def qk_case(name, b, length, hq, hkv, d, dtype):
-        """qk_norm_rope against its plain version, and bit for bit against
-        its unfused card composition: kernel 1 on q and on k, then the
-        model's rotary embedding on each."""
-        from repro_torch.models import common as cm
-
-        q = torch.randn(b, length, hq, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, length, hkv, d, generator=gen,
-                        device=dev).to(dtype)
-        gq = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        gk = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        gq_lib, gk_lib = gq.to(dtype), gk.to(dtype)
-        pos = torch.randint(0, 1024, (b, length), generator=gen, device=dev)
-        cos, sin = cm.rope_angles(pos, d, 1e6)
-        qo, ko = krms.qk_norm_rope(q, k, gq, gk, cos, sin, eps=1e-6)
-        q_ref, k_ref = krms.qk_norm_rope_ref(q, k, gq, gk, cos, sin, 1e-6)
-        q_two = cm.apply_rope(krms.rmsnorm(q, gq, eps=1e-6), cos, sin)
-        k_two = cm.apply_rope(krms.rmsnorm(k, gk, eps=1e-6), cos, sin)
-        torch.cuda.synchronize()
-        # f32: the row's sum in another order.  bf16: a normed element
-        # may differ by one step (2^-8 relative, |h| up to ~4) and carry
-        # through the rotation, plus the output's own rounding.
-        atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (3e-2, 1e-2)
-        ok_q, err_q = within(torch, qo, q_ref, atol, rtol)
-        ok_k, err_k = within(torch, ko, k_ref, atol, rtol)
-        bit_equal = torch.equal(qo, q_two) and torch.equal(ko, k_two)
-        if not bit_equal:
-            bit_bad.append(f"qk_norm_rope {name} {dtype}")
-        item = q.element_size()
-        elems = q.numel() + k.numel()
-        bound, by = bound_of(2 * elems * item + 2 * cos.numel() * 4
-                             + 2 * 4 * d, 10 * elems)
-
-        def chain():
-            qn = torch.nn.functional.rms_norm(q, (d,), gq_lib, 1e-6)
-            kn = torch.nn.functional.rms_norm(k, (d,), gk_lib, 1e-6)
-            cm.apply_rope(qn, cos, sin)
-            cm.apply_rope(kn, cos, sin)
-
-        def unfused():
-            cm.apply_rope(krms.rmsnorm(q, gq, eps=1e-6), cos, sin)
-            cm.apply_rope(krms.rmsnorm(k, gk, eps=1e-6), cos, sin)
-
-        rec = dict(entry="qk_norm_rope",
-                   shape=f"{name} B={b} L={length} Hq={hq} Hkv={hkv} D={d} "
-                         f"{str(dtype)[6:]}", err=max(err_q, err_k),
-                   ok=ok_q and ok_k, bit_equal_unfused=bit_equal,
-                   tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
-                   bound_by=by,
-                   library_note="no one PyTorch call; chain_ms: F.rms_norm "
-                                "x2, apply_rope x2")
-        kernel1_times(
-            rec, lambda: krms.qk_norm_rope(q, k, gq, gk, cos, sin, eps=1e-6),
-            lambda: krms.qk_norm_rope_ref(q, k, gq, gk, cos, sin, 1e-6),
-            chain=chain)
-        rec["unfused_ms"] = time_ms(torch, unfused, flush=flush)
-        records["rmsnorm"].append(rec)
-        log(f"[kernel rmsnorm] {rec}")
-
+    bench = KernelBench(torch, dev, seed=0,
+                        kernels=("rmsnorm", "flash_attention"))
+    records = bench.records
     for dtype in (torch.bfloat16, torch.float32):
-        rms_case(8, 1024, dtype)          # decode pre-norms, 8 lanes
-        rms_case(8 * 16, 128, dtype)      # decode q-norm: 8 lanes x 16 heads
-        rms_case(4096, 1024, dtype)       # a long prefill's pre-norm
-        add_case(8, 1024, dtype)          # decode residual + norm
-        add_case(4096, 1024, dtype)       # a long prefill's
-        qk_case("decode", 8, 1, 16, 8, 128, dtype)
-        qk_case("prefill", 1, 256, 16, 8, 128, dtype)
-
-    def attn_case(name, b, hq, hkv, sq, skv, d, kv_lens, window, dtype):
-        q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
-        lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-        out = kfa.flash_attention(q, k, v, lens, causal=True, window=window)
-        ref = kfa.attention_ref(q, k, v, lens, causal=True, window=window)
-        torch.cuda.synchronize()
-        # f32: exp and sums in another order; bf16: one output rounding.
-        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
-        ok, err = within(torch, out, ref, atol, rtol)
-        # Work this data needs: visible keys per query row.
-        kj = torch.arange(skv, device=dev)
-        lens_l = lens.long()
-        qi = lens_l[:, None] - sq + torch.arange(sq, device=dev)[None]
-        mask = (kj[None, None] < lens_l[:, None, None]) \
-            & (qi[:, :, None] >= kj[None, None])
-        if window is not None:
-            mask &= (qi[:, :, None] - kj[None, None]) < window
-        visible = int(mask.sum()) * hq
-        keys_read = int(mask.any(dim=1).sum()) * hkv
-        item = q.element_size()
-        byts = (2 * q.numel() + 2 * keys_read * d) * item + 4 * b
-        ops = 4 * d * visible
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-        bound = max(byts / HBM_BYTES_PER_S, ops / peak) * 1e3
-        attn_mask = mask[:, None]
-        rec = dict(
-            shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
-                  f"D={d} window={window} {str(dtype)[6:]}",
-            path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
-            err=err, ok=ok, tol=f"atol={atol} rtol={rtol}",
-            ms=time_ms(torch, lambda: kfa.flash_attention(
-                q, k, v, lens, causal=True, window=window), flush=flush),
-            plain_ms=time_ms(torch, lambda: kfa.attention_ref(
-                q, k, v, lens, causal=True, window=window), flush=flush),
-            library_ms=time_ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=attn_mask, enable_gqa=True),
-                flush=flush),
-            bound_ms=bound,
-            bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / peak
-            else "operations")
-        records["flash_attention"].append(rec)
-        log(f"[kernel flash_attention] {rec}")
+        bench.rms_case(8, 1024, dtype)          # decode pre-norms, 8 lanes
+        bench.rms_case(8 * 16, 128, dtype)      # decode q-norm: 8 x 16 heads
+        bench.rms_case(4096, 1024, dtype)       # a long prefill's pre-norm
+        bench.add_case(8, 1024, dtype)          # decode residual + norm
+        bench.add_case(4096, 1024, dtype)       # a long prefill's
+        bench.qk_case("decode", 8, 1, 16, 8, 128, dtype)
+        bench.qk_case("prefill", 1, 256, 16, 8, 128, dtype)
 
     lens_rng = torch.Generator().manual_seed(1)
     decode_lens = torch.randint(1, 1025, (8,), generator=lens_rng).tolist()
     decode_lens[0], decode_lens[1] = 1, 1024
     for dtype in (torch.bfloat16, torch.float32):
-        attn_case("decode", 8, 16, 8, 1, 1024, 128, decode_lens, None, dtype)
-        attn_case("prefill", 1, 16, 8, 256, 1024, 128, [700], None, dtype)
-        attn_case("window", 1, 16, 8, 256, 1024, 128, [700], 128, dtype)
-    bad = [r["shape"] for rs in records.values() for r in rs if not r["ok"]]
-    if bad or bit_bad:
-        fail(f"kernels disagree with their plain versions: {bad}; fused "
-             f"kernel 1 differs from its unfused card composition: "
-             f"{bit_bad}")
-    del scratch
+        bench.attn_case("decode", 8, 16, 8, 1, 1024, 128, decode_lens, None,
+                        dtype)
+        bench.attn_case("prefill", 1, 16, 8, 256, 1024, 128, [700], None,
+                        dtype)
+        bench.attn_case("window", 1, 16, 8, 256, 1024, 128, [700], 128,
+                        dtype)
+    bench.check("kernels")
+    bench.close()
     sweep_problems = edge_sweep(torch, kfa, dev, seed=10)
     if sweep_problems:
         fail("kernel 2 edge sweep: " + "; ".join(sweep_problems))
@@ -529,7 +667,7 @@ def main() -> None:
         f"MiB; launches {launches}")
     log(f"[serve] serve_dispatch_depth decisions (value x count "
         f"(provenance)): {depths}")
-    k1_line, problems = fspy.report(8, base.n_layers)
+    k1_line, problems = fspy.report(8, base)
     log(f"[serve] {k1_line}; kernel 1 launches by entry {entries}")
     for r, n in zip(rids, lens, strict=True):
         out = results.get(r)
@@ -633,6 +771,16 @@ def main() -> None:
     records.update(train_records)
     launches.update(train_launches)
 
+    # ---------------------------------------------------- 9. dense family
+    dense_records, path_launches = _dense_phase(torch, dev)
+    for name, recs in dense_records.items():
+        records[name].extend(recs)
+    path_launches = {"phase 5 qwen3-0.6b contiguous": {
+        k: launches[k] for k in ("rmsnorm", "flash_attention")},
+        "phase 7 qwen3-0.6b paged": {
+            "paged_flash_attention": launches["paged_flash_attention"]},
+        **path_launches}
+
     srcs = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:19"),
             "flash_attention": (
@@ -662,6 +810,9 @@ def main() -> None:
                                    "paged_flash_attention",
                                    "rmsnorm_backward") else next(
             r for r in recs if r["shape"] == f"n={KERNEL_SIZES_1D[1]} float32")
+        # Each serve path's own launches (counters reset before it).
+        by_path = {path: counts[name] for path, counts
+                   in path_launches.items() if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": srcs[name][0],
             "replaces": srcs[name][1], "launches": launches[name],
@@ -670,7 +821,8 @@ def main() -> None:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"]}
             | ({"library_note": head["library_note"]}
-               if "library_note" in head else {}))
+               if "library_note" in head else {})
+            | ({"launches_by_path": by_path} if by_path else {}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -835,12 +987,13 @@ class ForwardSpy:
         self.lm.forward_cached = self.real
         self.graphs.replay_listeners.remove(self._replayed)
 
-    def report(self, n_slots: int, n_layers: int) -> tuple[str, list]:
+    def report(self, n_slots: int, cfg) -> tuple[str, list]:
         """A log line and the problems: every forward must launch kernel
-        1 exactly 3 * n_layers + 1 times (layer 0's ln1, an add+ln2 per
-        layer, an add+ln1 for every later layer, a q/k-norm + rotary
-        launch per layer, the final norm)."""
-        want = 3 * n_layers + 1
+        1 exactly (3 if cfg.qk_norm else 2) * n_layers + 1 times (layer
+        0's ln1, an add+ln2 per layer, an add+ln1 for every later layer,
+        with qk-norm a q/k-norm + rotary launch per layer, the final
+        norm)."""
+        want = (3 if cfg.qk_norm else 2) * cfg.n_layers + 1
         loop = [n for (b, _), ns in self.per_call.items() if b == n_slots
                 for n in ns]
         per_iter = sum(loop) / max(len(loop), 1)
@@ -1071,32 +1224,37 @@ def paged_stores(torch, kc, vc, lens, ps, gen):
     return ks, vs, pt
 
 
-def edge_sweep(torch, kfa, dev, seed, page_sizes=()):
+def edge_sweep(torch, kfa, dev, seed, page_sizes=(), heads=EDGE_HEADS,
+               dims=(128,), sqs=EDGE_SQ, windows=None):
     """Kernels 2 and 3 at the schedules' edges.  For each (Hq, Hkv) of
-    EDGE_HEADS, dtype and Sq of EDGE_SQ, one call whose lanes sit at every
-    kv length of EDGE_KV that is at least Sq (queries are end-aligned);
-    and kernel 2 on the tile path with sliding windows.  Kernel 2 is held
-    against its plain version (phase 3's tolerances) and two calls must
-    give the same bits.  With ``page_sizes``, kernel 3 over the same K/V
-    at each page size is held against its plain version, bit for bit
-    against kernel 2, and two calls must give the same bits.  Logs one
-    record per case, naming the path ``attention_plan`` chose, and returns
-    the problems found."""
+    ``heads``, head dim of ``dims``, dtype and Sq of ``sqs``, one call
+    whose lanes sit at every kv length of EDGE_KV that is at least Sq
+    (queries are end-aligned); and kernel 2 with sliding windows
+    (``windows``: (Hq, Hkv, D, Sq, window) cases; by default phase 3's
+    EDGE_WINDOWS at qwen3-0.6b's heads when no page size is given).
+    Kernel 2 is held against its plain version (phase 3's tolerances)
+    and two calls must give the same bits.  With ``page_sizes``, kernel 3
+    over the same K/V at each page size (no window: it takes none) is
+    held against its plain version, bit for bit against kernel 2, and two
+    calls must give the same bits.  Logs one record per case, naming the
+    path ``attention_plan`` chose, and returns the problems found."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     perm = torch.Generator().manual_seed(seed + 1)
     kernel = "paged_flash_attention" if page_sizes else "flash_attention"
     problems = []
     n_cases = 0
-    cases = [(hq, hkv, sq, None) for hq, hkv in EDGE_HEADS for sq in EDGE_SQ]
-    if not page_sizes:
-        cases += [(16, 8, sq, w) for sq, w in EDGE_WINDOWS]
+    if windows is None:
+        windows = [] if page_sizes else [
+            (16, 8, 128, sq, w) for sq, w in EDGE_WINDOWS]
+    cases = [(hq, hkv, d, sq, None) for hq, hkv in heads for d in dims
+             for sq in sqs] + list(windows)
     for dtype in (torch.bfloat16, torch.float32):
         # f32: exp and sums in another order; bf16: P and the output
         # rounded to bf16.
         tol = 1e-4 if dtype == torch.float32 else 1e-2
-        for hq, hkv, sq, window in cases:
+        for hq, hkv, d, sq, window in cases:
             lens_l = [kv for kv in EDGE_KV if kv >= sq]
-            b, d, skv = len(lens_l), 128, max(EDGE_KV)
+            b, skv = len(lens_l), max(EDGE_KV)
             q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
             kc = torch.randn(b, hkv, skv, d, generator=gen,
                              device=dev).to(dtype)
@@ -1108,12 +1266,13 @@ def edge_sweep(torch, kfa, dev, seed, page_sizes=()):
             ref = kfa.attention_ref(q, kc, vc, lens, window=window)
             ok, err = within(torch, out, ref, tol, tol)
             rec = dict(
-                case=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} kv={lens_l[0]}.."
-                     f"{lens_l[-1]} window={window} {str(dtype)[6:]}",
+                case=f"B={b} Hq={hq} Hkv={hkv} D={d} Sq={sq} kv="
+                     f"{lens_l[0]}..{lens_l[-1]} window={window} "
+                     f"{str(dtype)[6:]}",
                 path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
                 kernel2_err=err, kernel2_ok=ok,
                 kernel2_deterministic=torch.equal(out, again))
-            for ps in page_sizes:
+            for ps in page_sizes if window is None else ():
                 ks, vs, pt = paged_stores(torch, kc, vc, lens, ps, perm)
                 po = kfa.paged_flash_attention(q, ks, vs, pt, lens,
                                                page_size=ps)
@@ -1130,9 +1289,9 @@ def edge_sweep(torch, kfa, dev, seed, page_sizes=()):
             n_cases += 1
             bad = [k for k in ("kernel2_ok", "kernel2_deterministic")
                    if not rec[k]]
-            bad += [f"ps{ps} {k}" for ps in page_sizes
-                    for k, v in rec[f"ps{ps}"].items()
-                    if k != "err" and not v]
+            bad += [f"{key} {k}" for key, sub in rec.items()
+                    if key.startswith("ps")
+                    for k, v in sub.items() if k != "err" and not v]
             if bad:
                 problems.append(f"{rec['case']}: {bad}")
     log(f"[sweep] {n_cases} cases, {len(problems)} with a problem")
@@ -1666,80 +1825,9 @@ def _paged_phase(torch, dev, base):
                                    percentile, poisson_trace,
                                    shared_prefix_trace)
 
-    gen = torch.Generator(device=dev).manual_seed(5)
-    perm_gen = torch.Generator().manual_seed(6)
-    scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.zero_()
-
-    records = {"paged_flash_attention": []}
-    bit_bad = []
-
-    def paged_case(name, b, hq, hkv, sq, kv_lens, d, ps, dtype,
-                   max_len=1024):
-        skv = -(-max_len // ps) * ps
-        q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
-        kc = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
-        vc = torch.randn(b, hkv, skv, d, generator=gen, device=dev).to(dtype)
-        lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-        ks, vs, pt = paged_stores(torch, kc, vc, lens, ps, perm_gen)
-        call = lambda: kfa.paged_flash_attention(      # noqa: E731
-            q, ks, vs, pt, lens, page_size=ps)
-        out = call()
-        again = call()
-        ref = kfa.paged_attention_ref(q, ks, vs, pt, lens, page_size=ps)
-        contiguous = kfa.flash_attention(q, kc, vc, lens)
-        torch.cuda.synchronize()
-        # Kernel 2's tolerances: f32 exp and sums in another order than
-        # the plain version; bf16 one output rounding.
-        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
-        ok, err = within(torch, out, ref, atol, rtol)
-        same = torch.equal(out, contiguous)
-        deterministic = torch.equal(out, again)
-        if not (same and deterministic):
-            bit_bad.append(f"{name} ps={ps} {dtype}")
-        kj = torch.arange(skv, device=dev)
-        lens_l = lens.long()
-        qi = lens_l[:, None] - sq + torch.arange(sq, device=dev)[None]
-        mask = (kj[None, None] < lens_l[:, None, None]) \
-            & (qi[:, :, None] >= kj[None, None])
-        visible = int(mask.sum()) * hq
-        keys_read = int(mask.any(dim=1).sum()) * hkv
-        item = q.element_size()
-        pages_read = int(((lens_l + ps - 1) // ps).sum())
-        byts = (2 * q.numel() + 2 * keys_read * d) * item + 4 * b \
-            + 4 * pages_read
-        ops = 4 * d * visible
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-        bound = max(byts / HBM_BYTES_PER_S, ops / peak) * 1e3
-        kg = kfa.gather_pages(ks, pt, ps).contiguous()
-        vg = kfa.gather_pages(vs, pt, ps).contiguous()
-        attn_mask = mask[:, None]
-        rec = dict(
-            shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} kv<={max(kv_lens)} "
-                  f"D={d} ps={ps} {str(dtype)[6:]}",
-            path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
-            err=err, ok=ok, bit_equal_kernel2=same,
-            deterministic=deterministic, tol=f"atol={atol} rtol={rtol}",
-            ms=time_ms(torch, call, flush=flush),
-            plain_ms=time_ms(torch, lambda: kfa.paged_attention_ref(
-                q, ks, vs, pt, lens, page_size=ps), flush=flush),
-            library_ms=None,
-            library_note="no one PyTorch call computes attention through "
-                         "a page table",
-            kernel2_ms=time_ms(torch, lambda: kfa.flash_attention(
-                q, kc, vc, lens), flush=flush),
-            sdpa_gathered_ms=time_ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, kg, vg, attn_mask=attn_mask, enable_gqa=True),
-                flush=flush),
-            bound_ms=bound,
-            bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / peak
-            else "operations")
-        records["paged_flash_attention"].append(rec)
-        log(f"[kernel paged_flash_attention] {rec}")
-        del q, kc, vc, ks, vs, kg, vg
+    bench = KernelBench(torch, dev, seed=5, perm_seed=6,
+                        kernels=("paged_flash_attention",))
+    records = bench.records
 
     # Paged serving at full width: the main path of this slice.  It runs
     # first, so the kernel checks below follow the page size "auto" picked
@@ -1826,7 +1914,7 @@ def _paged_phase(torch, dev, base):
         "launches): " + ", ".join(
             f"({b}, {sq}, {ps}, {names[dt]}): {n}"
             for (b, sq, ps, dt), n in sorted(shapes.items())))
-    k1_line, problems = fspy.report(sched.pool.n_slots, base.n_layers)
+    k1_line, problems = fspy.report(sched.pool.n_slots, base)
     log(f"[paged] {k1_line}; kernel 1 launches by entry "
         f"{ {k: c.count for k, c in krms.entry_launches.items()} }")
     for r, n in zip(rids, lens, strict=True):
@@ -1865,33 +1953,32 @@ def _paged_phase(torch, dev, base):
     checked = set()
     for dtype in (torch.bfloat16, torch.float32):
         for ps in dict.fromkeys((main_ps, 16, 64)):
-            paged_case("decode", 8, 16, 8, 1, decode_lens, 128, ps, dtype)
+            bench.paged_case("decode", 8, 16, 8, 1, decode_lens, 128, ps,
+                             dtype)
             for sq in widths:
-                paged_case(f"verify{sq}", 8, 16, 8, sq,
-                           [max(n, sq) for n in decode_lens], 128, ps, dtype)
-            paged_case("prefill", 1, 16, 8, 256, [700], 128, ps, dtype)
+                bench.paged_case(f"verify{sq}", 8, 16, 8, sq,
+                                 [max(n, sq) for n in decode_lens], 128, ps,
+                                 dtype)
+            bench.paged_case("prefill", 1, 16, 8, 256, [700], 128, ps, dtype)
             checked.update((b, sq, ps, kfa._DTYPES[dtype])
                            for b, sq in [(8, 1), (1, 256)]
                            + [(8, w) for w in widths])
     for b, sq, ps, dt in sorted(set(shapes) - checked):
         dtype = next(k for k, v in kfa._DTYPES.items() if v == dt)
         if b == 1:      # a prefill chunk, end-aligned after 100 keys
-            paged_case("main-prefill", 1, 16, 8, sq, [min(sq + 100, 1024)],
-                       128, ps, dtype)
+            bench.paged_case("main-prefill", 1, 16, 8, sq,
+                             [min(sq + 100, 1024)], 128, ps, dtype)
         else:
-            paged_case(f"main-Sq{sq}", b, 16, 8, sq,
-                       [max(n, sq) for n in decode_lens], 128, ps, dtype)
-    bad = [r["shape"] for r in records["paged_flash_attention"]
-           if not r["ok"]]
-    if bad or bit_bad:
-        fail(f"paged_flash_attention disagrees with its plain version: "
-             f"{bad}; differs from kernel 2 over the same K/V or between "
-             f"two calls: {bit_bad}")
+            bench.paged_case(f"main-Sq{sq}", b, 16, 8, sq,
+                             [max(n, sq) for n in decode_lens], 128, ps,
+                             dtype)
+    bench.check("paged_flash_attention (kernel 3 against its plain "
+                "version, kernel 2 over the same K/V, two calls)")
     sweep_problems = edge_sweep(torch, kfa, dev, seed=11,
                                 page_sizes=tuple(dict.fromkeys((main_ps, 16))))
     if sweep_problems:
         fail("kernel 3 edge sweep: " + "; ".join(sweep_problems))
-    del scratch
+    bench.close()
     torch.cuda.empty_cache()
 
     # Token identity in f32 at full width: contiguous, paged, paged with
@@ -2517,6 +2604,349 @@ def _train_phase(torch, dev, base, card_line):
         del params
     torch.cuda.empty_cache()
     return {"rmsnorm_backward": records}, {"rmsnorm_backward": launches}
+
+
+# Phase 9: the dense family.  granite-34b and qwen1.5-32b keep 2 of their
+# layers: at full depth their bf16 weights are 68 and 70 GB, drawn in f32
+# on the host (``lm.init_params``), which the run's time limit does not
+# hold.  The others run at full width and full depth.
+DENSE_ARCHS = ("h2o-danube-1.8b", "musicgen-medium", "granite-34b",
+               "qwen1.5-32b")
+DENSE_DEPTH = {"granite-34b": 2, "qwen1.5-32b": 2}
+DENSE_WIDTHS = (1536, 2560, 5120, 6144)   # kernel 1's rows, one per arch
+# Kernels 2 and 3 at the family's heads: (48, 1) granite's MQA, (40, 40)
+# qwen1.5's MHA (group 1), (32, 8) danube's group 4; head dims 64
+# (musicgen), 80 (danube) and 128.
+DENSE_SWEEP_HEADS = ((48, 1), (40, 40), (32, 8))
+DENSE_SWEEP_DIMS = (64, 80, 128)
+DENSE_SWEEP_SQ = (1, 4, 8, 16, 17, 64, 256)
+
+
+def _cast_weights(tree, dtype):
+    """The serving copy of f32 weights: every weight in ``dtype``, the norm
+    gains (``g``) kept in f32 -- what ``lm.init_params`` draws for the
+    compute dtype from the same seed (it draws in f32 and casts)."""
+    if isinstance(tree, dict):
+        return {k: v if k == "g" else _cast_weights(v, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_weights(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_count_params(v) for v in tree)
+    return tree.numel()
+
+
+def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False):
+    """One phase-9 serve run: 8 slots, dispatch depth "auto" (decode
+    through the graphs), page size "auto" when paged; the launch counters
+    reset just before and read just after it, every forward held to its
+    kernel-1 count (``ForwardSpy``).  Returns the run's numbers; fails
+    the run on any problem."""
+    from repro_torch.core.acc import AdaptiveCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeScheduler, percentile
+
+    pool = "paged" if paged else "contiguous"
+    sched = ServeScheduler(
+        cfg, params, n_slots=8, max_len=max_len,
+        executor=adaptive(SequentialExecutor(),
+                          AdaptiveCoreChunk(cache=CalibrationCache())),
+        dispatch_depth="auto", paged=paged, page_size="auto", device=dev)
+    sched.warmup()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
+        counter.reset()
+    replays0 = sched.graphs.replays
+    with ForwardSpy(lm, krms) as fspy:
+        t_start = time.monotonic()
+        rids = [sched.submit(p, max_new_tokens=64) for p in prompts]
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t_start
+    launches = {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+    shapes2, shapes3 = dict(kfa.launches.by_key), dict(kfa.paged_launches.by_key)
+    ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
+             for r in rids]
+    n_tok = sum(len(results.get(r, [])) for r in rids)
+    run = dict(tok_s=n_tok / makespan, makespan_s=makespan, tokens=n_tok,
+               ttft_p50_ms=percentile(ttfts, 50) * 1e3,
+               ttft_p99_ms=percentile(ttfts, 99) * 1e3,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+               launches=launches,
+               page_size=sched.pool.page_size if paged else None,
+               replays=sched.graphs.replays - replays0,
+               decode_dispatches=sched.decode_dispatches,
+               prefill_lengths=sorted({n for (b, n) in fspy.per_call
+                                       if b == 1}))
+    k1_line, problems = fspy.report(8, cfg)
+    log(f"[serve9] {cfg.name} {pool} bf16, {len(rids)} requests, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}: "
+        f"{json.dumps(run)}; {k1_line}")
+    for r in rids:
+        out = results.get(r)
+        if out is None or len(out) != 64:
+            problems.append(f"request {r} returned "
+                            f"{None if out is None else len(out)} tokens")
+        elif not all(0 <= t < cfg.vocab_size for t in out):
+            problems.append(f"request {r} returned a token out of the vocab")
+    used, unused = ("paged_flash_attention", "flash_attention") if paged \
+        else ("flash_attention", "paged_flash_attention")
+    if launches["rmsnorm"] <= 0 or launches[used] <= 0 or launches[unused]:
+        problems.append(f"the {pool} path skipped a kernel or ran the "
+                        f"other attention kernel: {launches}")
+    if not run["replays"]:
+        problems.append("the run did not decode through the graphs")
+    if problems:
+        fail(f"phase 9 {cfg.name} {pool} serving: " + "; ".join(problems))
+    del sched
+    torch.cuda.empty_cache()
+    return run, shapes2, shapes3
+
+
+def _identity9(torch, dev, cfg32, p32, page_size):
+    """f32 tokens of 8 requests x 32 new tokens, contiguous == paged (at
+    the bf16 run's page size), on fixed chunk decisions."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.serve import ServeScheduler
+
+    rng = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, cfg32.vocab_size, (int(n),), generator=rng)
+               for n in torch.randint(64, 257, (8,), generator=rng)]
+    outs = []
+    for paged in (False, True):
+        s = ServeScheduler(cfg32, p32, n_slots=8, max_len=1024,
+                           acc=StaticCoreChunk(cores=2), dispatch_depth=8,
+                           paged=paged, page_size=page_size, device=dev)
+        s.warmup()
+        ids = [s.submit(p, max_new_tokens=32) for p in prompts]
+        got = s.run_until_idle()
+        outs.append([got[i] for i in ids])
+        del s
+        torch.cuda.empty_cache()
+    same = outs[0] == outs[1]
+    log(f"[identity9] {cfg32.name} f32, 8 requests x 32 tokens: paged "
+        f"(page size {page_size}) == contiguous: {same}")
+    if not same:
+        fail(f"phase 9 {cfg32.name}: paged f32 tokens differ from the "
+             f"contiguous pool's")
+    return same
+
+
+def _ring9(torch, dev, cfg32, p_cpu, p32):
+    """danube in f32: logits of one 64-token prompt, card vs CPU; then a
+    4600-token prompt prefilled on the card in chunks of 256 (cut at the
+    ring's end, 4096), its last row against ``lm.forward`` over the whole
+    sequence (kernel 2, window 4096), and the decode step after it
+    against ``lm.forward`` over one more token.  Returns (card vs CPU
+    error, chunked-vs-full error after the wrap, decode error)."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import prefill_segments
+
+    window = cfg32.attn_window
+    prompt = torch.randint(0, cfg32.vocab_size, (1, 64),
+                           generator=torch.Generator().manual_seed(2))
+    outs = []
+    for where, params in (("cpu", p_cpu), (dev, p32)):
+        caches = lm.init_caches(cfg32, 1, 64, device=where)
+        for start, step in prefill_segments(64, 64, window=window):
+            logits, _ = lm.forward_cached(
+                params, prompt[:, start:start + step].to(where), caches,
+                start, cfg32)
+        outs.append(logits.float().cpu())
+    cpu_err = float((outs[0] - outs[1]).abs().max())
+    cpu_argmax = int(outs[0].argmax()) == int(outs[1].argmax())
+    seq = torch.randint(0, cfg32.vocab_size, (1, 4600),
+                        generator=torch.Generator().manual_seed(4)).to(dev)
+    caches = lm.init_caches(cfg32, 1, 8192, device=dev)
+    for start, step in prefill_segments(4600, 256, window=window):
+        last, _ = lm.forward_cached(p32, seq[:, start:start + step], caches,
+                                    start, cfg32)
+    with torch.no_grad():
+        full, _ = lm.forward(p32, {"tokens": seq}, cfg32, attn_impl="flash")
+        full_last = full[:, -1].float()
+        del full
+        nxt = full_last.argmax(-1)
+        dec, _ = lm.forward_cached(p32, nxt[:, None], caches,
+                                   torch.tensor([4600], device=dev), cfg32)
+        full2, _ = lm.forward(p32, {"tokens": torch.cat(
+            [seq, nxt[:, None]], 1)}, cfg32, attn_impl="flash")
+        full2_last = full2[:, -1].float()
+        del full2
+    ring_err = float((last[:, 0].float() - full_last).abs().max())
+    dec_err = float((dec[:, 0].float() - full2_last).abs().max())
+    same = int(last[0, 0].argmax()) == int(nxt[0]) and \
+        int(dec[0, 0].argmax()) == int(full2_last[0].argmax())
+    log(f"[ring] {cfg32.name} f32: 64-token prompt, max |logit cpu - cuda| "
+        f"= {cpu_err:.3g} (tol 2e-3), argmax equal {cpu_argmax}; 4600-token "
+        f"prompt in chunks of 256 through the ring of {caches[0]['k'].shape[2]}"
+        f" rows: last row vs lm.forward (kernel 2, window {window}) "
+        f"{ring_err:.3g}, the decode step after the wrap {dec_err:.3g} (tol "
+        f"2e-3), argmax equal {same}")
+    torch.cuda.empty_cache()
+    if not (cpu_err <= 2e-3 and cpu_argmax and ring_err <= 2e-3
+            and dec_err <= 2e-3 and same):
+        fail(f"phase 9 {cfg32.name}: the ring or the card disagrees "
+             f"(cpu {cpu_err}, ring {ring_err}, decode {dec_err})")
+    return cpu_err, ring_err, dec_err
+
+
+def _dense_phase(torch, dev):
+    """Phase 9: the dense family on the card.  Returns ({kernel: [record]},
+    {path: {kernel: launches}}): the kernel records of this phase, and the
+    launch counters of each serve run, reset just before and read just
+    after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import lm
+
+    bench = KernelBench(torch, dev, seed=30, perm_seed=31,
+                        kernels=("rmsnorm", "flash_attention",
+                                 "paged_flash_attention"))
+    for d in DENSE_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for rows in (8, 2048):      # a decode step's lanes, a prefill
+                bench.rms_case(rows, d, dtype)
+                bench.add_case(rows, d, dtype)
+    bench.check("kernel 1 at the family's widths")
+    problems = edge_sweep(
+        torch, kfa, dev, seed=12, page_sizes=(16,), heads=DENSE_SWEEP_HEADS,
+        dims=DENSE_SWEEP_DIMS, sqs=DENSE_SWEEP_SQ,
+        windows=[(32, 8, 80, sq, w) for sq, w in EDGE_WINDOWS])
+    if problems:
+        fail("phase 9 kernel 2 and 3 sweep: " + "; ".join(problems))
+
+    path_launches = {}
+    lens_rng = torch.Generator().manual_seed(1)
+    for name in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if name in DENSE_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=DENSE_DEPTH[name])
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        windowed = cfg.attn_window is not None
+        # One f32 draw on the host serves the CPU, the f32 runs and (cast)
+        # the bf16 runs: the weights lm.init_params(0, cfg) would draw.
+        # Only the bf16 copy is on the card while it serves.
+        p_cpu = lm.init_params(0, cfg32, device="cpu")
+        p16 = _to_device(_cast_weights(p_cpu, torch.bfloat16), dev)
+        n_params = _count_params(p16)
+        log(f"[arch] {name}: weights drawn in "
+            f"{time.perf_counter() - t0:.1f}s")
+        ring = None
+        if windowed:
+            p32 = _to_device(p_cpu, dev)
+            ring = _ring9(torch, dev, cfg32, p_cpu, p32)
+            del p32
+        rng = torch.Generator().manual_seed(3)
+        lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+        max_len = 1024
+        if windowed:
+            # 4 of the 16 prompts past the ring (4096 rows), so it wraps.
+            lens[::4] = torch.randint(4200, 4601, (4,), generator=rng).tolist()
+            max_len = 8192
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+                   for n in lens]
+        runs = {}
+        runs["contiguous"], shapes2, _ = _serve9(torch, dev, cfg, p16,
+                                                 prompts, max_len=max_len)
+        page_size = None
+        if not windowed:
+            runs["paged"], _, shapes3 = _serve9(torch, dev, cfg, p16,
+                                                prompts, max_len=max_len,
+                                                paged=True)
+            page_size = runs["paged"]["page_size"]
+            p32 = _to_device(p_cpu, dev)
+            _identity9(torch, dev, cfg32, p32, page_size)
+            del p32
+        del p_cpu
+        for pool, run in runs.items():
+            path_launches[f"phase 9 {name} {pool}"] = run["launches"]
+        # Kernels 2 and 3 at this arch's decode and main-run prefill
+        # shapes, in bf16 and f32.
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        skv = min(cfg.attn_window, max_len) if windowed else max_len
+        decode_lens = torch.randint(1, skv + 1, (8,),
+                                    generator=lens_rng).tolist()
+        decode_lens[0], decode_lens[1] = 1, skv
+        prefill = max(sq for (b, sq, _, _, _) in shapes2 if b == 1)
+        for dtype in (torch.bfloat16, torch.float32):
+            bench.attn_case(f"{name} decode", 8, hq, hkv, 1, skv, d,
+                            decode_lens, None, dtype)
+            if windowed:
+                # The ring before its wrap (rows are positions) and after
+                # it (the ring in position order, then the chunk).
+                bench.attn_case(f"{name} prefill", 1, hq, hkv, prefill, skv,
+                                d, [skv], cfg.attn_window, dtype)
+                bench.attn_case(f"{name} ring", 1, hq, hkv, prefill,
+                                skv + prefill, d, [skv + prefill],
+                                cfg.attn_window, dtype)
+            else:
+                bench.attn_case(f"{name} prefill", 1, hq, hkv, prefill, skv,
+                                d, [min(prefill + 444, skv)], None, dtype)
+                bench.paged_case(f"{name} decode", 8, hq, hkv, 1,
+                                 decode_lens, d, page_size, dtype,
+                                 max_len=skv)
+                p3 = max(sq for (b, sq, _, _) in shapes3 if b == 1)
+                bench.paged_case(f"{name} prefill", 1, hq, hkv, p3,
+                                 [min(p3 + 444, skv)], d, page_size, dtype,
+                                 max_len=skv)
+        bench.check(f"{name}'s kernels")
+        main = runs["contiguous"]
+        log(f"[arch] " + json.dumps({
+            "name": name, "layers": cfg.n_layers,
+            "depth": "full" if name not in DENSE_DEPTH
+            else f"cut to {cfg.n_layers} of {get_config(name).n_layers}",
+            "params": n_params, "peak_mib": main["peak_mib"],
+            "tok_s": main["tok_s"], "ttft_p50_ms": main["ttft_p50_ms"],
+            "ttft_p99_ms": main["ttft_p99_ms"],
+            "paged_tok_s": runs["paged"]["tok_s"] if "paged" in runs
+            else None,
+            "ring_chunked_vs_full_err": None if ring is None else ring[1],
+            "ring_decode_err": None if ring is None else ring[2],
+            "logits_cpu_vs_card_err": None if ring is None else ring[0],
+            "kernel1_per_forward": (3 if cfg.qk_norm else 2)
+            * cfg.n_layers + 1,
+            "seconds": time.perf_counter() - t0}))
+        del p16
+        torch.cuda.empty_cache()
+    bench.close()
+    return bench.records, path_launches
+
+
+def dense_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.dense_main()"``: the
+    build and phase 9 alone (the dense family), for work on that phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("phase 9 needs a CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import strict
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[build] {sorted(build.build_all())}")
+    strict.enable()
+    records, path_launches = _dense_phase(torch, torch.device("cuda"))
+    log(f"[phase 9] {sum(map(len, records.values()))} kernel records; "
+        f"launches by path {json.dumps(path_launches)}")
 
 
 def _to_device(tree, dev):

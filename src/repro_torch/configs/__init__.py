@@ -9,6 +9,10 @@ from .base import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
 
 _ARCH_MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "granite-34b": "granite_34b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

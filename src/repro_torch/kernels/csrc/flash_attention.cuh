@@ -70,6 +70,12 @@
 namespace repro_fa {
 
 constexpr int kThreads = 128;    // one warpgroup per block, both paths
+// Head dims below kMaxD (64, 80: a multiple of 8, the wrapper checks)
+// run zero-padded to it: Q, K and V arrive as 16-byte chunks c with
+// 8c < D (4c in f32) and zeros past D, so the padded columns add 0 to
+// every score and give 0 in P.V, whose columns at or past D are never
+// stored.  A row is D * sizeof(T) bytes (a paged store row Hkv * D *
+// sizeof(T)), a multiple of 16, so every chunk stays 16-byte aligned.
 constexpr int kMaxD = 128;
 constexpr int kSplitRows = 16;   // packed rows of a split-path block
 constexpr int kTileRows = 64;    // packed rows of a tensor-core block

@@ -24,7 +24,8 @@ same choice; the wrapper uses the plan to size the split path's scratch.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``attention_ref``, ``paged_attention_ref``) for CPU tensors.
-Kernel 3's counter keys each launch by (B, Sq, page size, dtype code).
+Kernel 2's counter keys each launch by (B, Sq, Skv, window or 0, dtype
+code), kernel 3's by (B, Sq, page size, dtype code).
 """
 from __future__ import annotations
 
@@ -267,7 +268,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 0 if window is None else int(window), _DTYPES[q.dtype],
                 stream)
     build.check(err, "flash_attention")
-    launches.add()
+    launches.add((b, sq, skv, 0 if window is None else int(window),
+                  _DTYPES[q.dtype]))
     return out
 
 

@@ -30,11 +30,35 @@ layouts:
   ``paged_flash_attention`` straight off the pages (no contiguous view
   is gathered).
 
+Under a sliding window ``W`` the contiguous cache is a ring of ``S =
+min(W, max_len)`` rows (``init_cache``; the counterpart of the
+reference's ring buffer): position ``p`` lives in row ``p % S``.  Three
+cases, all through kernel 2:
+
+* per-lane rows (the decode step, one row a lane): written at ``p % S``,
+  then attention over the ``min(p + 1, S)`` rows the ring holds, which
+  are exactly the window (no window mask: rows are not in position
+  order);
+* a chunk before the wrap (``p + L <= S``): rows are positions, so it is
+  the plain path with the causal and window masks;
+* a chunk after the wrap (``p >= S``): its queries must see the ring's
+  oldest rows, which its own write would overwrite.  The ring's rows in
+  position order (rolled by ``p % S``) and then the chunk's own K/V are
+  gathered into a scratch buffer, attention runs over it causal,
+  window ``W``, end-aligned, and only then is the chunk written.
+
+A chunk never crosses the ring's end (the scheduler's ``_segment`` and
+``engine.prefill_segments`` cut there); one that would raises.  The
+reference's ``_ring_attention`` masks only the populated slots, with no
+causal mask, so its chunked prefill lets a query see later positions of
+its own chunk; here a chunk gives ``lm.forward``'s values (ROADMAP.md,
+faults of the reference).  The paged pool refuses windows, as the
+reference's does.
+
 ``jax.lax.dynamic_update_slice`` clamps a write that would run past the
 cache; here such a write raises instead.
 
-Not ported yet (ROADMAP.md A.4): the sliding-window ring cache
-(``_ring_attention``) and cross-attention.
+Not ported yet (ROADMAP.md A.4): cross-attention.
 """
 from __future__ import annotations
 
@@ -199,10 +223,6 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     With a cache {"k","v"}: (B, Hkv, S, D), or the paged stores
     (n_pages * ps, Hkv, D) when ``write.page_table`` is set, the new K/V
     are written as ``write`` says and attention runs over the cache."""
-    if window is not None and cache is not None:
-        raise NotImplementedError(
-            "sliding-window (ring) KV caches are not ported yet "
-            "(ROADMAP.md, remaining architectures)")
     b, length, _ = x.shape
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
@@ -225,6 +245,9 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     ck, cv = cache["k"], cache["v"]
     qt = q.transpose(1, 2).contiguous()
+    if write.page_table is not None and window is not None:
+        raise ValueError("paged KV caches do not hold sliding-window (SWA) "
+                         "rings; use the contiguous slot pool")
     if write.page_table is not None:
         # k, v are (B, L, Hkv, D): token-major, the stores' layout.
         if write.rows is not None:
@@ -236,36 +259,66 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                                     write.kv_lens,
                                     page_size=write.page_size, causal=True)
     else:
-        kt = k.transpose(1, 2).to(ck.dtype)        # (B, Hkv, L, D)
-        vt = v.transpose(1, 2).to(cv.dtype)
-        if isinstance(write.pos, int):
-            if write.pos < 0 or write.pos + length > ck.shape[2]:
-                raise ValueError(
-                    f"cache write of {length} rows at {write.pos} runs past "
-                    f"the cache length {ck.shape[2]}")
-            ck[:, :, write.pos:write.pos + length] = kt
-            cv[:, :, write.pos:write.pos + length] = vt
-        else:
-            r2, at = write.lanes, write.at               # (R, 1), (R, L)
-            if write.rows is not None:
-                kt, vt = kt[write.rows], vt[write.rows]
-            new_k = kt.transpose(1, 2)                   # (R, L, Hkv, D)
-            new_v = vt.transpose(1, 2)
-            if write.keep is not None:
-                # Lanes the device dropped keep their old rows.
-                k4 = write.keep[:, None, None, None]
-                new_k = torch.where(k4, new_k, ck[r2, :, at])
-                new_v = torch.where(k4, new_v, cv[r2, :, at])
-            ck[r2, :, at] = new_k
-            cv[r2, :, at] = new_v
-        out = flash_attention(qt, ck, cv, write.kv_lens, causal=True)
+        out = _cached_attention(qt, k.transpose(1, 2), v.transpose(1, 2),
+                                ck, cv, write, window)
     out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
     return cm.linear(p["wo"], out, cd)
+
+
+def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor, write: CacheWrite,
+                      window: int | None) -> torch.Tensor:
+    """The contiguous cache's write and attention: qt (B, Hq, L, D); kt,
+    vt (B, Hkv, L, D) the new rows; ck, cv (B, Hkv, S, D), a ring of S
+    rows under ``window`` (the module docstring's three cases)."""
+    length, s_cache = qt.shape[2], ck.shape[2]
+    kt, vt = kt.to(ck.dtype), vt.to(cv.dtype)
+    if not isinstance(write.pos, int):
+        r2, at = write.lanes, write.at               # (R, 1), (R, L)
+        if write.rows is not None:
+            kt, vt = kt[write.rows], vt[write.rows]
+        new_k = kt.transpose(1, 2)                   # (R, L, Hkv, D)
+        new_v = vt.transpose(1, 2)
+        if write.keep is not None:
+            # Lanes the device dropped keep their old rows.
+            k4 = write.keep[:, None, None, None]
+            new_k = torch.where(k4, new_k, ck[r2, :, at])
+            new_v = torch.where(k4, new_v, cv[r2, :, at])
+        ck[r2, :, at] = new_k
+        cv[r2, :, at] = new_v
+        # No window mask: a ring (one row per lane) holds exactly the
+        # window, and its rows are not in position order.
+        return flash_attention(qt, ck, cv, write.kv_lens, causal=True)
+    at = write.pos % s_cache if window is not None else write.pos
+    if write.pos < 0 or at + length > s_cache:
+        raise ValueError(
+            f"cache write of {length} rows at {write.pos} runs past the "
+            f"cache length {s_cache}"
+            + (" (a chunk may not cross the ring's end)"
+               if window is not None else ""))
+    if write.pos + length <= s_cache:
+        # Rows are positions (always so without a window).
+        ck[:, :, at:at + length] = kt
+        cv[:, :, at:at + length] = vt
+        return flash_attention(qt, ck, cv, write.kv_lens, causal=True,
+                               window=window)
+    # A chunk past the wrap: the ring in position order, then the chunk,
+    # attended before the chunk overwrites the ring's oldest rows.
+    order = (at + torch.arange(s_cache, device=ck.device)) % s_cache
+    kbuf = torch.cat([ck.index_select(2, order), kt], dim=2)
+    vbuf = torch.cat([cv.index_select(2, order), vt], dim=2)
+    out = flash_attention(qt, kbuf, vbuf, write.kv_lens, causal=True,
+                          window=window)
+    ck[:, :, at:at + length] = kt
+    cv[:, :, at:at + length] = vt
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                window: int | None, dtype: torch.dtype,
                device: torch.device) -> dict:
+    """Per-layer ``{"k","v"}`` of shape (B, Hkv, S, D): ``S = max_len``,
+    or under a window the ring's ``min(window, max_len)`` rows."""
     s = min(window, max_len) if window is not None else max_len
     shape = (batch, cfg.n_kv_heads, s, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

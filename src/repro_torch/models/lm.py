@@ -229,7 +229,11 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     tokens already cached in every row, or a (B,) long tensor of per-lane
     counts; then ``write_rows`` may restrict which lanes write their K/V
     and ``write_keep`` (bool, one per written lane, on the device) drops
-    the writes of lanes only the device knows to be done.  Returns
+    the writes of lanes only the device knows to be done.  Under a
+    sliding window the contiguous caches are rings (see
+    ``models/attention.py``): ``pos`` still counts positions, a row lands
+    at ``pos % S``, per-lane calls take one new row, and a chunk never
+    crosses the ring's end.  Returns
     (logits (B, 1, V) of the last position or of ``logit_index``, or (B,
     L, V) of every position with ``all_logits``, caches)."""
     window = window if window is not None else cfg.attn_window
@@ -238,19 +242,37 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     dev = tokens.device
     steps = torch.arange(length, device=dev)
     per_lane = isinstance(pos, torch.Tensor)
+    # Under a window a contiguous cache is a ring of this many rows
+    # (``attention.init_cache``); 0: rows are positions.
+    ring = caches[0]["k"].shape[2] \
+        if window is not None and page_table is None else 0
     if per_lane:
+        if ring and length != 1:
+            raise ValueError(
+                f"a ring cache (window={window}) takes one new row per "
+                f"lane, got {length}")
         positions = pos[:, None] + steps[None, :]
-        kv_lens = (pos + length).to(torch.int32)
+        kv_lens = pos + length
+        if ring:
+            kv_lens = kv_lens.clamp(max=ring)
+        kv_lens = kv_lens.to(torch.int32)
     else:
         pos = int(pos)
         positions = (pos + steps)[None, :].expand(b, length)
-        kv_lens = torch.full((b,), pos + length, dtype=torch.int32,
-                             device=dev)
+        kv = pos + length
+        if ring and kv > ring:
+            # Past the wrap a chunk attends the ring and itself
+            # (``attention._cached_attention``).
+            kv = ring + length
+        kv_lens = torch.full((b,), kv, dtype=torch.int32, device=dev)
     rows = write_rows if per_lane else None
     if per_lane or page_table is not None:
-        # The written lanes and their positions, once per forward.
+        # The written lanes and their positions (ring rows), once per
+        # forward.
         lanes = rows if rows is not None else torch.arange(b, device=dev)
         at = positions if rows is None else positions[rows]
+        if ring:
+            at = at % ring
     if page_table is not None:
         ps = int(page_size)
         if not per_lane and (

@@ -7,7 +7,13 @@ slot on admission, carries its own position inside it, and releases it
 when it finishes, so requests of any length join and leave the running
 batch with no reallocation (``allocations`` stays 1).
 
-Layout: per layer ``{"k", "v"}`` of shape (n_slots, H_kv, max_len, D).
+Layout: per layer ``{"k", "v"}`` of shape (n_slots, H_kv, max_len, D),
+or under a sliding window (n_slots, H_kv, S, D) with ``S = min(window,
+max_len)``: each slot is a ring, position ``p`` in row ``p % S``.  A
+slot's position stays the count of tokens it cached (it runs past
+``S``); ``read_slot`` / ``write_slot`` carry the ring's rows as they
+lie, and the forward computes every write's row from the positions on
+the device (``lm.forward_cached``).
 
 Where the JAX pool relies on buffer donation, this one updates in place:
 ``read_slot`` returns views into the pool, a prefill chunk writes its

@@ -27,6 +27,10 @@ decode drafts from each lane's history and verifies ``d`` tokens per
 round (``serve_spec_depth``, refined from the acceptance the drains
 observe).  With ``admission="adaptive"`` the number of requests admitted
 per tick is a ``serve_admission`` decision (the front end's mode).
+Under a sliding window (h2o-danube-1.8b) the slot pool's caches are
+rings (``models/attention.py``): a prefill chunk never crosses the
+ring's end and is never padded, and the paged pool and speculation
+refuse the window, as the reference's do.
 
 Ported from the JAX scheduler: admission (greedy, adaptive, EDF,
 shedding, cancellation), the per-tick decision, bucketed chunked
@@ -209,11 +213,6 @@ class ServeScheduler:
         self.window = window if window is not None else cfg.attn_window
         if self.window is not None and self.window <= 0:
             self.window = None
-        if self.window is not None:
-            # Before any slot is given out: the ring cache is not ported.
-            raise _not_ported(
-                f"sliding-window attention (window={self.window})",
-                "remaining architectures")
         self.max_len = max_len
         self.executor = executor if executor is not None \
             else SequentialExecutor()
@@ -222,7 +221,8 @@ class ServeScheduler:
         self.chunk_buckets = tuple(sorted(set(int(b) for b in chunk_buckets
                                               if b > 0))) or (max_len,)
         # Padding prefill chunks to a bucket is sound only when every
-        # layer masks by position (no window, attention blocks only).
+        # layer masks by position (no window: the pad rows would land in
+        # the ring; attention blocks only).
         self._pad_ok = self.window is None
         self.prefill_profile, self.decode_profile = serve_profiles(cfg)
         # Workload keys carry the model's shape, not just its name.
@@ -745,9 +745,14 @@ class ServeScheduler:
 
     def _segment(self, req: Request, chunk: int) -> int:
         """Next prefill piece: the decided chunk, clamped to the remaining
-        prompt and the largest bucket."""
-        return min(max(chunk, 1), req.remaining_prefill,
+        prompt and the largest bucket, never crossing a ring-buffer (SWA)
+        window boundary."""
+        step = min(max(chunk, 1), req.remaining_prefill,
                    self.chunk_buckets[-1])
+        if self.window is not None:
+            pos = self.pool.positions[req.slot]
+            step = min(step, self.window - pos % self.window)
+        return step
 
     def _run_prefill(self, cores: int, chunk: int):
         ready = [r for r in self._active if r.state is RequestState.PREFILL]

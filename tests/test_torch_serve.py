@@ -132,19 +132,35 @@ def test_unported_options_raise(models, kwargs):
 
 @pytest.mark.parametrize("where", ["argument", "config"])
 @pytest.mark.parametrize("paged", [False, True])
-def test_window_raises_in_the_constructor(models, where, paged):
-    """A sliding window (the ring cache is not ported) is refused before
-    any request is admitted or any slot given out, whether passed or
-    taken from the config."""
+def test_window_is_served_contiguous_and_refused_paged(models, where, paged):
+    """A sliding window, passed or taken from the config: the contiguous
+    pool serves it through its ring cache (a prompt past the window,
+    chunks cut at the ring's end); the paged pool refuses it in the
+    constructor, before any slot is given out, as the reference's
+    does."""
     _, _, tcfg, tparams = models
     kw = dict(n_slots=2, max_len=32, dispatch_depth=2, paged=paged,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="window=8.*ROADMAP"):
+    if paged:
+        kw["page_size"] = 8
+
+    def make():
         if where == "argument":
-            ServeScheduler(tcfg, tparams, window=8, **kw)
-        else:
-            ServeScheduler(dataclasses.replace(tcfg, attn_window=8), tparams,
-                           **kw)
+            return ServeScheduler(tcfg, tparams, window=8, **kw)
+        return ServeScheduler(dataclasses.replace(tcfg, attn_window=8),
+                              tparams, **kw)
+
+    if paged:
+        with pytest.raises(ValueError, match="SWA"):
+            make()
+        return
+    sched = make()
+    assert sched.window == 8
+    assert sched.pool.caches[0]["k"].shape[2] == 8
+    rid = sched.submit(np.arange(13) % 256, 3)
+    out = sched.run_until_idle()[rid]
+    assert len(out) == 3 and all(0 <= t < tcfg.vocab_size for t in out)
+    assert max(s for t in sched.trace for _, s in t.prefill_ops) <= 8
 
 
 @pytest.mark.parametrize("kwargs", [
