@@ -136,6 +136,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
               1 (3 if qk-norm else 2) * layers + 1 times.  Kernels 2 and
               3 at each arch's decode and main-run prefill shapes, timed
               like phase 3.  One ``[arch]`` JSON line per arch.
+10. moe     — mixture-of-experts (``_moe_phase``): mixtral-8x22b and
+              grok-1-314b at full width, 2 layers (``MOE_DEPTH``), random
+              weights (seed 0) drawn once in f32 onto the card.  The sweep
+              of kernels 2 and 3 at group 6 (48, 8), D 128, with windows on
+              kernel 2.  Per arch in f32: one MoE layer card vs CPU at 8
+              and 256 rows (the same experts and kept choices, outputs
+              within 1e-4 relative, the dropped choices counted);
+              mixtral's ring (the 4600-token chunked prefill and the decode
+              after the wrap against ``lm.forward``, within 1e-4, at a
+              drop-free capacity factor); grok's tokens contiguous ==
+              paged.  Then the weights cast on the card to bf16 (norm
+              gains and routers kept f32): one MoE layer's device time at
+              8 and 256 rows beside its bound, serving as in phase 9
+              (mixtral contiguous with 4 prompts past its ring, grok
+              contiguous and paged), grok's graphs against their eager
+              body (``graph_identity``), a decode census per arch (at most
+              5 host launch calls a step, 5 kernel-1 launches), kernels 2
+              and 3 at each arch's decode and prefill shapes.  One
+              ``[arch]`` JSON line per arch.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -775,6 +794,12 @@ def main() -> None:
     dense_records, path_launches = _dense_phase(torch, dev)
     for name, recs in dense_records.items():
         records[name].extend(recs)
+    # -------------------------------------------- 10. mixture-of-experts
+    moe_records, moe_launches = _moe_phase(torch, dev)
+    for name, recs in moe_records.items():
+        records[name].extend(recs)
+    path_launches.update(moe_launches)
+
     path_launches = {"phase 5 qwen3-0.6b contiguous": {
         k: launches[k] for k in ("rmsnorm", "flash_attention")},
         "phase 7 qwen3-0.6b paged": {
@@ -2622,12 +2647,53 @@ DENSE_SWEEP_DIMS = (64, 80, 128)
 DENSE_SWEEP_SQ = (1, 4, 8, 16, 17, 64, 256)
 
 
+def _arch_kernel_cases(torch, bench, cfg, max_len, shapes2, shapes3,
+                       page_size, lens_rng):
+    """Kernels 2 and 3 at one arch's decode shape (8 lanes, lengths
+    1..kv) and main-run prefill shapes (``shapes2`` / ``shapes3``: the
+    counters' keys of its serve runs), in bf16 and f32; kernel 3 when the
+    arch served paged (``page_size``).  Fails the run on a disagreement."""
+    name = cfg.name
+    windowed = cfg.attn_window is not None
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    skv = min(cfg.attn_window, max_len) if windowed else max_len
+    decode_lens = torch.randint(1, skv + 1, (8,), generator=lens_rng).tolist()
+    decode_lens[0], decode_lens[1] = 1, skv
+    prefill = max(sq for (b, sq, _, _, _) in shapes2 if b == 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        bench.attn_case(f"{name} decode", 8, hq, hkv, 1, skv, d,
+                        decode_lens, None, dtype)
+        if windowed:
+            # The ring before its wrap (rows are positions) and after it
+            # (the ring in position order, then the chunk).
+            bench.attn_case(f"{name} prefill", 1, hq, hkv, prefill, skv,
+                            d, [skv], cfg.attn_window, dtype)
+            bench.attn_case(f"{name} ring", 1, hq, hkv, prefill,
+                            skv + prefill, d, [skv + prefill],
+                            cfg.attn_window, dtype)
+        else:
+            bench.attn_case(f"{name} prefill", 1, hq, hkv, prefill, skv,
+                            d, [min(prefill + 444, skv)], None, dtype)
+        if page_size is not None:
+            bench.paged_case(f"{name} decode", 8, hq, hkv, 1,
+                             decode_lens, d, page_size, dtype,
+                             max_len=skv)
+            p3 = max(sq for (b, sq, _, _) in shapes3 if b == 1)
+            bench.paged_case(f"{name} prefill", 1, hq, hkv, p3,
+                             [min(p3 + 444, skv)], d, page_size, dtype,
+                             max_len=skv)
+    bench.check(f"{name}'s kernels")
+
+
 def _cast_weights(tree, dtype):
     """The serving copy of f32 weights: every weight in ``dtype``, the norm
-    gains (``g``) kept in f32 -- what ``lm.init_params`` draws for the
-    compute dtype from the same seed (it draws in f32 and casts)."""
+    gains (``g``) and MoE routers kept in f32 -- what ``lm.init_params``
+    draws for the compute dtype from the same seed (it draws in f32 and
+    casts)."""
+    from repro_torch.models import lm
+
     if isinstance(tree, dict):
-        return {k: v if k == "g" else _cast_weights(v, dtype)
+        return {k: v if k in lm.KEEP_PARAM_DTYPE else _cast_weights(v, dtype)
                 for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast_weights(v, dtype) for v in tree]
@@ -2642,8 +2708,9 @@ def _count_params(tree) -> int:
     return tree.numel()
 
 
-def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False):
-    """One phase-9 serve run: 8 slots, dispatch depth "auto" (decode
+def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False,
+            phase=9):
+    """One phase-9 (or ``phase``) serve run: 8 slots, dispatch depth "auto" (decode
     through the graphs), page size "auto" when paged; the launch counters
     reset just before and read just after it, every forward held to its
     kernel-1 count (``ForwardSpy``).  Returns the run's numbers; fails
@@ -2695,7 +2762,7 @@ def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False):
                prefill_lengths=sorted({n for (b, n) in fspy.per_call
                                        if b == 1}))
     k1_line, problems = fspy.report(8, cfg)
-    log(f"[serve9] {cfg.name} {pool} bf16, {len(rids)} requests, prompts "
+    log(f"[serve{phase}] {cfg.name} {pool} bf16, {len(rids)} requests, prompts "
         f"{min(map(len, prompts))}-{max(map(len, prompts))}: "
         f"{json.dumps(run)}; {k1_line}")
     for r in rids:
@@ -2713,13 +2780,14 @@ def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False):
     if not run["replays"]:
         problems.append("the run did not decode through the graphs")
     if problems:
-        fail(f"phase 9 {cfg.name} {pool} serving: " + "; ".join(problems))
+        fail(f"phase {phase} {cfg.name} {pool} serving: "
+             + "; ".join(problems))
     del sched
     torch.cuda.empty_cache()
     return run, shapes2, shapes3
 
 
-def _identity9(torch, dev, cfg32, p32, page_size):
+def _identity9(torch, dev, cfg32, p32, page_size, phase=9):
     """f32 tokens of 8 requests x 32 new tokens, contiguous == paged (at
     the bf16 run's page size), on fixed chunk decisions."""
     from repro_torch.core.acc import StaticCoreChunk
@@ -2740,37 +2808,40 @@ def _identity9(torch, dev, cfg32, p32, page_size):
         del s
         torch.cuda.empty_cache()
     same = outs[0] == outs[1]
-    log(f"[identity9] {cfg32.name} f32, 8 requests x 32 tokens: paged "
-        f"(page size {page_size}) == contiguous: {same}")
+    log(f"[identity{phase}] {cfg32.name} f32, 8 requests x 32 tokens: "
+        f"paged (page size {page_size}) == contiguous: {same}")
     if not same:
-        fail(f"phase 9 {cfg32.name}: paged f32 tokens differ from the "
+        fail(f"phase {phase} {cfg32.name}: paged f32 tokens differ from the "
              f"contiguous pool's")
     return same
 
 
-def _ring9(torch, dev, cfg32, p_cpu, p32):
-    """danube in f32: logits of one 64-token prompt, card vs CPU; then a
-    4600-token prompt prefilled on the card in chunks of 256 (cut at the
-    ring's end, 4096), its last row against ``lm.forward`` over the whole
-    sequence (kernel 2, window 4096), and the decode step after it
-    against ``lm.forward`` over one more token.  Returns (card vs CPU
-    error, chunked-vs-full error after the wrap, decode error)."""
+def _ring9(torch, dev, cfg32, p_cpu, p32, tol=2e-3, phase=9):
+    """A windowed arch in f32: logits of one 64-token prompt, card vs CPU
+    (skipped when ``p_cpu`` is None); then a 4600-token prompt prefilled
+    on the card in chunks of 256 (cut at the ring's end, 4096), its last
+    row against ``lm.forward`` over the whole sequence (kernel 2, window
+    4096), and the decode step after it against ``lm.forward`` over one
+    more token, within ``tol``.  Returns (card vs CPU error or None,
+    chunked-vs-full error after the wrap, decode error)."""
     from repro_torch.models import lm
     from repro_torch.serve.engine import prefill_segments
 
     window = cfg32.attn_window
-    prompt = torch.randint(0, cfg32.vocab_size, (1, 64),
-                           generator=torch.Generator().manual_seed(2))
-    outs = []
-    for where, params in (("cpu", p_cpu), (dev, p32)):
-        caches = lm.init_caches(cfg32, 1, 64, device=where)
-        for start, step in prefill_segments(64, 64, window=window):
-            logits, _ = lm.forward_cached(
-                params, prompt[:, start:start + step].to(where), caches,
-                start, cfg32)
-        outs.append(logits.float().cpu())
-    cpu_err = float((outs[0] - outs[1]).abs().max())
-    cpu_argmax = int(outs[0].argmax()) == int(outs[1].argmax())
+    cpu_err, cpu_argmax = None, True
+    if p_cpu is not None:
+        prompt = torch.randint(0, cfg32.vocab_size, (1, 64),
+                               generator=torch.Generator().manual_seed(2))
+        outs = []
+        for where, params in (("cpu", p_cpu), (dev, p32)):
+            caches = lm.init_caches(cfg32, 1, 64, device=where)
+            for start, step in prefill_segments(64, 64, window=window):
+                logits, _ = lm.forward_cached(
+                    params, prompt[:, start:start + step].to(where), caches,
+                    start, cfg32)
+            outs.append(logits.float().cpu())
+        cpu_err = float((outs[0] - outs[1]).abs().max())
+        cpu_argmax = int(outs[0].argmax()) == int(outs[1].argmax())
     seq = torch.randint(0, cfg32.vocab_size, (1, 4600),
                         generator=torch.Generator().manual_seed(4)).to(dev)
     caches = lm.init_caches(cfg32, 1, 8192, device=dev)
@@ -2792,16 +2863,18 @@ def _ring9(torch, dev, cfg32, p_cpu, p32):
     dec_err = float((dec[:, 0].float() - full2_last).abs().max())
     same = int(last[0, 0].argmax()) == int(nxt[0]) and \
         int(dec[0, 0].argmax()) == int(full2_last[0].argmax())
-    log(f"[ring] {cfg32.name} f32: 64-token prompt, max |logit cpu - cuda| "
-        f"= {cpu_err:.3g} (tol 2e-3), argmax equal {cpu_argmax}; 4600-token "
-        f"prompt in chunks of 256 through the ring of {caches[0]['k'].shape[2]}"
-        f" rows: last row vs lm.forward (kernel 2, window {window}) "
-        f"{ring_err:.3g}, the decode step after the wrap {dec_err:.3g} (tol "
-        f"2e-3), argmax equal {same}")
+    cpu_part = "" if cpu_err is None else (
+        f"64-token prompt, max |logit cpu - cuda| = {cpu_err:.3g} (tol "
+        f"{tol:g}), argmax equal {cpu_argmax}; ")
+    log(f"[ring] {cfg32.name} f32: {cpu_part}4600-token prompt in chunks of "
+        f"256 through the ring of {caches[0]['k'].shape[2]} rows: last row "
+        f"vs lm.forward (kernel 2, window {window}) {ring_err:.3g}, the "
+        f"decode step after the wrap {dec_err:.3g} (tol {tol:g}), argmax "
+        f"equal {same}")
     torch.cuda.empty_cache()
-    if not (cpu_err <= 2e-3 and cpu_argmax and ring_err <= 2e-3
-            and dec_err <= 2e-3 and same):
-        fail(f"phase 9 {cfg32.name}: the ring or the card disagrees "
+    if not ((cpu_err is None or cpu_err <= tol) and cpu_argmax
+            and ring_err <= tol and dec_err <= tol and same):
+        fail(f"phase {phase} {cfg32.name}: the ring or the card disagrees "
              f"(cpu {cpu_err}, ring {ring_err}, decode {dec_err})")
     return cpu_err, ring_err, dec_err
 
@@ -2865,7 +2938,7 @@ def _dense_phase(torch, dev):
         runs = {}
         runs["contiguous"], shapes2, _ = _serve9(torch, dev, cfg, p16,
                                                  prompts, max_len=max_len)
-        page_size = None
+        page_size = shapes3 = None
         if not windowed:
             runs["paged"], _, shapes3 = _serve9(torch, dev, cfg, p16,
                                                 prompts, max_len=max_len,
@@ -2877,36 +2950,8 @@ def _dense_phase(torch, dev):
         del p_cpu
         for pool, run in runs.items():
             path_launches[f"phase 9 {name} {pool}"] = run["launches"]
-        # Kernels 2 and 3 at this arch's decode and main-run prefill
-        # shapes, in bf16 and f32.
-        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        skv = min(cfg.attn_window, max_len) if windowed else max_len
-        decode_lens = torch.randint(1, skv + 1, (8,),
-                                    generator=lens_rng).tolist()
-        decode_lens[0], decode_lens[1] = 1, skv
-        prefill = max(sq for (b, sq, _, _, _) in shapes2 if b == 1)
-        for dtype in (torch.bfloat16, torch.float32):
-            bench.attn_case(f"{name} decode", 8, hq, hkv, 1, skv, d,
-                            decode_lens, None, dtype)
-            if windowed:
-                # The ring before its wrap (rows are positions) and after
-                # it (the ring in position order, then the chunk).
-                bench.attn_case(f"{name} prefill", 1, hq, hkv, prefill, skv,
-                                d, [skv], cfg.attn_window, dtype)
-                bench.attn_case(f"{name} ring", 1, hq, hkv, prefill,
-                                skv + prefill, d, [skv + prefill],
-                                cfg.attn_window, dtype)
-            else:
-                bench.attn_case(f"{name} prefill", 1, hq, hkv, prefill, skv,
-                                d, [min(prefill + 444, skv)], None, dtype)
-                bench.paged_case(f"{name} decode", 8, hq, hkv, 1,
-                                 decode_lens, d, page_size, dtype,
-                                 max_len=skv)
-                p3 = max(sq for (b, sq, _, _) in shapes3 if b == 1)
-                bench.paged_case(f"{name} prefill", 1, hq, hkv, p3,
-                                 [min(p3 + 444, skv)], d, page_size, dtype,
-                                 max_len=skv)
-        bench.check(f"{name}'s kernels")
+        _arch_kernel_cases(torch, bench, cfg, max_len, shapes2, shapes3,
+                           page_size, lens_rng)
         main = runs["contiguous"]
         log(f"[arch] " + json.dumps({
             "name": name, "layers": cfg.n_layers,
@@ -2947,6 +2992,244 @@ def dense_main() -> None:
     records, path_launches = _dense_phase(torch, torch.device("cuda"))
     log(f"[phase 9] {sum(map(len, records.values()))} kernel records; "
         f"launches by path {json.dumps(path_launches)}")
+
+
+# Phase 10: mixture-of-experts.  Both archs keep 2 of their 56 and 64
+# layers at full width (d 6144, 48/8 heads, 8 experts, top-2): at full
+# depth their weights are 141 G and 316 G, which no card holds; at 2
+# layers every shape a kernel or an expert product sees is the model's.
+MOE_ARCHS = ("mixtral-8x22b", "grok-1-314b")
+MOE_DEPTH = 2
+MOE_ROWS = (8, 256)          # a decode step's lanes; a prefill chunk
+# Kernels 2 and 3 at the family's heads: group 6, head dim 128; windows
+# (mixtral's) on kernel 2.
+MOE_SWEEP_HEADS = ((48, 8),)
+
+
+def _keep_cast(tree, dtype):
+    """Casts ``tree``'s weights to ``dtype`` on the card in place, one
+    tensor at a time, so that each f32 tensor is freed as its copy is
+    made (the norm gains and routers, ``lm.KEEP_PARAM_DTYPE``, stay f32)."""
+    from repro_torch.models import lm
+
+    for k in range(len(tree)) if isinstance(tree, list) else list(tree):
+        if k in lm.KEEP_PARAM_DTYPE:
+            continue
+        if isinstance(tree[k], (dict, list)):
+            _keep_cast(tree[k], dtype)
+        else:
+            tree[k] = tree[k].to(dtype)
+    return tree
+
+
+def _moe_layer10(torch, dev, cfg32, p_layer):
+    """One full-width MoE layer in f32, card against the same function on
+    the CPU (the same weights), at 8 and 256 rows and the config's
+    capacity factor: the experts picked, the kept choices and the
+    outputs (within 1e-4 of the CPU output's largest magnitude).  The
+    rows share a direction, as a layer's hidden states do, so the router
+    favours some experts and a chunk drops choices.  Returns the
+    records; fails the run on a disagreement."""
+    from repro_torch.models import moe
+
+    cpu_p = _to_device(p_layer, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    d = cfg32.d_model
+    shared = torch.randn(d, generator=gen)
+    recs = []
+    for rows in MOE_ROWS:
+        x = torch.randn(1, rows, d, generator=gen) + shared
+        got = {}
+        for where, params in (("cpu", cpu_p), (dev, p_layer)):
+            xs = x.to(where)
+            with torch.no_grad():
+                gate_w, gate_idx, _ = moe.route(params, xs[0], cfg32)
+                cap = moe.capacity(rows, cfg32)
+                _, keep = moe.placement(gate_idx, cfg32, cap)
+                out, aux = moe.apply(params, xs, cfg32)
+            got[where] = (gate_idx.cpu(), keep.cpu(), out.float().cpu(),
+                          float(aux))
+        (i0, k0, o0, a0), (i1, k1, o1, a1) = got["cpu"], got[dev]
+        same_experts = torch.equal(i0, i1)
+        same_kept = torch.equal(k0, k1)
+        rel = float((o0 - o1).abs().max() / o0.abs().max())
+        rec = dict(rows=rows, capacity=cap, choices=int(k0.numel()),
+                   dropped=int((~k0).sum()), same_experts=same_experts,
+                   same_kept=same_kept, out_rel_err=rel,
+                   aux_err=abs(a0 - a1), tol="1e-4 relative")
+        log(f"[moe layer] {cfg32.name} f32 layer 0, card vs CPU: "
+            f"{json.dumps(rec)}")
+        recs.append(rec)
+        if not (same_experts and same_kept and rel <= 1e-4):
+            fail(f"phase 10 {cfg32.name}: the MoE layer on the card "
+                 f"disagrees with the CPU at {rows} rows: {rec}")
+    del cpu_p
+    return recs
+
+
+def _moe_times10(torch, cfg, p_layer, bench):
+    """Device time of one bf16 MoE layer at a decode step (8 rows) and a
+    prefill chunk (256), L2 flushed, beside its bound: the router and the
+    expert weights read once, the rows read and written once, and
+    2·d·ff·3 operations a place of each expert's buffer."""
+    from repro_torch.models import moe
+
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    n_mats = 3 if cfg.ffn_gated else 2
+    out = {}
+    for rows in MOE_ROWS:
+        x = bench.randn(rows, 1, d, dtype=torch.bfloat16)
+        cap = moe.capacity(rows, cfg)
+        byts = e * n_mats * d * ff * 2 + d * e * 4 + 2 * rows * d * 2
+        ops = 2 * e * cap * d * ff * n_mats
+        bound, by = bench.bound_of(byts, ops, PEAK_BF16)
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: moe.apply(p_layer, x, cfg),
+                         iters=10, flush=bench.flush)
+        out[rows] = dict(ms=ms, bound_ms=bound, bound_by=by, capacity=cap,
+                         weight_bytes=e * n_mats * d * ff * 2)
+        log(f"[moe time] {cfg.name} bf16 MoE layer at {rows} rows "
+            f"(capacity {cap}): {json.dumps(out[rows])}")
+    return out
+
+
+def _moe_phase(torch, dev):
+    """Phase 10: mixtral-8x22b and grok-1-314b on the card, 2 layers at
+    full width.  Returns ({kernel: [record]}, {path: {kernel: launches}}),
+    as ``_dense_phase`` does."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import lm
+
+    bench = KernelBench(torch, dev, seed=40, perm_seed=41,
+                        kernels=("rmsnorm", "flash_attention",
+                                 "paged_flash_attention"))
+    problems = edge_sweep(
+        torch, kfa, dev, seed=14, page_sizes=(16,), heads=MOE_SWEEP_HEADS,
+        dims=(128,), sqs=DENSE_SWEEP_SQ,
+        windows=[(48, 8, 128, sq, w) for sq, w in EDGE_WINDOWS])
+    if problems:
+        fail("phase 10 kernel 2 and 3 sweep: " + "; ".join(problems))
+
+    path_launches = {}
+    lens_rng = torch.Generator().manual_seed(6)
+    for name in MOE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), n_layers=MOE_DEPTH)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        windowed = cfg.attn_window is not None
+        # One f32 draw, moved to the card tensor by tensor (the host holds
+        # one at a time): the weights lm.init_params(0, cfg) would draw.
+        p32 = lm.init_params(0, cfg32, device=dev)
+        n_params = _count_params(p32)
+        t_draw = time.perf_counter() - t0
+        log(f"[arch] {name}: {n_params} weights drawn in f32 in "
+            f"{t_draw:.1f}s")
+        layer = _moe_layer10(torch, dev, cfg32, p32["layers"][0]["moe"])
+        ring = None
+        if windowed:
+            # Drop-free (capacity factor E/k: every expert holds every
+            # token), so the chunked prefill and lm.forward over the
+            # whole sequence route alike: a chunk of 256 and 4600 rows
+            # drop other choices at the config's 1.25 (ROADMAP.md,
+            # faults of the reference).
+            free = dataclasses.replace(
+                cfg32, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+            ring = _ring9(torch, dev, free, None, p32, tol=1e-4, phase=10)
+        else:
+            _identity9(torch, dev, cfg32, p32, 16, phase=10)
+        p16 = _keep_cast(p32, torch.bfloat16)
+        del p32
+        torch.cuda.empty_cache()
+        times = _moe_times10(torch, cfg, p16["layers"][0]["moe"], bench)
+
+        rng = torch.Generator().manual_seed(3)
+        lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+        max_len = 1024
+        if windowed:
+            # 4 of the 16 prompts past the ring (4096 rows), so it wraps.
+            lens[::4] = torch.randint(4200, 4601, (4,), generator=rng).tolist()
+            max_len = 8192
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+                   for n in lens]
+        runs = {}
+        runs["contiguous"], shapes2, _ = _serve9(
+            torch, dev, cfg, p16, prompts, max_len=max_len, phase=10)
+        page_size = shapes3 = None
+        if not windowed:
+            runs["paged"], _, shapes3 = _serve9(
+                torch, dev, cfg, p16, prompts, max_len=max_len, paged=True,
+                phase=10)
+            page_size = runs["paged"]["page_size"]
+            graph_problems = graph_identity(torch, dev, cfg, p16)
+            if graph_problems:
+                fail(f"phase 10 {name}: graphs vs their eager body: "
+                     + "; ".join(graph_problems))
+        census = decode_census(torch, dev, cfg, p16)
+        log(f"[moe census] {name} (one fused dispatch, 8 lanes, 16 steps, "
+            f"profiled): {json.dumps(census)}")
+        if census["kernel1_launches_per_iteration"] != 2 * cfg.n_layers + 1 \
+                or census["host_launch_calls_per_iteration"] > 5:
+            fail(f"phase 10 {name}: a decode step launched kernel 1 "
+                 f"{census['kernel1_launches_per_iteration']} times (want "
+                 f"{2 * cfg.n_layers + 1}) with "
+                 f"{census['host_launch_calls_per_iteration']} host launch "
+                 f"calls (at most 5: one graph replay)")
+        for pool, run in runs.items():
+            path_launches[f"phase 10 {name} {pool}"] = run["launches"]
+        _arch_kernel_cases(torch, bench, cfg, max_len, shapes2, shapes3,
+                           page_size, lens_rng)
+        main = runs["contiguous"]
+        log("[arch] " + json.dumps({
+            "name": name, "layers": cfg.n_layers,
+            "depth": f"cut to {cfg.n_layers} of {get_config(name).n_layers}",
+            "params": n_params, "draw_s": t_draw,
+            "peak_mib": main["peak_mib"], "tok_s": main["tok_s"],
+            "ttft_p50_ms": main["ttft_p50_ms"],
+            "ttft_p99_ms": main["ttft_p99_ms"],
+            "paged_tok_s": runs["paged"]["tok_s"] if "paged" in runs
+            else None,
+            "paged_ttft_p50_ms": runs["paged"]["ttft_p50_ms"]
+            if "paged" in runs else None,
+            "moe_layer_dropped": {r["rows"]: r["dropped"] for r in layer},
+            "moe_layer_out_rel_err": max(r["out_rel_err"] for r in layer),
+            "host_launch_calls_per_step":
+                census["host_launch_calls_per_iteration"],
+            "decode_device_us_per_step": census["device_us_per_iteration"],
+            "moe_decode_ms": times[8]["ms"],
+            "moe_decode_bound_ms": times[8]["bound_ms"],
+            "moe_prefill256_ms": times[256]["ms"],
+            "moe_prefill256_bound_ms": times[256]["bound_ms"],
+            "ring_chunked_vs_full_err": None if ring is None else ring[1],
+            "ring_decode_err": None if ring is None else ring[2],
+            "kernel1_per_forward": 2 * cfg.n_layers + 1,
+            "seconds": time.perf_counter() - t0}))
+        del p16
+        torch.cuda.empty_cache()
+    bench.close()
+    return bench.records, path_launches
+
+
+def moe_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.moe_main()"``: the build
+    and phase 10 alone (mixture-of-experts), for work on that phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("phase 10 needs a CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import strict
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    log(f"[build] {sorted(build.build_all())}")
+    strict.enable()
+    records, path_launches = _moe_phase(torch, torch.device("cuda"))
+    log(f"[phase 10] {sum(map(len, records.values()))} kernel records; "
+        f"launches by path {json.dumps(path_launches)}; "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 def _to_device(tree, dev):

@@ -4,9 +4,12 @@
 returns, with every leaf already turned into a numpy array by the caller
 (this module imports nothing of JAX or of the JAX package), and returns
 the port's parameter dict: the stacked ``blocks/pos0`` leaves are
-unstacked into one dict per layer, weights are cast once to the compute
-dtype (or to ``dtype``: the f32 masters a training run keeps), and norm
-gains keep the parameter dtype.
+unstacked into one dict per layer (a MoE layer's stacked experts, (G, E,
+d, ff), become (E, d, ff)), weights are cast once to the compute dtype
+(or to ``dtype``: the f32 masters a training run keeps), and norm gains
+and MoE routers keep the parameter dtype: the reference computes the
+router in f32 from its f32 weights, and a router rounded to bf16 would
+rank other experts.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ def _convert(tree: Any, cd: torch.dtype, pd: torch.dtype,
         out = {}
         for name, sub in tree.items():
             if isinstance(sub, dict):
-                out[name] = _convert(sub, cd, pd, dev, index)
+                out[name] = _convert(sub, pd if name in lm.KEEP_PARAM_DTYPE
+                                     else cd, pd, dev, index)
             else:
                 arr = np.asarray(sub)
                 if index is not None:
                     arr = arr[index]
-                dtype = pd if name == "g" else cd
+                dtype = pd if name in lm.KEEP_PARAM_DTYPE else cd
                 out[name] = torch.from_numpy(
                     np.array(arr, dtype=np.float32)).to(
                         device=dev, dtype=dtype)

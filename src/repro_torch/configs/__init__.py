@@ -13,6 +13,8 @@ _ARCH_MODULES = {
     "qwen1.5-32b": "qwen1_5_32b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "musicgen-medium": "musicgen_medium",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "grok-1-314b": "grok_1_314b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

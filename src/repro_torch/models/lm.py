@@ -1,5 +1,6 @@
 """The language model: embedding → attention blocks → head (the
-counterpart of ``repro.models.lm`` for the ``attn`` block kind).
+counterpart of ``repro.models.lm`` for the ``attn`` block kind, its
+feed-forward dense or mixture-of-experts).
 
 Two entry points, as in the reference:
 
@@ -13,10 +14,13 @@ the layers over pattern groups for ``lax.scan``; here the layer loop is a
 Python loop, so they are kept apart).  Weights are made once from a
 seeded ``torch.Generator``, in the compute dtype for serving or in the
 parameter dtype (f32 masters) for training; ``bridge.py`` loads the JAX
-package's parameters instead.
+package's parameters instead.  A MoE layer holds ``moe`` (``router``,
+kept in the parameter dtype like the norm gains, and the stacked expert
+weights) in place of ``ffn``; ``forward`` sums the layers' aux losses,
+which ``loss_fn`` weights in, and ``forward_cached`` drops them.
 
-Not ported yet (ROADMAP.md A.4): the other block kinds (MoE and its aux
-loss, Mamba2, xLSTM, shared and cross attention).
+Not ported yet (ROADMAP.md A.4): the other block kinds (Mamba2, xLSTM,
+shared and cross attention).
 """
 from __future__ import annotations
 
@@ -28,19 +32,22 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import attention, common as cm, ffn
+from . import attention, common as cm, ffn, moe
 
 AUX_LOSS_WEIGHT = 0.01
 _PORTED_KINDS = ("attn",)
+# Parameter nodes held in the parameter dtype whatever the compute dtype:
+# the norm gains (``g``), which the norm computes in, and the MoE routers,
+# whose f32 logits top-k ranks as the reference's do.
+KEEP_PARAM_DTYPE = ("g", "router")
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise unless every layer of ``cfg`` is a kind the port serves."""
     kinds = set(cfg.layer_kinds())
-    if not kinds <= set(_PORTED_KINDS) or cfg.n_experts:
+    if not kinds <= set(_PORTED_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)}"
-            f"{' with MoE' if cfg.n_experts else ''} are not ported yet "
+            f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
             f"(ROADMAP.md, remaining architectures); the port serves "
             f"{_PORTED_KINDS} blocks")
 
@@ -62,17 +69,18 @@ def init_params(seed: int, cfg: ArchConfig, *,
                 dtype: torch.dtype | None = None) -> dict:
     """Random weights from ``seed`` on ``device``, in ``dtype``: the
     compute dtype by default (serving), or ``param_dtype(cfg)`` for f32
-    master weights (training).  Norm gains are in the parameter dtype.
-    Drawn on the CPU, so the same seed gives the same weights on every
-    device."""
+    master weights (training).  Norm gains and MoE routers are in the
+    parameter dtype (a router rounded to bf16 would rank other experts
+    than the reference's).  Drawn on the CPU one tensor at a time, so the
+    same seed gives the same weights on every device."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     cd, pd = dtype or compute_dtype(cfg), param_dtype(cfg)
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=cd):
         t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
-        return t.to(device=dev, dtype=cd)
+        return t.to(device=dev, dtype=dtype)
 
     def lin(d_in, d_out, bias=False):
         p = {"w": normal((d_in, d_out), d_in ** -0.5)}
@@ -100,7 +108,16 @@ def init_params(seed: int, cfg: ArchConfig, *,
             attn["q_norm"] = norm(hd)
             attn["k_norm"] = norm(hd)
         layer = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
-        if cfg.d_ff:
+        if cfg.n_experts:
+            # The reference's scales: d^-0.5 for the router and for
+            # every expert weight, w_down too.
+            e, ff = cfg.n_experts, cfg.d_ff
+            layer["moe"] = {"router": {"w": normal((d, e), d ** -0.5, pd)},
+                            "w_up": normal((e, d, ff), d ** -0.5),
+                            "w_down": normal((e, ff, d), d ** -0.5)}
+            if cfg.ffn_gated:
+                layer["moe"]["w_gate"] = normal((e, d, ff), d ** -0.5)
+        elif cfg.d_ff:
             layer["ffn"] = {"w_up": lin(d, cfg.d_ff),
                             "w_down": lin(cfg.d_ff, d)}
             if cfg.ffn_gated:
@@ -120,27 +137,32 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
                  window: int | None, cache: dict | None = None,
                  write: attention.CacheWrite | None = None,
                  impl: str = "chunked"
-                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 ) -> tuple[torch.Tensor, torch.Tensor | None,
+                            torch.Tensor | None]:
     """One block on the residual stream ``x`` whose ln1 norm ``h`` the
     caller made.  Each residual add runs in one launch with the norm
     that follows it (``add_rmsnorm``): the attention residual with ln2,
-    the FFN residual with ``next_norm`` (the next block's ln1, or the
-    final norm).  Returns the residual after the block and its
-    ``next_norm`` norm; with ``next_norm`` None (the serve path's last
-    block) a plain add and None: the final norm reads only the rows
-    whose logits are taken.  Without a cache, attention runs over the
-    full sequence by ``impl``."""
+    the FFN (or MoE) residual with ``next_norm`` (the next block's ln1,
+    or the final norm).  Returns the residual after the block, its
+    ``next_norm`` norm and the MoE aux loss (None without experts); with
+    ``next_norm`` None (the serve path's last block) a plain add and
+    None: the final norm reads only the rows whose logits are taken.
+    Without a cache, attention runs over the full sequence by ``impl``."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     out = attention.self_attention(
         p["attn"], h, cfg, rope=rope, window=window, cache=cache,
         write=write, impl=impl)
+    aux = None
     if cfg.d_ff:
         x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
-        out = ffn.apply(p["ffn"], h, cfg)
+        if cfg.n_experts:
+            out, aux = moe.apply(p["moe"], h, cfg)
+        else:
+            out = ffn.apply(p["ffn"], h, cfg)
     if next_norm is None:
-        return x + out, None
-    return cm.add_rmsnorm(next_norm, x, out, cfg.norm_eps)
+        return x + out, None, aux
+    return (*cm.add_rmsnorm(next_norm, x, out, cfg.norm_eps), aux)
 
 
 def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -164,7 +186,8 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             attn_impl: str = "chunked", window: int | None = None,
             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B, S) long}.  Returns (logits (B, S, V) in the
-    compute dtype, aux loss (0-d f32; 0 until MoE is ported)).
+    compute dtype, aux loss (0-d f32: the MoE layers' sum, 0 without
+    experts)).
 
     Every norm runs kernel 1 (forward and, under autograd, backward):
     layer 0's ln1, then per layer the fused q/k-norm + rope and two
@@ -181,6 +204,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     layers = params["layers"]
     h = cm.rmsnorm(layers[0]["ln1"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer, kind in enumerate(cfg.layer_kinds()):
         nxt = layers[layer + 1]["ln1"] if layer + 1 < len(layers) \
             else params["final_norm"]
@@ -188,11 +212,12 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                                  cfg=cfg, next_norm=nxt, rope=rope,
                                  window=window, impl=attn_impl)
         if remat:
-            x, h = checkpoint(body, x, h, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, h, a = checkpoint(body, x, h, use_reentrant=False,
+                                 preserve_rng_state=False)
         else:
-            x, h = body(x, h)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            x, h, a = body(x, h)
+        if a is not None:
+            aux = aux + a
     return _head(params, cfg, h), aux
 
 
@@ -299,9 +324,9 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     h = cm.rmsnorm(layers[0]["ln1"], x, cfg.norm_eps)
     for layer, kind in enumerate(cfg.layer_kinds()):
         nxt = layers[layer + 1]["ln1"] if layer + 1 < len(layers) else None
-        x, h = _apply_block(kind, layers[layer], x, h, cfg, next_norm=nxt,
-                            rope=rope, window=window, cache=caches[layer],
-                            write=write)
+        x, h, _ = _apply_block(kind, layers[layer], x, h, cfg,
+                               next_norm=nxt, rope=rope, window=window,
+                               cache=caches[layer], write=write)
     if all_logits:
         xs = x
     elif logit_index is None:
