@@ -155,6 +155,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
               5 host launch calls a step, 5 kernel-1 launches), kernels 2
               and 3 at each arch's decode and prefill shapes.  One
               ``[arch]`` JSON line per arch.
+11. hybrid  — the hybrid Mamba2 family (``_hybrid_phase``): zamba2-1.2b
+              at full width and depth (38 layers: 32 Mamba2 blocks and 6
+              uses of one shared attention block), random weights (seed
+              0) drawn once in f32.  Kernel 1 at rows of 2048 (rmsnorm,
+              add_rmsnorm; 8 and 2048 rows, bf16 and f32) timed like phase
+              3, each bit-identical over two calls.  f32: logits of a
+              64-token prompt card vs CPU (2e-3); a 300-token prompt served
+              by the scheduler, its chunks replayed through
+              ``forward_cached`` (one recurrent step a token), the last
+              row and the next decode step against ``lm.forward`` (the
+              chunk-parallel GLA; 2e-3) (``[hybrid chunked]``); tokens
+              contiguous == paged.  bf16 serving as in phase 9 (16
+              requests, prompts 64-512, both pools, speculation off; each
+              forward 45 kernel-1 launches; K/V and state MiB of each
+              pool), ``graph_identity`` (tokens, K/V and every state row),
+              a profiled serve window (idle share, kernels by group), a
+              decode census beside the step's bound (at most 5 host
+              launch calls), kernels 2 and 3 at the arch's decode and
+              prefill shapes.  One ``[arch]`` JSON line.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -799,6 +818,11 @@ def main() -> None:
     for name, recs in moe_records.items():
         records[name].extend(recs)
     path_launches.update(moe_launches)
+    # ------------------------------------------------ 11. hybrid Mamba2
+    hybrid_records, hybrid_launches = _hybrid_phase(torch, dev)
+    for name, recs in hybrid_records.items():
+        records[name].extend(recs)
+    path_launches.update(hybrid_launches)
 
     path_launches = {"phase 5 qwen3-0.6b contiguous": {
         k: launches[k] for k in ("rmsnorm", "flash_attention")},
@@ -872,12 +896,14 @@ def graph_identity(torch, dev, cfg, params) -> list:
     paged pool, one speculative dispatch at every verify width over the
     contiguous pool (and at 4 over the paged), each twice in a row (the
     first captures, the second only replays), from the same random K/V,
-    tokens, positions and mixed budgets (one lane with none).  Tokens,
-    the history, the stats and every K/V row must be bit-identical —
-    except the paged stores' scratch page 0, which no table maps: every
-    spent lane writes its garbage there, several to one row, and which
-    write lands last is not defined.  Returns the problems; prints one
-    ``[graph] identity`` line per case."""
+    recurrent states, tokens, positions and mixed budgets (one lane with
+    none).  Tokens, the history, the stats, every K/V row and every state
+    row must be bit-identical — except the paged stores' scratch page 0,
+    which no table maps: every spent lane writes its garbage there,
+    several to one row, and which write lands last is not defined.  An
+    arch with a recurrent layer runs the fused cases only (speculation
+    refuses it).  Returns the problems; prints one ``[graph] identity``
+    line per case."""
     from repro_torch.models import lm
     from repro_torch.serve import SPEC_DEPTH_CANDIDATES
     from repro_torch.serve.decode_loop import (make_fused_decode_step,
@@ -901,15 +927,18 @@ def graph_identity(torch, dev, cfg, params) -> list:
             t.normal_(generator=dgen)
     n_blk = cap // ps
     rows = (1 + n * n_blk) * ps
+    # The paged pool: flat stores for attention, the same state rows.
     paged = [{name: torch.randn(rows, cfg.n_kv_heads, cfg.head_dim_,
-                                dtype=contiguous[0]["k"].dtype, device=dev,
+                                dtype=c["k"].dtype, device=dev,
                                 generator=dgen) for name in ("k", "v")}
-             for _ in contiguous]
+             if "k" in c else {k: t.clone() for k, t in c.items()}
+             for c in contiguous]
     table = (1 + torch.randperm(n * n_blk, generator=gen)).view(
         n, n_blk).to(torch.int32).to(dev)
     widths = [w for w in SPEC_DEPTH_CANDIDATES if w >= 2]
-    cases = [("fused", None, False), ("fused", None, True)] \
-        + [("spec", d, False) for d in widths] + [("spec", 4, True)]
+    cases = [("fused", None, False), ("fused", None, True)]
+    if set(cfg.layer_kinds()) <= {"attn", "shared_attn"}:
+        cases += [("spec", d, False) for d in widths] + [("spec", 4, True)]
     problems = []
     for kind, d, is_paged in cases:
         runs = []
@@ -947,17 +976,25 @@ def graph_identity(torch, dev, cfg, params) -> list:
                                                           strict=True))
         skip = ps if is_paged else 0
         same_kv = all(torch.equal(a[k][skip:], b[k][skip:]) for a, b in
-                      zip(g_caches, e_caches, strict=True) for k in a)
+                      zip(g_caches, e_caches, strict=True) for k in a
+                      if k in ("k", "v"))
+        # The state rows of every lane, the spent one's too.
+        same_state = all(torch.equal(a[k], b[k]) for a, b in
+                         zip(g_caches, e_caches, strict=True) for k in a
+                         if k not in ("k", "v"))
+        n_states = sum(k not in ("k", "v") for c in g_caches for k in c)
         name = f"{kind}{d or ''} {'paged' if is_paged else 'contiguous'}"
         log(f"[graph] identity {name}: two dispatches, budgets {budgets}, "
             f"captures {g_caps} replays {g_reps} (eager: {e_reps}); tokens"
             f"{' and history' if kind == 'spec' else ''} bit-identical: "
             f"{same_out}, every K/V row"
             f"{' outside the scratch page' if is_paged else ''} "
-            f"bit-identical: {same_kv}")
-        if not (same_out and same_kv):
+            f"bit-identical: {same_kv}"
+            + (f", every row of {n_states} state tensors bit-identical: "
+               f"{same_state}" if n_states else ""))
+        if not (same_out and same_kv and same_state):
             problems.append(f"{name}: tokens equal {same_out}, K/V equal "
-                            f"{same_kv}")
+                            f"{same_kv}, states equal {same_state}")
         if not g_reps or e_reps:
             problems.append(f"{name}: the graph run replayed {g_reps} times"
                             f", the eager run {e_reps}")
@@ -1014,11 +1051,8 @@ class ForwardSpy:
 
     def report(self, n_slots: int, cfg) -> tuple[str, list]:
         """A log line and the problems: every forward must launch kernel
-        1 exactly (3 if cfg.qk_norm else 2) * n_layers + 1 times (layer
-        0's ln1, an add+ln2 per layer, an add+ln1 for every later layer,
-        with qk-norm a q/k-norm + rotary launch per layer, the final
-        norm)."""
-        want = (3 if cfg.qk_norm else 2) * cfg.n_layers + 1
+        1 exactly ``kernel1_per_forward(cfg)`` times."""
+        want = kernel1_per_forward(cfg)
         loop = [n for (b, _), ns in self.per_call.items() if b == n_slots
                 for n in ns]
         per_iter = sum(loop) / max(len(loop), 1)
@@ -1031,6 +1065,18 @@ class ForwardSpy:
         if not loop:
             bad.append("no decode-loop forward ran")
         return line, bad
+
+
+def kernel1_per_forward(cfg) -> int:
+    """Kernel 1's launches in one ``lm.forward_cached``: layer 0's ln1,
+    one residual add + norm per layer (the last one's with the final
+    norm), and per attention layer (``attn``, or ``shared_attn``: the
+    shared block) the add + ln2 inside it and, with qk-norm, a q/k-norm
+    + rotary launch.  (3 if qk-norm else 2) * L + 1 for an attention
+    stack; 1 + 38 + 6 = 45 for zamba2-1.2b."""
+    n_attn = sum(kind in ("attn", "shared_attn")
+                 for kind in cfg.layer_kinds())
+    return 1 + cfg.n_layers + n_attn * (2 if cfg.qk_norm else 1)
 
 
 # Host calls that launch device work, as the profiler names them.
@@ -1088,6 +1134,11 @@ def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
     for lo, hi in spans:
         union_us += max(hi - max(lo, reach), 0.0)
         reach = max(reach, hi)
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(_kernel_group(e.key), [0, 0.0])
+        g[0] += e.count / iters
+        g[1] += e.self_device_time_total / iters
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1096,7 +1147,8 @@ def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e6 / iters)
     wall = sorted(walls)[len(walls) // 2]
-    return {"cuda_kernels_per_iteration": n_kernels / iters,
+    return {"positions": poss.tolist(),
+            "cuda_kernels_per_iteration": n_kernels / iters,
             "kernel1_launches_per_iteration": k1 / iters,
             "host_launch_calls_per_iteration": host_launches / iters,
             "device_us_per_iteration": busy_us / iters,
@@ -1104,11 +1156,29 @@ def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
             "synced_wall_us_per_iteration": wall,
             "wall_over_device": wall / (busy_us / iters) if busy_us else None,
             "walls_us": walls,
+            "groups_kernels_us_per_iteration": {
+                k: [round(n, 2), round(us, 1)] for k, (n, us) in groups.items()},
             "top": {e.key[:40]: e.count / iters for e in sorted(
                 kernels, key=lambda e: -e.count)[:8]},
             "top_us": {e.key[:40]: round(e.self_device_time_total / iters, 1)
                        for e in sorted(kernels, key=lambda e:
                                        -e.self_device_time_total)[:12]}}
+
+
+def _kernel_group(name: str) -> str:
+    """A profiled kernel's group: GEMMs (cuBLAS), kernel 1, the attention
+    kernels, copies, or the rest (PyTorch's elementwise and reduction
+    kernels)."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass")):
+        return "gemm"
+    if "norm_rows" in low:
+        return "kernel1"
+    if "repro_fa" in low:
+        return "attention"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "elementwise"
 
 
 def census_main(src: str) -> None:
@@ -2700,12 +2770,13 @@ def _cast_weights(tree, dtype):
     return tree.to(dtype)
 
 
-def _count_params(tree) -> int:
+def _count_params(tree, nbytes: bool = False) -> int:
+    """The elements (or with ``nbytes`` the bytes) of a tree's tensors."""
     if isinstance(tree, dict):
-        return sum(_count_params(v) for v in tree.values())
+        return sum(_count_params(v, nbytes) for v in tree.values())
     if isinstance(tree, list):
-        return sum(_count_params(v) for v in tree)
-    return tree.numel()
+        return sum(_count_params(v, nbytes) for v in tree)
+    return tree.numel() * (tree.element_size() if nbytes else 1)
 
 
 def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False,
@@ -2759,6 +2830,8 @@ def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False,
                page_size=sched.pool.page_size if paged else None,
                replays=sched.graphs.replays - replays0,
                decode_dispatches=sched.decode_dispatches,
+               kv_mib=_pool_mib(sched.pool.caches, True),
+               state_mib=_pool_mib(sched.pool.caches, False),
                prefill_lengths=sorted({n for (b, n) in fspy.per_call
                                        if b == 1}))
     k1_line, problems = fspy.report(8, cfg)
@@ -2785,6 +2858,13 @@ def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False,
     del sched
     torch.cuda.empty_cache()
     return run, shapes2, shapes3
+
+
+def _pool_mib(caches, kv: bool) -> float:
+    """MiB a pool holds in its K/V stores (``kv``) or recurrent states."""
+    return sum(t.numel() * t.element_size() for c in caches
+               for name, t in c.items() if (name in ("k", "v")) == kv) \
+        / 2 ** 20
 
 
 def _identity9(torch, dev, cfg32, p32, page_size, phase=9):
@@ -3228,6 +3308,320 @@ def moe_main() -> None:
     strict.enable()
     records, path_launches = _moe_phase(torch, torch.device("cuda"))
     log(f"[phase 10] {sum(map(len, records.values()))} kernel records; "
+        f"launches by path {json.dumps(path_launches)}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+# Phase 11: the hybrid Mamba2 family.  zamba2-1.2b at full width and
+# depth, no cut: 38 layers (32 Mamba2 blocks, 6 uses of one shared
+# attention block), 1.04 G weights, 2.08 GB in bf16.
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_ROWS = (8, 2048)      # a decode step's lanes; a long prefill's rows
+
+
+def _kernel1_twice(torch, bench, d: int) -> list:
+    """``rmsnorm`` and ``add_rmsnorm`` at rows of ``d``, bf16 and f32, each
+    called twice on the same inputs; returns the cases whose two outputs
+    differ in any bit."""
+    from repro_torch.kernels import rmsnorm as krms
+
+    problems = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in HYBRID_ROWS:
+            x = bench.randn(rows, d, dtype=dtype)
+            y = bench.randn(rows, d, dtype=dtype)
+            g = 1.0 + 0.1 * bench.randn(d, dtype=torch.float32)
+            outs = [(krms.rmsnorm(x, g, eps=1e-6),
+                     *krms.add_rmsnorm(x, y, g, eps=1e-6)) for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(*outs, strict=True))
+            log(f"[kernel rmsnorm twice] rows={rows} d={d} "
+                f"{str(dtype)[6:]}: rmsnorm and add_rmsnorm bit-identical "
+                f"over two calls: {same}")
+            if not same:
+                problems.append(f"rows={rows} d={d} {dtype}")
+    return problems
+
+
+def _hybrid_chunked(torch, dev, cfg32, p32, tol=2e-3):
+    """f32 on the card: one 300-token prompt served by the scheduler (one
+    slot, two new tokens), its prefill chunks replayed through
+    ``lm.forward_cached`` into fresh caches (one recurrent step per token
+    in each Mamba2 layer), the last prompt row and the decode step after
+    it against ``lm.forward`` over the sequence (the chunk-parallel
+    ``chunked_gla``; kernel 2 for the shared attention), within ``tol``;
+    the scheduler's two tokens must be ``lm.forward``'s argmax unless the
+    top two logits lie within 2 * tol (a near-tie).  Returns (chunked
+    error, decode error, chunk sizes, tokens equal)."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeScheduler
+
+    n = 300
+    prompt = torch.randint(0, cfg32.vocab_size, (n,),
+                           generator=torch.Generator().manual_seed(4))
+    sched = ServeScheduler(cfg32, p32, n_slots=1, max_len=512,
+                           acc=StaticCoreChunk(cores=1, chunks_per_core=3),
+                           dispatch_depth=2, device=dev)
+    rid = sched.submit(prompt, max_new_tokens=2)
+    served = sched.run_until_idle()[rid]
+    steps = [step for t in sched.trace for _, step in t.prefill_ops]
+    del sched
+    seq = prompt.to(dev)[None]
+    caches = lm.init_caches(cfg32, 1, 512, device=dev)
+    start = 0
+    for step in steps:
+        last, _ = lm.forward_cached(p32, seq[:, start:start + step], caches,
+                                    start, cfg32)
+        start += step
+    with torch.no_grad():
+        full, _ = lm.forward(p32, {"tokens": seq}, cfg32, attn_impl="flash")
+        full_last = full[:, -1].float()
+        del full
+        nxt = full_last.argmax(-1)
+        dec, _ = lm.forward_cached(p32, nxt[:, None], caches,
+                                   torch.tensor([n], device=dev), cfg32)
+        full2, _ = lm.forward(p32, {"tokens": torch.cat(
+            [seq, nxt[:, None]], 1)}, cfg32, attn_impl="flash")
+        full2_last = full2[:, -1].float()
+        del full2
+    chunk_err = float((last[:, 0].float() - full_last).abs().max())
+    dec_err = float((dec[:, 0].float() - full2_last).abs().max())
+    want = [int(nxt[0]), int(full2_last[0].argmax())]
+    gaps = [float(v[0, 0] - v[0, 1]) for v in (
+        full_last.topk(2).values, full2_last.topk(2).values)]
+    same = all(a == b or gap < 2 * tol
+               for a, b, gap in zip(served, want, gaps, strict=True))
+    log(f"[hybrid chunked] {cfg32.name} f32: a {n}-token prompt in the "
+        f"scheduler's chunks {steps}: last row vs lm.forward (chunked_gla, "
+        f"kernel 2) {chunk_err:.3g}, the decode step after it {dec_err:.3g} "
+        f"(tol {tol:g}); served tokens {served}, lm.forward's argmax {want} "
+        f"(top-2 gaps {[round(g, 4) for g in gaps]}): equal {same}")
+    torch.cuda.empty_cache()
+    if not (chunk_err <= tol and dec_err <= tol and same):
+        fail(f"phase 11 {cfg32.name}: the per-token prefill disagrees with "
+             f"the chunk-parallel forward (chunked {chunk_err}, decode "
+             f"{dec_err}, tokens {served} vs {want})")
+    return chunk_err, dec_err, steps, same
+
+
+def _serve_window(torch, dev, cfg, params) -> dict:
+    """A profiled serve window (2 requests, 32-token prompts, 8 new
+    tokens, 8 slots, depth "auto"; device activity only, since the
+    per-token prefill launches ~22 k kernels here and the profiler's
+    post-processing grows with its events): wall, the device's busy
+    time (the union of kernel intervals) and idle share, and the
+    kernels' count and device time by group (``_kernel_group``)."""
+    from repro_torch.core.acc import AdaptiveCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.serve import ServeScheduler
+
+    sched = ServeScheduler(
+        cfg, params, n_slots=8, max_len=1024,
+        executor=adaptive(SequentialExecutor(),
+                          AdaptiveCoreChunk(cache=CalibrationCache())),
+        dispatch_depth="auto", device=dev)
+    sched.warmup()
+    gen = torch.Generator().manual_seed(8)
+    for _ in range(2):
+        sched.submit(torch.randint(0, cfg.vocab_size, (32,), generator=gen),
+                     max_new_tokens=8)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t_win = time.perf_counter()
+        sched.run_until_idle()
+        torch.cuda.synchronize()
+        t_win = time.perf_counter() - t_win
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(hi - max(lo, reach), 0.0)
+        reach = max(reach, hi)
+    groups: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = groups.setdefault(_kernel_group(e.key), [0, 0.0])
+            g[0] += e.count
+            g[1] += e.self_device_time_total / 1e3
+    del sched
+    torch.cuda.empty_cache()
+    return {"wall_ms": t_win * 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e6 / t_win if busy_us else None,
+            "kernels": len(spans),
+            "groups_kernels_ms": {k: [n, round(ms, 1)]
+                                  for k, (n, ms) in groups.items()}}
+
+
+def _decode_bound_ms(cfg, params, positions, iters) -> float:
+    """The least time one decode step of ``decode_census`` could take
+    (bf16 weights, 8 lanes at ``positions``, ``iters`` steps): every
+    weight read once (the embedding table's 8 rows only), each lane's
+    recurrent state read and written once, each shared-attention layer's
+    K/V read up to the lane's position (the dispatch's mean) and one row
+    written, the logits written; over the card's memory rate."""
+    from repro_torch.models import lm
+
+    lanes = len(positions)
+    weights = _count_params(params, True) \
+        - _count_params(params["embed"], True) \
+        + lanes * cfg.d_model * 2
+    kinds = cfg.layer_kinds()
+    n_attn = sum(kind in lm.ATTN_KINDS for kind in kinds)
+    # One lane's state: ssm (H, N, P) f32 and the conv carry (W-1, C) bf16.
+    state = (len(kinds) - n_attn) * (
+        cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
+        + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+    row = 2 * cfg.n_kv_heads * cfg.head_dim_ * 2          # K and V, bf16
+    kv = n_attn * row * sum(p + 1 + (iters - 1) / 2 for p in positions)
+    logits = lanes * cfg.vocab_size * 2
+    return (weights + 2 * lanes * state + kv + logits) / HBM_BYTES_PER_S * 1e3
+
+
+def _hybrid_phase(torch, dev):
+    """Phase 11: zamba2-1.2b on the card at full width and depth.  Returns
+    ({kernel: [record]}, {path: {kernel: launches}}), as ``_dense_phase``
+    does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    bench = KernelBench(torch, dev, seed=50, perm_seed=51,
+                        kernels=("rmsnorm", "flash_attention",
+                                 "paged_flash_attention"))
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in HYBRID_ROWS:
+            bench.rms_case(rows, cfg.d_model, dtype)
+            bench.add_case(rows, cfg.d_model, dtype)
+    bench.check("kernel 1 at zamba2's width")
+    twice = _kernel1_twice(torch, bench, cfg.d_model)
+    if twice:
+        fail("phase 11: kernel 1 is not deterministic at d 2048: "
+             + "; ".join(twice))
+
+    # One f32 draw on the host serves the CPU and the f32 runs; cast on
+    # the card, in place, it is the bf16 serving copy.
+    t0 = time.perf_counter()
+    p_cpu = lm.init_params(0, cfg32, device="cpu")
+    p32 = _to_device(p_cpu, dev)
+    n_params = _count_params(p32)
+    t_draw = time.perf_counter() - t0
+    log(f"[arch] {HYBRID_ARCH}: {n_params} weights drawn in f32 in "
+        f"{t_draw:.1f}s")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 64),
+                           generator=torch.Generator().manual_seed(2))
+    outs = []
+    for where, params in (("cpu", p_cpu), (dev, p32)):
+        caches = lm.init_caches(cfg32, 1, 64, device=where)
+        logits, _ = lm.forward_cached(params, prompt.to(where), caches, 0,
+                                      cfg32)
+        outs.append(logits.float().cpu())
+    del p_cpu, caches
+    cpu_err = float((outs[0] - outs[1]).abs().max())
+    cpu_argmax = int(outs[0].argmax()) == int(outs[1].argmax())
+    log(f"[hybrid] {HYBRID_ARCH} full width and depth f32, 64-token prompt "
+        f"through forward_cached: max |logit cpu - cuda| = {cpu_err:.3g} "
+        f"(tol 2e-3), argmax equal {cpu_argmax}")
+    if not (cpu_err <= 2e-3 and cpu_argmax
+            and bool(torch.isfinite(outs[1]).all())):
+        fail(f"phase 11 {HYBRID_ARCH}: logits differ between the card and "
+             f"the CPU ({cpu_err})")
+    chunk_err, dec_err, steps, _ = _hybrid_chunked(torch, dev, cfg32, p32)
+    _identity9(torch, dev, cfg32, p32, 16, phase=11)
+    p16 = _keep_cast(p32, torch.bfloat16)
+    del p32
+    torch.cuda.empty_cache()
+
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+               for n in lens]
+    runs = {}
+    runs["contiguous"], shapes2, _ = _serve9(
+        torch, dev, cfg, p16, prompts, max_len=1024, phase=11)
+    runs["paged"], _, shapes3 = _serve9(
+        torch, dev, cfg, p16, prompts, max_len=1024, paged=True, phase=11)
+    graph_problems = graph_identity(torch, dev, cfg, p16)
+    if graph_problems:
+        fail(f"phase 11 {HYBRID_ARCH}: graphs vs their eager body: "
+             + "; ".join(graph_problems))
+    window = _serve_window(torch, dev, cfg, p16)
+    log(f"[hybrid window] {HYBRID_ARCH} bf16, 2 requests of 32-token "
+        f"prompts and 8 new tokens, profiled: {json.dumps(window)}")
+    census = decode_census(torch, dev, cfg, p16)
+    bound = _decode_bound_ms(cfg, p16, census["positions"], 16)
+    log(f"[hybrid census] {HYBRID_ARCH} (one fused dispatch, 8 lanes, 16 "
+        f"steps, profiled): {json.dumps(census)}; bound of a step "
+        f"{bound:.4f} ms")
+    want = kernel1_per_forward(cfg)
+    if census["kernel1_launches_per_iteration"] != want \
+            or census["host_launch_calls_per_iteration"] > 5:
+        fail(f"phase 11 {HYBRID_ARCH}: a decode step launched kernel 1 "
+             f"{census['kernel1_launches_per_iteration']} times (want "
+             f"{want}) with {census['host_launch_calls_per_iteration']} "
+             f"host launch calls (at most 5: one graph replay)")
+    path_launches = {f"phase 11 {HYBRID_ARCH} {pool}": run["launches"]
+                     for pool, run in runs.items()}
+    _arch_kernel_cases(torch, bench, cfg, 1024, shapes2, shapes3,
+                       runs["paged"]["page_size"],
+                       torch.Generator().manual_seed(7))
+    main = runs["contiguous"]
+    log("[arch] " + json.dumps({
+        "name": HYBRID_ARCH, "layers": cfg.n_layers, "depth": "full",
+        "params": n_params, "draw_s": t_draw,
+        "logits_cpu_vs_card_err": cpu_err,
+        "chunked_prefill_vs_forward_err": chunk_err,
+        "chunked_decode_vs_forward_err": dec_err,
+        "scheduler_chunks": steps,
+        "peak_mib": main["peak_mib"], "tok_s": main["tok_s"],
+        "ttft_p50_ms": main["ttft_p50_ms"],
+        "ttft_p99_ms": main["ttft_p99_ms"],
+        "paged_tok_s": runs["paged"]["tok_s"],
+        "paged_ttft_p50_ms": runs["paged"]["ttft_p50_ms"],
+        "paged_peak_mib": runs["paged"]["peak_mib"],
+        "state_mib": main["state_mib"], "kv_mib": main["kv_mib"],
+        "paged_kv_mib": runs["paged"]["kv_mib"],
+        "kernel1_per_forward": want,
+        "host_launch_calls_per_step":
+            census["host_launch_calls_per_iteration"],
+        "cuda_kernels_per_step": census["cuda_kernels_per_iteration"],
+        "decode_device_us_per_step": census["device_us_per_iteration"],
+        "decode_busy_us_per_step":
+            census["device_busy_us_per_iteration"],
+        "decode_wall_us_per_step": census["synced_wall_us_per_iteration"],
+        "decode_bound_ms": bound,
+        "window_idle_share": window["idle_share"],
+        "seconds": time.perf_counter() - t_phase}))
+    del p16
+    torch.cuda.empty_cache()
+    bench.close()
+    return bench.records, path_launches
+
+
+def hybrid_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.hybrid_main()"``: the
+    build and phase 11 alone (the hybrid Mamba2 family), for work on that
+    phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("phase 11 needs a CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import strict
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    log(f"[build] {sorted(build.build_all())}")
+    strict.enable()
+    records, path_launches = _hybrid_phase(torch, torch.device("cuda"))
+    log(f"[phase 11] {sum(map(len, records.values()))} kernel records; "
         f"launches by path {json.dumps(path_launches)}; "
         f"{time.perf_counter() - t0:.1f}s")
 

@@ -3,13 +3,17 @@
 ``from_reference`` takes the pytree that ``repro.models.lm.init_params``
 returns, with every leaf already turned into a numpy array by the caller
 (this module imports nothing of JAX or of the JAX package), and returns
-the port's parameter dict: the stacked ``blocks/pos0`` leaves are
-unstacked into one dict per layer (a MoE layer's stacked experts, (G, E,
-d, ff), become (E, d, ff)), weights are cast once to the compute dtype
-(or to ``dtype``: the f32 masters a training run keeps), and norm gains
-and MoE routers keep the parameter dtype: the reference computes the
-router in f32 from its f32 weights, and a router rounded to bf16 would
-rank other experts.
+the port's parameter dict: the stacked ``blocks/pos{i}`` leaves of the
+pattern groups are unstacked into one dict per layer (a MoE layer's
+stacked experts, (G, E, d, ff), become (E, d, ff); a ``mamba2`` layer's
+``mamba`` leaves and a ``shared_attn`` layer's ``proj`` the same way),
+the layers past the last whole group come from ``tail``, the hybrid
+family's ``shared_block`` is converted once, weights are cast once to
+the compute dtype (or to ``dtype``: the f32 masters a training run
+keeps), and the nodes of ``lm.KEEP_PARAM_DTYPE`` keep the parameter
+dtype: the reference computes the router and the Mamba2 block's
+per-head and conv parameters in f32 from its f32 weights, and a router
+rounded to bf16 would rank other experts.
 """
 from __future__ import annotations
 
@@ -60,6 +64,9 @@ def from_reference(arrays: dict, cfg: ArchConfig, *,
     }
     if "lm_head" in arrays:
         params["lm_head"] = _convert(arrays["lm_head"], cd, pd, dev)
+    if "shared_block" in arrays:
+        params["shared_block"] = _convert(arrays["shared_block"], cd, pd,
+                                          dev)
     layers = []
     for layer in range(cfg.n_layers):
         if layer < n_groups * period:

@@ -15,6 +15,7 @@ _ARCH_MODULES = {
     "musicgen-medium": "musicgen_medium",
     "mixtral-8x22b": "mixtral_8x22b",
     "grok-1-314b": "grok_1_314b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

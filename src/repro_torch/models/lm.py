@@ -19,8 +19,17 @@ kept in the parameter dtype like the norm gains, and the stacked expert
 weights) in place of ``ffn``; ``forward`` sums the layers' aux losses,
 which ``loss_fn`` weights in, and ``forward_cached`` drops them.
 
-Not ported yet (ROADMAP.md A.4): the other block kinds (Mamba2, xLSTM,
-shared and cross attention).
+The hybrid family (zamba2) adds two kinds.  A ``mamba2`` layer holds
+``ln1`` and ``mamba`` (``models/mamba2.py``; its ``a_log``, ``dt_bias``,
+``d_skip`` and conv weights stay in the parameter dtype, as the
+reference computes with them in f32).  A ``shared_attn`` layer holds its
+per-use ``proj`` (and an ``ln1`` that, as in the reference, nothing
+reads): the block itself (``ln1``, ``attn``, ``ln2``, ``ffn``) is
+``params["shared_block"]``, held once.  A ``mamba2`` layer's cache is
+its recurrent state ``{"ssm", "conv"}``; attention layers keep ``{"k",
+"v"}``.
+
+Not ported yet (ROADMAP.md A.4): xLSTM and cross attention.
 """
 from __future__ import annotations
 
@@ -32,14 +41,20 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import attention, common as cm, ffn, moe
+from . import attention, common as cm, ffn, mamba2, moe
 
 AUX_LOSS_WEIGHT = 0.01
-_PORTED_KINDS = ("attn",)
+_PORTED_KINDS = ("attn", "mamba2", "shared_attn")
+# The kinds whose cache is K/V rows ({"k", "v"}); any other carries a
+# recurrent state.
+ATTN_KINDS = ("attn", "shared_attn")
 # Parameter nodes held in the parameter dtype whatever the compute dtype:
-# the norm gains (``g``), which the norm computes in, and the MoE routers,
-# whose f32 logits top-k ranks as the reference's do.
-KEEP_PARAM_DTYPE = ("g", "router")
+# the norm gains (``g``), which the norm computes in, the MoE routers,
+# whose f32 logits top-k ranks as the reference's do, and the Mamba2
+# block's per-head and conv parameters, which the reference computes with
+# in f32 from its f32 parameters.
+KEEP_PARAM_DTYPE = ("g", "router", "a_log", "dt_bias", "d_skip", "conv_w",
+                    "conv_b")
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -69,10 +84,11 @@ def init_params(seed: int, cfg: ArchConfig, *,
                 dtype: torch.dtype | None = None) -> dict:
     """Random weights from ``seed`` on ``device``, in ``dtype``: the
     compute dtype by default (serving), or ``param_dtype(cfg)`` for f32
-    master weights (training).  Norm gains and MoE routers are in the
-    parameter dtype (a router rounded to bf16 would rank other experts
-    than the reference's).  Drawn on the CPU one tensor at a time, so the
-    same seed gives the same weights on every device."""
+    master weights (training).  The nodes of ``KEEP_PARAM_DTYPE`` (norm
+    gains, MoE routers, the Mamba2 block's per-head and conv parameters)
+    are in the parameter dtype (a router rounded to bf16 would rank other
+    experts than the reference's).  Drawn on the CPU one tensor at a
+    time, so the same seed gives the same weights on every device."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
@@ -92,22 +108,58 @@ def init_params(seed: int, cfg: ArchConfig, *,
         return {"g": torch.ones(d, dtype=pd, device=dev)}
 
     d, hd = cfg.d_model, cfg.head_dim_
+
+    def attn():
+        p = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
+             "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+             "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+             "wo": lin(cfg.n_heads * hd, d)}
+        if cfg.qk_norm:
+            p["q_norm"] = norm(hd)
+            p["k_norm"] = norm(hd)
+        return p
+
+    def dense_ffn():
+        p = {"w_up": lin(d, cfg.d_ff), "w_down": lin(cfg.d_ff, d)}
+        if cfg.ffn_gated:
+            p["w_gate"] = lin(d, cfg.d_ff)
+        return p
+
+    def mamba():
+        # The reference's shapes and scales (``repro.models.mamba2.init``):
+        # A = -exp(0) = -1, Δ's bias 0, the skip 1.
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        ch = di + 2 * n
+        return {"in_proj": lin(d, 2 * di + 2 * n + h),
+                "conv_w": normal((cfg.conv_width, ch), 0.2, pd),
+                "conv_b": torch.zeros(ch, dtype=pd, device=dev),
+                "a_log": torch.zeros(h, dtype=pd, device=dev),
+                "dt_bias": torch.zeros(h, dtype=pd, device=dev),
+                "d_skip": torch.ones(h, dtype=pd, device=dev),
+                "out_proj": lin(di, d)}
+
     params: dict[str, Any] = {
         "embed": {"table": normal((cfg.vocab_size, d), 0.02)},
         "final_norm": norm(d),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = lin(d, cfg.vocab_size)
+    kinds = cfg.layer_kinds()
+    if "shared_attn" in kinds:
+        # Held once, applied at every shared_attn layer.
+        params["shared_block"] = {"ln1": norm(d), "attn": attn(),
+                                  "ln2": norm(d), "ffn": dense_ffn()}
     layers = []
-    for _ in range(cfg.n_layers):
-        attn = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
-                "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wo": lin(cfg.n_heads * hd, d)}
-        if cfg.qk_norm:
-            attn["q_norm"] = norm(hd)
-            attn["k_norm"] = norm(hd)
-        layer = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
+    for kind in kinds:
+        if kind == "shared_attn":
+            # Its ln1 is the reference's too, and unused there as here:
+            # the shared block's own ln1 normalises the layer's input.
+            layers.append({"ln1": norm(d), "proj": lin(d, d)})
+            continue
+        if kind == "mamba2":
+            layers.append({"ln1": norm(d), "mamba": mamba()})
+            continue
+        layer = {"ln1": norm(d), "attn": attn(), "ln2": norm(d)}
         if cfg.n_experts:
             # The reference's scales: d^-0.5 for the router and for
             # every expert weight, w_down too.
@@ -118,10 +170,7 @@ def init_params(seed: int, cfg: ArchConfig, *,
             if cfg.ffn_gated:
                 layer["moe"]["w_gate"] = normal((e, d, ff), d ** -0.5)
         elif cfg.d_ff:
-            layer["ffn"] = {"w_up": lin(d, cfg.d_ff),
-                            "w_down": lin(cfg.d_ff, d)}
-            if cfg.ffn_gated:
-                layer["ffn"]["w_gate"] = lin(d, cfg.d_ff)
+            layer["ffn"] = dense_ffn()
         layers.append(layer)
     params["layers"] = layers
     return params
@@ -136,33 +185,70 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
                  rope: tuple[torch.Tensor, torch.Tensor],
                  window: int | None, cache: dict | None = None,
                  write: attention.CacheWrite | None = None,
-                 impl: str = "chunked"
+                 impl: str = "chunked", shared: dict | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor | None,
                             torch.Tensor | None]:
     """One block on the residual stream ``x`` whose ln1 norm ``h`` the
-    caller made.  Each residual add runs in one launch with the norm
-    that follows it (``add_rmsnorm``): the attention residual with ln2,
-    the FFN (or MoE) residual with ``next_norm`` (the next block's ln1,
-    or the final norm).  Returns the residual after the block, its
-    ``next_norm`` norm and the MoE aux loss (None without experts); with
-    ``next_norm`` None (the serve path's last block) a plain add and
-    None: the final norm reads only the rows whose logits are taken.
-    Without a cache, attention runs over the full sequence by ``impl``."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    out = attention.self_attention(
-        p["attn"], h, cfg, rope=rope, window=window, cache=cache,
-        write=write, impl=impl)
+    caller made (for ``shared_attn``, the shared block's ln1).  Each
+    residual add runs in one launch with the norm that follows it
+    (``add_rmsnorm``): the attention residual with ln2, the block's last
+    residual with ``next_norm`` (the next block's ln1, or the final
+    norm).  Returns the residual after the block, its ``next_norm`` norm
+    and the MoE aux loss (None without experts); with ``next_norm`` None
+    (the serve path's last block) a plain add and None: the final norm
+    reads only the rows whose logits are taken.  Without a cache,
+    attention runs over the full sequence by ``impl`` and a ``mamba2``
+    block chunk-parallel; with one, a ``mamba2`` block steps its state
+    token by token, in place, keeping the lanes ``write`` drops.
+
+    ``shared_attn`` is the reference's ``_apply_shared`` with the
+    ``shared`` block: its inner residual starts from ``h``, not ``x``
+    (``h + attn`` with ln2, then ``+ ffn``), and the layer returns ``x +
+    proj(h)``."""
     aux = None
-    if cfg.d_ff:
-        x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
-        if cfg.n_experts:
-            out, aux = moe.apply(p["moe"], h, cfg)
-        else:
-            out = ffn.apply(p["ffn"], h, cfg)
+    if kind == "mamba2":
+        out = mamba2.apply(p["mamba"], h, cfg, state=cache,
+                           keep=None if write is None else write.keep,
+                           rows=None if write is None else write.rows)
+    elif kind == "shared_attn":
+        a = attention.self_attention(
+            shared["attn"], h, cfg, rope=rope, window=window, cache=cache,
+            write=write, impl=impl)
+        inner, h2 = cm.add_rmsnorm(shared["ln2"], h, a, cfg.norm_eps)
+        inner = inner + ffn.apply(shared["ffn"], h2, cfg)
+        out = cm.linear(p["proj"], inner, compute_dtype(cfg))
+    elif kind == "attn":
+        out = attention.self_attention(
+            p["attn"], h, cfg, rope=rope, window=window, cache=cache,
+            write=write, impl=impl)
+        if cfg.d_ff:
+            x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
+            if cfg.n_experts:
+                out, aux = moe.apply(p["moe"], h, cfg)
+            else:
+                out = ffn.apply(p["ffn"], h, cfg)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     if next_norm is None:
         return x + out, None, aux
     return (*cm.add_rmsnorm(next_norm, x, out, cfg.norm_eps), aux)
+
+
+def _ln1(params: dict, cfg: ArchConfig, layer: int) -> dict:
+    """The norm a layer's input goes through: its own ln1, or the shared
+    block's for a ``shared_attn`` layer (whose own ln1, as in the
+    reference, nothing reads)."""
+    if cfg.layer_kinds()[layer] == "shared_attn":
+        return params["shared_block"]["ln1"]
+    return params["layers"][layer]["ln1"]
+
+
+def _next_norm(params: dict, cfg: ArchConfig, layer: int,
+               last: dict | None) -> dict | None:
+    """The norm after ``layer``: the next layer's ln1, or ``last``."""
+    if layer + 1 < cfg.n_layers:
+        return _ln1(params, cfg, layer + 1)
+    return last
 
 
 def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -190,8 +276,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     experts)).
 
     Every norm runs kernel 1 (forward and, under autograd, backward):
-    layer 0's ln1, then per layer the fused q/k-norm + rope and two
-    fused residual adds, the last of them with the final norm.  With
+    layer 0's ln1, then per attention layer the fused q/k-norm + rope
+    (with qk-norm) and two fused residual adds, per ``mamba2`` layer one,
+    per ``shared_attn`` layer two (the inner one with the shared ln2);
+    the last add carries the final norm.  With
     ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
     counterpart of ``jax.checkpoint(group_body)``): only its inputs are
     kept, and it runs again in the backward."""
@@ -203,14 +291,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     layers = params["layers"]
-    h = cm.rmsnorm(layers[0]["ln1"], x, cfg.norm_eps)
+    h = cm.rmsnorm(_ln1(params, cfg, 0), x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer, kind in enumerate(cfg.layer_kinds()):
-        nxt = layers[layer + 1]["ln1"] if layer + 1 < len(layers) \
-            else params["final_norm"]
+        nxt = _next_norm(params, cfg, layer, params["final_norm"])
         body = functools.partial(_apply_block, kind, layers[layer],
                                  cfg=cfg, next_norm=nxt, rope=rope,
-                                 window=window, impl=attn_impl)
+                                 window=window, impl=attn_impl,
+                                 shared=params.get("shared_block"))
         if remat:
             x, h, a = checkpoint(body, x, h, use_reentrant=False,
                                  preserve_rng_state=False)
@@ -246,15 +334,17 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
                    page_table: torch.Tensor | None = None,
                    page_size: int | None = None
                    ) -> tuple[torch.Tensor, list]:
-    """tokens: (B, L) on the params' device; caches: per-layer
-    {"k","v"}, **updated in place** (the returned list is ``caches``
-    itself): contiguous ``(B, Hkv, S, D)``, or, with ``page_table`` (B,
-    n_blocks) int32 and ``page_size``, the paged pool's flat stores
-    ``(n_pages * page_size, Hkv, D)``.  ``pos``: an int, the count of
-    tokens already cached in every row, or a (B,) long tensor of per-lane
-    counts; then ``write_rows`` may restrict which lanes write their K/V
-    and ``write_keep`` (bool, one per written lane, on the device) drops
-    the writes of lanes only the device knows to be done.  Under a
+    """tokens: (B, L) on the params' device; caches: per-layer, **updated
+    in place** (the returned list is ``caches`` itself): an attention
+    layer's {"k","v"}, contiguous ``(B, Hkv, S, D)``, or, with
+    ``page_table`` (B, n_blocks) int32 and ``page_size``, the paged
+    pool's flat stores ``(n_pages * page_size, Hkv, D)``; a ``mamba2``
+    layer's state {"ssm","conv"} of B rows in either case.  ``pos``: an
+    int, the count of tokens already cached in every row, or a (B,) long
+    tensor of per-lane counts; then ``write_rows`` may restrict which
+    lanes write their K/V and state, and ``write_keep`` (bool, one per
+    written lane, on the device) drops the writes of lanes only the
+    device knows to be done.  Under a
     sliding window the contiguous caches are rings (see
     ``models/attention.py``): ``pos`` still counts positions, a row lands
     at ``pos % S``, per-lane calls take one new row, and a chunk never
@@ -267,10 +357,14 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     dev = tokens.device
     steps = torch.arange(length, device=dev)
     per_lane = isinstance(pos, torch.Tensor)
-    # Under a window a contiguous cache is a ring of this many rows
-    # (``attention.init_cache``); 0: rows are positions.
-    ring = caches[0]["k"].shape[2] \
-        if window is not None and page_table is None else 0
+    # The first attention layer's K/V store (None in an arch with no
+    # attention): under a window a contiguous cache is a ring of its
+    # rows (``attention.init_cache``); ring 0: rows are positions.
+    store = next((caches[i]["k"] for i, kind in enumerate(cfg.layer_kinds())
+                  if kind in ATTN_KINDS), None)
+    ring = store.shape[2] \
+        if window is not None and page_table is None and store is not None \
+        else 0
     if per_lane:
         if ring and length != 1:
             raise ValueError(
@@ -306,13 +400,13 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
                 f"cache write of {length} rows at {pos} runs past the "
                 f"page table's {page_table.shape[1] * ps} rows")
         flat = attention.page_rows(page_table, lanes, at, ps, write_keep)
-        write = attention.CacheWrite(pos, rows, kv_lens, None, page_table,
-                                     ps, flat)
+        write = attention.CacheWrite(pos, rows, kv_lens, write_keep,
+                                     page_table, ps, flat)
     elif per_lane:
         if write_keep is not None:
             # A dropped lane may sit at the end of its cache: its rows
             # are read back and written unchanged at in-range positions.
-            at = at.clamp(max=caches[0]["k"].shape[2] - 1)
+            at = at.clamp(max=store.shape[2] - 1)
         write = attention.CacheWrite(pos, rows, kv_lens, write_keep,
                                      lanes=lanes[:, None], at=at)
     else:
@@ -321,12 +415,13 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     # once per layer (XLA dedupes the per-layer copies; eager would not).
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     layers = params["layers"]
-    h = cm.rmsnorm(layers[0]["ln1"], x, cfg.norm_eps)
+    h = cm.rmsnorm(_ln1(params, cfg, 0), x, cfg.norm_eps)
     for layer, kind in enumerate(cfg.layer_kinds()):
-        nxt = layers[layer + 1]["ln1"] if layer + 1 < len(layers) else None
         x, h, _ = _apply_block(kind, layers[layer], x, h, cfg,
-                               next_norm=nxt, rope=rope, window=window,
-                               cache=caches[layer], write=write)
+                               next_norm=_next_norm(params, cfg, layer, None),
+                               rope=rope, window=window,
+                               cache=caches[layer], write=write,
+                               shared=params.get("shared_block"))
     if all_logits:
         xs = x
     elif logit_index is None:
@@ -339,10 +434,15 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 window: int | None = None, dtype: torch.dtype | None = None,
                 device: str | torch.device = "cuda") -> list:
+    """Per layer: ``{"k", "v"}`` for attention (``attention.init_cache``),
+    the recurrent state ``{"ssm", "conv"}`` for ``mamba2``
+    (``mamba2.init_state``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     window = window if window is not None else cfg.attn_window
     return [attention.init_cache(cfg, batch, max_len, window=window,
                                  dtype=dtype, device=dev)
-            for _ in cfg.layer_kinds()]
+            if kind in ATTN_KINDS
+            else mamba2.init_state(cfg, batch, dtype, dev)
+            for kind in cfg.layer_kinds()]

@@ -18,8 +18,11 @@ when the scheduler drains it.
 Inactive lanes compute like the reference's, and their K/V writes are
 dropped where they land (``lm.forward_cached``'s ``write_keep``): the
 contiguous pool reads the old rows back and writes them unchanged, the
-paged pool sends them to the scratch page 0.  ``masked_merge`` is the
-reference's merge, which those writes agree with.
+paged pool sends them to the scratch page 0.  A recurrent layer's state
+(both pools hold it as slot rows) is written whole, in place, as
+``where(keep, new, old)``: a spent lane's state comes out exactly as it
+went in.  ``masked_merge`` is the reference's merge, which those writes
+agree with.
 
 Over the paged pool (``make_paged_decode_step``) the loop is the same;
 the page table rides in as data, fixed for the dispatch (the host
@@ -80,8 +83,16 @@ def device_sync(device: torch.device) -> None:
             torch.cuda.synchronize(device)
 
 
+def _refuse_tuner(kernel_tuner) -> None:
+    if kernel_tuner is not None:
+        raise NotImplementedError(
+            "measured kernel blocks (kernel_tuner) are not ported to "
+            "PyTorch yet (ROADMAP.md: tooling)")
+
+
 def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
-                   page_size: int | None = None) -> Callable:
+                   page_size: int | None = None,
+                   kernel_tuner=None) -> Callable:
     """The decode step over the slot pool.
 
     ``lanes(params, caches, toks, poss, page_table, keep) -> next_toks``:
@@ -89,8 +100,10 @@ def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
     place for the lanes whose ``keep`` flag (on the device; None: all) is
     set.  With ``page_size`` the caches are the paged pool's stores, read
     through ``page_table``.  Every decode step body calls exactly this
-    function.
+    function.  ``kernel_tuner`` (the reference's measured kernel blocks)
+    is refused: not ported yet.
     """
+    _refuse_tuner(kernel_tuner)
 
     def lanes(params, caches, toks, poss, page_table=None, keep=None):
         logits, _ = lm.forward_cached(params, toks[:, None], caches, poss,
@@ -100,6 +113,19 @@ def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
         return torch.argmax(logits[:, 0], dim=-1)
 
     return lanes
+
+
+def make_paged_lane_step(cfg: ArchConfig, *, page_size: int, max_len: int,
+                         kernel_tuner=None) -> Callable:
+    """The reference's name and keywords for the paged decode lane:
+    ``make_lane_step(cfg, page_size=page_size)``.  ``max_len`` is taken
+    and unused: the reference gathers each lane's pages into a
+    ``max_len`` view, the port reads them through the table in the
+    paged kernel.  The lanes are the port's own, ``lanes(params, caches,
+    toks, poss, page_table, keep)``, updating the caches in place
+    (ROADMAP.md, Divergences)."""
+    return make_lane_step(cfg, page_size=page_size,
+                          kernel_tuner=kernel_tuner)
 
 
 def masked_merge(caches: list, new_caches: list,
@@ -312,23 +338,43 @@ def _spec_write_out(out_buf: torch.Tensor, verified: torch.Tensor,
     return torch.where(mask, gathered, out_buf)
 
 
-def make_spec_lane_step(cfg: ArchConfig, *, window: int | None = None,
-                        page_size: int | None = None) -> Callable:
+def make_spec_lane_step(cfg: ArchConfig, *, depth: int | None = None,
+                        window: int | None = None,
+                        page_size: int | None = None,
+                        kernel_tuner=None) -> Callable:
     """The verify step over the pool: ``lanes(params, caches, seqs, poss,
     page_table, keep) -> verified`` where ``seqs`` is
     ``(n_slots, d)`` — each lane's carry token followed by its ``d - 1``
     drafts — and ``verified`` ``(n_slots, d)`` the greedy argmax after
     every fed position.  It is the same ``lm.forward_cached`` the plain
-    lane runs, fed a chunk."""
+    lane runs, fed a chunk.  With ``depth`` (the reference's keyword)
+    the lanes refuse ``seqs`` of another width; without it they take the
+    width of ``seqs``.  ``kernel_tuner`` is refused, as in
+    ``make_lane_step``."""
+    _refuse_tuner(kernel_tuner)
     _check_spec_arch(cfg, window)
 
     def lanes(params, caches, seqs, poss, page_table=None, keep=None):
+        if depth is not None and seqs.shape[1] != depth:
+            raise ValueError(f"verify lanes built for depth {depth} fed "
+                             f"{seqs.shape[1]} positions")
         logits, _ = lm.forward_cached(
             params, seqs, caches, poss, cfg, window=window, write_keep=keep,
             all_logits=True, page_table=page_table, page_size=page_size)
         return torch.argmax(logits, dim=-1)
 
     return lanes
+
+
+def make_paged_spec_lane_step(cfg: ArchConfig, *, depth: int,
+                              page_size: int, max_len: int,
+                              kernel_tuner=None) -> Callable:
+    """The reference's name and keywords for the paged verify lane:
+    ``make_spec_lane_step(cfg, depth=depth, page_size=page_size)``
+    (``max_len`` taken and unused, as in ``make_paged_lane_step``)."""
+    return make_spec_lane_step(cfg, depth=max(int(depth), 2),
+                               page_size=page_size,
+                               kernel_tuner=kernel_tuner)
 
 
 def spec_body(lanes: Callable, depth: int) -> Callable:
@@ -416,8 +462,8 @@ def make_spec_decode_step(cfg: ArchConfig, *, depth: int,
     each round is one replay of a graph captured per width.
     """
     d = max(int(depth), 2)
-    loop = _spec_loop(cfg, make_spec_lane_step(cfg, window=window), d,
-                      max_depth, graphs, None)
+    loop = _spec_loop(cfg, make_spec_lane_step(cfg, depth=d, window=window),
+                      d, max_depth, graphs, None)
 
     def fused(params, caches, hist, toks, poss, steps):
         return loop(params, caches, None, hist, toks, poss, steps)
@@ -438,5 +484,6 @@ def make_paged_spec_decode_step(cfg: ArchConfig, *, depth: int,
     this slot owns alone; a lane whose budget is spent writes to the
     scratch page."""
     d = max(int(depth), 2)
-    return _spec_loop(cfg, make_spec_lane_step(cfg, page_size=page_size),
-                      d, max_depth, graphs, page_size)
+    return _spec_loop(cfg, make_paged_spec_lane_step(
+        cfg, depth=d, page_size=page_size, max_len=0), d, max_depth, graphs,
+        page_size)

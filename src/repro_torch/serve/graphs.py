@@ -16,9 +16,10 @@ dispatch's inputs into that state and runs the body once per step:
   stream, is then captured into a ``torch.cuda.CUDAGraph`` and every
   later step replays it: one ``cudaGraphLaunch`` per step.
 
-A graph holds raw addresses: of the weights, the K/V stores, the state
-and the attention scratch.  So a runner keys its graph by the params
-object (held, never copied), the stores' ``data_ptr``s, the lane count,
+A graph holds raw addresses: of the weights, the K/V stores, the
+recurrent states, the step state and the attention scratch.  So a runner
+keys its graph by the params object (held, never copied), the
+``data_ptr`` of every cache tensor, the lane count,
 the depth and the table and history shapes, and captures anew when any
 changes; ``DecodeGraphs`` owns an attention scratch sized for the
 largest step (every verify width, the cache's capacity) before the first
@@ -175,8 +176,7 @@ class StepRunner:
         key = (dev, len(budget), max_depth,
                None if table is None else tuple(table.shape),
                None if hist is None else tuple(hist.shape),
-               tuple(c[name].data_ptr() for c in caches
-                     for name in ("k", "v")))
+               tuple(t.data_ptr() for c in caches for t in c.values()))
         if key != self._key or params is not self._params \
                 or self._generation != self.graphs.generation:
             self._key, self._params, self._caches = key, params, caches
@@ -218,8 +218,12 @@ class StepRunner:
             listener(cap)
 
     def _scratch_need(self) -> int:
+        """Bytes of attention scratch the largest step needs, sized from
+        the first attention layer's store (0 with no attention layer)."""
         st = self.state
-        store = self._caches[0]["k"]
+        store = next((c["k"] for c in self._caches if "k" in c), None)
+        if store is None:
+            return 0
         skv = store.shape[2] if st.table is None \
             else st.table.shape[1] * self.page_size
         hq, hkv = self.heads

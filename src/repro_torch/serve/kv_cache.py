@@ -26,6 +26,12 @@ matching ``adopt`` is kept, so both serve loops obey one protocol.
 pages behind per-slot page tables, so identical prompt prefixes share
 pages copy-on-write through a token-keyed prefix cache.  Same poison /
 adopt discipline, same ``allocations`` invariant.
+
+A recurrent layer (``mamba2``) holds its state ``{"ssm", "conv"}`` as
+slot rows ``(n_slots, ...)`` in both pools, beside the K/V: a state is
+a running reduction over every token, so ``acquire`` zeroes the slot's
+rows (on the device, with no host sync) and the paged pool reuses no
+prefix for an arch that has one (``prefix_cache``).
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import strict
 from ..device import resolve_device
-from ..models import lm
+from ..models import lm, mamba2
 
 
 class SlotOverflowError(ValueError):
@@ -60,10 +66,20 @@ class CacheLayoutError(ValueError):
 
 
 def _layout(caches: list) -> tuple:
-    """Hashable (shape, dtype, device) signature of a cache list."""
-    return tuple((name, tuple(c[name].shape), str(c[name].dtype),
-                  str(c[name].device))
-                 for c in caches for name in ("k", "v"))
+    """Hashable (shape, dtype, device) signature of a cache list: every
+    tensor of every layer's dict."""
+    return tuple((name, tuple(t.shape), str(t.dtype), str(t.device))
+                 for c in caches for name, t in c.items())
+
+
+def _zero_states(kinds, caches: list, slot: int) -> None:
+    """Zero ``slot``'s rows of every recurrent state (a memset on the
+    device each, no host sync).  K/V rows need no wipe: attention masks
+    by position."""
+    for kind, c in zip(kinds, caches, strict=True):
+        if kind not in lm.ATTN_KINDS:
+            for t in c.values():
+                t[slot].zero_()
 
 
 class SlotKVCachePool:
@@ -87,6 +103,7 @@ class SlotKVCachePool:
         self.caches = lm.init_caches(cfg, n_slots, max_len,
                                      window=self.window, dtype=dtype,
                                      device=self.device)
+        self.kinds = tuple(cfg.layer_kinds())
         self._layout_sig = _layout(self.caches)
         self.allocations = 1            # init_caches calls ever made
         self._free = list(range(n_slots - 1, -1, -1))
@@ -119,12 +136,14 @@ class SlotKVCachePool:
 
     def acquire(self, owner: Any = None) -> int | None:
         """Claim a slot for ``owner``; None when the pool is exhausted.
-        KV rows need no wipe: attention masks by position."""
+        The slot's recurrent state rows are zeroed (K/V rows need no
+        wipe: attention masks by position)."""
         if not self._free:
             return None
         slot = self._free.pop()
         self.owner[slot] = owner
         self.positions[slot] = 0
+        _zero_states(self.kinds, self.caches, slot)
         return slot
 
     def release(self, slot: int) -> None:
@@ -136,9 +155,10 @@ class SlotKVCachePool:
 
     # -- slot I/O ------------------------------------------------------------
     def read_slot(self, slot: int) -> list:
-        """The slot's caches as a batch-of-1 list of **views** into the
-        pool: a forward that writes through them writes the pool."""
-        return [{name: c[name][slot:slot + 1] for name in ("k", "v")}
+        """The slot's caches (K/V and state rows) as a batch-of-1 list of
+        **views** into the pool: a forward that writes through them
+        writes the pool."""
+        return [{name: t[slot:slot + 1] for name, t in c.items()}
                 for c in self.caches]
 
     def write_slot(self, slot: int, row_caches: list) -> None:
@@ -146,8 +166,8 @@ class SlotKVCachePool:
         ``read_slot`` already hold the pool's storage (nothing to do);
         any other row is copied in."""
         for c, row in zip(self.caches, row_caches, strict=True):
-            for name in ("k", "v"):
-                dst = c[name][slot:slot + 1]
+            for name, t in c.items():
+                dst = t[slot:slot + 1]
                 src = row[name]
                 if src.data_ptr() != dst.data_ptr():
                     dst.copy_(src)
@@ -174,6 +194,20 @@ class SlotKVCachePool:
             raise SlotOverflowError(slot, pos, self.max_len)
         self.positions[slot] = pos
         return pos
+
+    def rollback(self, slot: int, n: int) -> int:
+        """Roll ``slot``'s position back by ``n`` tokens (speculative
+        decode: drafts past the accept point are rejected).  Bookkeeping
+        only: rows at and past the new position are dead storage the
+        causal mask never reads, and the next write covers them."""
+        if n < 0:
+            raise ValueError(f"negative rollback: {n}")
+        if n > self.positions[slot]:
+            raise ValueError(
+                f"rollback of {n} past slot {slot}'s position "
+                f"{self.positions[slot]}")
+        self.positions[slot] -= n
+        return self.positions[slot]
 
     def positions_array(self) -> torch.Tensor:
         """Per-slot positions as an (n_slots,) long tensor on the pool's
@@ -222,13 +256,20 @@ class PagedKVCachePool:
     """Paged KV pool: fixed-size pages behind per-slot page tables, with
     copy-on-write prefix sharing.
 
-    Layout per layer: one flat token-major store ``{"k","v"}`` of shape
-    ``(n_pages * page_size, H_kv, D)`` — page ``p`` owns rows
-    ``[p*ps, (p+1)*ps)``, allocated once (``allocations == 1``).  The
-    model reads a slot's rows through its table with the paged
-    flash-attention kernel (``models/attention.py``), so the serve path
-    never builds a contiguous view; ``read_slot`` / ``write_slot`` gather
-    and scatter one (tests and tools).
+    Layout per attention layer: one flat token-major store ``{"k","v"}``
+    of shape ``(n_pages * page_size, H_kv, D)`` — page ``p`` owns rows
+    ``[p*ps, (p+1)*ps)``, allocated once (``allocations == 1``); per
+    recurrent layer its state as slot rows ``(n_slots, ...)``, as in the
+    slot pool.  The model reads a slot's rows through its table with the
+    paged flash-attention kernel (``models/attention.py``), so the serve
+    path never builds a contiguous view; ``read_slot`` / ``write_slot``
+    gather and scatter one (tests and tools), and ``slot_caches`` is what
+    a prefill chunk of one slot runs over (the stores whole, the slot's
+    state rows).
+
+    ``prefix_cache`` (default on) is the reference's switch, and as
+    there it stays off for any arch with a recurrent layer: a reused
+    prefix would skip the state's updates over it.
 
     Page 0 is a permanently-allocated scratch page: unmapped table
     entries point at it, and writes the device drops (a speculative lane
@@ -259,7 +300,8 @@ class PagedKVCachePool:
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
                  page_size: int = 16, n_pages: int | None = None,
                  window: int | None = None, dtype: torch.dtype | None = None,
-                 mesh=None, device: str | torch.device = "cuda"):
+                 mesh=None, device: str | torch.device = "cuda",
+                 prefix_cache: bool = True):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if mesh is not None:
@@ -290,10 +332,13 @@ class PagedKVCachePool:
             raise ValueError(f"n_pages must be >= 2, got {self.n_pages}")
         dtype = dtype or lm.compute_dtype(cfg)
         shape = (self.n_pages * ps, cfg.n_kv_heads, cfg.head_dim_)
+        self.kinds = tuple(cfg.layer_kinds())
         self.caches = [
             {"k": torch.zeros(shape, dtype=dtype, device=self.device),
              "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-            for _ in cfg.layer_kinds()]
+            if kind in lm.ATTN_KINDS
+            else mamba2.init_state(cfg, n_slots, dtype, self.device)
+            for kind in self.kinds]
         self._layout_sig = _layout(self.caches)
         self.allocations = 1            # store allocations ever made
         self._free = list(range(n_slots - 1, -1, -1))
@@ -309,7 +354,10 @@ class PagedKVCachePool:
                             for _ in range(n_slots)]
         # Prefix cache: token-tuple -> page entry (see _PrefixEntry).
         # ``_partials[key]`` lists the lengths of registered partial
-        # tails extending the full-block chain ``key``.
+        # tails extending the full-block chain ``key``.  Reuse is sound
+        # only when every layer keys its cache by position.
+        self.prefix_cache = bool(prefix_cache) and \
+            all(kind in lm.ATTN_KINDS for kind in self.kinds)
         self._prefix: dict[tuple, _PrefixEntry] = {}
         self._partials: dict[tuple, list[int]] = {}
         self._lru = 0
@@ -359,12 +407,14 @@ class PagedKVCachePool:
         return self.n_pages - 1 - len(self._free_pages)
 
     def acquire(self, owner: Any = None) -> int | None:
-        """Claim a slot (no prefix lookup); None when exhausted."""
+        """Claim a slot (no prefix lookup); None when exhausted.  The
+        slot's recurrent state rows are zeroed."""
         if not self._free:
             return None
         slot = self._free.pop()
         self.owner[slot] = owner
         self.positions[slot] = 0
+        _zero_states(self.kinds, self.caches, slot)
         return slot
 
     def acquire_with_prefix(self, owner: Any,
@@ -378,7 +428,7 @@ class PagedKVCachePool:
         slot = self.acquire(owner)
         if slot is None:
             return None, 0
-        if prompt is None:
+        if not self.prefix_cache or prompt is None:
             return slot, 0
         toks = tuple(int(t) for t in prompt)
         self.prefix_lookups += 1
@@ -432,6 +482,10 @@ class PagedKVCachePool:
             if pid:
                 self.page_refs[pid] += 1
             self.page_tables[slot][j] = pid
+        for kind, c in zip(self.kinds, self.caches, strict=True):
+            if kind not in lm.ATTN_KINDS:
+                for t in c.values():
+                    t[slot].copy_(t[src])
         return slot
 
     def release(self, slot: int) -> None:
@@ -518,9 +572,10 @@ class PagedKVCachePool:
     def _copy_page(self, src: int, dst: int) -> None:
         """Device copy of one page: one ``copy_`` per layer and store."""
         ps = self.page_size
-        for c in self.caches:
-            for name in ("k", "v"):
-                store = c[name]
+        for kind, c in zip(self.kinds, self.caches, strict=True):
+            if kind not in lm.ATTN_KINDS:
+                continue
+            for store in c.values():
                 store[dst * ps:(dst + 1) * ps].copy_(
                     store[src * ps:(src + 1) * ps])
 
@@ -530,7 +585,10 @@ class PagedKVCachePool:
         prefix cache (full blocks plus the partial tail).  The cache
         takes a reference on each page, so the slot's own next write
         into the tail page copy-on-writes it — cached content is never
-        mutated.  Returns the number of new entries."""
+        mutated.  Returns the number of new entries (none with
+        ``prefix_cache`` off)."""
+        if not self.prefix_cache:
+            return 0
         toks = tuple(int(t) for t in tokens)
         ps = self.page_size
         table = self.page_tables[slot]
@@ -592,23 +650,37 @@ class PagedKVCachePool:
             self._validate_tables()
         return host_to_device(self.page_tables, torch.int32, self.device)
 
+    def slot_caches(self, slot: int) -> list:
+        """What a forward of ``slot`` alone (a prefill chunk, with the
+        slot's page table) runs over: every attention layer's stores
+        whole, every recurrent layer's state rows of ``slot`` as
+        batch-of-1 **views** (updated in place)."""
+        return [c if kind in lm.ATTN_KINDS
+                else {name: t[slot:slot + 1] for name, t in c.items()}
+                for kind, c in zip(self.kinds, self.caches, strict=True)]
+
     def read_slot(self, slot: int) -> list:
         """The slot's rows gathered through its table into a contiguous
-        batch-of-1 list ``{"k","v"}: (1, H_kv, max_len, D)`` (a copy; the
-        serve path reads the pages through the kernel instead)."""
+        batch-of-1 list ``{"k","v"}: (1, H_kv, max_len, D)``, and its state
+        rows (1, ...) of recurrent layers (copies; the serve path reads
+        the pages through the kernel instead)."""
         if strict.enabled():
             self._validate_tables()
         idx = host_to_device(self._slot_indices(slot), torch.long,
                              self.device)
-        return [{name: c[name][idx].permute(1, 0, 2)[None]
-                 for name in ("k", "v")} for c in self.caches]
+        return [{name: t[idx].permute(1, 0, 2)[None]
+                 for name, t in c.items()} if kind in lm.ATTN_KINDS
+                else {name: t[slot:slot + 1].clone()
+                      for name, t in c.items()}
+                for kind, c in zip(self.kinds, self.caches, strict=True)]
 
     def write_slot(self, slot: int, row_caches: list, lo: int = 0,
                    hi: int | None = None) -> None:
         """Scatter logical positions ``[lo, hi)`` of a contiguous
-        batch-of-1 row (as ``read_slot`` returns) into the slot's pages.
-        The caller must have ``ensure_writable``-d the range — shared
-        prefix pages outside it are never touched."""
+        batch-of-1 row (as ``read_slot`` returns) into the slot's pages;
+        recurrent state is written whole.  The caller must have
+        ``ensure_writable``-d the range — shared prefix pages outside it
+        are never touched."""
         hi = self.max_len if hi is None else hi
         if hi - lo <= 0:
             return
@@ -616,10 +688,14 @@ class PagedKVCachePool:
             raise SlotOverflowError(slot, hi, self.max_len)
         idx = host_to_device(self._slot_indices(slot)[lo:hi],
                              torch.long, self.device)
-        for c, row in zip(self.caches, row_caches, strict=True):
-            for name in ("k", "v"):
+        for kind, c, row in zip(self.kinds, self.caches, row_caches,
+                                strict=True):
+            for name, t in c.items():
+                if kind not in lm.ATTN_KINDS:
+                    t[slot:slot + 1].copy_(row[name])
+                    continue
                 piece = row[name][0][:, lo:hi].permute(1, 0, 2)
-                c[name].index_copy_(0, idx, piece.to(c[name].dtype))
+                t.index_copy_(0, idx, piece.to(t.dtype))
 
     def advance(self, slot: int, n: int) -> int:
         """Advance the slot's position (see ``SlotKVCachePool.advance``)."""

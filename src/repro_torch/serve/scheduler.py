@@ -221,9 +221,11 @@ class ServeScheduler:
         self.chunk_buckets = tuple(sorted(set(int(b) for b in chunk_buckets
                                               if b > 0))) or (max_len,)
         # Padding prefill chunks to a bucket is sound only when every
-        # layer masks by position (no window: the pad rows would land in
-        # the ring; attention blocks only).
-        self._pad_ok = self.window is None
+        # layer masks by position: a recurrent state would absorb the pad
+        # tokens, and under a window the pad rows would land in the ring.
+        # Those archs run exact-size chunks.
+        self._pad_ok = self.window is None and \
+            set(cfg.layer_kinds()) <= {"attn", "shared_attn"}
         self.prefill_profile, self.decode_profile = serve_profiles(cfg)
         # Workload keys carry the model's shape, not just its name.
         sig = (cfg.name, cfg.d_model, cfg.n_layers)
@@ -519,7 +521,8 @@ class ServeScheduler:
                          last: int, page_table: torch.Tensor | None):
         """One prefill chunk into ``slot``: its rows written in place
         (through views into the slot pool, or through the slot's page
-        table into the paged stores); returns the logits at ``last``."""
+        table into the paged stores, with the slot's state rows); returns
+        the logits at ``last``."""
         if page_table is None:
             row = self.pool.read_slot(slot)
             logits, _ = lm.forward_cached(
@@ -528,8 +531,8 @@ class ServeScheduler:
             self.pool.write_slot(slot, row)
         else:
             logits, _ = lm.forward_cached(
-                self.params, piece, self.pool.caches, pos, self.cfg,
-                logit_index=last, page_table=page_table,
+                self.params, piece, self.pool.slot_caches(slot), pos,
+                self.cfg, logit_index=last, page_table=page_table,
                 page_size=self.pool.page_size)
         return logits
 

@@ -202,6 +202,53 @@ def test_masked_merge_matches_reference():
                                           np.asarray(r[name]))
 
 
+@pytest.mark.parametrize("d", [None, 2, 4])
+def test_reference_named_lane_factories_equal_the_folded_ones(models, d):
+    """``make_paged_lane_step`` / ``make_paged_spec_lane_step`` (the
+    reference's names and keywords) give what ``make_lane_step`` /
+    ``make_spec_lane_step(page_size=)`` give on the same paged inputs: the
+    same tokens and every store row bit for bit; ``depth=`` on the
+    verify lanes refuses another width; each takes the reference's
+    keywords and refuses a kernel tuner, as the rest of the port does."""
+    import inspect
+
+    _, _, tcfg, tparams = models
+    stores, table = _paged(tcfg, 17)
+    toks = torch.from_numpy(_toks(18))
+    poss, keep = torch.tensor(POSS), torch.tensor([True, False, True])
+    if d is None:
+        wrapped = tdl.make_paged_lane_step(tcfg, page_size=PS,
+                                           max_len=MAX_LEN)
+        folded = tdl.make_lane_step(tcfg, page_size=PS)
+        feed = toks
+        names = (jdl.make_paged_lane_step, tdl.make_paged_lane_step)
+    else:
+        wrapped = tdl.make_paged_spec_lane_step(tcfg, depth=d, page_size=PS,
+                                                max_len=MAX_LEN)
+        folded = tdl.make_spec_lane_step(tcfg, page_size=PS)
+        feed = torch.stack([toks] * d, dim=1)
+        names = (jdl.make_paged_spec_lane_step, tdl.make_paged_spec_lane_step)
+        with pytest.raises(ValueError, match="depth"):
+            wrapped(tparams, _torch_tree(stores), feed[:, :1], poss,
+                    torch.from_numpy(table), keep)
+    outs = []
+    for lanes in (wrapped, folded):
+        caches = _torch_tree(stores)
+        outs.append((lanes(tparams, caches, feed, poss,
+                           torch.from_numpy(table), keep), caches))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1], outs[1][1], strict=True):
+        for name in ("k", "v"):
+            assert torch.equal(a[name], b[name])
+    for ref, port in (names, (jdl.make_lane_step, tdl.make_lane_step),
+                      (jdl.make_spec_lane_step, tdl.make_spec_lane_step)):
+        assert set(inspect.signature(ref).parameters) <= \
+            set(inspect.signature(port).parameters)
+    with pytest.raises(NotImplementedError, match="tooling"):
+        names[1](tcfg, page_size=PS, max_len=MAX_LEN, kernel_tuner=object(),
+                 **({} if d is None else {"depth": d}))
+
+
 # ---------------------------------------------------------------------------
 # no visible row of an inactive lane changes; each dispatch's own outputs
 # ---------------------------------------------------------------------------
@@ -463,6 +510,68 @@ def test_one_step_is_the_same_program_for_any_input(meta_model, card, spec,
         else "repro_flash_attention"
     assert launched.count(attention) == tcfg.n_layers
     assert len(launched) == 4 * tcfg.n_layers + 1
+
+
+@pytest.fixture(scope="module")
+def meta_hybrid():
+    """Reduced zamba2 (five Mamba2 layers, then the shared attention
+    block), its weights as meta tensors."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    return cfg, _meta_tree(tlm.init_params(0, cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_hybrid_step_is_the_same_program_for_any_input(meta_hybrid, card,
+                                                       paged):
+    """The fused body over zamba2's states and K/V, loaded with
+    different budgets, positions and tables, records the same ops with
+    the same shapes and the same launches: the recurrent state's update
+    under ``keep`` reads nothing back to the host and takes no shape from
+    the active set, so one captured graph serves every step.  Kernel 1
+    launches 8 times a step (1 + 6 layers + the shared block's ln2),
+    kernel 2 or 3 once (the one shared-attention layer)."""
+    tcfg, params = meta_hybrid
+    lib = card
+    table = _meta(N, MAX_LEN // PS, dtype=torch.int32) if paged else None
+    caches = []
+    for kind in tcfg.layer_kinds():
+        if kind == "shared_attn":
+            shape = ((1 + N * (MAX_LEN // PS)) * PS, tcfg.n_kv_heads,
+                     tcfg.head_dim_) if paged \
+                else (N, tcfg.n_kv_heads, MAX_LEN, tcfg.head_dim_)
+            caches.append({name: _meta(*shape, dtype=torch.float32)
+                           for name in ("k", "v")})
+        else:
+            caches.append({
+                "ssm": _meta(N, tcfg.ssm_heads, tcfg.ssm_state,
+                             tcfg.ssm_head_dim, dtype=torch.float32),
+                "conv": _meta(N, tcfg.conv_width - 1,
+                              tcfg.d_inner + 2 * tcfg.ssm_state,
+                              dtype=torch.float32)})
+    body = tdl.fused_body(tdl.make_lane_step(
+        tcfg, page_size=PS if paged else None))
+    runner = tgraphs.StepRunner(tgraphs.DecodeGraphs(), "probe", body,
+                                length=1,
+                                heads=(tcfg.n_heads, tcfg.n_kv_heads),
+                                widths=(1,), page_size=PS if paged else None)
+    programs = []
+    for budgets in [BUDGETS[0]] + BUDGETS:
+        st = runner.load(params, caches, _meta(N), _meta(N), budgets, DEPTH,
+                         table=table)
+        lib.calls.clear()
+        with _Record() as rec:
+            body(params, caches, st)
+        programs.append((rec.calls, [(name, args) for name, args in
+                                     lib.calls]))
+    programs = programs[1:]
+    for other in programs[1:]:
+        assert other == programs[0]
+    launched = [name for name, _ in programs[0][1]]
+    attention = "repro_paged_flash_attention" if paged \
+        else "repro_flash_attention"
+    assert launched.count(attention) == 1
+    assert len(launched) == 8 + 1
+    assert runner._scratch_need() >= 0
 
 
 @pytest.mark.parametrize("paged", [False, True])

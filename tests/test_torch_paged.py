@@ -17,6 +17,7 @@ from repro.core.acc import StaticCoreChunk as JaxStatic
 from repro.kernels.flash_attention import paged_flash_attention_pallas
 from repro.models import lm as jlm
 from repro.serve import ServeScheduler as JaxScheduler
+from repro.serve.kv_cache import PagedKVCachePool as JaxPagedPool
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import strict
@@ -359,6 +360,33 @@ def test_exhausted_pool_evicts_then_raises(models):
     assert pool.prefix_stats()["prefix_entries"] == 0
     with pytest.raises(PagePoolExhaustedError):
         pool.ensure_writable(b2, 8, 9)   # every page is a live slot's
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "zamba2-1.2b"])
+@pytest.mark.parametrize("prefix_cache", [True, False])
+def test_prefix_cache_switch_is_the_reference_rule(name, prefix_cache):
+    """``prefix_cache=``: on by default and switched off, as in the
+    reference, for an arch with a recurrent layer (zamba2's Mamba2
+    blocks).  With it off a registered prompt maps nothing: the same
+    prompt again reuses no token."""
+    jcfg = jax_config(name).reduced()
+    tcfg = get_config(name).reduced()
+    ref = JaxPagedPool(jcfg, 2, 32, page_size=8, prefix_cache=prefix_cache)
+    pool = PagedKVCachePool(tcfg, 2, 32, page_size=8, device="cpu",
+                            prefix_cache=prefix_cache)
+    assert pool.prefix_cache == ref.prefix_cache
+    assert pool.prefix_cache == (prefix_cache and name == "qwen3-0.6b")
+    prompt = list(range(1, 21))
+    for p in (ref, pool):
+        slot, reused = p.acquire_with_prefix("a", prompt)
+        assert reused == 0
+        p.ensure_writable(slot, 0, 20)
+        p.positions[slot] = 20
+        p.register_prefix(slot, prompt)
+        _, reused = p.acquire_with_prefix("b", prompt)
+        assert reused == (19 if p.prefix_cache else 0)
+    assert pool.prefix_stats()["prefix_entries"] == \
+        ref.prefix_stats()["prefix_entries"]
 
 
 def test_paged_pool_refuses_windows_and_meshes(models):

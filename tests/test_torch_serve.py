@@ -12,8 +12,9 @@ from repro.configs import get_config as jax_config
 from repro.core.acc import StaticCoreChunk as JaxStatic
 from repro.models import lm as jlm
 from repro.serve import ServeScheduler as JaxScheduler
+from repro.serve import SlotKVCachePool as JaxSlotPool
 from repro_torch import bridge
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import strict
 from repro_torch.core.acc import StaticCoreChunk
 from repro_torch.launch import serve as launch_serve
@@ -119,6 +120,45 @@ def test_prefill_views_write_the_pool(models):
     pool.write_slot(2, foreign)
     assert pool.caches[0]["v"][2].eq(3.0).all()
     assert pool.caches[0]["v"][0].eq(0.0).all()
+
+
+def test_slot_pool_rollback_matches_the_reference(models):
+    """``SlotKVCachePool.rollback``: the reference's positions after the
+    same advances and rollbacks, and its errors (a negative count, a
+    rollback past the position) with the pool unchanged after them."""
+    jcfg, _, tcfg, _ = models
+    ref = JaxSlotPool(jcfg, 2, 16)
+    pool = SlotKVCachePool(tcfg, 2, 16, device="cpu")
+    for p in (ref, pool):
+        slot = p.acquire("r")
+        p.advance(slot, 9)
+        assert p.rollback(slot, 3) == 6
+        assert p.rollback(slot, 0) == 6
+        p.advance(slot, 2)
+        assert p.rollback(slot, 8) == 0
+    assert pool.positions == ref.positions
+    for n, match in ((-1, "negative"), (1, "past")):
+        for p in (ref, pool):
+            with pytest.raises(ValueError, match=match):
+                p.rollback(0, n)
+    assert pool.positions == ref.positions == [0, 0]
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_pad_ok_is_the_reference_rule(window):
+    """Prefill chunks are padded to a bucket only where the reference
+    pads them: no window and attention blocks only (``_pad_ok``), for
+    every registered arch."""
+    for name in ARCH_NAMES:
+        jcfg = jax_config(name).reduced()
+        tcfg = get_config(name).reduced()
+        ref = JaxScheduler(jcfg, None, n_slots=1, max_len=32, window=window)
+        port = ServeScheduler(tcfg, None, n_slots=1, max_len=32,
+                              window=window, device="cpu")
+        assert port._pad_ok == ref._pad_ok, name
+    hybrid = ServeScheduler(get_config("zamba2-1.2b").reduced(), None,
+                            n_slots=1, max_len=32, device="cpu")
+    assert not hybrid._pad_ok
 
 
 @pytest.mark.parametrize("kwargs", [
