@@ -101,10 +101,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
               (budgets, vocabulary and launch counters checked).
 8. train    — the training path.  Kernel 1's backward (three entries, at
               4096 and 8192 rows of 1024 and q/k at B·S 4096, bf16 and
-              f32) against its plain version, two calls bit-identical,
-              timed like phase 3 beside ``torch.autograd.grad`` through
-              ``F.rms_norm`` (or the chain of library calls a fused entry
-              replaces).  qwen3-0.6b full-width f32 gradients, card
+              f32; rmsnorm and add_rmsnorm also at 8 and 4096 rows of
+              1536, 2048, 2560, 4096, 5120 and 6144, the generic loop
+              but for bf16 2048, their f32 gradients within 1e-3 of each
+              leaf's norm of the CPU's) against its plain version, two
+              calls bit-identical, timed like phase 3 beside
+              ``torch.autograd.grad`` through ``F.rms_norm`` (or the
+              chain of library calls a fused entry replaces).  One
+              AdamW step each of h2o-danube-1.8b (2 layers),
+              zamba2-1.2b (6) and llama-3.2-vision-11b (5) at full
+              width, f32 masters drawn on the card (``[train wide]``).  qwen3-0.6b full-width f32 gradients, card
               against CPU.  Eight bf16 training steps of 8 x 512 (acc
               plan, remat, AdamW, strict mode), the launch counters reset
               before and read after them: kernel 1 must run 6·28 + 1
@@ -121,7 +127,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               kernels 2 and 3 at head groups (48, 1), (40, 40), (32, 8)
               and head dims 64, 80, 128 (kernel 3 bit-equal to kernel 2,
               each case deterministic; windows at danube's heads).  Then
-              per arch, random weights (seed 0) drawn once in f32:
+              per arch, random weights (seed 0) drawn once in f32 (on
+              the host for danube, whose ring is held against the CPU;
+              on the card for the others, since PR 22):
               h2o-danube-1.8b at full width and depth (f32: logits card
               vs CPU; a 4600-token prompt prefilled in chunks of 256
               through the ring of 4096 rows, its last row and the decode
@@ -138,7 +146,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
               like phase 3.  One ``[arch]`` JSON line per arch.
 10. moe     — mixture-of-experts (``_moe_phase``): mixtral-8x22b and
               grok-1-314b at full width, 2 layers (``MOE_DEPTH``), random
-              weights (seed 0) drawn once in f32 onto the card.  The sweep
+              weights (seed 0) drawn once in f32 on the card (since PR
+              22; before, on the host and moved over).  The sweep
               of kernels 2 and 3 at group 6 (48, 8), D 128, with windows on
               kernel 2.  Per arch in f32: one MoE layer card vs CPU at 8
               and 256 rows (the same experts and kept choices, outputs
@@ -174,6 +183,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
               decode census beside the step's bound (at most 5 host
               launch calls), kernels 2 and 3 at the arch's decode and
               prefill shapes.  One ``[arch]`` JSON line.
+12. xlstm   — the xLSTM family (``_xlstm_phase``): xlstm-350m at full
+              width and depth (21 mLSTM and 3 sLSTM blocks; no layer
+              attends, kernel 1 is its path's one kernel), as phase 11:
+              f32 logits card vs CPU, the per-token prefill against the
+              chunk-parallel forward (``[xlstm chunked]``), contiguous ==
+              paged; bf16 serving of 16 requests (prompts 64-512, 64 new
+              tokens, 8 slots, ``max_len`` 1024, both pools, speculation
+              off; 25 kernel-1 launches a forward), ``graph_identity``
+              (every state row), a profiled window and a decode census;
+              then 3 training steps at full depth, 8 x 512.
+13. vision  — the vision family (``_vision_phase``):
+              llama-3.2-vision-11b at full width and depth, bf16
+              weights drawn on the card.  Kernel 1 at 8 and 2048 rows of
+              4096 and ``kv_norm`` over 8 x 1601 rows; kernel 2 at its
+              self-attention decode and prefill and its non-causal
+              cross-attention decode (Sq 1) and prefill (Sq 256) over the
+              1601 frontend tokens, each against its plain version and
+              timed beside SDPA.  f32 logits card vs CPU at one pattern
+              group; then 8 requests (prompt 256, 64 new tokens, features
+              from ``make_batch``) through ``serve_cross_attention``
+              (the engine's lock-step path; 89 kernel-1 launches a
+              forward), TTFT and each decode step beside its bound.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -443,7 +474,7 @@ class KernelBench:
 
     # ------------------------------------------------------- kernels 2, 3
     def _attn_work(self, b, hq, hkv, sq, skv, d, lens, window, dtype,
-                   item, extra_bytes=0):
+                   item, extra_bytes=0, causal=True):
         """The visible-key mask of this data, and the bound of the work
         it needs: q read and the output written once, each kv head's
         visible keys' K and V read once, the lengths (and ``extra_bytes``),
@@ -452,8 +483,9 @@ class KernelBench:
         kj = torch.arange(skv, device=dev)
         lens_l = lens.long()
         qi = lens_l[:, None] - sq + torch.arange(sq, device=dev)[None]
-        mask = (kj[None, None] < lens_l[:, None, None]) \
-            & (qi[:, :, None] >= kj[None, None])
+        mask = (kj[None, None] < lens_l[:, None, None]).expand(b, sq, skv)
+        if causal:
+            mask = mask & (qi[:, :, None] >= kj[None, None])
         if window is not None:
             mask &= (qi[:, :, None] - kj[None, None]) < window
         visible = int(mask.sum()) * hq
@@ -466,7 +498,7 @@ class KernelBench:
         return mask, bound, by
 
     def attn_case(self, name, b, hq, hkv, sq, skv, d, kv_lens, window,
-                  dtype):
+                  dtype, causal=True):
         from repro_torch.kernels import flash_attention as kfa
 
         torch = self.torch
@@ -474,25 +506,27 @@ class KernelBench:
         k = self.randn(b, hkv, skv, d, dtype=dtype)
         v = self.randn(b, hkv, skv, d, dtype=dtype)
         lens = torch.tensor(kv_lens, dtype=torch.int32, device=self.dev)
-        out = kfa.flash_attention(q, k, v, lens, causal=True, window=window)
-        ref = kfa.attention_ref(q, k, v, lens, causal=True, window=window)
+        out = kfa.flash_attention(q, k, v, lens, causal=causal, window=window)
+        ref = kfa.attention_ref(q, k, v, lens, causal=causal, window=window)
         torch.cuda.synchronize()
         # f32: exp and sums in another order; bf16: one output rounding.
         atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
         ok, err = within(torch, out, ref, atol, rtol)
         mask, bound, by = self._attn_work(b, hq, hkv, sq, skv, d, lens,
-                                          window, dtype, q.element_size())
+                                          window, dtype, q.element_size(),
+                                          causal=causal)
         attn_mask = mask[:, None]
         flush = self.flush
         rec = dict(
             shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
-                  f"D={d} window={window} {str(dtype)[6:]}",
+                  f"D={d} window={window} {str(dtype)[6:]}"
+                  + ("" if causal else " non-causal"),
             path=kfa.attention_plan(b, hq, hkv, sq, dtype).path,
             err=err, ok=ok, tol=f"atol={atol} rtol={rtol}",
             ms=time_ms(torch, lambda: kfa.flash_attention(
-                q, k, v, lens, causal=True, window=window), flush=flush),
+                q, k, v, lens, causal=causal, window=window), flush=flush),
             plain_ms=time_ms(torch, lambda: kfa.attention_ref(
-                q, k, v, lens, causal=True, window=window), flush=flush),
+                q, k, v, lens, causal=causal, window=window), flush=flush),
             library_ms=time_ms(
                 torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=attn_mask, enable_gqa=True),
@@ -823,6 +857,13 @@ def main() -> None:
     for name, recs in hybrid_records.items():
         records[name].extend(recs)
     path_launches.update(hybrid_launches)
+    # ---------------------------------------------------------- 12. xLSTM
+    # -------------------------------------------------------- 13. vision
+    for phase in (_xlstm_phase, _vision_phase):
+        phase_records, phase_launches = phase(torch, dev)
+        for name, recs in phase_records.items():
+            records[name].extend(recs)
+        path_launches.update(phase_launches)
 
     path_launches = {"phase 5 qwen3-0.6b contiguous": {
         k: launches[k] for k in ("rmsnorm", "flash_attention")},
@@ -1072,11 +1113,15 @@ def kernel1_per_forward(cfg) -> int:
     one residual add + norm per layer (the last one's with the final
     norm), and per attention layer (``attn``, or ``shared_attn``: the
     shared block) the add + ln2 inside it and, with qk-norm, a q/k-norm
-    + rotary launch.  (3 if qk-norm else 2) * L + 1 for an attention
-    stack; 1 + 38 + 6 = 45 for zamba2-1.2b."""
-    n_attn = sum(kind in ("attn", "shared_attn")
-                 for kind in cfg.layer_kinds())
-    return 1 + cfg.n_layers + n_attn * (2 if cfg.qk_norm else 1)
+    + rotary launch; per ``cross_attn`` layer the add + ln2 and
+    ``kv_norm``.  (3 if qk-norm else 2) * L + 1 for an attention stack;
+    1 + 38 + 6 = 45 for zamba2-1.2b, 1 + 24 = 25 for xlstm-350m,
+    1 + 40 + 32 + 2 * 8 = 89 for llama-3.2-vision-11b."""
+    kinds = cfg.layer_kinds()
+    n_attn = sum(kind in ("attn", "shared_attn") for kind in kinds)
+    n_cross = kinds.count("cross_attn")
+    return 1 + cfg.n_layers + n_attn * (2 if cfg.qk_norm else 1) \
+        + 2 * n_cross
 
 
 # Host calls that launch device work, as the profiler names them.
@@ -2301,11 +2346,18 @@ def _train_phase(torch, dev, base, card_line):
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
     def partial_bytes(rows, d, item):
-        """The dγ partial rows' traffic: written once, read once."""
-        rpb = 8 * max(32 // min(d * item // 16, 32), 1)   # rows per block
+        """The dγ partial rows' traffic: written once, read once.  Rows
+        per block: a register layout's (8..256 vectors, a power of two),
+        else 1 (the generic loop)."""
+        nv = d * item // 16
+        fixed = nv in (8, 16, 32, 64, 128, 256)
+        rpb = 8 * max(32 // min(nv, 32), 1) if fixed else 1
         return 2 * min(-(-rows // rpb), krms.BWD_MAX_BLOCKS) * d * 4
 
-    def check(rec, outs, outs2, refs, dtype):
+    def check(rec, outs, outs2, refs, dtype, cpu_refs=None):
+        """Against the plain version on the card, two calls' bits, and
+        (``cpu_refs``: the plain version run on the CPU on the same
+        inputs) each f32 gradient within 1e-3 of its norm of the CPU's."""
         atol, rtol = tol[dtype]
         errs = [within(torch, o, r, atol, rtol) for o, r in
                 zip(outs, refs, strict=True)]
@@ -2314,6 +2366,12 @@ def _train_phase(torch, dev, base, card_line):
         rec["tol"] = f"atol={atol} rtol={rtol}"
         rec["bit_identical_2_calls"] = all(
             torch.equal(a, b) for a, b in zip(outs, outs2, strict=True))
+        if cpu_refs is not None and dtype == torch.float32:
+            rel = max(float((o.cpu().float() - c.float()).norm()
+                            / c.float().norm().clamp_min(1e-30))
+                      for o, c in zip(outs, cpu_refs, strict=True))
+            rec["cpu_rel_err"] = rel
+            rec["ok"] = rec["ok"] and rel <= 1e-3
 
     def rms_bwd_case(rows, d, dtype):
         x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
@@ -2322,13 +2380,15 @@ def _train_phase(torch, dev, base, card_line):
         outs = krms.rmsnorm_bwd(x, g, dy, eps=1e-6)
         outs2 = krms.rmsnorm_bwd(x, g, dy, eps=1e-6)
         refs = krms.rmsnorm_bwd_ref(x, g, dy, 1e-6)
+        cpu = krms.rmsnorm_bwd_ref(x.cpu(), g.cpu(), dy.cpu(), 1e-6) \
+            if d > 1024 else None
         torch.cuda.synchronize()
         item = x.element_size()
         bound, by = bwd_bound(3 * rows * d * item + 8 * d, 8 * rows * d)
         rec = dict(entry="rmsnorm", shape=f"rows={rows} d={d} "
                    f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
                    partials_bytes=partial_bytes(rows, d, item))
-        check(rec, outs, outs2, refs, dtype)
+        check(rec, outs, outs2, refs, dtype, cpu)
         xl = x.detach().clone().requires_grad_()
         gl = g.to(dtype).requires_grad_()
         out = F.rms_norm(xl, (d,), gl, 1e-6)
@@ -2350,6 +2410,8 @@ def _train_phase(torch, dev, base, card_line):
         outs = krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6)
         outs2 = krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6)
         refs = krms.add_rmsnorm_bwd_ref(s, g, dh, ds, 1e-6)
+        cpu = krms.add_rmsnorm_bwd_ref(s.cpu(), g.cpu(), dh.cpu(), ds.cpu(),
+                                       1e-6) if d > 1024 else None
         torch.cuda.synchronize()
         item = s.element_size()
         bound, by = bwd_bound(4 * rows * d * item + 8 * d, 9 * rows * d)
@@ -2359,7 +2421,7 @@ def _train_phase(torch, dev, base, card_line):
                    library_ms=None,
                    library_note="no one PyTorch call; chain_ms: autograd "
                                 "through x + y and F.rms_norm")
-        check(rec, outs, outs2, refs, dtype)
+        check(rec, outs, outs2, refs, dtype, cpu)
         xl = s.detach().clone().requires_grad_()
         yl = torch.zeros_like(s).requires_grad_()
         gl = g.to(dtype).requires_grad_()
@@ -2427,12 +2489,26 @@ def _train_phase(torch, dev, base, card_line):
             rms_bwd_case(rows, 1024, dtype)
             add_bwd_case(rows, 1024, dtype)
         qk_bwd_case(8, 512, 16, 8, 128, dtype)      # B·S 4096
+    # The wide archs' rows (8: a decode-size batch; 4096: a training
+    # step's B·S): bf16 2048 in its register layout, every other width in
+    # the generic loop.  The rotary entry takes head rows only (its
+    # forward's widths), checked above.
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in WIDE_WIDTHS:
+            for rows in (8, 4096):
+                rms_bwd_case(rows, d, dtype)
+                add_bwd_case(rows, d, dtype)
     del scratch
     bad = [r["shape"] for r in records if not r["ok"]]
     nondet = [r["shape"] for r in records if not r["bit_identical_2_calls"]]
     if bad or nondet:
         fail(f"kernel 1's backward: outside tolerance {bad}; not "
              f"bit-identical over two calls {nondet}")
+    log(f"[train] kernel 1's backward: {len(records)} cases within "
+        f"tolerance and bit-identical over two calls, "
+        f"{sum('cpu_rel_err' in r for r in records)} f32 wide cases within "
+        f"1e-3 of the CPU's (worst "
+        f"{max((r['cpu_rel_err'] for r in records if 'cpu_rel_err' in r), default=0):.3g})")
 
     # ---- 8b: full-width gradients, card vs CPU (f32) ---------------------
     t0 = time.perf_counter()
@@ -2579,6 +2655,7 @@ def _train_phase(torch, dev, base, card_line):
                     for e in top))
     del params, opt, m, prof
     torch.cuda.empty_cache()
+    _wide_steps(torch, dev, card_line)
 
     # ---- 8d: fault-tolerant restart against an uninterrupted run --------
     # Depth cut to 2 layers at full width: every checkpoint writes the f32
@@ -2699,6 +2776,66 @@ def _train_phase(torch, dev, base, card_line):
         del params
     torch.cuda.empty_cache()
     return {"rmsnorm_backward": records}, {"rmsnorm_backward": launches}
+
+
+# Kernel 1's backward at the wide archs' rows (phase 8), and one AdamW step
+# of three wide archs cut to whole pattern groups: (arch, layers, batch).
+WIDE_WIDTHS = (1536, 2048, 2560, 4096, 5120, 6144)
+WIDE_STEPS = (("h2o-danube-1.8b", 2, 8), ("zamba2-1.2b", 6, 8),
+              ("llama-3.2-vision-11b", 5, 2))
+
+
+def _wide_steps(torch, dev, card_line) -> None:
+    """Phase 8's wide training steps: per ``WIDE_STEPS`` arch, random f32
+    master weights drawn on the card (seed 0), bf16 compute, batch x 512
+    (the vision arch with its 1601 frontend tokens), remat on, one warm-up
+    step and one timed AdamW step; loss, step ms, peak memory and kernel
+    1's launches.  Fails the run on a loss that is not finite or a norm
+    that did not run its backward on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step
+
+    for name, layers, b_size in WIDE_STEPS:
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        t0 = time.perf_counter()
+        params = lm.init_params(0, cfg, device=dev, dtype=torch.float32,
+                                draw_on_device=True)
+        opt = adamw.init_state(params)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), accum=1,
+                               remat=True)
+        batch = make_batch(cfg, b_size, 512, kind="train", seed=20,
+                           device=dev)
+        params, opt, m = step(params, opt, batch)          # warm-up
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        krms.reset_counts()
+        t_s = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_s) * 1e3
+        losses = [float(m["loss"])]
+        rec = {"arch": name, "layers": layers, "d": cfg.d_model,
+               "batch": f"{b_size} x 512"
+               + (f" + {cfg.num_frontend_tokens} frontend tokens"
+                  if cfg.frontend == "vision" else ""),
+               "params": _count_params(params), "loss": losses[0],
+               "grad_norm": float(m["grad_norm"]), "step_ms": ms,
+               "tok_s": b_size * 512 / ms * 1e3,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "kernel1_forward": krms.launches.count,
+               "kernel1_backward": krms.bwd_launches.count,
+               "setup_s": t_s - t0}
+        log(f"[train wide] {json.dumps(rec)}; {card_line}")
+        if not (math.isfinite(losses[0]) and math.isfinite(rec["grad_norm"])
+                and rec["kernel1_backward"] > 0):
+            fail(f"phase 8: the wide training step of {name} failed: {rec}")
+        del params, opt, m, step, batch
+        torch.cuda.empty_cache()
 
 
 # Phase 9: the dense family.  granite-34b and qwen1.5-32b keep 2 of their
@@ -2847,7 +2984,13 @@ def _serve9(torch, dev, cfg, params, prompts, *, max_len, paged=False,
             problems.append(f"request {r} returned a token out of the vocab")
     used, unused = ("paged_flash_attention", "flash_attention") if paged \
         else ("flash_attention", "paged_flash_attention")
-    if launches["rmsnorm"] <= 0 or launches[used] <= 0 or launches[unused]:
+    if any(kind in lm.ATTN_KINDS for kind in cfg.layer_kinds()):
+        ran = launches["rmsnorm"] > 0 and launches[used] > 0 \
+            and not launches[unused]
+    else:                # no layer attends (xlstm): neither kernel runs
+        ran = launches["rmsnorm"] > 0 and not launches[used] \
+            and not launches[unused]
+    if not ran:
         problems.append(f"the {pool} path skipped a kernel or ran the "
                         f"other attention kernel: {launches}")
     if not run["replays"]:
@@ -2993,10 +3136,16 @@ def _dense_phase(torch, dev):
             cfg = dataclasses.replace(cfg, n_layers=DENSE_DEPTH[name])
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         windowed = cfg.attn_window is not None
-        # One f32 draw on the host serves the CPU, the f32 runs and (cast)
-        # the bf16 runs: the weights lm.init_params(0, cfg) would draw.
-        # Only the bf16 copy is on the card while it serves.
-        p_cpu = lm.init_params(0, cfg32, device="cpu")
+        # One f32 draw serves the f32 runs and (cast) the bf16 runs; only
+        # the bf16 copy is on the card while it serves.  The ring's check
+        # against the CPU needs the host's stream of numbers (the weights
+        # lm.init_params(0, cfg) would draw); the others are drawn on the
+        # card, which takes seconds less than the host, and held there.
+        if windowed:
+            p_cpu = lm.init_params(0, cfg32, device="cpu")
+        else:
+            p_cpu = _to_device(lm.init_params(
+                0, cfg32, device=dev, draw_on_device=True), "cpu")
         p16 = _to_device(_cast_weights(p_cpu, torch.bfloat16), dev)
         n_params = _count_params(p16)
         log(f"[arch] {name}: weights drawn in "
@@ -3198,9 +3347,10 @@ def _moe_phase(torch, dev):
         cfg = dataclasses.replace(get_config(name), n_layers=MOE_DEPTH)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         windowed = cfg.attn_window is not None
-        # One f32 draw, moved to the card tensor by tensor (the host holds
-        # one at a time): the weights lm.init_params(0, cfg) would draw.
-        p32 = lm.init_params(0, cfg32, device=dev)
+        # One f32 draw on the card (the host's stream of numbers took ~50
+        # and ~100 s here; every check of this phase compares the card
+        # with the CPU on the same weights, or the card with itself).
+        p32 = lm.init_params(0, cfg32, device=dev, draw_on_device=True)
         n_params = _count_params(p32)
         t_draw = time.perf_counter() - t0
         log(f"[arch] {name}: {n_params} weights drawn in f32 in "
@@ -3342,7 +3492,35 @@ def _kernel1_twice(torch, bench, d: int) -> list:
     return problems
 
 
-def _hybrid_chunked(torch, dev, cfg32, p32, tol=2e-3):
+def _cpu_vs_card(torch, dev, cfg32, p_cpu, p32, tag: str, phase: int,
+                 tol=2e-3) -> float:
+    """f32 at full width and depth: the logits of one 64-token prompt
+    through ``forward_cached`` (a recurrent layer steps once a token) on
+    the CPU and on the card, the same weights; within ``tol`` (sums in
+    other orders over every layer) with the same argmax.  Returns the
+    error; fails the run otherwise."""
+    from repro_torch.models import lm
+
+    prompt = torch.randint(0, cfg32.vocab_size, (1, 64),
+                           generator=torch.Generator().manual_seed(2))
+    outs = []
+    for where, params in (("cpu", p_cpu), (dev, p32)):
+        caches = lm.init_caches(cfg32, 1, 64, device=where)
+        logits, _ = lm.forward_cached(params, prompt.to(where), caches, 0,
+                                      cfg32)
+        outs.append(logits.float().cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    same = int(outs[0].argmax()) == int(outs[1].argmax())
+    log(f"[{tag}] {cfg32.name} full width and depth f32, 64-token prompt "
+        f"through forward_cached: max |logit cpu - cuda| = {err:.3g} (tol "
+        f"{tol:g}), argmax equal {same}")
+    if not (err <= tol and same and bool(torch.isfinite(outs[1]).all())):
+        fail(f"phase {phase} {cfg32.name}: logits differ between the card "
+             f"and the CPU ({err})")
+    return err
+
+
+def _hybrid_chunked(torch, dev, cfg32, p32, tol=2e-3, phase=11):
     """f32 on the card: one 300-token prompt served by the scheduler (one
     slot, two new tokens), its prefill chunks replayed through
     ``lm.forward_cached`` into fresh caches (one recurrent step per token
@@ -3391,14 +3569,16 @@ def _hybrid_chunked(torch, dev, cfg32, p32, tol=2e-3):
         full_last.topk(2).values, full2_last.topk(2).values)]
     same = all(a == b or gap < 2 * tol
                for a, b, gap in zip(served, want, gaps, strict=True))
-    log(f"[hybrid chunked] {cfg32.name} f32: a {n}-token prompt in the "
-        f"scheduler's chunks {steps}: last row vs lm.forward (chunked_gla, "
-        f"kernel 2) {chunk_err:.3g}, the decode step after it {dec_err:.3g} "
+    log(f"[{'hybrid' if phase == 11 else 'xlstm'} chunked] {cfg32.name} "
+        f"f32: a {n}-token prompt in the "
+        f"scheduler's chunks {steps}: last row vs lm.forward (chunked_gla; "
+        f"kernel 2 where a layer attends) {chunk_err:.3g}, the decode step "
+        f"after it {dec_err:.3g} "
         f"(tol {tol:g}); served tokens {served}, lm.forward's argmax {want} "
         f"(top-2 gaps {[round(g, 4) for g in gaps]}): equal {same}")
     torch.cuda.empty_cache()
     if not (chunk_err <= tol and dec_err <= tol and same):
-        fail(f"phase 11 {cfg32.name}: the per-token prefill disagrees with "
+        fail(f"phase {phase} {cfg32.name}: the per-token prefill disagrees with "
              f"the chunk-parallel forward (chunked {chunk_err}, decode "
              f"{dec_err}, tokens {served} vs {want})")
     return chunk_err, dec_err, steps, same
@@ -3434,6 +3614,16 @@ def _serve_window(torch, dev, cfg, params) -> dict:
         sched.run_until_idle()
         torch.cuda.synchronize()
         t_win = time.perf_counter() - t_win
+    del sched
+    torch.cuda.empty_cache()
+    return _device_profile(torch, prof, t_win)
+
+
+def _device_profile(torch, prof, wall_s: float) -> dict:
+    """A device-only profile over a synced wall of ``wall_s``: the wall,
+    the device's busy time (the union of kernel intervals) and idle
+    share, and the kernels' count and device time by group
+    (``_kernel_group``)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -3447,12 +3637,10 @@ def _serve_window(torch, dev, cfg, params) -> dict:
             g = groups.setdefault(_kernel_group(e.key), [0, 0.0])
             g[0] += e.count
             g[1] += e.self_device_time_total / 1e3
-    del sched
-    torch.cuda.empty_cache()
-    return {"wall_ms": t_win * 1e3, "busy_ms": busy_us / 1e3,
-            "idle_share": 1 - busy_us / 1e6 / t_win if busy_us else None,
+    return {"wall_ms": wall_s * 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
             "kernels": len(spans),
-            "groups_kernels_ms": {k: [n, round(ms, 1)]
+            "groups_kernels_ms": {k: [n, round(ms, 3)]
                                   for k, (n, ms) in groups.items()}}
 
 
@@ -3465,16 +3653,21 @@ def _decode_bound_ms(cfg, params, positions, iters) -> float:
     written, the logits written; over the card's memory rate."""
     from repro_torch.models import lm
 
+    import torch
+
     lanes = len(positions)
     weights = _count_params(params, True) \
         - _count_params(params["embed"], True) \
         + lanes * cfg.d_model * 2
     kinds = cfg.layer_kinds()
     n_attn = sum(kind in lm.ATTN_KINDS for kind in kinds)
-    # One lane's state: ssm (H, N, P) f32 and the conv carry (W-1, C) bf16.
-    state = (len(kinds) - n_attn) * (
-        cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
-        + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+    # One lane's recurrent state (mamba2: ssm f32 and the conv carry in
+    # bf16; mlstm: mem f32; slstm: c, n, m f32), from its own shapes.
+    meta = torch.device("meta")
+    state = sum(t.numel() * t.element_size() for kind in kinds
+                if kind not in lm.ATTN_KINDS
+                for t in lm.init_state(kind, cfg, 1, torch.bfloat16,
+                                       meta).values())
     row = 2 * cfg.n_kv_heads * cfg.head_dim_ * 2          # K and V, bf16
     kv = n_attn * row * sum(p + 1 + (iters - 1) / 2 for p in positions)
     logits = lanes * cfg.vocab_size * 2
@@ -3513,24 +3706,8 @@ def _hybrid_phase(torch, dev):
     t_draw = time.perf_counter() - t0
     log(f"[arch] {HYBRID_ARCH}: {n_params} weights drawn in f32 in "
         f"{t_draw:.1f}s")
-    prompt = torch.randint(0, cfg.vocab_size, (1, 64),
-                           generator=torch.Generator().manual_seed(2))
-    outs = []
-    for where, params in (("cpu", p_cpu), (dev, p32)):
-        caches = lm.init_caches(cfg32, 1, 64, device=where)
-        logits, _ = lm.forward_cached(params, prompt.to(where), caches, 0,
-                                      cfg32)
-        outs.append(logits.float().cpu())
-    del p_cpu, caches
-    cpu_err = float((outs[0] - outs[1]).abs().max())
-    cpu_argmax = int(outs[0].argmax()) == int(outs[1].argmax())
-    log(f"[hybrid] {HYBRID_ARCH} full width and depth f32, 64-token prompt "
-        f"through forward_cached: max |logit cpu - cuda| = {cpu_err:.3g} "
-        f"(tol 2e-3), argmax equal {cpu_argmax}")
-    if not (cpu_err <= 2e-3 and cpu_argmax
-            and bool(torch.isfinite(outs[1]).all())):
-        fail(f"phase 11 {HYBRID_ARCH}: logits differ between the card and "
-             f"the CPU ({cpu_err})")
+    cpu_err = _cpu_vs_card(torch, dev, cfg32, p_cpu, p32, "hybrid", 11)
+    del p_cpu
     chunk_err, dec_err, steps, _ = _hybrid_chunked(torch, dev, cfg32, p32)
     _identity9(torch, dev, cfg32, p32, 16, phase=11)
     p16 = _keep_cast(p32, torch.bfloat16)
@@ -3607,10 +3784,346 @@ def hybrid_main() -> None:
     """``python3 -c "import chip_smoke; chip_smoke.hybrid_main()"``: the
     build and phase 11 alone (the hybrid Mamba2 family), for work on that
     phase."""
+    _phase_main(11, _hybrid_phase)
+
+
+# Phase 12: the xLSTM family.  xlstm-350m at full width and depth, no
+# cut: 24 layers (21 mLSTM, 3 sLSTM blocks), 355 M weights.  No layer
+# attends: kernel 1 is the only kernel on its path.
+XLSTM_ARCH = "xlstm-350m"
+
+
+def _xlstm_phase(torch, dev):
+    """Phase 12: xlstm-350m on the card at full width and depth.  Returns
+    ({kernel: [record]}, {path: {kernel: launches}}), as ``_hybrid_phase``
+    does."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    bench = KernelBench(torch, dev, seed=60, kernels=("rmsnorm",))
+    twice = _kernel1_twice(torch, bench, cfg.d_model)
+    if twice:
+        fail("phase 12: kernel 1 is not deterministic at d 1024: "
+             + "; ".join(twice))
+
+    t0 = time.perf_counter()
+    p_cpu = lm.init_params(0, cfg32, device="cpu")
+    p32 = _to_device(p_cpu, dev)
+    n_params = _count_params(p32)
+    t_draw = time.perf_counter() - t0
+    log(f"[arch] {XLSTM_ARCH}: {n_params} weights drawn in f32 in "
+        f"{t_draw:.1f}s")
+    cpu_err = _cpu_vs_card(torch, dev, cfg32, p_cpu, p32, "xlstm", 12)
+    del p_cpu
+    chunk_err, dec_err, steps, _ = _hybrid_chunked(torch, dev, cfg32, p32,
+                                                   phase=12)
+    _identity9(torch, dev, cfg32, p32, 16, phase=12)
+    p16 = _keep_cast(p32, torch.bfloat16)
+    del p32
+    torch.cuda.empty_cache()
+
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+               for n in lens]
+    runs = {}
+    runs["contiguous"], _, _ = _serve9(torch, dev, cfg, p16, prompts,
+                                       max_len=1024, phase=12)
+    runs["paged"], _, _ = _serve9(torch, dev, cfg, p16, prompts,
+                                  max_len=1024, paged=True, phase=12)
+    graph_problems = graph_identity(torch, dev, cfg, p16)
+    if graph_problems:
+        fail(f"phase 12 {XLSTM_ARCH}: graphs vs their eager body: "
+             + "; ".join(graph_problems))
+    window = _serve_window(torch, dev, cfg, p16)
+    log(f"[xlstm window] {XLSTM_ARCH} bf16, 2 requests of 32-token "
+        f"prompts and 8 new tokens, profiled: {json.dumps(window)}")
+    census = decode_census(torch, dev, cfg, p16)
+    bound = _decode_bound_ms(cfg, p16, census["positions"], 16)
+    log(f"[xlstm census] {XLSTM_ARCH} (one fused dispatch, 8 lanes, 16 "
+        f"steps, profiled): {json.dumps(census)}; bound of a step "
+        f"{bound:.4f} ms")
+    want = kernel1_per_forward(cfg)
+    if census["kernel1_launches_per_iteration"] != want \
+            or census["host_launch_calls_per_iteration"] > 5:
+        fail(f"phase 12 {XLSTM_ARCH}: a decode step launched kernel 1 "
+             f"{census['kernel1_launches_per_iteration']} times (want "
+             f"{want}) with {census['host_launch_calls_per_iteration']} "
+             f"host launch calls (at most 5: one graph replay)")
+    del p16
+    torch.cuda.empty_cache()
+
+    # Training at full depth: f32 masters drawn on the card, bf16
+    # compute, 8 x 512, remat on, AdamW; kernel 1 per step: 25 + 24
+    # forward launches (remat recomputes every layer, not layer 0's ln1
+    # before them) and 25 backward.
+    params = lm.init_params(0, cfg, device=dev, dtype=torch.float32,
+                            draw_on_device=True)
+    opt = adamw.init_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), accum=1, remat=True)
+    batch = make_batch(cfg, 8, 512, kind="train", seed=21, device=dev)
+    params, opt, m = step(params, opt, batch)              # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    krms.reset_counts()
+    losses, step_ms = [float(m["loss"])], []
+    for _ in range(3):
+        t_s = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t_s) * 1e3)
+        losses.append(float(m["loss"]))
+    train = {"steps": 3, "batch": "8 x 512", "losses": losses,
+             "step_ms": step_ms, "tok_s": 8 * 512 / sorted(step_ms)[1] * 1e3,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "kernel1_forward_per_step": krms.launches.count / 3,
+             "kernel1_backward_per_step": krms.bwd_launches.count / 3}
+    log(f"[xlstm train] {XLSTM_ARCH} full depth: {json.dumps(train)}")
+    if not (all(math.isfinite(x) for x in losses)
+            and train["kernel1_forward_per_step"] == 2 * want - 1
+            and train["kernel1_backward_per_step"] == want):
+        fail(f"phase 12 {XLSTM_ARCH}: training steps {train}")
+    del params, opt, m, step, batch
+    torch.cuda.empty_cache()
+
+    path_launches = {f"phase 12 {XLSTM_ARCH} {pool}": run["launches"]
+                     for pool, run in runs.items()}
+    main = runs["contiguous"]
+    log("[arch] " + json.dumps({
+        "name": XLSTM_ARCH, "layers": cfg.n_layers, "depth": "full",
+        "params": n_params, "draw_s": t_draw,
+        "logits_cpu_vs_card_err": cpu_err,
+        "chunked_prefill_vs_forward_err": chunk_err,
+        "chunked_decode_vs_forward_err": dec_err,
+        "scheduler_chunks": steps,
+        "peak_mib": main["peak_mib"], "tok_s": main["tok_s"],
+        "ttft_p50_ms": main["ttft_p50_ms"],
+        "ttft_p99_ms": main["ttft_p99_ms"],
+        "paged_tok_s": runs["paged"]["tok_s"],
+        "paged_ttft_p50_ms": runs["paged"]["ttft_p50_ms"],
+        "paged_peak_mib": runs["paged"]["peak_mib"],
+        "state_mib": main["state_mib"], "kv_mib": main["kv_mib"],
+        "kernel1_per_forward": want,
+        "host_launch_calls_per_step":
+            census["host_launch_calls_per_iteration"],
+        "cuda_kernels_per_step": census["cuda_kernels_per_iteration"],
+        "decode_device_us_per_step": census["device_us_per_iteration"],
+        "decode_busy_us_per_step":
+            census["device_busy_us_per_iteration"],
+        "decode_wall_us_per_step": census["synced_wall_us_per_iteration"],
+        "decode_bound_ms": bound,
+        "window_idle_share": window["idle_share"],
+        "train_step_ms": train["step_ms"], "train_losses": losses,
+        "seconds": time.perf_counter() - t_phase}))
+    bench.close()
+    return bench.records, path_launches
+
+
+# Phase 13: the vision family.  llama-3.2-vision-11b at full width and
+# depth (40 layers, 8 of them cross-attention), 9.8 G weights drawn in
+# bf16 on the card; its f32 check against the CPU runs at one pattern
+# group (5 layers), drawn on the host.
+VISION_ARCH = "llama-3.2-vision-11b"
+VISION_ROWS = (8, 2048)       # a decode step's lanes; a prefill's rows
+
+
+def _vision_phase(torch, dev):
+    """Phase 13: llama-3.2-vision-11b served through the engine's
+    lock-step path (``launch.serve.serve_cross_attention``).  Returns
+    ({kernel: [record]}, {path: {kernel: launches}})."""
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.acc import AdaptiveCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.launch.serve import serve_cross_attention
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(VISION_ARCH)
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    nf = cfg.num_frontend_tokens
+    bench = KernelBench(torch, dev, seed=70,
+                        kernels=("rmsnorm", "flash_attention"))
+    lens_rng = torch.Generator().manual_seed(71)
+    decode_lens = torch.randint(1, 1025, (8,), generator=lens_rng).tolist()
+    decode_lens[0], decode_lens[1] = 1, 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in VISION_ROWS:
+            bench.rms_case(rows, d, dtype)
+            bench.add_case(rows, d, dtype)
+        bench.rms_case(8 * nf, d, dtype, name="kv_norm ")
+        bench.attn_case(f"{VISION_ARCH} decode", 8, hq, hkv, 1, 1024, hd,
+                        decode_lens, None, dtype)
+        bench.attn_case(f"{VISION_ARCH} prefill", 8, hq, hkv, 256, 1024, hd,
+                        [256] * 8, None, dtype)
+        bench.attn_case(f"{VISION_ARCH} cross decode", 8, hq, hkv, 1, nf,
+                        hd, [nf] * 8, None, dtype, causal=False)
+        bench.attn_case(f"{VISION_ARCH} cross prefill", 8, hq, hkv, 256, nf,
+                        hd, [nf] * 8, None, dtype, causal=False)
+    bench.check(f"{VISION_ARCH}'s kernels")
+    twice = _kernel1_twice(torch, bench, d)
+    if twice:
+        fail("phase 13: kernel 1 is not deterministic at d 4096: "
+             + "; ".join(twice))
+
+    # f32, one pattern group on the host and the card: the logits of a
+    # 64-token prompt and its features through forward_cached.
+    period = len(cfg.block_pattern)
+    cfg32 = dataclasses.replace(cfg, n_layers=period,
+                                compute_dtype="float32")
+    t0 = time.perf_counter()
+    p_cpu = lm.init_params(0, cfg32, device="cpu")
+    batch = make_batch(cfg32, 1, 64, kind="prefill", seed=2, device="cpu")
+    outs = []
+    for where, params in (("cpu", p_cpu), (dev, None)):
+        params = params if params is not None else _to_device(p_cpu, dev)
+        caches = lm.init_caches(cfg32, 1, 64, device=where)
+        logits, _ = lm.forward_cached(
+            params, batch["tokens"].to(where), caches, 0, cfg32,
+            frontend_feats=batch["frontend_feats"].to(where))
+        outs.append(logits.float().cpu())
+        del params, caches
+    del p_cpu
+    torch.cuda.empty_cache()
+    cpu_err = float((outs[0] - outs[1]).abs().max())
+    cpu_argmax = int(outs[0].argmax()) == int(outs[1].argmax())
+    log(f"[vision] {VISION_ARCH} full width f32, one pattern group "
+        f"({period} layers, 1 cross-attention), a 64-token prompt with "
+        f"{nf} frontend tokens: max |logit cpu - cuda| = {cpu_err:.3g} "
+        f"(tol 2e-3), argmax equal {cpu_argmax} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if not (cpu_err <= 2e-3 and cpu_argmax
+            and bool(torch.isfinite(outs[1]).all())):
+        fail(f"phase 13 {VISION_ARCH}: logits differ between the card and "
+             f"the CPU ({cpu_err})")
+
+    # Serving at full width and depth, bf16 weights drawn on the card.
+    t0 = time.perf_counter()
+    p16 = lm.init_params(0, cfg, device=dev, draw_on_device=True)
+    torch.cuda.synchronize()
+    n_params = _count_params(p16)
+    weight_bytes = _count_params(p16, True)
+    t_draw = time.perf_counter() - t0
+    log(f"[arch] {VISION_ARCH}: {n_params} weights ({weight_bytes} B) "
+        f"drawn in bf16 on the card in {t_draw:.1f}s")
+    args = argparse.Namespace(requests=8, prompt_len=256, new_tokens=64,
+                              seed=0)
+    executor = adaptive(SequentialExecutor(),
+                        AdaptiveCoreChunk(cache=CalibrationCache()))
+    serve_cross_attention(cfg, p16, args, executor, dev)   # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
+        counter.reset()
+    with ForwardSpy(lm, krms) as fspy:
+        t_s = time.monotonic()
+        out = serve_cross_attention(cfg, p16, args, executor, dev)
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t_s
+    launches = {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+    by_key = {str(k): v for k, v in kfa.launches.by_key.items()}
+    k1_line, problems = fspy.report(args.requests, cfg)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if tuple(out.shape) != (8, 64) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        problems.append(f"served tokens {tuple(out.shape)} out of shape or "
+                        f"vocab")
+    if launches["rmsnorm"] <= 0 or launches["flash_attention"] <= 0 \
+            or launches["paged_flash_attention"]:
+        problems.append(f"the lock-step path skipped a kernel: {launches}")
+    if not any(key[2] == nf for key in kfa.launches.by_key):
+        problems.append("no cross-attention launch of kernel 2 over the "
+                        "frontend tokens")
+    # The same requests timed by part: the prefill (TTFT of the batch)
+    # and each decode step, synced.
+    eng = ServeEngine(cfg, p16, batch=8, max_len=256 + 64 + 1,
+                      executor=executor, device=dev)
+    b = make_batch(cfg, 8, 256, kind="prefill", seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter()
+    logits = eng.prefill(b["tokens"], b["frontend_feats"])
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t_p) * 1e3
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    dec_ms = []
+    for _ in range(16):
+        t_d = time.perf_counter()
+        logits = eng.decode(tok, b["frontend_feats"])
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t_d) * 1e3)
+    # Where a decode step's time goes: one step profiled, device only.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_d = time.perf_counter()
+        eng.decode(tok, b["frontend_feats"])
+        torch.cuda.synchronize()
+        t_d = time.perf_counter() - t_d
+    step_profile = _device_profile(torch, prof, t_d)
+    del eng, logits, prof
+    # The least time of one decode step: every weight read once (the
+    # embedding's 8 rows only) over the memory rate, and the cross K/V
+    # recomputed from the features (8 layers x 2 x 8 x 1601 x 4096 x
+    # 1024 x 2 operations) over the bf16 peak; the larger of the two.
+    n_cross = cfg.layer_kinds().count("cross_attn")
+    read = weight_bytes - _count_params(p16["embed"], True) + 8 * d * 2
+    xkv_ops = n_cross * 2 * 8 * nf * d * hkv * hd * 2
+    dec_bound = max(read / HBM_BYTES_PER_S, xkv_ops / PEAK_BF16) * 1e3
+    med = sorted(dec_ms)[len(dec_ms) // 2]
+    run = {"requests": 8, "prompt": 256, "new_tokens": 64,
+           "frontend_tokens": nf, "makespan_s": makespan,
+           "tok_s": out.numel() / makespan, "ttft_ms": ttft_ms,
+           "decode_step_ms_median": med,
+           "decode_step_ms": [round(x, 2) for x in dec_ms],
+           "decode_bound_ms": dec_bound,
+           "decode_bound_weights_ms": read / HBM_BYTES_PER_S * 1e3,
+           "decode_bound_cross_kv_ms": xkv_ops / PEAK_BF16 * 1e3,
+           "peak_mib": peak, "launches": launches,
+           "kernel2_by_key": by_key, "decode_step_profile": step_profile}
+    log(f"[serve13] {VISION_ARCH} lock-step bf16: {json.dumps(run)}; "
+        f"{k1_line}")
+    if problems:
+        fail(f"phase 13 {VISION_ARCH} serving: " + "; ".join(problems))
+    del p16
+    torch.cuda.empty_cache()
+    log("[arch] " + json.dumps({
+        "name": VISION_ARCH, "layers": cfg.n_layers, "depth": "full",
+        "params": n_params, "draw_s": t_draw,
+        "logits_cpu_vs_card_err": cpu_err, "cpu_check_layers": period,
+        "tok_s": run["tok_s"], "ttft_ms": ttft_ms,
+        "decode_step_ms": med, "decode_bound_ms": dec_bound,
+        "decode_idle_share": step_profile["idle_share"],
+        "peak_mib": peak, "kernel1_per_forward": kernel1_per_forward(cfg),
+        "seconds": time.perf_counter() - t_phase}))
+    bench.close()
+    return bench.records, {f"phase 13 {VISION_ARCH} lock-step": launches}
+
+
+def _phase_main(n: int, phase) -> None:
+    """The build and one phase alone, for work on that phase."""
     import torch
 
     if not torch.cuda.is_available():
-        fail("phase 11 needs a CUDA card")
+        fail(f"phase {n} needs a CUDA card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import strict
     from repro_torch.kernels import build
@@ -3620,10 +4133,22 @@ def hybrid_main() -> None:
     t0 = time.perf_counter()
     log(f"[build] {sorted(build.build_all())}")
     strict.enable()
-    records, path_launches = _hybrid_phase(torch, torch.device("cuda"))
-    log(f"[phase 11] {sum(map(len, records.values()))} kernel records; "
+    records, path_launches = phase(torch, torch.device("cuda"))
+    log(f"[phase {n}] {sum(map(len, records.values()))} kernel records; "
         f"launches by path {json.dumps(path_launches)}; "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+def xlstm_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.xlstm_main()"``: the
+    build and phase 12 alone (the xLSTM family)."""
+    _phase_main(12, _xlstm_phase)
+
+
+def vision_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.vision_main()"``: the
+    build and phase 13 alone (the vision family)."""
+    _phase_main(13, _vision_phase)
 
 
 def _to_device(tree, dev):

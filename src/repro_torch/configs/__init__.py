@@ -1,7 +1,6 @@
 """Config registry: one module per ported architecture.
 
-Copied from the JAX package's registry; only the architectures the port
-serves are registered (the others wait for their slice in ROADMAP.md).
+Copied from the JAX package's registry: the same ten architectures.
 """
 from . import base
 from .base import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
@@ -16,6 +15,8 @@ _ARCH_MODULES = {
     "mixtral-8x22b": "mixtral_8x22b",
     "grok-1-314b": "grok_1_314b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "xlstm-350m": "xlstm_350m",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

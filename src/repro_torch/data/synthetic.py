@@ -1,8 +1,11 @@
 """Synthetic token batches for training runs (the counterpart of
 ``repro.data.synthetic``): the same ``np.random.RandomState(seed)``
 draws, so a seed gives the JAX package's batch token for token.  Tokens
-and labels are int64 here (the index type of PyTorch's gathers).  The
-dry-run's ``input_specs`` waits for multi-GPU (ROADMAP.md A.6)."""
+and labels are int64 here (the index type of PyTorch's gathers).  A
+vision arch's batch also holds ``frontend_feats`` (B, T, d), the stub
+frontend's patch embeddings: ``randn · 0.02`` from the same stream, in
+the compute dtype.  The dry-run's ``input_specs`` waits for multi-GPU
+(ROADMAP.md A.6)."""
 from __future__ import annotations
 
 import queue
@@ -23,6 +26,10 @@ def batch_shapes(cfg: ArchConfig, batch: int, seq: int,
     shapes = {"tokens": ((batch, seq), torch.int64)}
     if kind == "train":
         shapes["labels"] = ((batch, seq), torch.int64)
+    if cfg.frontend == "vision":
+        shapes["frontend_feats"] = (
+            (batch, cfg.num_frontend_tokens, cfg.d_model),
+            lm.compute_dtype(cfg))
     return shapes
 
 
@@ -30,7 +37,8 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *,
                kind: str = "train", seed: int = 0,
                device: str | torch.device = "cuda") -> dict:
     """Tokens (and, for ``kind="train"``, labels) uniform over the
-    vocabulary from ``seed``, on ``device``."""
+    vocabulary from ``seed``, and a vision arch's ``frontend_feats``, on
+    ``device``."""
     lm.check_ported(cfg)
     dev = resolve_device(device)
     rs = np.random.RandomState(seed)
@@ -39,6 +47,12 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *,
     if kind == "train":
         out["labels"] = torch.from_numpy(
             rs.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64))
+    if cfg.frontend == "vision":
+        # f64 draws times 0.02, rounded once to the compute dtype, as the
+        # reference's ``jnp.asarray(..., dtype)``.
+        feats = rs.randn(batch, cfg.num_frontend_tokens, cfg.d_model) * 0.02
+        out["frontend_feats"] = torch.from_numpy(
+            feats.astype(np.float32)).to(lm.compute_dtype(cfg))
     return {k: v.to(dev) for k, v in out.items()}
 
 

@@ -400,10 +400,18 @@ int launch_qk_any(const void* q, const void* k, const float* gq,
 // The grid depends only on the shape, so two calls give the same bits.
 // The rotary entry runs q rows and k rows in separate blocks (two
 // segments), each with its own partial rows and dgamma.
-// Rows of at most 1024 elements (32 per lane) with a compile-time layout.
+// Rows of 8..256 vectors (a power of two: d 64..2048 in bf16, 32..1024 in
+// f32) take that compile-time layout; the rotary entry's head rows 8..128,
+// as its forward.  Rows of any other width that is a multiple of 8, up to
+// kBwdMaxD, take norm_bwd_rows_generic: one block per row at a time, each
+// thread a strided set of the row's vectors, three passes over the row
+// (the sum of squares; dgamma's terms and the dot; dx), the two row sums
+// reduced over the block in warp order, and dgamma's terms accumulated in
+// the block's partial row in shared memory, each column by the one thread
+// that owns it, rows in order -- so the order is fixed there too.
 
 constexpr int kBwdMaxBlocks = 264;   // per segment: 2 blocks per SM on 132 SMs
-constexpr int kBwdMaxD = 1024;
+constexpr int kBwdMaxD = 49152;      // the generic path's partial row: 192 KB of shared memory
 
 struct BwdSeg {
   const void* x;     // the forward's input rows (add_rmsnorm: its sum s)
@@ -462,7 +470,7 @@ norm_bwd_rows(BwdSeg s0, BwdSeg s1, const float* __restrict__ cosp,
   constexpr int N = Vec<T>::N;
   constexpr int D = NV * N;
   constexpr int H = D / 2;
-  static_assert(D <= kBwdMaxD, "backward rows hold at most 1024 elements");
+  static_assert(NV <= 256, "backward register layouts hold at most 256 vectors");
   __shared__ float s_sum[D];
   const bool first = blockIdx.x < s0.blocks;
   const BwdSeg sg = first ? s0 : s1;
@@ -605,7 +613,113 @@ void launch_bwd(BwdSeg s0, BwdSeg s1, const float* cs, const float* sn,
                                                D, s0.dgamma, s1.dgamma);
 }
 
-// Row widths of 8..128 16-byte vectors (256 in f32), at most 1024 elements.
+// The sum of v over the block, every thread the same bits: butterflies in
+// each warp, then the warps' sums in warp order.  `red` holds kWarps floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  __syncthreads();                 // red is free again
+  return t;
+}
+
+// Rows of any width d (a multiple of 8), segment s0 only (no rotary entry):
+// block blk takes rows blk, blk + blocks, ...; thread t the vectors t,
+// t + kThreads, ... of each.  The same arithmetic, in the same order per
+// element, as norm_bwd_rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_rows_generic(BwdSeg sg, float* __restrict__ partials, int d,
+                      float eps) {
+  extern __shared__ float s_acc[];   // d floats: this block's dgamma terms
+  __shared__ float red[kWarps];
+  constexpr int N = Vec<T>::N;
+  const int nvec = d / N;
+  const T* x = static_cast<const T*>(sg.x);
+  const T* dy = static_cast<const T*>(sg.dy);
+  const T* ds = static_cast<const T*>(sg.ds);
+  T* dx = static_cast<T*>(sg.dx);
+  for (int vi = threadIdx.x; vi < nvec; vi += kThreads)
+#pragma unroll
+    for (int i = 0; i < N; ++i) s_acc[vi * N + i] = 0.f;
+  for (int row = blockIdx.x; row < sg.rows; row += sg.blocks) {
+    const int64_t base = static_cast<int64_t>(row) * d;
+    float ss = 0.f;
+    for (int vi = threadIdx.x; vi < nvec; vi += kThreads) {
+      float v[N];
+      Vec<T>::load(x + base + vi * N, v);
+#pragma unroll
+      for (int i = 0; i < N; ++i) ss = fmaf(v[i], v[i], ss);
+    }
+    const float r = 1.f / rms_of(block_sum(ss, red), d, eps);
+    float dot = 0.f;
+    for (int vi = threadIdx.x; vi < nvec; vi += kThreads) {
+      float v[N], g[N], gam[N];
+      Vec<T>::load(x + base + vi * N, v);
+      Vec<T>::load(dy + base + vi * N, g);
+      load_f32<N>(sg.gamma + vi * N, gam);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        v[i] *= r;                                 // xh
+        s_acc[vi * N + i] = fmaf(g[i], v[i], s_acc[vi * N + i]);
+        g[i] *= gam[i];                            // dy * gamma
+        dot = fmaf(g[i], v[i], dot);
+      }
+    }
+    const float m = block_sum(dot, red) / static_cast<float>(d);
+    for (int vi = threadIdx.x; vi < nvec; vi += kThreads) {
+      float v[N], g[N], gam[N], w[N], o[N];
+      Vec<T>::load(x + base + vi * N, v);
+      Vec<T>::load(dy + base + vi * N, g);
+      load_f32<N>(sg.gamma + vi * N, gam);
+      if (ds != nullptr) {
+        Vec<T>::load(ds + base + vi * N, w);
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) w[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        v[i] *= r;
+        g[i] *= gam[i];
+        o[i] = (g[i] - v[i] * m) * r + w[i];
+      }
+      Vec<T>::store(dx + base + vi * N, o);
+    }
+  }
+  float* part = partials + static_cast<int64_t>(blockIdx.x) * d;
+  for (int vi = threadIdx.x; vi < nvec; vi += kThreads)
+#pragma unroll
+    for (int i = 0; i < N; ++i) part[vi * N + i] = s_acc[vi * N + i];
+}
+
+template <typename T>
+int launch_bwd_generic(BwdSeg s0, int d, float* partials, float eps,
+                       cudaStream_t st) {
+  if (d > kBwdMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  s0.blocks = s0.rows < kBwdMaxBlocks ? s0.rows : kBwdMaxBlocks;
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        norm_bwd_rows_generic<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  norm_bwd_rows_generic<T><<<s0.blocks, kThreads, smem, st>>>(s0, partials, d,
+                                                              eps);
+  const dim3 grid((d + kSumCols - 1) / kSumCols, 1);
+  sum_partial_rows<<<grid, kThreads, 0, st>>>(partials, s0.blocks, 0, d,
+                                               s0.dgamma, nullptr);
+  return 0;
+}
+
+// Row widths of 8..256 16-byte vectors (a power of two; the rotary entry
+// 8..128) in a register layout; other widths, not for the rotary entry,
+// through the generic loop.
 template <typename T, bool kRope>
 int launch_bwd_any(const BwdSeg& s0, const BwdSeg& s1, int d, const float* cs,
                    const float* sn, float* partials, float eps,
@@ -617,13 +731,18 @@ int launch_bwd_any(const BwdSeg& s0, const BwdSeg& s1, int d, const float* cs,
     case 64: launch_bwd<T, 64, kRope>(s0, s1, cs, sn, partials, eps, st); break;
     case 128: launch_bwd<T, 128, kRope>(s0, s1, cs, sn, partials, eps, st); break;
     case 256:
-      if constexpr (sizeof(T) == 4 && !kRope) {
+      if constexpr (!kRope) {
         launch_bwd<T, 256, kRope>(s0, s1, cs, sn, partials, eps, st);
         break;
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if constexpr (!kRope) {
+        return launch_bwd_generic<T>(s0, d, partials, eps, st);
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
   }
   return 0;
 }
@@ -709,7 +828,8 @@ extern "C" int repro_qk_norm_rope(const void* q, const void* k,
 
 // Backward entries, two launches each (the rows, then the sum of dgamma's
 // partial rows).  `partials` holds (blocks of all segments) x d floats, at
-// most kBwdMaxBlocks per segment.  dgamma is f32.
+// most kBwdMaxBlocks per segment.  dgamma is f32.  d: a multiple of 8 of
+// at most kBwdMaxD (the rotary entry: 8..128 vectors).
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* dy,
                                  const void* gamma, void* dx, void* dgamma,
                                  void* partials, int rows, int d, float eps,

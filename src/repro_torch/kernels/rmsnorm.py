@@ -51,10 +51,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # rotary entry takes head rows of 8..128 vectors (bf16 head dims
 # 64..1024) and no others.
 _ROPE_VECTORS = (8, 16, 32, 64, 128)
-# The backward's layouts: 8..256 vectors (a power of two) of at most
-# BWD_MAX_D elements; partial rows of dγ for at most BWD_MAX_BLOCKS blocks
-# per tensor (both mirror kBwdMaxD and kBwdMaxBlocks in csrc/rmsnorm.cu).
-BWD_MAX_D = 1024
+# The backward: the register layouts of 8..256 vectors (a power of two;
+# the rotary entry 8..128, as its forward), and a generic loop for any
+# other width that is a multiple of 8, up to BWD_MAX_D elements (its
+# partial row of dγ sits in shared memory); partial rows of dγ for at
+# most BWD_MAX_BLOCKS blocks per tensor (both mirror kBwdMaxD and
+# kBwdMaxBlocks in csrc/rmsnorm.cu).
+BWD_MAX_D = 49152
 BWD_MAX_BLOCKS = 264
 
 
@@ -333,15 +336,17 @@ def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
 
 def _bwd_rows(name: str, x: torch.Tensor, *grads: torch.Tensor,
               vectors=None) -> tuple[int, list[torch.Tensor]]:
-    """Checks of a backward launch: x as ``_rows_input`` takes it, a row
-    layout the backward has, each gradient of x's shape and type (made
+    """Checks of a backward launch: x as ``_rows_input`` takes it (the
+    width a multiple of 8), a width the backward takes (at most
+    ``BWD_MAX_D``; ``vectors``, where given, the register layouts allowed:
+    the rotary entry's), each gradient of x's shape and type (made
     contiguous).  Returns (dtype code, the gradients)."""
     code = _rows_input(name, x)
     d = x.shape[-1]
     nv = d * x.element_size() // 16
-    if nv not in (vectors or _ROPE_VECTORS + (256,)) or d > BWD_MAX_D:
-        raise ValueError(f"{name}: rows of {d} {x.dtype} have no register "
-                         f"layout in the backward kernel")
+    if (vectors is not None and nv not in vectors) or d > BWD_MAX_D:
+        raise ValueError(f"{name}: rows of {d} {x.dtype} are not taken by "
+                         f"the backward kernel")
     out = []
     for g in grads:
         if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -351,6 +356,13 @@ def _bwd_rows(name: str, x: torch.Tensor, *grads: torch.Tensor,
         _rows_input(name, g)
         out.append(g)
     return code, out
+
+
+def _partial_rows(x: torch.Tensor) -> int:
+    """dγ's partial rows of one backward segment: one per block, at most
+    ``BWD_MAX_BLOCKS`` and never more than x has rows.  The scratch is
+    this many rows of d floats, so it grows with d."""
+    return min(x.numel() // x.shape[-1], BWD_MAX_BLOCKS)
 
 
 def _bwd_count(entry: str) -> None:
@@ -374,7 +386,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
     dg = torch.zeros(d, dtype=torch.float32, device=x.device)
     if x.numel():
         stream = _stream(x)
-        part = torch.empty(BWD_MAX_BLOCKS * d, dtype=torch.float32,
+        part = torch.empty(_partial_rows(x) * d, dtype=torch.float32,
                            device=x.device)
         build.check(_lib().repro_rmsnorm_bwd(
             x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(),
@@ -402,7 +414,7 @@ def add_rmsnorm_bwd(s: torch.Tensor, gamma: torch.Tensor, dh: torch.Tensor,
     dg = torch.zeros(d, dtype=torch.float32, device=s.device)
     if s.numel():
         stream = _stream(s)
-        part = torch.empty(BWD_MAX_BLOCKS * d, dtype=torch.float32,
+        part = torch.empty(_partial_rows(s) * d, dtype=torch.float32,
                            device=s.device)
         build.check(_lib().repro_add_rmsnorm_bwd(
             s.data_ptr(), dh.data_ptr(), None if ds is None else ds.data_ptr(),

@@ -14,7 +14,10 @@ pool with prefix reuse (every attention through the paged kernel),
 ``--speculate`` turns on self-speculative decoding, and ``--frontend``
 replays a seeded open-loop trace through the asyncio ``ServeFrontend``
 with streaming, deadlines and adaptive admission, leading its report
-with SLO-goodput.  Runs on the CUDA card unless ``--device cpu``.
+with SLO-goodput.  A cross-attention arch (llama-3.2-vision-11b) serves
+through ``ServeEngine``'s lock-step batch path instead
+(``serve_cross_attention``), with the batch's frontend features.  Runs
+on the CUDA card unless ``--device cpu``.
 Calibrations persist under ``--cal-cache-dir`` unless ``--no-cal-cache``;
 ``--strict`` turns on strict mode (``core/strict.py``), and
 ``--print-launch-profile`` prints the serving process's environment as
@@ -37,9 +40,11 @@ from ..core.adaptive import adaptive
 from ..core import strict
 from ..core.calibration import CalibrationCache
 from ..core.executor import SequentialExecutor
+from ..core.model import ExecutionModel
+from ..data import make_batch
 from ..device import resolve_device
 from ..models import lm
-from ..serve import (ServeFrontend, ServeScheduler, SLOModel,
+from ..serve import (ServeEngine, ServeFrontend, ServeScheduler, SLOModel,
                      heavy_tailed_trace, materialize, percentile)
 
 
@@ -92,6 +97,32 @@ def prompts(n: int, prompt_len: int, vocab: int, seed: int) -> list:
     toks = rng.integers(0, vocab, size=(n, prompt_len))
     return [toks[i, :max(prompt_len - (i % 3) * (prompt_len // 4), 1)]
             for i in range(n)]
+
+
+def serve_cross_attention(cfg, params, args, executor,
+                          device: torch.device) -> torch.Tensor:
+    """A cross-attention (VLM) arch carries per-request frontend features
+    the scheduler does not model: ``--requests`` rows of ``--prompt-len``
+    tokens and their features (``make_batch``, seed ``--seed``) go
+    through the engine's lock-step batch path.  Returns the tokens (B,
+    new tokens)."""
+    batch = make_batch(cfg, args.requests, args.prompt_len, kind="prefill",
+                       seed=args.seed, device=device)
+    engine = ServeEngine(cfg, params, batch=args.requests,
+                         max_len=args.prompt_len + args.new_tokens + 1,
+                         executor=executor, device=device)
+    t0 = time.monotonic()
+    out = engine.generate(batch["tokens"], args.new_tokens,
+                          frontend_feats=batch["frontend_feats"])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    gen = int(out.shape[0] * out.shape[1])
+    print(f"arch={cfg.name} (cross-attention: lock-step batch path) "
+          f"requests={args.requests}")
+    print(f"generated {gen} tokens in {dt:.2f}s ({gen / dt:.1f} tok/s)")
+    print("sample:", out[0].tolist())
+    return out
 
 
 def serve_frontend(sched: ServeScheduler, args) -> None:
@@ -239,6 +270,10 @@ def main(argv=None) -> None:
         else CalibrationCache.persistent(args.cal_cache_dir)
     acc = AdaptiveCoreChunk(cache=cache)
     executor = adaptive(SequentialExecutor(), acc)
+    if "cross_attn" in cfg.layer_kinds():
+        serve_cross_attention(cfg, params, args, executor, device)
+        finish(None, cache, args)
+        return
     max_len = args.prompt_len + args.new_tokens + 1
     admission = args.admission or \
         ("adaptive" if args.frontend else "greedy")
@@ -288,9 +323,11 @@ def main(argv=None) -> None:
     finish(sched, cache, args)
 
 
-def finish(sched: ServeScheduler, cache: CalibrationCache, args) -> None:
+def finish(sched: ServeScheduler | None, cache: CalibrationCache,
+           args) -> None:
     if args.explain_decisions:
-        model = sched.decision_model()
+        model = ExecutionModel.of(cache) if sched is None \
+            else sched.decision_model()
         if model is not None:
             print(model.explain())
     if not args.no_cal_cache:

@@ -58,7 +58,13 @@ reference's does.
 ``jax.lax.dynamic_update_slice`` clamps a write that would run past the
 cache; here such a write raises instead.
 
-Not ported yet (ROADMAP.md A.4): cross-attention.
+``cross_attention`` (the vision family's ``cross_attn`` layers) attends
+the frontend features: ``kv_norm`` on them, K/V projected from them,
+non-causal, no rotary embedding.  Without a cache it goes through
+``sdpa(impl=...)`` (training: "chunked"); on the serve path
+(``impl="flash"``) through kernel 2 with ``causal=False``.  No K/V are
+cached: as in the reference, every step projects them from the features
+again (ROADMAP.md, speed items).
 """
 from __future__ import annotations
 
@@ -312,6 +318,28 @@ def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     ck[:, :, at:at + length] = kt
     cv[:, :, at:at + length] = vt
     return out
+
+
+def cross_attention(p: dict, x: torch.Tensor, kv_feats: torch.Tensor,
+                    cfg: ArchConfig, *, impl: str = "chunked"
+                    ) -> torch.Tensor:
+    """x: (B, L, d) queries; kv_feats: (B, T, d) frontend embeddings.
+    Non-causal, no rotary embedding; q/k-norm only if the config sets
+    it.  ``impl``: ``sdpa``'s ("flash": kernel 2)."""
+    b, length, _ = x.shape
+    hd = cfg.head_dim_
+    cd = getattr(torch, cfg.compute_dtype)
+    feats = cm.rmsnorm(p["kv_norm"], kv_feats.to(cd), cfg.norm_eps)
+    q = _heads(cm.linear(p["wq"], x, cd), cfg.n_heads, hd)
+    k = _heads(cm.linear(p["wk"], feats, cd), cfg.n_kv_heads, hd)
+    v = _heads(cm.linear(p["wv"], feats, cd), cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = cm.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = cm.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               impl=impl, causal=False)
+    out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
+    return cm.linear(p["wo"], out, cd)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,

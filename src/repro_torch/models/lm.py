@@ -29,7 +29,16 @@ reads): the block itself (``ln1``, ``attn``, ``ln2``, ``ffn``) is
 its recurrent state ``{"ssm", "conv"}``; attention layers keep ``{"k",
 "v"}``.
 
-Not ported yet (ROADMAP.md A.4): xLSTM and cross attention.
+The xLSTM family (xlstm-350m) adds ``mlstm`` and ``slstm`` layers
+(``models/xlstm.py``): ``ln1`` and the block, no feed-forward; their
+caches are the recurrent states ``{"mem"}`` and ``{"c", "n", "m"}``.
+
+The vision family (llama-3.2-vision-11b) adds ``cross_attn`` layers:
+``ln1``, ``xattn`` (``attention.cross_attention``, with ``kv_norm`` on
+the frontend features), ``ln2`` and the feed-forward.  They attend the
+batch's ``frontend_feats`` (B, T, d), which ``forward``, ``loss_fn`` and
+``forward_cached`` take; their cache entry is None, because the K/V are
+recomputed from the features at every step, as in the reference.
 """
 from __future__ import annotations
 
@@ -41,10 +50,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import attention, common as cm, ffn, mamba2, moe
+from . import attention, common as cm, ffn, mamba2, moe, xlstm
 
 AUX_LOSS_WEIGHT = 0.01
-_PORTED_KINDS = ("attn", "mamba2", "shared_attn")
+_PORTED_KINDS = ("attn", "mamba2", "shared_attn", "mlstm", "slstm",
+                 "cross_attn")
 # The kinds whose cache is K/V rows ({"k", "v"}); any other carries a
 # recurrent state.
 ATTN_KINDS = ("attn", "shared_attn")
@@ -58,12 +68,12 @@ KEEP_PARAM_DTYPE = ("g", "router", "a_log", "dt_bias", "d_skip", "conv_w",
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise unless every layer of ``cfg`` is a kind the port serves."""
+    """Raise unless every layer of ``cfg`` is a kind the port has."""
     kinds = set(cfg.layer_kinds())
     if not kinds <= set(_PORTED_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
-            f"(ROADMAP.md, remaining architectures); the port serves "
+            f"{cfg.name}: block kinds {sorted(kinds)} are not in the port "
+            f"(ROADMAP.md, where the port stands); it has "
             f"{_PORTED_KINDS} blocks")
 
 
@@ -81,21 +91,27 @@ def param_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def init_params(seed: int, cfg: ArchConfig, *,
                 device: str | torch.device = "cuda",
-                dtype: torch.dtype | None = None) -> dict:
+                dtype: torch.dtype | None = None,
+                draw_on_device: bool = False) -> dict:
     """Random weights from ``seed`` on ``device``, in ``dtype``: the
     compute dtype by default (serving), or ``param_dtype(cfg)`` for f32
     master weights (training).  The nodes of ``KEEP_PARAM_DTYPE`` (norm
     gains, MoE routers, the Mamba2 block's per-head and conv parameters)
     are in the parameter dtype (a router rounded to bf16 would rank other
     experts than the reference's).  Drawn on the CPU one tensor at a
-    time, so the same seed gives the same weights on every device."""
+    time, so the same seed gives the same weights on every device; with
+    ``draw_on_device`` drawn by a generator on ``device`` instead (the
+    card's stream of numbers, not the CPU's: no f32 copy of a large
+    model passes through the host)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = torch.Generator(device=dev if draw_on_device else "cpu")
+    gen.manual_seed(int(seed))
     cd, pd = dtype or compute_dtype(cfg), param_dtype(cfg)
 
     def normal(shape, scale, dtype=cd):
-        t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+        t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * scale
         return t.to(device=dev, dtype=dtype)
 
     def lin(d_in, d_out, bias=False):
@@ -109,7 +125,7 @@ def init_params(seed: int, cfg: ArchConfig, *,
 
     d, hd = cfg.d_model, cfg.head_dim_
 
-    def attn():
+    def attn(cross=False):
         p = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
              "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
              "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
@@ -117,6 +133,8 @@ def init_params(seed: int, cfg: ArchConfig, *,
         if cfg.qk_norm:
             p["q_norm"] = norm(hd)
             p["k_norm"] = norm(hd)
+        if cross:
+            p["kv_norm"] = norm(d)
         return p
 
     def dense_ffn():
@@ -138,6 +156,16 @@ def init_params(seed: int, cfg: ArchConfig, *,
                 "d_skip": torch.ones(h, dtype=pd, device=dev),
                 "out_proj": lin(di, d)}
 
+    def mlstm():
+        di, h = cfg.d_inner, cfg.ssm_heads
+        return {"wq": lin(d, di), "wk": lin(d, di), "wv": lin(d, di),
+                "w_if": lin(d, 2 * h), "w_o": lin(d, di),
+                "out_proj": lin(di, d)}
+
+    def slstm():
+        di = cfg.d_inner
+        return {"w_zifo": lin(d, 4 * di), "out_proj": lin(di, d)}
+
     params: dict[str, Any] = {
         "embed": {"table": normal((cfg.vocab_size, d), 0.02)},
         "final_norm": norm(d),
@@ -158,6 +186,19 @@ def init_params(seed: int, cfg: ArchConfig, *,
             continue
         if kind == "mamba2":
             layers.append({"ln1": norm(d), "mamba": mamba()})
+            continue
+        if kind == "mlstm":
+            layers.append({"ln1": norm(d), "mlstm": mlstm()})
+            continue
+        if kind == "slstm":
+            layers.append({"ln1": norm(d), "slstm": slstm()})
+            continue
+        if kind == "cross_attn":
+            layer = {"ln1": norm(d), "xattn": attn(cross=True),
+                     "ln2": norm(d)}
+            if cfg.d_ff:
+                layer["ffn"] = dense_ffn()
+            layers.append(layer)
             continue
         layer = {"ln1": norm(d), "attn": attn(), "ln2": norm(d)}
         if cfg.n_experts:
@@ -185,7 +226,8 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
                  rope: tuple[torch.Tensor, torch.Tensor],
                  window: int | None, cache: dict | None = None,
                  write: attention.CacheWrite | None = None,
-                 impl: str = "chunked", shared: dict | None = None
+                 impl: str = "chunked", shared: dict | None = None,
+                 feats: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor | None,
                             torch.Tensor | None]:
     """One block on the residual stream ``x`` whose ln1 norm ``h`` the
@@ -199,17 +241,36 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
     reads only the rows whose logits are taken.  Without a cache,
     attention runs over the full sequence by ``impl`` and a ``mamba2``
     block chunk-parallel; with one, a ``mamba2`` block steps its state
-    token by token, in place, keeping the lanes ``write`` drops.
+    token by token, in place, keeping the lanes ``write`` drops; the
+    xLSTM blocks alike.  A ``cross_attn`` block attends ``feats`` (the
+    batch's frontend features): through ``impl`` without a cache, through
+    kernel 2 on the serve path.
 
     ``shared_attn`` is the reference's ``_apply_shared`` with the
     ``shared`` block: its inner residual starts from ``h``, not ``x``
     (``h + attn`` with ln2, then ``+ ffn``), and the layer returns ``x +
     proj(h)``."""
     aux = None
+    keep = None if write is None else write.keep
+    rows = None if write is None else write.rows
     if kind == "mamba2":
-        out = mamba2.apply(p["mamba"], h, cfg, state=cache,
-                           keep=None if write is None else write.keep,
-                           rows=None if write is None else write.rows)
+        out = mamba2.apply(p["mamba"], h, cfg, state=cache, keep=keep,
+                           rows=rows)
+    elif kind == "mlstm":
+        out = xlstm.mlstm_apply(p["mlstm"], h, cfg, state=cache, keep=keep,
+                                rows=rows)
+    elif kind == "slstm":
+        out = xlstm.slstm_apply(p["slstm"], h, cfg, state=cache, keep=keep,
+                                rows=rows)
+    elif kind == "cross_attn":
+        if feats is None:
+            raise ValueError("a cross_attn block needs frontend_feats")
+        out = attention.cross_attention(
+            p["xattn"], h, feats, cfg,
+            impl="flash" if write is not None else impl)
+        if cfg.d_ff:
+            x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
+            out = ffn.apply(p["ffn"], h, cfg)
     elif kind == "shared_attn":
         a = attention.self_attention(
             shared["attn"], h, cfg, rope=rope, window=window, cache=cache,
@@ -271,15 +332,17 @@ def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             attn_impl: str = "chunked", window: int | None = None,
             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B, S) long}.  Returns (logits (B, S, V) in the
-    compute dtype, aux loss (0-d f32: the MoE layers' sum, 0 without
-    experts)).
+    """batch: {"tokens": (B, S) long, and for an arch with
+    ``cross_attn`` layers "frontend_feats" (B, T, d)}.  Returns (logits
+    (B, S, V) in the compute dtype, aux loss (0-d f32: the MoE layers'
+    sum, 0 without experts)).
 
     Every norm runs kernel 1 (forward and, under autograd, backward):
     layer 0's ln1, then per attention layer the fused q/k-norm + rope
     (with qk-norm) and two fused residual adds, per ``mamba2`` layer one,
-    per ``shared_attn`` layer two (the inner one with the shared ln2);
-    the last add carries the final norm.  With
+    per ``shared_attn`` layer two (the inner one with the shared ln2),
+    per xLSTM layer one, per ``cross_attn`` layer three (``kv_norm`` and
+    two fused adds); the last add carries the final norm.  With
     ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
     counterpart of ``jax.checkpoint(group_body)``): only its inputs are
     kept, and it runs again in the backward."""
@@ -298,7 +361,8 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         body = functools.partial(_apply_block, kind, layers[layer],
                                  cfg=cfg, next_norm=nxt, rope=rope,
                                  window=window, impl=attn_impl,
-                                 shared=params.get("shared_block"))
+                                 shared=params.get("shared_block"),
+                                 feats=batch.get("frontend_feats"))
         if remat:
             x, h, a = checkpoint(body, x, h, use_reentrant=False,
                                  preserve_rng_state=False)
@@ -332,14 +396,17 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
                    write_keep: torch.Tensor | None = None,
                    all_logits: bool = False,
                    page_table: torch.Tensor | None = None,
-                   page_size: int | None = None
+                   page_size: int | None = None,
+                   frontend_feats: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, list]:
     """tokens: (B, L) on the params' device; caches: per-layer, **updated
     in place** (the returned list is ``caches`` itself): an attention
     layer's {"k","v"}, contiguous ``(B, Hkv, S, D)``, or, with
     ``page_table`` (B, n_blocks) int32 and ``page_size``, the paged
-    pool's flat stores ``(n_pages * page_size, Hkv, D)``; a ``mamba2``
-    layer's state {"ssm","conv"} of B rows in either case.  ``pos``: an
+    pool's flat stores ``(n_pages * page_size, Hkv, D)``; a recurrent
+    layer's state (``mamba2`` {"ssm","conv"}, ``mlstm`` {"mem"},
+    ``slstm`` {"c","n","m"}) of B rows in either case; None for a
+    ``cross_attn`` layer, which attends ``frontend_feats`` (B, T, d).  ``pos``: an
     int, the count of tokens already cached in every row, or a (B,) long
     tensor of per-lane counts; then ``write_rows`` may restrict which
     lanes write their K/V and state, and ``write_keep`` (bool, one per
@@ -403,7 +470,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
         write = attention.CacheWrite(pos, rows, kv_lens, write_keep,
                                      page_table, ps, flat)
     elif per_lane:
-        if write_keep is not None:
+        if write_keep is not None and store is not None:
             # A dropped lane may sit at the end of its cache: its rows
             # are read back and written unchanged at in-range positions.
             at = at.clamp(max=store.shape[2] - 1)
@@ -421,13 +488,17 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
                                next_norm=_next_norm(params, cfg, layer, None),
                                rope=rope, window=window,
                                cache=caches[layer], write=write,
-                               shared=params.get("shared_block"))
+                               shared=params.get("shared_block"),
+                               feats=frontend_feats)
     if all_logits:
         xs = x
     elif logit_index is None:
         xs = x[:, -1:]
     else:
         xs = x[:, logit_index:logit_index + 1]
+    # One row of each of B > 1 lanes of a chunk is a strided view; kernel
+    # 1 reads contiguous rows (a no-op for a decode step or one lane).
+    xs = xs.contiguous()
     return _logits(params, cfg, xs), caches
 
 
@@ -435,8 +506,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 window: int | None = None, dtype: torch.dtype | None = None,
                 device: str | torch.device = "cuda") -> list:
     """Per layer: ``{"k", "v"}`` for attention (``attention.init_cache``),
-    the recurrent state ``{"ssm", "conv"}`` for ``mamba2``
-    (``mamba2.init_state``)."""
+    a recurrent layer's state (``init_state``), None for ``cross_attn``
+    (its K/V come from the features at every step)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
@@ -444,5 +515,20 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
     return [attention.init_cache(cfg, batch, max_len, window=window,
                                  dtype=dtype, device=dev)
             if kind in ATTN_KINDS
-            else mamba2.init_state(cfg, batch, dtype, dev)
+            else None if kind == "cross_attn"
+            else init_state(kind, cfg, batch, dtype, dev)
             for kind in cfg.layer_kinds()]
+
+
+def init_state(kind: str, cfg: ArchConfig, batch: int, dtype: torch.dtype,
+               device: torch.device) -> dict:
+    """The recurrent state of a ``mamba2`` (``{"ssm", "conv"}``, the conv
+    carry in ``dtype``), ``mlstm`` (``{"mem"}``) or ``slstm`` (``{"c",
+    "n", "m"}``) layer, B rows, as its module initialises it."""
+    if kind == "mamba2":
+        return mamba2.init_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm.mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.slstm_init_state(cfg, batch, device)
+    raise ValueError(f"block kind {kind!r} has no recurrent state")

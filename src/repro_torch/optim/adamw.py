@@ -61,48 +61,77 @@ def global_norm(grads: Any) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+# Leaves updated together: the update's temporaries (the new moments, the
+# denominator, the step) are a few copies of the group, not of the model.
+GROUP_BYTES = 1 << 30
+
+
+def _groups(leaves: list[torch.Tensor]) -> list[list[int]]:
+    """Leaf indices in order, cut into groups of at most ``GROUP_BYTES``
+    of f32 (a larger leaf alone)."""
+    groups, cur, size = [], [], 0
+    for i, p in enumerate(leaves):
+        if cur and size + 4 * p.numel() > GROUP_BYTES:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += 4 * p.numel()
+    return groups + ([cur] if cur else [])
+
+
 @torch.no_grad()
 def update(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
            lr: torch.Tensor | float | None = None
            ) -> tuple[Any, dict, dict]:
     """One AdamW step in place.  Returns (params, state, metrics), the
     first two the objects passed in, updated; ``metrics["grad_norm"]`` is
-    the pre-clip global norm (a 0-d device tensor)."""
+    the pre-clip global norm (a 0-d device tensor).  The leaves are
+    updated in groups of ``GROUP_BYTES`` (the same arithmetic per
+    element), so the update's temporaries stay a few GB for a model of
+    any size."""
     lr = cfg.lr if lr is None else lr
     step = state["step"] + 1
     p_leaves = tree.leaves(params)
-    gf = [g.float() for g in tree.leaves(grads)]
+    g_leaves = tree.leaves(grads)
     m_leaves, v_leaves = tree.leaves(state["m"]), tree.leaves(state["v"])
-    if not len(p_leaves) == len(gf) == len(m_leaves) == len(v_leaves):
+    if not len(p_leaves) == len(g_leaves) == len(m_leaves) == len(v_leaves):
         raise ValueError("params, grads and moments differ in structure")
     gnorm = global_norm(grads)
-    if cfg.grad_clip:
-        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        gf = torch._foreach_mul(gf, scale)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
+        if cfg.grad_clip else None
 
     b1, b2 = cfg.beta1, cfg.beta2
     stepf = step.to(torch.float32)
     bc1 = 1.0 - b1 ** stepf
     bc2 = 1.0 - b2 ** stepf
-    m_new = torch._foreach_add(
-        torch._foreach_mul([m.float() for m in m_leaves], b1),
-        torch._foreach_mul(gf, 1 - b1))
-    v_new = torch._foreach_add(
-        torch._foreach_mul([v.float() for v in v_leaves], b2),
-        torch._foreach_mul(torch._foreach_mul(gf, 1 - b2), gf))
-    denom = torch._foreach_add(
-        torch._foreach_sqrt(torch._foreach_div(v_new, bc2)), cfg.eps)
-    delta = torch._foreach_div(torch._foreach_div(m_new, bc1), denom)
     masters = tree.leaves(state["master"]) if "master" in state else None
-    base = masters if masters is not None else [p.float() for p in p_leaves]
-    delta = torch._foreach_add(delta, torch._foreach_mul(base,
-                                                         cfg.weight_decay))
-    new_master = torch._foreach_sub(base, torch._foreach_mul(delta, lr))
-
-    torch._foreach_copy_(p_leaves, new_master)
-    torch._foreach_copy_(m_leaves, m_new)
-    torch._foreach_copy_(v_leaves, v_new)
-    if masters is not None:
-        torch._foreach_copy_(masters, new_master)
+    for idx in _groups(p_leaves):
+        ps = [p_leaves[i] for i in idx]
+        ms = [m_leaves[i] for i in idx]
+        vs = [v_leaves[i] for i in idx]
+        gf = [g_leaves[i].float() for i in idx]
+        if scale is not None:
+            gf = torch._foreach_mul(gf, scale)
+        m_new = torch._foreach_add(
+            torch._foreach_mul([m.float() for m in ms], b1),
+            torch._foreach_mul(gf, 1 - b1))
+        v_new = torch._foreach_add(
+            torch._foreach_mul([v.float() for v in vs], b2),
+            torch._foreach_mul(torch._foreach_mul(gf, 1 - b2), gf))
+        denom = torch._foreach_add(
+            torch._foreach_sqrt(torch._foreach_div(v_new, bc2)), cfg.eps)
+        delta = torch._foreach_div(torch._foreach_div(m_new, bc1), denom)
+        del denom
+        base = [masters[i] for i in idx] if masters is not None \
+            else [p.float() for p in ps]
+        delta = torch._foreach_add(delta, torch._foreach_mul(
+            base, cfg.weight_decay))
+        new_master = torch._foreach_sub(base, torch._foreach_mul(delta, lr))
+        del delta
+        torch._foreach_copy_(ps, new_master)
+        torch._foreach_copy_(ms, m_new)
+        torch._foreach_copy_(vs, v_new)
+        if masters is not None:
+            torch._foreach_copy_(base, new_master)
     new_state = dict(state, step=step)
     return params, new_state, {"grad_norm": gnorm}

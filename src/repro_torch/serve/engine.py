@@ -5,12 +5,12 @@
 and returns the greedy tokens.  The stateful lock-step batch surface
 (``prefill`` / ``decode`` / ``pos`` / ``caches``) is there for callers
 that drive one batch themselves; ``generate`` takes it once the engine
-holds cache state (``pos != 0``), as the reference does.
+holds cache state (``pos != 0``), for a cross-attention arch (the
+scheduler does not serve one) and whenever ``frontend_feats`` are
+given, as the reference does.  The features (B, T, d) go to every
+forward of the batch, where the ``cross_attn`` layers attend them.
 ``make_decode_step`` is that path's pure step, and ``make_prefill_step``
 the one-shot prefill over the full-sequence ``lm.forward``.
-
-Not ported yet (ROADMAP.md A.4): per-request ``frontend_feats`` and the
-cross-attention archs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,13 +52,13 @@ def prefill_segments(s: int, chunk: int, *, pos: int = 0,
 
 def make_decode_step(cfg: ArchConfig, *,
                      window: int | None = None) -> Callable:
-    """``(params, caches, tokens (B, L), pos) -> (logits (B, 1, V),
-    caches)``: one cached forward at position ``pos`` (an int), the
-    caches updated in place."""
+    """``(params, caches, tokens (B, L), pos, frontend_feats=None) ->
+    (logits (B, 1, V), caches)``: one cached forward at position ``pos``
+    (an int), the caches updated in place."""
 
-    def decode_step(params, caches, tokens, pos):
+    def decode_step(params, caches, tokens, pos, frontend_feats=None):
         return lm.forward_cached(params, tokens, caches, pos, cfg,
-                                 window=window)
+                                 window=window, frontend_feats=frontend_feats)
 
     return decode_step
 
@@ -119,11 +119,11 @@ class ServeEngine:
     def caches(self, value: list) -> None:
         self._caches = value
 
-    def _check_feats(self, frontend_feats) -> None:
-        if frontend_feats is not None \
-                or "cross_attn" in self.cfg.layer_kinds():
-            raise _not_ported("per-request frontend features and the "
-                              "cross-attention archs", "A.4")
+    def _feats(self, frontend_feats) -> torch.Tensor | None:
+        if frontend_feats is None:
+            return None
+        return torch.as_tensor(frontend_feats).to(
+            self.device, lm.compute_dtype(self.cfg))
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens).to(self.device, torch.long)
@@ -135,7 +135,7 @@ class ServeEngine:
         chain through the executor (``then_execute``): each consumes the
         previous one's (logits, caches, position), joined at the end.
         Returns the last chunk's logits (B, 1, V)."""
-        self._check_feats(frontend_feats)
+        feats = self._feats(frontend_feats)
         tokens = self._tokens(tokens)
         s = tokens.shape[1]
         if chunk is None:
@@ -151,7 +151,7 @@ class ServeEngine:
             def run(state):
                 _, caches, pos = state
                 logits, caches = self._decode(self.params, caches, piece,
-                                              pos)
+                                              pos, feats)
                 return logits, caches, pos + step
 
             return run
@@ -166,10 +166,10 @@ class ServeEngine:
     def decode(self, tokens, frontend_feats=None) -> torch.Tensor:
         """One forward of ``tokens`` (B, L) at the engine's position;
         returns its last logits (B, 1, V)."""
-        self._check_feats(frontend_feats)
         tokens = self._tokens(tokens)
         logits, self.caches = self._decode(self.params, self.caches, tokens,
-                                           self.pos)
+                                           self.pos,
+                                           self._feats(frontend_feats))
         self.pos += tokens.shape[1]
         return logits
 
@@ -177,12 +177,13 @@ class ServeEngine:
                  frontend_feats=None) -> torch.Tensor:
         """Greedy generation; ``prompt`` (B, S); returns (B, n_new) long
         token ids on the host.  Through the scheduler (one request per
-        row) while the engine holds no cache state, else the lock-step
-        batch loop, as in the reference."""
-        self._check_feats(frontend_feats)
-        if self.pos == 0:
+        row) while the engine holds no cache state, the arch has no
+        ``cross_attn`` layer and no features are given; else the
+        lock-step batch loop, as in the reference."""
+        if frontend_feats is None and self.pos == 0 \
+                and "cross_attn" not in self.cfg.layer_kinds():
             return self._generate_scheduled(prompt, n_new)
-        return self._generate_lockstep(prompt, n_new)
+        return self._generate_lockstep(prompt, n_new, frontend_feats)
 
     def _generate_scheduled(self, prompt, n_new: int) -> torch.Tensor:
         prompt = torch.as_tensor(prompt).to("cpu", torch.long)
@@ -200,14 +201,16 @@ class ServeEngine:
         self._sched.clear_finished()
         return tokens
 
-    def _generate_lockstep(self, prompt, n_new: int) -> torch.Tensor:
+    def _generate_lockstep(self, prompt, n_new: int,
+                           frontend_feats=None) -> torch.Tensor:
         """Prefill the prompt after the engine's state, then ``n_new``
         greedy steps of the whole batch; one token read at the end."""
-        logits = self.prefill(prompt)
+        feats = self._feats(frontend_feats)
+        logits = self.prefill(prompt, feats)
         out = []
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         for _ in range(n_new):
             out.append(tok)
-            logits = self.decode(tok)
+            logits = self.decode(tok, feats)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return torch.from_numpy(to_host(torch.cat(out, dim=1)))

@@ -27,11 +27,15 @@ pages behind per-slot page tables, so identical prompt prefixes share
 pages copy-on-write through a token-keyed prefix cache.  Same poison /
 adopt discipline, same ``allocations`` invariant.
 
-A recurrent layer (``mamba2``) holds its state ``{"ssm", "conv"}`` as
-slot rows ``(n_slots, ...)`` in both pools, beside the K/V: a state is
-a running reduction over every token, so ``acquire`` zeroes the slot's
-rows (on the device, with no host sync) and the paged pool reuses no
-prefix for an arch that has one (``prefix_cache``).
+A recurrent layer holds its state (``mamba2`` ``{"ssm", "conv"}``,
+``mlstm`` ``{"mem"}``, ``slstm`` ``{"c", "n", "m"}``) as slot rows
+``(n_slots, ...)`` in both pools, beside the K/V: a state is a running
+reduction over every token, so ``acquire`` zeroes every one of the
+slot's state rows (on the device, with no host sync), as the reference
+does -- sLSTM's ``m`` too, which a fresh state starts at -1e30 -- and
+the paged pool reuses no prefix for an arch that has one
+(``prefix_cache``).  Neither pool takes a cross-attention arch
+(``refuse_cross_attention``), as in the reference.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import strict
 from ..device import resolve_device
-from ..models import lm, mamba2
+from ..models import lm
 
 
 class SlotOverflowError(ValueError):
@@ -72,6 +76,16 @@ def _layout(caches: list) -> tuple:
                  for c in caches for name, t in c.items())
 
 
+def refuse_cross_attention(cfg: ArchConfig, who: str) -> None:
+    """The reference's refusal: per-request frontend features are not
+    modelled by the scheduler or its pools, so a cross-attention arch
+    serves through ``ServeEngine``'s lock-step batch path."""
+    if "cross_attn" in cfg.layer_kinds():
+        raise ValueError(
+            f"{who} does not serve cross-attention archs (per-request "
+            f"frontend feats); use ServeEngine's legacy batch path")
+
+
 def _zero_states(kinds, caches: list, slot: int) -> None:
     """Zero ``slot``'s rows of every recurrent state (a memset on the
     device each, no host sync).  K/V rows need no wipe: attention masks
@@ -94,6 +108,7 @@ class SlotKVCachePool:
             raise NotImplementedError(
                 "mesh-sharded slot pools are not ported yet (ROADMAP.md, "
                 "multi-GPU)")
+        refuse_cross_attention(cfg, "SlotKVCachePool")
         self._donated_to: str | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -308,6 +323,7 @@ class PagedKVCachePool:
             raise NotImplementedError(
                 "mesh-sharded page pools are not ported yet (ROADMAP.md, "
                 "multi-GPU)")
+        refuse_cross_attention(cfg, "PagedKVCachePool")
         window = window if window is not None else cfg.attn_window
         if window is not None and window > 0:
             raise ValueError(
@@ -337,7 +353,7 @@ class PagedKVCachePool:
             {"k": torch.zeros(shape, dtype=dtype, device=self.device),
              "v": torch.zeros(shape, dtype=dtype, device=self.device)}
             if kind in lm.ATTN_KINDS
-            else mamba2.init_state(cfg, n_slots, dtype, self.device)
+            else lm.init_state(kind, cfg, n_slots, dtype, self.device)
             for kind in self.kinds]
         self._layout_sig = _layout(self.caches)
         self.allocations = 1            # store allocations ever made

@@ -73,7 +73,8 @@ from .decode_loop import (DEFAULT_MAX_DEPTH, DEFAULT_SPEC_HISTORY,
                           make_paged_decode_step, make_paged_spec_decode_step,
                           make_spec_decode_step, to_host)
 from .graphs import DecodeGraphs
-from .kv_cache import PagedKVCachePool, SlotKVCachePool, host_to_device
+from .kv_cache import (PagedKVCachePool, SlotKVCachePool, host_to_device,
+                       refuse_cross_attention)
 
 DEFAULT_PAGE_CANDIDATES = (8, 16, 32, 64)
 
@@ -197,6 +198,7 @@ class ServeScheduler:
                  max_spec_depth: int = 8,
                  spec_history: int = DEFAULT_SPEC_HISTORY,
                  device: str | torch.device = "cuda"):
+        refuse_cross_attention(cfg, "ServeScheduler")
         if mesh is not None:
             raise _not_ported("mesh-sharded serving", "multi-GPU")
         if kernel_tuner is not None:

@@ -38,6 +38,15 @@ def _trainable(params) -> tuple[list[torch.Tensor], dict]:
     return flat, tree.unflatten(params, flat)
 
 
+def _grad(loss: torch.Tensor, flat: list[torch.Tensor]) -> list:
+    """d loss / d each leaf; a leaf the loss does not read (zamba2's
+    ``shared_attn`` layers keep an ``ln1`` that, as in the reference,
+    nothing reads) gets zeros, as ``jax.grad`` gives it."""
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, grads, strict=True)]
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
                     accum: int = 1, attn_impl: str = "chunked",
                     remat: bool = True, lr_fn: Callable | None = None,
@@ -49,7 +58,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
         flat, tparams = _trainable(params)
         if accum <= 1:
             loss = loss_fn(tparams, batch)
-            grads = torch.autograd.grad(loss, flat)
+            grads = _grad(loss, flat)
             loss = loss.detach()
         else:
             # `accum` microbatches (chunks) in order, gradients summed in
@@ -65,7 +74,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
             g_acc = [torch.zeros_like(p, dtype=adt) for p in flat]
             for mb in micro:
                 l_mb = loss_fn(tparams, mb)
-                g = torch.autograd.grad(l_mb, flat)
+                g = _grad(l_mb, flat)
                 torch._foreach_add_(g_acc, [x.to(adt) for x in g])
                 loss = loss + l_mb.detach()
             loss = loss / accum

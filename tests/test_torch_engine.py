@@ -116,20 +116,25 @@ def test_make_decode_step_matches_reference(models):
 
 
 def test_unported_engine_options_raise(models):
+    """Only ``kernel_tuner`` (the tooling) raises.  Frontend features are
+    taken: an arch with no ``cross_attn`` layer reads none of them, and
+    ``generate`` with them takes the lock-step path (as the reference),
+    with the tokens of a run without them."""
     _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="tooling"):
         ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu",
                     kernel_tuner=object())
-    engine = ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu")
     feats = torch.zeros(1, 4, 8)
-    for call in (lambda: engine.prefill(_prompt(5, b=1, s=4),
-                                        frontend_feats=feats),
-                 lambda: engine.decode(_prompt(5, b=1, s=1),
-                                       frontend_feats=feats),
-                 lambda: engine.generate(_prompt(5, b=1, s=4), 2,
-                                         frontend_feats=feats)):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            call()
+    engine = ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu")
+    plain = ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu")
+    for call in (lambda e, f: e.prefill(_prompt(5, b=1, s=4),
+                                        frontend_feats=f),
+                 lambda e, f: e.decode(_prompt(5, b=1, s=1),
+                                       frontend_feats=f),
+                 lambda e, f: e.generate(_prompt(5, b=1, s=4), 2,
+                                         frontend_feats=f)):
+        assert torch.equal(call(engine, feats), call(plain, None))
+    assert engine._sched is None and engine.pos == plain.pos == 4 + 1 + 4 + 2
 
 
 # ---------------------------------------------------------------------------

@@ -124,7 +124,7 @@ def test_config_is_the_reference_and_registered():
     assert cfg.layer_kinds().count("shared_attn") == 6
 
 
-@pytest.mark.parametrize("kind", ["mlstm", "slstm", "cross_attn"])
+@pytest.mark.parametrize("kind", ["lstm", "rwkv", "xattn"])
 def test_check_ported_still_refuses_the_other_kinds(kind):
     cfg = dataclasses.replace(get_config(ZAMBA).reduced(),
                               block_pattern=("mamba2", kind))

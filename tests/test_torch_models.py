@@ -157,6 +157,6 @@ def test_init_params_is_seeded():
 
 def test_unported_block_kinds_raise():
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                              block_pattern=("mlstm",))
+                              block_pattern=("rwkv",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.init_params(0, cfg, device="cpu")

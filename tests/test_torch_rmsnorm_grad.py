@@ -317,9 +317,12 @@ def test_add_rmsnorm_backward_passes_no_residual_gradient_when_unused(card):
     assert name == "repro_add_rmsnorm_bwd" and args[2] is None
 
 
-@pytest.mark.parametrize("d,dtype", [(2048, torch.bfloat16), (80, torch.bfloat16),
-                                     (2048, torch.float32)])
+@pytest.mark.parametrize("d,dtype", [
+    (krms.BWD_MAX_D + 8, torch.bfloat16), (2 * krms.BWD_MAX_D, torch.bfloat16),
+    (krms.BWD_MAX_D + 8, torch.float32)])
 def test_backward_refuses_rows_without_a_layout(card, d, dtype):
+    """Every width that is a multiple of 8 has a layout or the generic
+    loop up to ``BWD_MAX_D``; past it the wrapper refuses, no launch."""
     with pytest.raises(ValueError, match="backward"):
         krms.rmsnorm_bwd(_meta(4, d, dtype=dtype),
                          torch.empty(d, device="meta"),

@@ -152,6 +152,16 @@ def test_pad_ok_is_the_reference_rule(window):
     for name in ARCH_NAMES:
         jcfg = jax_config(name).reduced()
         tcfg = get_config(name).reduced()
+        if "cross_attn" in tcfg.layer_kinds():
+            # Neither scheduler serves a cross-attention arch.
+            for sched in (lambda: JaxScheduler(jcfg, None, n_slots=1,
+                                               max_len=32, window=window),
+                          lambda: ServeScheduler(tcfg, None, n_slots=1,
+                                                 max_len=32, window=window,
+                                                 device="cpu")):
+                with pytest.raises(ValueError, match="cross-attention"):
+                    sched()
+            continue
         ref = JaxScheduler(jcfg, None, n_slots=1, max_len=32, window=window)
         port = ServeScheduler(tcfg, None, n_slots=1, max_len=32,
                               window=window, device="cpu")
