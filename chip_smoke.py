@@ -205,6 +205,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
               from ``make_batch``) through ``serve_cross_attention``
               (the engine's lock-step path; 89 kernel-1 launches a
               forward), TTFT and each decode step beside its bound.
+14. tune    — measured kernel plans (``_tune_phase``, alone:
+              ``tune_main()``), every tuner over a fresh temporary
+              store.  Kernel 1's forward at every candidate warp count
+              (8 and 4096 rows of 1024, 8 rows of 6144; bf16, f32): bit
+              for bit the default launch's, within tolerance of the
+              plain version, timed.  Kernels 2 and 3 at every candidate
+              chunk or schedule (decode B 8, verify Sq 2/4/8, prefill Sq
+              256 over kv 700; bf16, f32): within phase 3's tolerances,
+              kernel 3 bit-equal to kernel 2 and two calls bit-identical,
+              timed beside the bound and SDPA.  qwen3-0.6b at full width
+              served with a ``KernelTuner`` (phase 5's 16 requests,
+              contiguous, then paged with speculation; analytic and tuned
+              in turns A B B A: tok/s, TTFT), the launch counters reset
+              around the first tuned run; its searches (the decode plans
+              measured on the first dispatch over a full pool, on its
+              own lanes) and each winner against its prior; the
+              contiguous runs again with every online decision pinned,
+              analytic and tuned in turns A B B A after eight warm
+              requests each, and one forward's host time each way; ``decode_cost_analysis`` of
+              the live step mid-run beside the measured step; the launch
+              audit of the live steps (clean) and of the injected host
+              copy (a violation); f32: tuned decode logits within 2e-3
+              of the analytic ones, tuned paged tokens == tuned
+              contiguous tokens; the reduced config's count equal on the
+              card and the CPU, f32 and bf16 (tensor-core flops > 0);
+              three training steps (8 x 512) through ``launch/train.py
+              --kernel-autotune``; then the serve CLI
+              (``launch/serve.py --kernel-autotune``) twice over each of
+              two fresh stores, contiguous and paged with speculation at
+              width 4 (the second process: 0 searches), the first round
+              beside the launch-audit CLI (rc 0, and rc 1 with
+              ``--inject-host-copy``).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -260,6 +292,17 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def work_bound(work) -> tuple[float, str]:
+    """A kernel call's bound in ms, and what sets it ("bytes" or
+    "operations"), from its wrapper's own count of its work
+    (``build.Work``: ``rmsnorm.*_work``, ``flash_attention.*_work``)
+    through ``analysis/roofline.bound_of`` (the data sheet's rates)."""
+    from repro_torch.analysis import roofline
+
+    seconds, by = roofline.bound_of(work)
+    return seconds * 1e3, by
 
 
 def within(torch, out, ref, atol, rtol) -> tuple[bool, float]:
@@ -356,8 +399,7 @@ class KernelBench:
         torch.cuda.synchronize()
         atol, rtol = self.RMS_TOL[str(dtype)[6:]]
         ok, err = within(torch, out, ref, atol, rtol)
-        item = x.element_size()
-        bound, by = self.bound_of(2 * rows * d * item + 4 * d, 4 * rows * d)
+        bound, by = work_bound(krms.rmsnorm_work(x, g))
         rec = dict(entry="rmsnorm", shape=f"{name}rows={rows} d={d} "
                    f"{str(dtype)[6:]}", err=err, ok=ok,
                    tol=f"atol={atol} rtol={rtol}", bound_ms=bound,
@@ -389,8 +431,7 @@ class KernelBench:
         bit_equal = torch.equal(s, s_two) and torch.equal(h, h_two)
         if not bit_equal:
             self.bit_bad.append(f"add_rmsnorm rows={rows} d={d} {dtype}")
-        item = x.element_size()
-        bound, by = self.bound_of(4 * rows * d * item + 4 * d, 5 * rows * d)
+        bound, by = work_bound(krms.add_rmsnorm_work(x, y, g))
 
         def chain():
             torch.nn.functional.rms_norm(x + y, (d,), g_lib, 1e-6)
@@ -442,10 +483,8 @@ class KernelBench:
         bit_equal = torch.equal(qo, q_two) and torch.equal(ko, k_two)
         if not bit_equal:
             self.bit_bad.append(f"qk_norm_rope {name} {dtype}")
-        item = q.element_size()
-        elems = q.numel() + k.numel()
-        bound, by = self.bound_of(2 * elems * item + 2 * cos.numel() * 4
-                                  + 2 * 4 * d, 10 * elems)
+        bound, by = work_bound(krms.qk_norm_rope_work(q, k, gq, gk, cos,
+                                                      sin))
 
         def chain():
             qn = torch.nn.functional.rms_norm(q, (d,), gq_lib, 1e-6)
@@ -473,12 +512,10 @@ class KernelBench:
         return self._log("rmsnorm", rec)
 
     # ------------------------------------------------------- kernels 2, 3
-    def _attn_work(self, b, hq, hkv, sq, skv, d, lens, window, dtype,
-                   item, extra_bytes=0, causal=True):
-        """The visible-key mask of this data, and the bound of the work
-        it needs: q read and the output written once, each kv head's
-        visible keys' K and V read once, the lengths (and ``extra_bytes``),
-        4 * D operations per visible (query row, key)."""
+    def _attn_mask(self, b, sq, skv, lens, window, causal=True):
+        """The visible-key mask of this data (B, Sq, Skv), for the SDPA
+        yardstick; the bound comes from the kernel module's own count
+        (``flash_attention.*_work``)."""
         torch, dev = self.torch, self.dev
         kj = torch.arange(skv, device=dev)
         lens_l = lens.long()
@@ -488,14 +525,7 @@ class KernelBench:
             mask = mask & (qi[:, :, None] >= kj[None, None])
         if window is not None:
             mask &= (qi[:, :, None] - kj[None, None]) < window
-        visible = int(mask.sum()) * hq
-        keys_read = int(mask.any(dim=1).sum()) * hkv
-        byts = (2 * b * hq * sq * d + 2 * keys_read * d) * item + 4 * b \
-            + extra_bytes
-        ops = 4 * d * visible
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-        bound, by = self.bound_of(byts, ops, peak)
-        return mask, bound, by
+        return mask
 
     def attn_case(self, name, b, hq, hkv, sq, skv, d, kv_lens, window,
                   dtype, causal=True):
@@ -512,9 +542,9 @@ class KernelBench:
         # f32: exp and sums in another order; bf16: one output rounding.
         atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
         ok, err = within(torch, out, ref, atol, rtol)
-        mask, bound, by = self._attn_work(b, hq, hkv, sq, skv, d, lens,
-                                          window, dtype, q.element_size(),
-                                          causal=causal)
+        mask = self._attn_mask(b, sq, skv, lens, window, causal)
+        bound, by = work_bound(kfa.flash_attention_work(
+            q, k, v, lens, causal=causal, window=window))
         attn_mask = mask[:, None]
         flush = self.flush
         rec = dict(
@@ -562,10 +592,9 @@ class KernelBench:
         deterministic = torch.equal(out, again)
         if not (same and deterministic):
             self.bit_bad.append(f"{name} ps={ps} {dtype}")
-        pages_read = int(((lens.long() + ps - 1) // ps).sum())
-        mask, bound, by = self._attn_work(
-            b, hq, hkv, sq, skv, d, lens, None, dtype, q.element_size(),
-            extra_bytes=4 * pages_read)
+        mask = self._attn_mask(b, sq, skv, lens, None)
+        bound, by = work_bound(kfa.paged_flash_attention_work(
+            q, ks, vs, pt, lens, page_size=ps))
         kg = kfa.gather_pages(ks, pt, ps).contiguous()
         vg = kfa.gather_pages(vs, pt, ps).contiguous()
         attn_mask = mask[:, None]
@@ -859,7 +888,8 @@ def main() -> None:
     path_launches.update(hybrid_launches)
     # ---------------------------------------------------------- 12. xLSTM
     # -------------------------------------------------------- 13. vision
-    for phase in (_xlstm_phase, _vision_phase):
+    # ----------------------------------------------------------- 14. tune
+    for phase in (_xlstm_phase, _vision_phase, _tune_phase):
         phase_records, phase_launches = phase(torch, dev)
         for name, recs in phase_records.items():
             records[name].extend(recs)
@@ -1139,8 +1169,10 @@ def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
     device time both as the sum of kernel times and as the union of their
     intervals (busy time: overlapping kernels count once).  Then
     the synced wall of the same dispatch, five times unprofiled, per
-    iteration.  Uses only APIs the port has had since slice 1, so the
-    same function counts a parent tree's launches."""
+    iteration.  The kernels are grouped by the launch audit's
+    ``kernel_group``; otherwise it uses only APIs the port has had since
+    its first slice, so a parent tree that has the launch audit counts
+    the same way."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.models import lm
@@ -1212,18 +1244,12 @@ def decode_census(torch, dev, cfg=None, params=None, iters: int = 16):
 
 def _kernel_group(name: str) -> str:
     """A profiled kernel's group: GEMMs (cuBLAS), kernel 1, the attention
-    kernels, copies, or the rest (PyTorch's elementwise and reduction
-    kernels)."""
-    low = name.lower()
-    if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass")):
-        return "gemm"
-    if "norm_rows" in low:
-        return "kernel1"
-    if "repro_fa" in low:
-        return "attention"
-    if "memcpy" in low or "memset" in low:
-        return "copy"
-    return "elementwise"
+    kernels, NCCL, copies, or the rest (PyTorch's elementwise and
+    reduction kernels): the launch audit's grouping
+    (``analysis/launch_audit.kernel_group``)."""
+    from repro_torch.analysis.launch_audit import kernel_group
+
+    return kernel_group(name)
 
 
 def census_main(src: str) -> None:
@@ -2337,13 +2363,11 @@ def _train_phase(torch, dev, base, card_line):
     # |dx| up to ~8); dγ stays f32.
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 
-    # The bound counts what the function must move: its inputs read once
-    # and dx, dγ written once.  The dγ partial rows are this kernel's
-    # choice of grid, not the function's, so they stay out of the bound
-    # and are reported beside it (``partials_bytes``).
-    def bwd_bound(byts, ops):
-        t_b, t_o = byts / HBM_BYTES_PER_S, ops / PEAK_F32
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    # The bound counts what the function must move (the kernel module's
+    # own count, ``rmsnorm.*_bwd_work``): its inputs read once and dx, dγ
+    # written once.  The dγ partial rows are this kernel's choice of
+    # grid, not the function's, so they stay out of the bound and are
+    # reported beside it (``partials_bytes``).
 
     def partial_bytes(rows, d, item):
         """The dγ partial rows' traffic: written once, read once.  Rows
@@ -2384,7 +2408,7 @@ def _train_phase(torch, dev, base, card_line):
             if d > 1024 else None
         torch.cuda.synchronize()
         item = x.element_size()
-        bound, by = bwd_bound(3 * rows * d * item + 8 * d, 8 * rows * d)
+        bound, by = work_bound(krms.rmsnorm_bwd_work(x, g, dy))
         rec = dict(entry="rmsnorm", shape=f"rows={rows} d={d} "
                    f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
                    partials_bytes=partial_bytes(rows, d, item))
@@ -2414,7 +2438,7 @@ def _train_phase(torch, dev, base, card_line):
                                        1e-6) if d > 1024 else None
         torch.cuda.synchronize()
         item = s.element_size()
-        bound, by = bwd_bound(4 * rows * d * item + 8 * d, 9 * rows * d)
+        bound, by = work_bound(krms.add_rmsnorm_bwd_work(s, g, dh, ds))
         rec = dict(entry="add_rmsnorm", shape=f"rows={rows} d={d} "
                    f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
                    partials_bytes=partial_bytes(rows, d, item),
@@ -2456,9 +2480,7 @@ def _train_phase(torch, dev, base, card_line):
         torch.cuda.synchronize()
         item = q.element_size()
         rows_q, rows_k = b * length * hq, b * length * hkv
-        elems = (rows_q + rows_k) * d
-        bound, by = bwd_bound(
-            3 * elems * item + 2 * cos.numel() * 4 + 16 * d, 14 * elems)
+        bound, by = work_bound(krms.qk_norm_rope_bwd_work(*args))
         rec = dict(entry="qk_norm_rope",
                    shape=f"B={b} S={length} Hq={hq} Hkv={hkv} D={d} "
                          f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
@@ -4137,6 +4159,632 @@ def _phase_main(n: int, phase) -> None:
     log(f"[phase {n}] {sum(map(len, records.values()))} kernel records; "
         f"launches by path {json.dumps(path_launches)}; "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+# Phase 14: measured kernel plans (``kernels/autotune.KernelTuner``) for
+# kernels 1-3 on the main path, qwen3-0.6b at full width.
+TUNE_HEADS = (16, 8)
+TUNE_PAGE = 16
+TUNE_SERVE = ["--arch", "qwen3-0.6b", "--requests", "16", "--slots", "8",
+              "--prompt-len", "512", "--new-tokens", "64",
+              "--kernel-autotune"]
+
+
+def _tune_kernel1(torch, bench) -> tuple[list, list]:
+    """Kernel 1's forward at every candidate warp count against the
+    default launch (bit for bit) and the plain version; timed."""
+    from repro_torch.kernels import rmsnorm as krms
+
+    records, bad = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = bench.RMS_TOL[str(dtype)[6:]]
+        for rows, d in ((8, 1024), (4096, 1024), (8, 6144)):
+            x = bench.randn(rows, d, dtype=dtype)
+            y = bench.randn(rows, d, dtype=dtype)
+            g = 1.0 + 0.1 * bench.randn(d, dtype=torch.float32)
+            base = krms.rmsnorm(x, g, eps=1e-6)
+            s0, h0 = krms.add_rmsnorm(x, y, g, eps=1e-6)
+            ref = krms.rmsnorm_ref(x, g, 1e-6)
+            _, h_ref = krms.add_rmsnorm_ref(x, y, g, 1e-6)
+            for entry, work in (("rmsnorm", krms.rmsnorm_work(x, g)),
+                                ("add_rmsnorm",
+                                 krms.add_rmsnorm_work(x, y, g))):
+                bound, by = work_bound(work)
+                for warps in krms.WARPS:
+                    if entry == "rmsnorm":
+                        out = krms.rmsnorm(x, g, eps=1e-6, warps=warps)
+                        same = torch.equal(out, base)
+                        ok, err = within(torch, out, ref, atol, rtol)
+                        fn = lambda w=warps: krms.rmsnorm(  # noqa: E731
+                            x, g, eps=1e-6, warps=w)
+                    else:
+                        s1, h1 = krms.add_rmsnorm(x, y, g, eps=1e-6,
+                                                  warps=warps)
+                        same = torch.equal(s1, s0) and torch.equal(h1, h0)
+                        ok, err = within(torch, h1, h_ref, atol, rtol)
+                        fn = lambda w=warps: krms.add_rmsnorm(  # noqa: E731
+                            x, y, g, eps=1e-6, warps=w)
+                    rec = dict(entry=entry, shape=f"rows={rows} d={d} "
+                               f"{str(dtype)[6:]}", warps=warps,
+                               prior=warps == krms.DEFAULT_WARPS, err=err,
+                               ok=ok, bit_equal_default=same,
+                               ms=time_ms(torch, fn, flush=bench.flush),
+                               bound_ms=bound, bound_by=by)
+                    records.append(rec)
+                    log(f"[tune kernel1] {rec}")
+                    if not (ok and same):
+                        bad.append(f"{entry} {rec['shape']} warps={warps}")
+    return records, bad
+
+
+def _tune_attention(torch, bench, perm) -> tuple[list, list]:
+    """Kernels 2 and 3 at every candidate plan of the main path's calls
+    (``tuning.candidates_attention``): each against the plain version
+    (phase 3's tolerances), kernel 3 bit-equal to kernel 2 at the same
+    plan, two calls bit-identical; timed beside the bound (the modules'
+    own count) and SDPA on the same inputs."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import tuning
+
+    hq, hkv = TUNE_HEADS
+    d, max_len, ps = 128, 1024, TUNE_PAGE
+    rng = torch.Generator().manual_seed(1)
+    decode_lens = torch.randint(1, max_len + 1, (8,), generator=rng).tolist()
+    decode_lens[0], decode_lens[1] = 1, max_len
+    cases = [("decode", 8, 1, decode_lens)]
+    cases += [(f"verify{v}", 8, v, [max(n, v) for n in decode_lens])
+              for v in (2, 4, 8)]
+    cases += [("prefill", 1, 256, [700])]
+    records, bad = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+        for name, b, sq, kv_lens in cases:
+            q = bench.randn(b, hq, sq, d, dtype=dtype)
+            kc = bench.randn(b, hkv, max_len, d, dtype=dtype)
+            vc = bench.randn(b, hkv, max_len, d, dtype=dtype)
+            lens = torch.tensor(kv_lens, dtype=torch.int32, device=bench.dev)
+            ks, vs, pt = paged_stores(torch, kc, vc, lens, ps, perm)
+            ref = kfa.attention_ref(q, kc, vc, lens)
+            bound, by = work_bound(kfa.flash_attention_work(q, kc, vc, lens))
+            mask = bench._attn_mask(b, sq, max_len, lens, None)[:, None]
+            sdpa_ms = time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=mask, enable_gqa=True),
+                flush=bench.flush)
+            prior = kfa.attention_plan(b, hq, hkv, sq, dtype)
+            for plan in tuning.candidates_attention(b, hq, hkv, sq, max_len,
+                                                    dtype):
+                out = kfa.flash_attention(q, kc, vc, lens, plan=plan)
+                again = kfa.flash_attention(q, kc, vc, lens, plan=plan)
+                paged = kfa.paged_flash_attention(q, ks, vs, pt, lens,
+                                                  page_size=ps, plan=plan)
+                torch.cuda.synchronize()
+                ok, err = within(torch, out, ref, atol, rtol)
+                same = torch.equal(paged, out) and torch.equal(out, again)
+                value = plan.chunk if plan.path == "split" \
+                    else plan.block_rows
+                rec = dict(
+                    shape=f"{name} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                          f"Skv={max_len} D={d} {str(dtype)[6:]}",
+                    path=plan.path, value=value,
+                    prior=value == (prior.chunk if prior.path == "split"
+                                    else prior.block_rows),
+                    err=err, ok=ok, bit_equal_kernel3_and_2_calls=same,
+                    tol=f"atol={atol} rtol={rtol}",
+                    ms=time_ms(torch, lambda p=plan: kfa.flash_attention(
+                        q, kc, vc, lens, plan=p), flush=bench.flush),
+                    paged_ms=time_ms(
+                        torch, lambda p=plan: kfa.paged_flash_attention(
+                            q, ks, vs, pt, lens, page_size=ps, plan=p),
+                        flush=bench.flush),
+                    library_ms=sdpa_ms, bound_ms=bound, bound_by=by)
+                records.append(rec)
+                log(f"[tune attention] {rec}")
+                if not (ok and same):
+                    bad.append(f"{rec['shape']} {plan.path}={value}")
+    return records, bad
+
+
+def _tune_serve(torch, dev, cfg, params, prompts, store, *, paged):
+    """Phase 5's requests served analytic and with a ``KernelTuner``
+    over ``store`` (the acc calibrations' store, as the launcher's), in
+    turns A B B A (each turn a new scheduler over its store, which
+    serves eight of the requests before its window; the second tuned one
+    reuses the first's winners), so the order of the runs cancels:
+    tok/s and TTFT of each, the first tuned run's launches
+    (counters reset around it) and searches; then, on that scheduler,
+    the cost of one decode-loop iteration mid-run and the launch audit
+    of the live step (and, contiguous, of the injected host copy).
+    Returns {"analytic": first A, "tuned": first B, "runs": all four}."""
+    from repro_torch.analysis import launch_audit
+    from repro_torch.core.acc import AdaptiveCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.serve import ServeScheduler, percentile
+    from repro_torch.serve.scheduler import RequestState
+    from repro_torch.train.autotune import make_kernel_tuner
+
+    kw = dict(n_slots=8, max_len=1024, dispatch_depth="auto", device=dev)
+    if paged:
+        kw.update(paged=True, speculate="auto")
+    runs = []
+    for turn, tuned in enumerate((False, True, True, False)):
+        first = turn == 1
+        # Both arms keep their calibrations in a store on disk (the
+        # analytic arm's apart), so both pay the same writes.
+        cache = CalibrationCache.persistent(
+            store if tuned else store + "-analytic")
+        tuner = make_kernel_tuner(cache) if tuned else None
+        sched = ServeScheduler(
+            cfg, params, executor=adaptive(SequentialExecutor(),
+                                           AdaptiveCoreChunk(cache=cache)),
+            kernel_tuner=tuner, **kw)
+        t0 = time.perf_counter()
+        sched.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        searched = tuner.searches if tuned else 0
+        # Eight requests (8 tokens each) before the window, in both arms:
+        # a tuned step's first dispatch over the full pool measures its
+        # plans (the first tuned turn) and captures it anew out of the
+        # window.
+        for p in prompts[:8]:
+            sched.submit(p, max_new_tokens=8)
+        sched.run_until_idle()
+        sched.clear_finished()
+        torch.cuda.synchronize()
+        before = tuner.searches if tuned else 0
+        iters0, disp0 = sched.decode_loop_iters, sched.decode_dispatches
+        host0, caps0 = sched.host_overhead_s, dict(sched.graphs.captures)
+        gc.collect()
+        krms.reset_counts()
+        kfa.launches.reset()
+        kfa.paged_launches.reset()
+        t_start = time.monotonic()
+        rids = [sched.submit(p, max_new_tokens=64) for p in prompts]
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t_start
+        launches = {"rmsnorm": krms.launches.count,
+                    "flash_attention": kfa.launches.count,
+                    "paged_flash_attention": kfa.paged_launches.count}
+        gen = sum(len(results[r]) for r in rids)
+        ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
+                 for r in rids]
+        run = {"tuned": tuned, "tok_s": gen / makespan,
+               "ttft_p50_ms": percentile(ttfts, 50) * 1e3,
+               "makespan_s": makespan, "warmup_s": warm_s,
+               "tokens": gen, "launches": launches,
+               "decode_loop_iters": sched.decode_loop_iters - iters0,
+               "decode_dispatches": sched.decode_dispatches - disp0,
+               "host_overhead_s": sched.host_overhead_s - host0,
+               "captures_before_window": caps0,
+               "captures": dict(sched.graphs.captures)}
+        if tuned:
+            run.update(searches=tuner.searches, store_hits=tuner.cache_hits,
+                       searches_during_warmup=searched,
+                       searches_in_window=tuner.searches - before)
+        if not first:
+            cache.save()
+        else:
+            run["plans"] = [
+                {"key": list(map(str, r.key[1:-1])), "prior": r.prior,
+                 "winner": r.winner,
+                 "prior_us": None if r.prior_seconds is None
+                 else r.prior_seconds * 1e6,
+                 "winner_us": None if r.winner_seconds is None
+                 else r.winner_seconds * 1e6}
+                for r in tuner.reports if r.measured]
+            # The cost of one decode-loop iteration of the live step,
+            # mid-run: every admitted request decoding, none prefilling.
+            for p in prompts[:8]:
+                sched.submit(p, max_new_tokens=256)
+            for _ in range(200):
+                states = [r.state for r in sched._active]
+                if RequestState.DECODE in states and not sched._waiting \
+                        and RequestState.PREFILL not in states:
+                    break
+                sched.tick()
+            positions = list(sched.pool.positions)
+            cost = sched.decode_cost_analysis()
+            sched.run_until_idle()
+            run["decode_cost"] = {k: v for k, v in cost.items()
+                                  if k != "kernels"} | {
+                "positions": positions,
+                "bound_us": cost["bound_s"] * 1e6,
+                "kernels": cost["kernels"]}
+            cache.save()
+            audits = {"live": launch_audit.audit_scheduler(sched)}
+            if not paged:
+                audits["injected host copy"] = launch_audit.audit_scheduler(
+                    sched, inject_host_copy=True)
+            run["audit"] = {k: a.to_dict() for k, a in audits.items()}
+            for k, a in audits.items():
+                log(f"[tune audit] {'paged' if paged else 'contiguous'} "
+                    f"{k}: {launch_audit.format_report(a)}")
+        runs.append(run)
+        log(f"[tune serve] {'paged+spec' if paged else 'contiguous'} turn "
+            f"{turn}: {json.dumps(run)}")
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"analytic": runs[0], "tuned": runs[1], "runs": runs}
+
+
+def _tune_pinned(torch, dev, cfg, params, prompts, store) -> dict:
+    """Phase 5's requests over the contiguous pool with every online
+    decision pinned (dispatch depth 8, no speculation, a static one-core
+    chunk plan), analytic and tuned (the winners already in ``store``:
+    no search) in turns A B B A, so the comparison holds no decision's
+    spread.  Each arm serves eight of the requests (8 tokens each)
+    before its timed window: the tuned step's first dispatch over the
+    full pool captures it anew with its measured plans, and the analytic
+    arm does the same work.  Then
+    one ``forward_cached`` at L = 128, 16 and 1 each way: the host time
+    of the call and its synced span (median of 20)."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.models import flags, lm
+    from repro_torch.serve import ServeScheduler, percentile
+    from repro_torch.train.autotune import make_kernel_tuner
+
+    tuner = make_kernel_tuner(CalibrationCache.persistent(store))
+    runs = []
+    for tuned in (False, True, True, False):
+        sched = ServeScheduler(cfg, params, n_slots=8, max_len=1024,
+                               executor=adaptive(SequentialExecutor(),
+                                                 StaticCoreChunk(cores=1)),
+                               dispatch_depth=8,
+                               kernel_tuner=tuner if tuned else None,
+                               device=dev)
+        sched.warmup()
+        for p in prompts[:8]:
+            sched.submit(p, max_new_tokens=8)
+        sched.run_until_idle()
+        sched.clear_finished()
+        torch.cuda.synchronize()
+        gc.collect()
+        iters0 = sched.decode_loop_iters
+        t0 = time.monotonic()
+        rids = [sched.submit(p, max_new_tokens=64) for p in prompts]
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        makespan = time.monotonic() - t0
+        ttfts = [sched.requests[r].first_token_at
+                 - sched.requests[r].arrival for r in rids]
+        runs.append({"tuned": tuned, "tok_s": sum(
+            len(results[r]) for r in rids) / makespan,
+            "makespan_s": makespan,
+            "ttft_p50_ms": percentile(ttfts, 50) * 1e3,
+            "decode_loop_iters": sched.decode_loop_iters - iters0,
+            "captures": dict(sched.graphs.captures)})
+        del sched
+    serve_searches = tuner.searches
+    caches = lm.init_caches(cfg, 1, 1024, device=dev)
+    gen = torch.Generator().manual_seed(14)
+    forward = {}
+    for length in (128, 16, 1):
+        toks = torch.randint(0, cfg.vocab_size, (1, length),
+                             generator=gen).to(dev)
+        for name, t in (("analytic", None), ("tuned", tuner)):
+            hs, spans = [], []
+            with flags.kernel_tuner(t):
+                for _ in range(25):
+                    torch.cuda.synchronize()
+                    t_0 = time.perf_counter()
+                    lm.forward_cached(params, toks, caches, 0, cfg)
+                    hs.append(time.perf_counter() - t_0)
+                    torch.cuda.synchronize()
+                    spans.append(time.perf_counter() - t_0)
+            forward[f"L{length} {name}"] = {
+                "host_ms": sorted(hs[5:])[10] * 1e3,
+                "span_ms": sorted(spans[5:])[10] * 1e3}
+    # The single-lane forwards take shapes the served runs never did
+    # (B 1 at L 1): their searches are counted apart.
+    out = {"runs": runs, "forward_cached": forward,
+           "serve_searches": serve_searches,
+           "forward_searches": tuner.searches - serve_searches}
+    log(f"[tune pinned] {json.dumps(out)}")
+    return out
+
+
+def _tune_f32(torch, dev, cfg32, store) -> list:
+    """f32 under measured plans: decode logits after a 300-token prefill
+    of 8 lanes, tuned against analytic (within 2e-3); tuned paged tokens
+    against tuned contiguous tokens (equal: kernels 2 and 3 take one
+    plan for one call).  Returns the problems."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.core.calibration import CalibrationCache
+    from repro_torch.models import flags, lm
+    from repro_torch.serve import ServeScheduler
+    from repro_torch.train.autotune import make_kernel_tuner
+
+    problems = []
+    p32 = lm.init_params(0, cfg32, device=dev)
+    tuner = make_kernel_tuner(CalibrationCache.persistent(store))
+    rng = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, cfg32.vocab_size, (8, 301), generator=rng).to(dev)
+    logits = {}
+    for name, t in (("analytic", None), ("tuned", tuner)):
+        caches = lm.init_caches(cfg32, 8, 1024, device=dev)
+        with flags.kernel_tuner(t):
+            lm.forward_cached(p32, toks[:, :300], caches, 0, cfg32)
+            logits[name], _ = lm.forward_cached(p32, toks[:, 300:], caches,
+                                                300, cfg32)
+    torch.cuda.synchronize()
+    err = float((logits["tuned"] - logits["analytic"]).abs().max())
+    decode = [r for r in tuner.reports
+              if "split" in map(str, r.key)]
+    log(f"[tune f32] decode logits tuned vs analytic: max |diff| {err:.3g} "
+        f"(tol 2e-3); split plans measured (prior -> winner): "
+        f"{[(r.prior, r.winner) for r in decode]}")
+    if not (err <= 2e-3 and bool(torch.isfinite(logits["tuned"]).all())):
+        problems.append(f"f32 tuned decode logits differ by {err}")
+    prompts = [torch.randint(0, cfg32.vocab_size, (n,), generator=rng)
+               for n in (64, 100, 150, 200, 250, 120, 80, 256)]
+    tokens = {}
+    for paged in (False, True):
+        sched = ServeScheduler(cfg32, p32, n_slots=8, max_len=1024,
+                               acc=StaticCoreChunk(cores=8),
+                               dispatch_depth=4, paged=paged,
+                               page_size=TUNE_PAGE, kernel_tuner=tuner,
+                               device=dev)
+        rids = [sched.submit(p, max_new_tokens=16) for p in prompts]
+        res = sched.run_until_idle()
+        tokens[paged] = [res[r] for r in rids]
+        del sched
+    log(f"[tune f32] tuned paged tokens == tuned contiguous tokens: "
+        f"{tokens[True] == tokens[False]}; searches {tuner.searches}")
+    if tokens[True] != tokens[False]:
+        problems.append("f32 tuned paged tokens differ from contiguous")
+    tuner.cache.save()
+    return problems
+
+
+def _tune_count_card_vs_cpu(torch, dev) -> list:
+    """The reduced config's decode-iteration count on the card and on
+    the CPU, f32 and bf16: the same ticks (fixed chunks, per-tick
+    decode), the same flops and bytes, and in bf16 the same tensor-core
+    share (> 0: the split the main path's bound rests on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeScheduler
+
+    # Head dim 64: the smallest the rotary entry has a register layout
+    # for in bf16 (the reduced config's 16 has none on the card).
+    base = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                               head_dim=64)
+    keys = ("flops_per_device", "hbm_bytes_per_device", "tensor_flops",
+            "other_flops", "kernels")
+    problems = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        p_cpu = lm.init_params(0, cfg, device="cpu")
+        rng = torch.Generator().manual_seed(22)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+                   for n in (9, 17, 30, 12)]
+        counts = {}
+        for where in ("cpu", "cuda"):
+            params = p_cpu if where == "cpu" else _to_device(p_cpu, dev)
+            sched = ServeScheduler(cfg, params, n_slots=4, max_len=64,
+                                   acc=StaticCoreChunk(cores=2),
+                                   dispatch_depth=None, device=where)
+            for p in prompts:
+                sched.submit(p, max_new_tokens=8)
+            for _ in range(4):
+                sched.tick()
+            counts[where] = sched.decode_cost_analysis()
+        same = all(counts["cpu"][k] == counts["cuda"][k] for k in keys)
+        log(f"[tune count] reduced qwen3-0.6b (head dim 64) {dtype} decode "
+            f"iteration: cpu { {k: counts['cpu'][k] for k in keys[:4]} }, "
+            f"card { {k: counts['cuda'][k] for k in keys[:4]} }; "
+            f"equal: {same}")
+        if not same:
+            problems.append(f"the {dtype} decode-iteration count differs "
+                            f"between the card and the CPU")
+        if dtype == "bfloat16" and not counts["cuda"]["tensor_flops"] > 0:
+            problems.append("the bf16 decode-iteration count has no "
+                            "tensor-core flops")
+    return problems
+
+
+def _tune_train(store) -> tuple[dict, list]:
+    """Three steps of 8 x 512 through ``launch/train.py
+    --kernel-autotune`` at full width, in this process."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as ckpt:
+        with contextlib.redirect_stdout(buf):
+            launch_train.main(["--arch", "qwen3-0.6b", "--steps", "3",
+                               "--batch", "8", "--seq", "512",
+                               "--cal-cache-dir", store, "--ckpt", ckpt,
+                               "--log-every", "1", "--kernel-autotune"])
+    out = buf.getvalue()
+    lines = out.splitlines()
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step")]
+    tune = [ln for ln in lines if ln.startswith("kernel autotune:")]
+    done = [ln for ln in lines if ln.startswith("done:")]
+    rec = {"losses": losses, "autotune": tune, "done": done}
+    log(f"[tune train] {json.dumps(rec)}")
+    ok = len(losses) == 3 and all(math.isfinite(x) for x in losses) \
+        and len(tune) == 1
+    return rec, [] if ok else [f"train --kernel-autotune: {rec}"]
+
+
+def _tune_subprocesses(stores: dict) -> list:
+    """The serve CLI twice over each of two fresh stores (contiguous;
+    paged with speculation at width 4): the first process measures, the
+    second, on the same requests, searches nothing and reuses every
+    winner; beside the first round the launch-audit CLI (clean: rc 0;
+    the injected host copy: rc 1).  The decode plans are measured on the
+    first process's live lanes, so the second runs the same shapes: a
+    fixed speculation width, where ``auto`` could visit a width the
+    first never did."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    serve = [sys.executable, "-m", "repro_torch.launch.serve", *TUNE_SERVE]
+    cli = {"contiguous": serve + ["--cal-cache-dir", stores["cli"]],
+           "paged": serve + ["--paged", "--speculate", "4",
+                             "--cal-cache-dir", stores["cli paged"]]}
+    audit = [sys.executable, "-m", "repro_torch.analysis.launch_audit",
+             "--arch", "qwen3-0.6b"]
+    rounds = [{"serve contiguous first": cli["contiguous"],
+               "serve paged first": cli["paged"], "audit": audit,
+               "audit injected": audit + ["--paged", "--inject-host-copy"]},
+              {"serve contiguous second": cli["contiguous"],
+               "serve paged second": cli["paged"]}]
+    outs = {}
+    for cmds in rounds:
+        procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+                 for k, c in cmds.items()}
+        try:
+            for k, proc in procs.items():
+                outs[k] = (proc.communicate(timeout=400)[0],
+                           proc.returncode)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    problems = []
+    for k, (text, rc) in outs.items():
+        tail = [ln for ln in text.splitlines()
+                if ln.startswith(("kernel autotune:", "generated",
+                                  "launch-audit", "  VIOLATION"))]
+        log(f"[tune cli] {k}: rc={rc}; {tail}")
+        if k.startswith("serve"):
+            want = "kernel autotune: 0 measured" if k.endswith("second") \
+                else "kernel autotune: "
+            if rc != 0 or not any(ln.startswith(want) for ln in tail):
+                problems.append(f"{k} process: rc {rc}, {tail} "
+                                f"{text[-1500:] if rc else ''}")
+        elif rc != (1 if "injected" in k else 0) or not any(
+                ln.startswith("launch-audit:") for ln in tail):
+            problems.append(f"{k}: rc {rc} {text[-1500:]}")
+    return problems
+
+
+def _tune_phase(torch, dev):
+    """Phase 14 (module docstring).  Returns ({kernel: records},
+    {path: launches}) like the other phases."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    base = get_config("qwen3-0.6b")
+    bench = KernelBench(torch, dev, seed=40,
+                        kernels=("rmsnorm", "flash_attention"))
+    k1, bad1 = _tune_kernel1(torch, bench)
+    attn, bad2 = _tune_attention(torch, bench,
+                                 torch.Generator().manual_seed(41))
+    bench.close()
+    if bad1 or bad2:
+        fail(f"phase 14 kernel plans: kernel 1 not bit-equal to its "
+             f"default launch or off its plain version: {bad1}; kernels "
+             f"2/3 off tolerance, or not bit-equal to each other or over "
+             f"two calls: {bad2}")
+    problems = []
+    tmp = tempfile.mkdtemp(prefix="tune-store-")
+    stores = {k: os.path.join(tmp, k.replace(" ", "-")) for k in (
+        "contiguous", "paged", "f32", "train", "cli", "cli paged")}
+    try:
+        params = lm.init_params(0, base, device=dev)
+        rng = torch.Generator().manual_seed(3)
+        lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+        prompts = [torch.randint(0, base.vocab_size, (n,), generator=rng)
+                   for n in lens]
+        serve = {}
+        for pool in ("contiguous", "paged"):
+            serve[pool] = _tune_serve(torch, dev, base, params, prompts,
+                                      stores[pool], paged=pool == "paged")
+            tuned = serve[pool]["tuned"]
+            if tuned["searches"] <= 0:
+                problems.append(f"{pool}: the tuned run searched nothing")
+            live = tuned["audit"]["live"]
+            if not live["ok"]:
+                problems.append(f"{pool}: the live step's audit: {live}")
+            inj = tuned["audit"].get("injected host copy")
+            if inj is not None and inj["ok"]:
+                problems.append("the injected host copy passed the audit")
+            if not all(tuned["launches"][k] > 0 for k in (
+                    "rmsnorm", "paged_flash_attention" if pool == "paged"
+                    else "flash_attention")):
+                problems.append(f"{pool}: the tuned run launched no kernel "
+                                f"{tuned['launches']}")
+        pinned = _tune_pinned(torch, dev, base, params, prompts,
+                              stores["contiguous"])
+        if pinned["serve_searches"]:
+            problems.append(f"the pinned tuned runs searched "
+                            f"{pinned['serve_searches']} times over a full "
+                            f"store")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        census = decode_census(torch, dev)
+        for pool in ("contiguous", "paged"):
+            cost = serve[pool]["tuned"]["decode_cost"]
+            log(f"[tune cost] {pool}: one decode-loop iteration "
+                f"({cost['path']}, positions {cost['positions']}): flops "
+                f"{cost['flops_per_device']:.4g} (tensor "
+                f"{cost['tensor_flops']:.4g}), bytes "
+                f"{cost['hbm_bytes_per_device']:.4g}, bound "
+                f"{cost['bound_us']:.1f} us ({cost['bound_by']}); measured "
+                f"step (decode census, positions 100-800, analytic plans): "
+                f"device busy {census['device_busy_us_per_iteration']:.1f} "
+                f"us, synced wall {census['synced_wall_us_per_iteration']:.1f}"
+                f" us")
+        cfg32 = dataclasses.replace(base, compute_dtype="float32")
+        problems += _tune_f32(torch, dev, cfg32, stores["f32"])
+        problems += _tune_count_card_vs_cpu(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, train_bad = _tune_train(stores["train"])
+        problems += train_bad
+        gc.collect()
+        torch.cuda.empty_cache()
+        problems += _tune_subprocesses(stores)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        fail("phase 14: " + "; ".join(problems))
+    for pool in ("contiguous", "paged"):
+        t = serve[pool]["tuned"]
+        turns = " ".join(f"{'B' if r['tuned'] else 'A'} {r['tok_s']:.1f}"
+                         for r in serve[pool]["runs"])
+        ttft = " ".join(f"{r['ttft_p50_ms']:.1f}"
+                        for r in serve[pool]["runs"])
+        log(f"[tune] {pool}: tok/s A B B A {turns}; ttft p50 ms {ttft}; "
+            f"searches {t['searches']} ({t['searches_during_warmup']} in "
+            f"warmup, {t['searches_in_window']} in the window), then "
+            f"{serve[pool]['runs'][2]['searches']}")
+    log(f"[phase 14] {time.perf_counter() - t_phase:.1f}s")
+    path_launches = {
+        f"phase 14 qwen3-0.6b tuned {pool}": {
+            k: v for k, v in serve[pool]["tuned"]["launches"].items() if v}
+        for pool in ("contiguous", "paged")}
+    return {"rmsnorm": k1, "flash_attention": attn}, path_launches
+
+
+def tune_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.tune_main()"``: the
+    build and phase 14 alone (measured kernel plans)."""
+    _phase_main(14, _tune_phase)
 
 
 def xlstm_main() -> None:

@@ -326,6 +326,9 @@ class MeasuredBlockSearch:
     synthetic data of the right shape.  PyTorch runs eagerly, so there is
     no trace to escape; the probe instead synchronises the card around
     every timed call, so the clock times execution and not the launch.
+    A ``run`` that times the device itself (CUDA events: a kernel shorter
+    than its host launch would otherwise time the host) returns its
+    seconds, which then stand for that call in place of the wall clock.
     """
 
     name = "measured-search"
@@ -355,9 +358,10 @@ class MeasuredBlockSearch:
             best = float("inf")
             for _ in range(repeats):
                 t = time.perf_counter()
-                run(*cand)
+                took = run(*cand)
                 self._sync()
-                best = min(best, time.perf_counter() - t)
+                wall = time.perf_counter() - t
+                best = min(best, wall if took is None else float(took))
         return best
 
     def search(self, candidates: Sequence[tuple],
@@ -871,11 +875,13 @@ class ExecutionModel:
     def tuned_blocks(self, key: DecisionKey | Hashable,
                      candidates: Sequence[tuple],
                      run: Callable[..., None], fields: tuple[str, ...], *,
-                     repeats: int | None = None) -> Decision:
+                     repeats: int | None = None,
+                     legal: Callable[[tuple], bool] | None = None
+                     ) -> Decision:
         """Measured winner for a kernel block key: from the store when a
-        legal persisted record exists, else a candidate sweep through
-        the measured-search policy, persisted for every later process
-        sharing the store."""
+        legal persisted record exists (positive fields, and ``legal``
+        where given), else a candidate sweep through the measured-search
+        policy, persisted for every later process sharing the store."""
         dkey = DecisionKey.wrap(key)
         k = dkey.cache_key()
         search: MeasuredBlockSearch = self.policies["search"]
@@ -884,7 +890,8 @@ class ExecutionModel:
         if rec is not None:
             try:
                 winner = tuple(int(rec[f]) for f in fields)
-                if any(v <= 0 for v in winner):
+                if any(v <= 0 for v in winner) or (
+                        legal is not None and not legal(winner)):
                     winner = None  # illegal block: re-measure
             except (KeyError, TypeError, ValueError):
                 winner = None      # torn/foreign record: re-measure

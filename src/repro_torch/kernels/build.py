@@ -11,6 +11,8 @@ this module is imported.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import Callable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -193,3 +196,53 @@ def add_tally(tally: dict) -> None:
             c.count += count
             for k, n in by_key.items():
                 c.by_key[k] = c.by_key.get(k, 0) + n
+
+
+# ---------------------------------------------------------------------------
+# the work a kernel call must do (analysis/roofline.count_costs reads it)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """What one kernel call must do, whatever implements it: products on
+    the tensor cores (bf16), other operations, and bytes (each input read
+    once, each output written once; where the work depends on the data,
+    what this call's data needs)."""
+
+    tensor_flops: float = 0.0
+    other_flops: float = 0.0
+    bytes: float = 0.0
+
+    def __add__(self, other: Work) -> Work:
+        return Work(self.tensor_flops + other.tensor_flops,
+                    self.other_flops + other.other_flops,
+                    self.bytes + other.bytes)
+
+
+# Active cost counts: each is called with (kernel name, Work) once per
+# wrapper call while it is listed (``analysis/roofline.count_costs``).
+work_sinks: list[Callable[[str, Work], None]] = []
+
+
+def counted(name: str, work: Callable[..., Work]):
+    """Decorate a kernel wrapper: while a cost count is active
+    (``work_sinks``), each call adds ``work(*args, **kwargs)`` (the
+    wrapper's own count of its work) and runs with the count's tensor-op
+    mode suppressed, so the wrapper's own tensor ops (its plain version
+    on the CPU, its allocations on the card) are not counted again: one
+    call counts the same on the CPU and on the card.  With no count
+    active the wrapper runs as it is."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not work_sinks:
+                return fn(*args, **kwargs)
+            from torch.utils._python_dispatch import _disable_current_modes
+
+            with _disable_current_modes():
+                w = work(*args, **kwargs)
+                for sink in list(work_sinks):
+                    sink(name, w)
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco

@@ -29,9 +29,11 @@
 //   bytes: a key costs 4 * D flops per query row against 4 * D bytes of
 //   bf16 K/V, 2 flops a byte at decode (2 rows) and 16 at most, far below
 //   the card's ~295.  So the design spends the card's width on bytes: the
-//   grid is (kv chunks, Hkv, B) with chunks of Vec<T>::kChunk keys (256
-//   bf16, 128 f32) at absolute multiples of that constant; a chunk at or past the lane's
-//   length exits at once; tiles come in through cp.async, 16 bytes a
+//   grid is (kv chunks, Hkv, B) with chunks of `chunk` keys at absolute
+//   multiples of it: a run-time argument, a multiple of the split tile,
+//   by default Vec<T>::kChunk (256 bf16, 128 f32; the wrapper's measured
+//   plan may pick another); a chunk at or past the lane's length exits at
+//   once; tiles come in through cp.async, 16 bytes a
 //   thread, into a two-stage ring; bf16 multiplies with mma.sync
 //   m16n8k16 (the block's rows as M), f32 in IEEE f32 on the CUDA cores
 //   with every lane scoring a key; each block writes its (m, l, acc) to
@@ -54,7 +56,8 @@
 //   gate (card vs CPU within 2e-3) and the f32 token-identity runs that
 //   rest on it; the f32 tile path is the split kernel's CUDA-core loop
 //   over blocks of kSplitRows packed rows and the whole kv range, written
-//   directly.
+//   directly.  bf16 can run that loop too (its mma.sync body, block_rows
+//   = kSplitRows): the second tile schedule a measured plan may pick.
 //
 // Fully masked tiles are skipped in both: past the lane's length, above
 // the causal diagonal of the block's last row, before the window of its
@@ -94,8 +97,8 @@ inline bool use_split(int Hq, int Hkv, int Sq) {
 template <typename T> struct Vec;
 
 // Per dtype: N elements per 16-byte copy, kKeys keys per split-path
-// tile, kChunk keys per split (at absolute multiples of it): bf16 reads
-// half the bytes a key and takes longer splits.
+// tile, kChunk the default keys per split (the launch's `chunk`): bf16
+// reads half the bytes a key and takes longer splits.
 template <> struct Vec<float> {
   static constexpr int N = 4;
   static constexpr int kKeys = 32;
@@ -401,8 +404,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
 
 // chunk > 0: split path, blockIdx.x is the split, the block holds all
 // R = Sq * group rows (<= kSplitRows) and writes partials to `part`.
-// chunk == 0 (f32 only): the f32 tile path, blockIdx.x is a block of
-// kSplitRows rows over the whole kv range, written to `out` directly.
+// chunk == 0: the tile path's 16-row schedule (f32's only one, bf16's
+// second), blockIdx.x is a block of kSplitRows rows over the whole kv
+// range, written to `out` directly.
 //
 // bf16 multiplies on the tensor cores with mma.sync m16n8k16, the block's
 // <= 16 packed rows as M: warp w scores keys [16 w, 16 w + 16) of a tile
@@ -982,12 +986,19 @@ int allow_smem(K kernel, int bytes) {
 // One C call of either kernel: the schedule from (Hq, Hkv, Sq), the
 // launches (the split path's merge after its splits, on the same stream),
 // and the CUDA error code of the first launch that failed (0 on success).
-// `part` is the wrapper's scratch: B * Hkv * ceil(Skv / Vec<T>::kChunk)
-// splits of kPartFloats floats, needed by the split path only.
+// `chunk` is the split path's keys per split: a positive multiple of the
+// split tile Vec<T>::kKeys (64 keys bf16, 32 f32), Vec<T>::kChunk by
+// default; splits sit at absolute multiples of it.  `block_rows` is the
+// tile path's schedule: kTileRows, the wgmma warpgroup (bf16 only, its
+// default), or kSplitRows, the split kernel's loop over the whole kv range
+// (f32's only schedule).  `part` is the wrapper's scratch: B * Hkv *
+// ceil(Skv / chunk) splits of kPartFloats floats, needed by the split
+// path only.
 template <typename T, typename KV>
 int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
            int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
-           int causal, int window, cudaStream_t s) {
+           int causal, int window, int chunk, int block_rows,
+           cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
   const int R = Sq * (Hq / Hkv);
@@ -995,8 +1006,8 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
       allow_smem(flash_split_kernel<T, KV>, SplitSmem<T>::kBytes);
   if (split_ready != 0) return split_ready;
   if (use_split(Hq, Hkv, Sq)) {
-    if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int chunk = Vec<T>::kChunk;
+    if (part == nullptr || chunk <= 0 || chunk % Vec<T>::kKeys != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
     const int n_x = (Skv + chunk - 1) / chunk;
     float* pf = static_cast<float*>(part);
     if (n_x > 0) {
@@ -1024,20 +1035,24 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
         &cfg, flash_combine_kernel<T>, static_cast<const float*>(pf), kv_lens,
         ot, Hq, Hkv, Sq, Skv, D, causal, window, chunk, n_x));
   }
+  if (block_rows != kSplitRows && (sizeof(T) != 2 || block_rows != kTileRows))
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 2) {
-    static int tile_ready =
-        allow_smem(flash_tile_kernel<KV>, TileSmem::kBytes);
-    if (tile_ready != 0) return tile_ready;
-    const dim3 grid((R + kTileRows - 1) / kTileRows, Hkv, B);
-    flash_tile_kernel<KV><<<grid, kThreads, TileSmem::kBytes, s>>>(
-        qt, kv, kv_lens, ot, Hq, Hkv, Sq, Skv, D,
-        scale * 1.4426950408889634f, causal, window);
-  } else {
-    const dim3 grid((R + kSplitRows - 1) / kSplitRows, Hkv, B);
-    flash_split_kernel<T, KV><<<grid, kThreads, SplitSmem<T>::kBytes, s>>>(
-        qt, kv, kv_lens, ot, nullptr, Hq, Hkv, Sq, Skv, D, scale, causal,
-        window, 0);
+    if (block_rows == kTileRows) {
+      static int tile_ready =
+          allow_smem(flash_tile_kernel<KV>, TileSmem::kBytes);
+      if (tile_ready != 0) return tile_ready;
+      const dim3 grid((R + kTileRows - 1) / kTileRows, Hkv, B);
+      flash_tile_kernel<KV><<<grid, kThreads, TileSmem::kBytes, s>>>(
+          qt, kv, kv_lens, ot, Hq, Hkv, Sq, Skv, D,
+          scale * 1.4426950408889634f, causal, window);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
+  const dim3 grid((R + kSplitRows - 1) / kSplitRows, Hkv, B);
+  flash_split_kernel<T, KV><<<grid, kThreads, SplitSmem<T>::kBytes, s>>>(
+      qt, kv, kv_lens, ot, nullptr, Hq, Hkv, Sq, Skv, D, scale, causal,
+      window, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

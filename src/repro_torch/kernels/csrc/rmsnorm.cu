@@ -40,8 +40,11 @@
 // widths (a multiple of 8 elements) take one warp per row in a runtime
 // loop that reads x again.  The rotary
 // partner of an element, d/2 away, sits in lane ^ (NV/2) for NV <= 32 and
-// in vector k ^ (NV/2/LPR) of the same lane above.  No allocation, no
-// synchronisation; launched on the caller's stream.
+// in vector k ^ (NV/2/LPR) of the same lane above.  The forward norms'
+// block holds 1, 2, 4 or 8 warps (8 by default; the measured plan of
+// kernels/autotune.py picks among them); no row's arithmetic depends on
+// it.  No allocation, no synchronisation; launched on the caller's
+// stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,7 +107,9 @@ __device__ __forceinline__ void load_f32(const float* p, float* o) {
 }
 
 // A row of NV 16-byte vectors: LPR lanes, VPL vectors each, RPW rows per
-// warp, RPB per block.  Lane `sub` of a row holds vectors k * LPR + sub.
+// warp, RPB per block of kWarps warps (the backward and the rotary entry;
+// the forward norm's block may have fewer warps, blockDim.x / 32).  Lane
+// `sub` of a row holds vectors k * LPR + sub.
 template <int NV> struct Layout {
   static constexpr int LPR = NV < 32 ? NV : 32;
   static constexpr int VPL = NV / LPR;
@@ -142,13 +147,16 @@ struct RowSlot {
   bool live;  // row < rows (a dead lane still joins the shuffles)
 };
 
+// The block's warps come from blockDim.x: a row's arithmetic does not
+// depend on the block, so every block size gives the same bits.
 template <int NV>
 __device__ __forceinline__ RowSlot row_slot(int rows) {
   using L = Layout<NV>;
   const int lane = threadIdx.x & 31;
+  const int warps = static_cast<int>(blockDim.x >> 5);
   RowSlot s;
   s.sub = lane % L::LPR;
-  s.row = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * L::RPW + lane / L::LPR;
+  s.row = (blockIdx.x * warps + (threadIdx.x >> 5)) * L::RPW + lane / L::LPR;
   s.live = s.row < rows;
   return s;
 }
@@ -283,7 +291,8 @@ norm_rows_generic(const T* __restrict__ x, const T* __restrict__ y,
                   T* __restrict__ out, int rows, int d, float eps) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.x * static_cast<int>(blockDim.x >> 5) +
+                  (threadIdx.x >> 5);
   if (row >= rows) return;
   const int64_t base = static_cast<int64_t>(row) * d;
   const int nvec = d / N;
@@ -320,28 +329,32 @@ norm_rows_generic(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+// `warps` per block: 1, 2, 4 or 8 (kWarps, the default); the entry
+// points check it.
 template <typename T, int NV, bool kAdd>
 void launch_fixed(const void* x, const void* y, const float* gamma, void* s,
-                  void* out, int rows, float eps, cudaStream_t st) {
-  const int grid = (rows + Layout<NV>::RPB - 1) / Layout<NV>::RPB;
-  norm_rows<T, NV, kAdd><<<grid, kThreads, 0, st>>>(
+                  void* out, int rows, float eps, int warps, cudaStream_t st) {
+  const int rpb = Layout<NV>::RPW * warps;
+  const int grid = (rows + rpb - 1) / rpb;
+  norm_rows<T, NV, kAdd><<<grid, 32 * warps, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), gamma,
       static_cast<T*>(s), static_cast<T*>(out), rows, eps);
 }
 
 template <typename T, bool kAdd>
 void launch_norm(const void* x, const void* y, const float* gamma, void* s,
-                 void* out, int rows, int d, float eps, cudaStream_t st) {
+                 void* out, int rows, int d, float eps, int warps,
+                 cudaStream_t st) {
   switch (d * static_cast<int>(sizeof(T)) / 16) {
-    case 8: return launch_fixed<T, 8, kAdd>(x, y, gamma, s, out, rows, eps, st);
-    case 16: return launch_fixed<T, 16, kAdd>(x, y, gamma, s, out, rows, eps, st);
-    case 32: return launch_fixed<T, 32, kAdd>(x, y, gamma, s, out, rows, eps, st);
-    case 64: return launch_fixed<T, 64, kAdd>(x, y, gamma, s, out, rows, eps, st);
-    case 128: return launch_fixed<T, 128, kAdd>(x, y, gamma, s, out, rows, eps, st);
-    case 256: return launch_fixed<T, 256, kAdd>(x, y, gamma, s, out, rows, eps, st);
+    case 8: return launch_fixed<T, 8, kAdd>(x, y, gamma, s, out, rows, eps, warps, st);
+    case 16: return launch_fixed<T, 16, kAdd>(x, y, gamma, s, out, rows, eps, warps, st);
+    case 32: return launch_fixed<T, 32, kAdd>(x, y, gamma, s, out, rows, eps, warps, st);
+    case 64: return launch_fixed<T, 64, kAdd>(x, y, gamma, s, out, rows, eps, warps, st);
+    case 128: return launch_fixed<T, 128, kAdd>(x, y, gamma, s, out, rows, eps, warps, st);
+    case 256: return launch_fixed<T, 256, kAdd>(x, y, gamma, s, out, rows, eps, warps, st);
     default: {
-      const int grid = (rows + kWarps - 1) / kWarps;
-      norm_rows_generic<T, kAdd><<<grid, kThreads, 0, st>>>(
+      const int grid = (rows + warps - 1) / warps;
+      norm_rows_generic<T, kAdd><<<grid, 32 * warps, 0, st>>>(
           static_cast<const T*>(x), static_cast<const T*>(y), gamma,
           static_cast<T*>(s), static_cast<T*>(out), rows, d, eps);
     }
@@ -780,28 +793,36 @@ int run_bwd(const BwdSeg& s0, const BwdSeg& s1, int d, const void* cs,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Every row pointer contiguous and
-// 16-byte aligned, d a multiple of 8 (the wrapper checks).  Each returns
-// the CUDA error code of its launch (0 on success).
+// 16-byte aligned, d a multiple of 8 (the wrapper checks).  The forward
+// norms take the block's warps (1, 2, 4 or 8; 8 by default): every value
+// gives the same bits.  Each returns the CUDA error code of its launch (0
+// on success).
+static bool warps_ok(int warps) {
+  return warps == 1 || warps == 2 || warps == 4 || warps == kWarps;
+}
+
 extern "C" int repro_rmsnorm(const void* x, const void* gamma, void* out,
-                             int rows, int d, float eps, int dtype,
+                             int rows, int d, float eps, int warps, int dtype,
                              void* stream) {
+  if (!warps_ok(warps)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
-  if (dtype == 0) launch_norm<float, false>(x, nullptr, g, nullptr, out, rows, d, eps, s);
-  else launch_norm<__nv_bfloat16, false>(x, nullptr, g, nullptr, out, rows, d, eps, s);
+  if (dtype == 0) launch_norm<float, false>(x, nullptr, g, nullptr, out, rows, d, eps, warps, s);
+  else launch_norm<__nv_bfloat16, false>(x, nullptr, g, nullptr, out, rows, d, eps, warps, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_add_rmsnorm(const void* x, const void* y,
                                  const void* gamma, void* s_out, void* out,
-                                 int rows, int d, float eps, int dtype,
-                                 void* stream) {
+                                 int rows, int d, float eps, int warps,
+                                 int dtype, void* stream) {
+  if (!warps_ok(warps)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
-  if (dtype == 0) launch_norm<float, true>(x, y, g, s_out, out, rows, d, eps, s);
-  else launch_norm<__nv_bfloat16, true>(x, y, g, s_out, out, rows, d, eps, s);
+  if (dtype == 0) launch_norm<float, true>(x, y, g, s_out, out, rows, d, eps, warps, s);
+  else launch_norm<__nv_bfloat16, true>(x, y, g, s_out, out, rows, d, eps, warps, s);
   return static_cast<int>(cudaGetLastError());
 }
 

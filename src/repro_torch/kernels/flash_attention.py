@@ -20,7 +20,12 @@ from (B, Hq, Hkv, Sq, dtype) alone: split-KV decode for at most
 ``SPLIT_ROWS`` packed query rows per kv head (decode and verify), the
 tile path above it (prefill chunks; tensor cores in bf16).  The C side
 (``csrc/flash_attention.cuh``, ``use_split`` and its constants) makes the
-same choice; the wrapper uses the plan to size the split path's scratch.
+same choice.  ``attention_plan`` is the analytic prior; a wrapper may be
+given another plan of the same path (``plan=``: a measured one,
+``autotune.KernelTuner.plan_attention``): the split path's keys per
+split, or the tile path's schedule, which the wrapper checks, passes to
+the C call and sizes the split path's scratch from.  The default plan
+gives the bits the kernels gave before plans were measured.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``attention_ref``, ``paged_attention_ref``) for CPU tensors.
@@ -47,8 +52,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The schedule's constants, as in csrc/flash_attention.cuh.
 SPLIT_ROWS = 16        # kSplitRows: packed rows of a split-path block
-# Keys per split, at absolute multiples (Vec<T>::kChunk): bf16 reads half
-# the bytes a key and takes longer splits.
+# Keys per split by default, at absolute multiples (Vec<T>::kChunk): bf16
+# reads half the bytes a key and takes longer splits.  A plan's chunk is
+# any positive multiple of the split tile (kv_tile: Vec<T>::kKeys).
 SPLIT_CHUNK = {torch.bfloat16: 256, torch.float32: 128}
 TILE_ROWS = 64         # kTileRows: packed rows of a tensor-core block
 MAX_D = 128            # kMaxD
@@ -60,7 +66,9 @@ class AttentionPlan:
     """How one attention call runs.  ``path`` is ``"split"`` (split-KV
     decode: grid of kv chunks of ``chunk`` keys at absolute multiples of
     it, partials merged in split order) or ``"tile"`` (blocks of
-    ``block_rows`` packed rows over the whole kv range; wgmma in bf16,
+    ``block_rows`` packed rows over the whole kv range: ``TILE_ROWS``,
+    the wgmma warpgroup, in bf16 only (``tensor_cores``), or
+    ``SPLIT_ROWS``, the split kernel's loop, mma.sync in bf16 and the
     CUDA cores in f32).  ``rows`` = Sq * group packed rows per kv head."""
 
     path: str
@@ -106,6 +114,49 @@ def attention_plan(b: int, hq: int, hkv: int, sq: int,
     return AttentionPlan("tile", b, hkv, rows,
                          TILE_ROWS if bf16 else SPLIT_ROWS, kv_tile, None,
                          bf16)
+
+
+def tile_schedules(dtype: torch.dtype) -> tuple[int, ...]:
+    """The tile path's schedules (block rows) a dtype runs, the prior's
+    first: bf16 the wgmma warpgroup and the 16-row loop, f32 the loop."""
+    return (TILE_ROWS, SPLIT_ROWS) if dtype == torch.bfloat16 \
+        else (SPLIT_ROWS,)
+
+
+def with_value(prior: AttentionPlan, value: int) -> AttentionPlan:
+    """``prior`` with its path's tunable set to ``value``: the keys per
+    split on the split path, the block rows (the schedule) on the tile
+    path."""
+    if prior.path == "split":
+        return dataclasses.replace(prior, chunk=int(value))
+    return dataclasses.replace(prior, block_rows=int(value),
+                               tensor_cores=int(value) == TILE_ROWS)
+
+
+def check_plan(name: str, plan: AttentionPlan, b: int, hq: int, hkv: int,
+               sq: int, dtype: torch.dtype) -> AttentionPlan:
+    """Raise unless ``plan`` is one the kernels run for this call: the
+    path ``attention_plan`` gives (the C side picks it from the shapes
+    too), and on it a chunk that is a positive multiple of the split
+    tile, or a tile schedule the dtype has."""
+    prior = attention_plan(b, hq, hkv, sq, dtype)
+    if plan is prior:
+        return plan
+    same = (plan.path, plan.b, plan.hkv, plan.rows, plan.kv_tile) == (
+        prior.path, prior.b, prior.hkv, prior.rows, prior.kv_tile)
+    if plan.path == "split":
+        ok = same and plan.block_rows == SPLIT_ROWS \
+            and not plan.tensor_cores and plan.chunk is not None \
+            and plan.chunk > 0 and plan.chunk % plan.kv_tile == 0
+    else:
+        ok = same and plan.chunk is None \
+            and plan.block_rows in tile_schedules(dtype) \
+            and plan.tensor_cores == (plan.block_rows == TILE_ROWS)
+    if not ok:
+        raise ValueError(f"{name}: plan {plan} is not legal for B={b} "
+                         f"Hq={hq} Hkv={hkv} Sq={sq} {dtype} (prior "
+                         f"{prior})")
+    return plan
 
 
 _scratch: dict = {}
@@ -207,12 +258,58 @@ def _require_card(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
+def _work(q: torch.Tensor, hkv: int, skv: int, kv_lens, causal: bool,
+          window: int | None, extra_bytes: int = 0) -> build.Work:
+    """The work this call's data needs: q read and the output written
+    once, each kv head's visible keys' K and V read once, the lengths
+    (and ``extra_bytes``), 4 * D operations per visible (query row, key):
+    on the tensor cores in bf16, on the CUDA cores in f32.  Reads the
+    lengths on the host."""
+    b, hq, sq, d = q.shape
+    lens = torch.full((b,), skv, dtype=torch.long) if kv_lens is None \
+        else kv_lens.detach().to("cpu", torch.long)
+    kj = torch.arange(skv)
+    qi = lens[:, None] - sq + torch.arange(sq)[None]
+    mask = (kj[None, None] < lens[:, None, None]).expand(b, sq, skv)
+    if causal:
+        mask = mask & (qi[:, :, None] >= kj[None, None])
+    if window is not None:
+        mask = mask & ((qi[:, :, None] - kj[None, None]) < window)
+    visible = int(mask.sum()) * hq
+    keys_read = int(mask.any(dim=1).sum()) * hkv
+    item = q.element_size()
+    flops = 4 * d * visible
+    return build.Work(
+        tensor_flops=flops if q.dtype == torch.bfloat16 else 0,
+        other_flops=0 if q.dtype == torch.bfloat16 else flops,
+        bytes=(2 * q.numel() + 2 * keys_read * d) * item + 4 * b
+        + extra_bytes)
+
+
+def flash_attention_work(q, k, v, kv_lens=None, *, causal=True,
+                         window=None, **_) -> build.Work:
+    """Kernel 2's work for one call (``_work``)."""
+    return _work(q, k.shape[1], k.shape[2], kv_lens, causal, window)
+
+
+def paged_flash_attention_work(q, k_store, v_store, page_table, kv_lens, *,
+                               page_size, causal=True, **_) -> build.Work:
+    """Kernel 3's: kernel 2's over the gathered view, plus the table
+    entries of the pages each lane reads."""
+    ps = int(page_size)
+    skv = page_table.shape[1] * ps
+    lens = kv_lens.detach().to("cpu", torch.long)
+    pages = int(((lens.clamp(max=skv) + ps - 1) // ps).sum())
+    return _work(q, k_store.shape[1], skv, lens, causal, None,
+                 extra_bytes=4 * pages)
+
+
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").repro_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -242,13 +339,26 @@ def _check(q, k, v, kv_lens):
                          f"(B,) int32 tensor on {q.device}")
 
 
+def _plan_of(name: str, plan: AttentionPlan | None, q: torch.Tensor,
+             hkv: int) -> AttentionPlan:
+    b, hq, sq, _ = q.shape
+    if plan is None:
+        return attention_plan(b, hq, hkv, sq, q.dtype)
+    return check_plan(name, plan, b, hq, hkv, sq, q.dtype)
+
+
+@build.counted("flash_attention", flash_attention_work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_lens: torch.Tensor | None = None, *,
                     causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    plan: AttentionPlan | None = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); kv_lens (B,) int32
-    (default: every lane at Skv).  Returns (B, Hq, Sq, D) in q's type."""
+    (default: every lane at Skv).  Returns (B, Hq, Sq, D) in q's type.
+    ``plan``: the schedule (default ``attention_plan``'s), checked."""
     if q.device.type == "cpu":
+        if plan is not None and k.dim() == 4:
+            _plan_of("flash_attention", plan, q, k.shape[1])
         return attention_ref(q, k, v, kv_lens, causal=causal, window=window,
                              scale=scale)
     _require_card("flash_attention", q)
@@ -260,13 +370,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     hkv, skv = k.shape[1], k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    plan = attention_plan(b, hq, hkv, sq, q.dtype)
+    plan = _plan_of("flash_attention", plan, q, hkv)
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
                 out.data_ptr(), _scratch_ptr(plan, skv, q.device, stream), b,
                 hq, hkv, sq, skv, d, float(scale), int(causal),
                 0 if window is None else int(window), _DTYPES[q.dtype],
-                stream)
+                plan.chunk or 0, plan.block_rows, stream)
     build.check(err, "flash_attention")
     launches.add((b, sq, skv, 0 if window is None else int(window),
                   _DTYPES[q.dtype]))
@@ -304,7 +414,8 @@ def paged_attention_ref(q: torch.Tensor, k_store: torch.Tensor,
 def _paged_fn():
     fn = build.library("paged_attention").repro_paged_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -358,16 +469,21 @@ def _check_paged(q, k_store, v_store, page_table, kv_lens, page_size):
                          f"lie in [0, {rows // ps})")
 
 
+@build.counted("paged_flash_attention", paged_flash_attention_work)
 def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
                           v_store: torch.Tensor, page_table: torch.Tensor,
                           kv_lens: torch.Tensor, *, page_size: int,
                           causal: bool = True,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None,
+                          plan: AttentionPlan | None = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D), end-aligned per lane; k_store, v_store:
     (n_pages * page_size, Hkv, D); page_table (B, n_blocks) int32 (lane
     b's key kj sits at store row ``page_table[b, kj // ps] * ps + kj %
-    ps``); kv_lens (B,) int32.  Returns (B, Hq, Sq, D) in q's type."""
+    ps``); kv_lens (B,) int32.  Returns (B, Hq, Sq, D) in q's type.
+    ``plan`` as for ``flash_attention``: the same call takes the same
+    plan in both kernels, so they give the same bits."""
     _check_paged(q, k_store, v_store, page_table, kv_lens, page_size)
+    plan = _plan_of("paged_flash_attention", plan, q, k_store.shape[1])
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_store, v_store, page_table, kv_lens,
                                    page_size=page_size, causal=causal,
@@ -378,14 +494,13 @@ def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
     hkv, n_blocks = k_store.shape[1], page_table.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    plan = attention_plan(b, hq, hkv, sq, q.dtype)
     out = torch.empty_like(q)
     err = _paged_fn()(
         q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         _scratch_ptr(plan, n_blocks * ps, q.device, stream), b, hq, hkv, sq,
         n_blocks, ps, k_store.shape[0] // ps, d, float(scale), int(causal),
-        _DTYPES[q.dtype], stream)
+        _DTYPES[q.dtype], plan.chunk or 0, plan.block_rows, stream)
     build.check(err, "paged_flash_attention")
     paged_launches.add((b, sq, ps, _DTYPES[q.dtype]))
     return out

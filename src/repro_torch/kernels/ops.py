@@ -1,12 +1,18 @@
-"""Public wrappers of the 1-d kernels: each picks a block plan and calls
-its kernel module.
+"""Public wrappers of the kernels: each picks a plan and calls its
+kernel module (the counterpart of ``repro.kernels.ops``).
 
-The plan is static — ``tuning.plan_1d`` with the card's SM count, the
-paper's Eq. 10 at the kernel grid — or measured, by an
+The 1-d kernels' plan is static — ``tuning.plan_1d`` with the card's SM
+count, the paper's Eq. 10 at the kernel grid — or measured, by an
 ``autotune.KernelTuner`` passed as ``tuner=``; ``block=`` pins it.  The
 kernels mask the ragged edge themselves, so there is no pad-to-plan copy
-and no unpad.  For a CPU tensor each wrapper runs its kernel's plain
-version and the plan is moot.
+and no unpad.  Kernel 1's forward (``rmsnorm``, ``add_rmsnorm``) takes
+its warps per block the same way (``warps=`` pins them), and kernels 2
+and 3 (``flash_attention``, ``paged_flash_attention``) their
+``AttentionPlan`` (``plan=`` pins it; by default ``attention_plan``'s
+analytic prior).  A tuner's attention probe is the call itself, on its own
+K/V and lengths.  For a CPU tensor each wrapper runs its kernel's plain
+version, the plan is moot, and a tuner still resolves its key (probing
+the plain version; the hardware key keeps CPU winners apart).
 """
 from __future__ import annotations
 
@@ -17,8 +23,11 @@ import torch
 
 from . import adjacent_difference as _adjdiff
 from . import artificial_work as _awork
+from . import flash_attention as _kfa
 from . import reduce_scan as _rscan
+from . import rmsnorm as _krms
 from . import tuning
+from .autotune import device_seconds
 
 
 @functools.cache
@@ -82,3 +91,114 @@ def inclusive_scan(x: torch.Tensor, *, block: int | None = None,
         return _rscan.inclusive_scan(xz, block=b)
 
     return call(x, _block("inclusive_scan", x, block, tuner, call))
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's forward and kernels 2 and 3
+# ---------------------------------------------------------------------------
+
+def norm_warps(tuner, entry: str, x: torch.Tensor) -> int:
+    """Kernel 1's measured warps per block for ``entry`` (``rmsnorm`` or
+    ``add_rmsnorm``) over the rows of ``x``; the probe runs the entry on
+    zeros of x's rows."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    fn = _krms.rmsnorm if entry == "rmsnorm" else _krms.add_rmsnorm
+
+    def run(warps: int):
+        xz = torch.zeros(rows, d, dtype=x.dtype, device=x.device)
+        g = torch.ones(d, dtype=torch.float32, device=x.device)
+        args = (xz, g) if entry == "rmsnorm" else (xz, xz, g)
+
+        def call():
+            fn(*args, warps=warps)
+
+        took = device_seconds(call, x.device)
+        if took is None:
+            call()
+        return took
+
+    return tuner.plan_rows(entry, rows, d, run, dtype=x.dtype,
+                           device=x.device)
+
+
+def attention_plan_for(tuner, q: torch.Tensor, hkv: int, skv: int,
+                       call: Callable[[_kfa.AttentionPlan], object], *,
+                       causal: bool = True,
+                       window: int | None = None) -> _kfa.AttentionPlan:
+    """The measured plan of one attention call, q (B, Hq, Sq, D) over a
+    kv extent ``skv``.  The probe is ``call(plan)``, the call itself
+    (kernel 2 or 3, the plain version on the CPU): the served lanes' own
+    K/V and lengths, with its output dropped.  One key for both kernels:
+    the plan is the other kernel's as well."""
+    b, hq, sq, d = q.shape
+
+    def run(plan):
+        def once():
+            call(plan)
+
+        with _kfa.scratch_buffer(None):
+            took = device_seconds(once, q.device)
+            if took is None:
+                once()
+        return took
+
+    return tuner.plan_attention(b, hq, hkv, sq, skv, d, run, dtype=q.dtype,
+                                causal=causal, window=window,
+                                device=q.device)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
+            warps: int | None = None, tuner=None) -> torch.Tensor:
+    """Kernel 1 over the rows of x; ``warps`` pins the block, else a
+    ``tuner`` measures it, else the default."""
+    if warps is None and tuner is not None:
+        warps = norm_warps(tuner, "rmsnorm", x)
+    return _krms.rmsnorm(x, gamma, eps=eps, warps=warps)
+
+
+def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, *,
+                eps: float = 1e-6, warps: int | None = None,
+                tuner=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(x + y, rmsnorm(x + y))`` in one launch of kernel 1; ``warps``
+    and ``tuner`` as for ``rmsnorm``."""
+    if warps is None and tuner is not None:
+        warps = norm_warps(tuner, "add_rmsnorm", x)
+    return _krms.add_rmsnorm(x, y, gamma, eps=eps, warps=warps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_lens: torch.Tensor | None = None, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None, plan=None,
+                    tuner=None) -> torch.Tensor:
+    """Kernel 2; ``plan`` pins the schedule, else a ``tuner`` measures
+    it on this call, else ``attention_plan``'s prior."""
+    def call(p):
+        return _kfa.flash_attention(q, k, v, kv_lens, causal=causal,
+                                    window=window, scale=scale, plan=p)
+
+    if plan is None and tuner is not None:
+        plan = attention_plan_for(tuner, q, k.shape[1], k.shape[2], call,
+                                  causal=causal, window=window)
+    return call(plan)
+
+
+def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
+                          v_store: torch.Tensor, page_table: torch.Tensor,
+                          kv_lens: torch.Tensor, *, page_size: int,
+                          causal: bool = True, scale: float | None = None,
+                          plan=None, tuner=None) -> torch.Tensor:
+    """Kernel 3 over ``page_table``'s kv extent; ``plan`` and ``tuner``
+    as for ``flash_attention``: the same call resolves the same plan."""
+    def call(p):
+        return _kfa.paged_flash_attention(q, k_store, v_store, page_table,
+                                          kv_lens, page_size=page_size,
+                                          causal=causal, scale=scale,
+                                          plan=p)
+
+    if plan is None and tuner is not None:
+        plan = attention_plan_for(tuner, q, k_store.shape[1],
+                                  page_table.shape[1] * int(page_size),
+                                  call, causal=causal)
+    return call(plan)

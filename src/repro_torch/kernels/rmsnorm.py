@@ -16,7 +16,11 @@ and ``repro.kernels.ref.rmsnorm_ref`` (its oracle).  The kernel lives in
 Each launches the kernel for a CUDA tensor and runs its plain version
 (``*_ref``) for a CPU tensor; there is no other route.  Every launch of
 any entry adds one to ``launches`` (kernel 1's count) and one to its
-entry's counter in ``entry_launches``.
+entry's counter in ``entry_launches``.  ``rmsnorm`` and ``add_rmsnorm``
+take ``warps``, the block's warps (``WARPS``; ``DEFAULT_WARPS`` unless a
+measured plan, ``autotune.KernelTuner.plan_rows``, picks another): every
+value gives the same bits.  Each entry also knows the work one call must
+do (``*_work``), which a cost count reads (``build.counted``).
 
 The backward (the JAX package's custom VJP, ``repro.kernels.ops``
 ``_rmsnorm_diffable_bwd``) has the same three entries, ``rmsnorm_bwd``,
@@ -45,6 +49,9 @@ bwd_entry_launches = {name: build.LaunchCounter(f"{name}_backward")
                       for name in _ENTRIES}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Warps of a forward norm's block (csrc/rmsnorm.cu: kWarps the default).
+WARPS = (8, 4, 2, 1)
+DEFAULT_WARPS = 8
 # Row widths with a compile-time register layout in csrc/rmsnorm.cu:
 # 8..256 vectors of 16 bytes (bf16 d 64..2048, f32 d 32..1024).  Other
 # widths that are a multiple of 8 take the kernel's generic loop.  The
@@ -184,8 +191,8 @@ def qk_norm_rope_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 def _lib():
     lib = build.library("rmsnorm")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {"repro_rmsnorm": [vp, vp, vp, i, i, f, i, vp],
-            "repro_add_rmsnorm": [vp, vp, vp, vp, vp, i, i, f, i, vp],
+    sigs = {"repro_rmsnorm": [vp, vp, vp, i, i, f, i, i, vp],
+            "repro_add_rmsnorm": [vp, vp, vp, vp, vp, i, i, f, i, i, vp],
             "repro_qk_norm_rope": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
                                    i, i, f, i, vp],
             "repro_rmsnorm_bwd": [vp] * 6 + [i, i, f, i, vp],
@@ -235,9 +242,46 @@ def _count(entry: str) -> None:
     entry_launches[entry].add()
 
 
+def _warps(name: str, warps: int | None) -> int:
+    if warps is None:
+        return DEFAULT_WARPS
+    if warps not in WARPS:
+        raise ValueError(f"{name}: warps must be one of {sorted(WARPS)}, "
+                         f"got {warps}")
+    return int(warps)
+
+
+# The work of one call (inputs read once, outputs written once; γ in
+# f32): a few f32 operations an element, so bytes bound every entry.
+def rmsnorm_work(x: torch.Tensor, gamma: torch.Tensor,
+                 **_) -> build.Work:
+    return build.Work(other_flops=4 * x.numel(),
+                      bytes=2 * x.numel() * x.element_size()
+                      + 4 * x.shape[-1])
+
+
+def add_rmsnorm_work(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
+                     **_) -> build.Work:
+    return build.Work(other_flops=5 * x.numel(),
+                      bytes=4 * x.numel() * x.element_size()
+                      + 4 * x.shape[-1])
+
+
+def qk_norm_rope_work(q: torch.Tensor, k: torch.Tensor, gamma_q, gamma_k,
+                      cos: torch.Tensor, sin: torch.Tensor,
+                      **_) -> build.Work:
+    elems = q.numel() + k.numel()
+    return build.Work(other_flops=10 * elems,
+                      bytes=2 * elems * q.element_size()
+                      + 2 * cos.numel() * 4 + 2 * 4 * q.shape[-1])
+
+
+@build.counted("rmsnorm", rmsnorm_work)
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
-            eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., d), γ: (d,).  Leading dims are flattened to rows."""
+            eps: float = 1e-6, warps: int | None = None) -> torch.Tensor:
+    """x: (..., d), γ: (d,).  Leading dims are flattened to rows;
+    ``warps`` per block (``WARPS``, default ``DEFAULT_WARPS``)."""
+    warps = _warps("rmsnorm", warps)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, gamma, eps)
     _require_card("rmsnorm", x)
@@ -251,16 +295,20 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
     d = x.shape[-1]
     build.check(_lib().repro_rmsnorm(
         x.data_ptr(), g.data_ptr(), out.data_ptr(), x.numel() // d, d,
-        float(eps), code, _stream(x)), "rmsnorm")
+        float(eps), warps, code, _stream(x)), "rmsnorm")
     _count("rmsnorm")
     return out
 
 
+@build.counted("rmsnorm", add_rmsnorm_work)
 def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, *,
-                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+                eps: float = 1e-6, warps: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x, y: (..., d) of one type, γ: (d,).  Returns (s, h): the residual
     ``s = x + y`` (the same bits as PyTorch's ``x + y``) and ``h =
-    rmsnorm(s, γ)`` (the same bits as ``rmsnorm`` on that ``s``)."""
+    rmsnorm(s, γ)`` (the same bits as ``rmsnorm`` on that ``s``);
+    ``warps`` as for ``rmsnorm``."""
+    warps = _warps("add_rmsnorm", warps)
     if x.device.type == "cpu":
         return add_rmsnorm_ref(x, y, gamma, eps)
     _require_card("add_rmsnorm", x)
@@ -279,11 +327,13 @@ def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, *,
     d = x.shape[-1]
     build.check(_lib().repro_add_rmsnorm(
         x.data_ptr(), y.data_ptr(), g.data_ptr(), s.data_ptr(), h.data_ptr(),
-        x.numel() // d, d, float(eps), code, _stream(x)), "add_rmsnorm")
+        x.numel() // d, d, float(eps), warps, code, _stream(x)),
+        "add_rmsnorm")
     _count("add_rmsnorm")
     return s, h
 
 
+@build.counted("rmsnorm", qk_norm_rope_work)
 def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
                  gamma_k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  *, eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
@@ -370,6 +420,32 @@ def _bwd_count(entry: str) -> None:
     bwd_entry_launches[entry].add()
 
 
+# The backward's work: its inputs read once, dx and dγ written once (dγ's
+# partial rows are the kernel's choice of grid, not the function's).
+def rmsnorm_bwd_work(x: torch.Tensor, gamma, dy, **_) -> build.Work:
+    return build.Work(other_flops=8 * x.numel(),
+                      bytes=3 * x.numel() * x.element_size()
+                      + 8 * x.shape[-1])
+
+
+def add_rmsnorm_bwd_work(s: torch.Tensor, gamma, dh, ds,
+                         **_) -> build.Work:
+    tensors = 3 if ds is None else 4
+    return build.Work(other_flops=9 * s.numel(),
+                      bytes=tensors * s.numel() * s.element_size()
+                      + 8 * s.shape[-1])
+
+
+def qk_norm_rope_bwd_work(q: torch.Tensor, k: torch.Tensor, gamma_q,
+                          gamma_k, cos: torch.Tensor, *_,
+                          **__) -> build.Work:
+    elems = q.numel() + k.numel()
+    return build.Work(other_flops=14 * elems,
+                      bytes=3 * elems * q.element_size()
+                      + 2 * cos.numel() * 4 + 16 * q.shape[-1])
+
+
+@build.counted("rmsnorm_backward", rmsnorm_bwd_work)
 def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dγ) of ``rmsnorm`` for the output gradient dy: dx in x's type,
@@ -396,6 +472,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
     return dx, dg.to(gamma.dtype)
 
 
+@build.counted("rmsnorm_backward", add_rmsnorm_bwd_work)
 def add_rmsnorm_bwd(s: torch.Tensor, gamma: torch.Tensor, dh: torch.Tensor,
                     ds: torch.Tensor | None, *, eps: float = 1e-6
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -424,6 +501,7 @@ def add_rmsnorm_bwd(s: torch.Tensor, gamma: torch.Tensor, dh: torch.Tensor,
     return dx, dg.to(gamma.dtype)
 
 
+@build.counted("rmsnorm_backward", qk_norm_rope_bwd_work)
 def qk_norm_rope_bwd(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
                      gamma_k: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor, dq_out: torch.Tensor,
@@ -475,30 +553,31 @@ def qk_norm_rope_bwd(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
 
 class RMSNormFn(torch.autograd.Function):
     """``rmsnorm(x, γ)`` with its backward: the kernel on the card, the
-    plain versions on the CPU.  ``RMSNormFn.apply(x, gamma, eps)``."""
+    plain versions on the CPU.  ``RMSNormFn.apply(x, gamma, eps[,
+    warps])``: the forward's block (the backward keeps its launch)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, eps):
+    def forward(ctx, x, gamma, eps, warps=None):
         ctx.save_for_backward(x, gamma)
         ctx.eps = eps
-        return rmsnorm(x, gamma, eps=eps)
+        return rmsnorm(x, gamma, eps=eps, warps=warps)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
         dx, dg = rmsnorm_bwd(x, gamma, dy, eps=ctx.eps)
-        return dx, dg, None
+        return dx, dg, None, None
 
 
 class AddRMSNormFn(torch.autograd.Function):
     """``add_rmsnorm(x, y, γ) -> (s, h)`` with its backward; the gradient
     of s (None when s is not used) joins the norm's in the same launch.
-    ``AddRMSNormFn.apply(x, y, gamma, eps)``."""
+    ``AddRMSNormFn.apply(x, y, gamma, eps[, warps])``."""
 
     @staticmethod
-    def forward(ctx, x, y, gamma, eps):
-        s, h = add_rmsnorm(x, y, gamma, eps=eps)
+    def forward(ctx, x, y, gamma, eps, warps=None):
+        s, h = add_rmsnorm(x, y, gamma, eps=eps, warps=warps)
         ctx.save_for_backward(s, gamma)
         ctx.eps = eps
         ctx.set_materialize_grads(False)
@@ -512,7 +591,7 @@ class AddRMSNormFn(torch.autograd.Function):
             dx, dg = ds, torch.zeros_like(gamma)
         else:
             dx, dg = add_rmsnorm_bwd(s, gamma, dh, ds, eps=ctx.eps)
-        return dx, dx, dg, None
+        return dx, dx, dg, None, None
 
 
 class QKNormRopeFn(torch.autograd.Function):

@@ -22,6 +22,20 @@ memory, at most 32 KiB (``reduce_scan.scan_seg_max``, kScanSegMax in the
 CUDA source), and walks a larger block as several segments
 (``reduce_scan.scan_plan``), so every block stays legal.  The other 1-d
 kernels stream their block and take any size.
+
+Kernels 1-3 take measured plans too (``autotune.KernelTuner``); their
+candidates live here, the analytic prior first, every one legal for the
+call (the counterpart of the reference's ``candidates_attention``):
+
+* attention, split path: keys per split around the prior (``/4 .. x4``),
+  whole split tiles, within [one tile, the kv extent rounded up to one];
+  the graphs reserve the largest scratch of any candidate
+  (``attention_scratch_reserve``), so no candidate outgrows it;
+* attention, tile path: the schedules the dtype runs
+  (``flash_attention.tile_schedules``);
+* kernel 1's forward: warps per block (``rmsnorm.WARPS``, the default
+  first: a row's arithmetic does not depend on the block, so every one
+  gives the same bits and is legal for any rows).
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import dataclasses
 import math
 
 from ..core.overhead_law import DEFAULT_CHUNKS_PER_CORE
+from . import flash_attention as kfa
 
 THREADS = 256            # threads of one block (csrc/elem1d.cuh kThreads)
 BYTES_PER_THREAD = 16    # one tile gives each thread 16 bytes
@@ -79,3 +94,41 @@ def check_1d(name: str, x, block: int, dtypes: dict) -> int:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     return dtypes[x.dtype]
+
+
+def candidates_attention(b: int, hq: int, hkv: int, sq: int, skv: int,
+                         dtype) -> list[kfa.AttentionPlan]:
+    """Candidate plans of one attention call over a kv extent ``skv``,
+    the analytic prior (``attention_plan``, its chunk snapped to the
+    range) first, no duplicates."""
+    prior = kfa.attention_plan(b, hq, hkv, sq, dtype)
+    if prior.path == "tile":
+        return [kfa.with_value(prior, r) for r in kfa.tile_schedules(dtype)]
+    tile = prior.kv_tile
+    cap = round_up(max(int(skv), 1), tile)
+    out: list[int] = []
+    for c in (prior.chunk, prior.chunk // 4, prior.chunk // 2,
+              prior.chunk * 2, prior.chunk * 4):
+        c = min(max((c // tile) * tile, tile), cap)
+        if c not in out:
+            out.append(c)
+    return [kfa.with_value(prior, c) for c in out]
+
+
+def cap_attention(plan: kfa.AttentionPlan, skv: int) -> kfa.AttentionPlan:
+    """A winner stored for a bucket-mate with a longer kv extent, capped
+    to this call's (the splits past the extent are empty either way)."""
+    if plan.path != "split":
+        return plan
+    cap = round_up(max(int(skv), 1), plan.kv_tile)
+    return plan if plan.chunk <= cap else kfa.with_value(plan, cap)
+
+
+def attention_scratch_reserve(b: int, hq: int, hkv: int, widths, skv: int,
+                              dtype) -> int:
+    """The largest scratch any candidate plan of any of ``widths`` (query
+    lengths) needs over ``skv``: what a capture must bind so that every
+    plan a tuner may pick fits."""
+    return max((p.scratch_bytes(skv) for sq in widths
+                for p in candidates_attention(b, hq, hkv, sq, skv, dtype)),
+               default=0)

@@ -18,6 +18,11 @@ with SLO-goodput.  A cross-attention arch (llama-3.2-vision-11b) serves
 through ``ServeEngine``'s lock-step batch path instead
 (``serve_cross_attention``), with the batch's frontend features.  Runs
 on the CUDA card unless ``--device cpu``.
+``--kernel-autotune`` measures kernel 1's warps and kernels 2 and 3's
+attention plans (``kernels/autotune.KernelTuner``, over the same store as
+the acc calibrations) and prints the reference's ``kernel autotune: N
+measured searches, M persisted winners reused``; a second process over
+the same ``--cal-cache-dir`` searches nothing.
 Calibrations persist under ``--cal-cache-dir`` unless ``--no-cal-cache``;
 ``--strict`` turns on strict mode (``core/strict.py``), and
 ``--print-launch-profile`` prints the serving process's environment as
@@ -46,6 +51,7 @@ from ..device import resolve_device
 from ..models import lm
 from ..serve import (ServeEngine, ServeFrontend, ServeScheduler, SLOModel,
                      heavy_tailed_trace, materialize, percentile)
+from ..train.autotune import make_kernel_tuner
 
 
 # The serving process's environment: (variable, value, why).  CUDA and
@@ -100,17 +106,20 @@ def prompts(n: int, prompt_len: int, vocab: int, seed: int) -> list:
 
 
 def serve_cross_attention(cfg, params, args, executor,
-                          device: torch.device) -> torch.Tensor:
+                          device: torch.device,
+                          tuner=None) -> torch.Tensor:
     """A cross-attention (VLM) arch carries per-request frontend features
     the scheduler does not model: ``--requests`` rows of ``--prompt-len``
     tokens and their features (``make_batch``, seed ``--seed``) go
-    through the engine's lock-step batch path.  Returns the tokens (B,
-    new tokens)."""
+    through the engine's lock-step batch path (with the measured kernel
+    plans of ``tuner``, if given).  Returns the tokens (B, new
+    tokens)."""
     batch = make_batch(cfg, args.requests, args.prompt_len, kind="prefill",
                        seed=args.seed, device=device)
     engine = ServeEngine(cfg, params, batch=args.requests,
                          max_len=args.prompt_len + args.new_tokens + 1,
-                         executor=executor, device=device)
+                         executor=executor, kernel_tuner=tuner,
+                         device=device)
     t0 = time.monotonic()
     out = engine.generate(batch["tokens"], args.new_tokens,
                           frontend_feats=batch["frontend_feats"])
@@ -237,6 +246,10 @@ def main(argv=None) -> None:
     ap.add_argument("--cal-cache-dir", default=None,
                     help="calibration cache directory (default: "
                          "$REPRO_CAL_CACHE_DIR or ~/.cache/repro-torch-acc)")
+    ap.add_argument("--kernel-autotune", action="store_true",
+                    help="measured kernel plans (kernel 1's warps, the "
+                         "attention kernels' split chunk or schedule), "
+                         "searched once and kept in the calibration store")
     ap.add_argument("--strict", action="store_true",
                     help="strict mode (as REPRO_STRICT=1): a cache pool "
                          "read while a dispatch updates it raises, and the "
@@ -270,9 +283,10 @@ def main(argv=None) -> None:
         else CalibrationCache.persistent(args.cal_cache_dir)
     acc = AdaptiveCoreChunk(cache=cache)
     executor = adaptive(SequentialExecutor(), acc)
+    tuner = make_kernel_tuner(cache) if args.kernel_autotune else None
     if "cross_attn" in cfg.layer_kinds():
-        serve_cross_attention(cfg, params, args, executor, device)
-        finish(None, cache, args)
+        serve_cross_attention(cfg, params, args, executor, device, tuner)
+        finish(None, cache, args, tuner)
         return
     max_len = args.prompt_len + args.new_tokens + 1
     admission = args.admission or \
@@ -285,12 +299,12 @@ def main(argv=None) -> None:
                            prefill_interleave=parse_auto(
                                args.prefill_interleave),
                            speculate=parse_auto(args.speculate, off_ok=True),
-                           device=device)
+                           kernel_tuner=tuner, device=device)
     sched.warmup()
     if args.frontend:
         serve_frontend(sched, args)
         print_paged_stats(sched)
-        finish(sched, cache, args)
+        finish(sched, cache, args, tuner)
         return
 
     t_start = time.monotonic()
@@ -320,11 +334,14 @@ def main(argv=None) -> None:
           f"ttft p50={percentile(ttfts, 50) * 1e3:.0f}ms")
     print("sample:", outs[rids[0]])
     print_paged_stats(sched)
-    finish(sched, cache, args)
+    finish(sched, cache, args, tuner)
 
 
 def finish(sched: ServeScheduler | None, cache: CalibrationCache,
-           args) -> None:
+           args, tuner=None) -> None:
+    if tuner is not None:
+        print(f"kernel autotune: {tuner.searches} measured searches, "
+              f"{tuner.cache_hits} persisted winners reused")
     if args.explain_decisions:
         model = ExecutionModel.of(cache) if sched is None \
             else sched.decision_model()

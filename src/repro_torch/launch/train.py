@@ -7,6 +7,9 @@ Runs on the CUDA card unless ``--device cpu``; with no card it raises.
 acc-planned microbatching (``--accum`` overrides the plan), AdamW on f32
 master weights, and the fault-tolerant trainer with periodic
 checkpoints.  Every norm runs kernel 1 forward and backward on the card.
+``--kernel-autotune`` measures kernel 1's forward warps per block (the
+store is the acc calibrations'; serving reads the same winners) and
+prints the reference's searches/reused line.
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ from ..core.executor import MeshExecutor
 from ..core.model import ExecutionModel
 from ..data import make_batch
 from ..device import resolve_device
-from ..models import lm
+from ..models import flags, lm
 from ..optim import AdamWConfig, adamw
 from ..runtime import FaultTolerantTrainer
-from ..train import choose_plan, make_train_step
+from ..train import choose_plan, make_kernel_tuner, make_train_step
 from . import mesh as mesh_lib
 
 
@@ -58,8 +61,9 @@ def main(argv=None) -> None:
                     help="calibration cache directory (default: "
                          "$REPRO_CAL_CACHE_DIR or ~/.cache/repro-torch-acc)")
     ap.add_argument("--kernel-autotune", action="store_true",
-                    help="measured kernel blocks for the model-layer "
-                         "kernels (not ported yet: ROADMAP.md A.7)")
+                    help="measured kernel plans for the model-layer "
+                         "kernels (kernel 1's forward warps per block), "
+                         "kept in the calibration store")
     ap.add_argument("--explain-decisions", action="store_true",
                     help="dump the ExecutionModel decision trace (the "
                          "train plan with its policy and inputs)")
@@ -73,10 +77,6 @@ def main(argv=None) -> None:
                     help="seed of the random weights")
     args = ap.parse_args(argv)
 
-    if args.kernel_autotune:
-        raise NotImplementedError(
-            "--kernel-autotune (measured kernel blocks) is not ported to "
-            "PyTorch yet (ROADMAP.md A.7)")
     if args.strict:
         strict.enable()
     device = resolve_device(args.device)
@@ -118,9 +118,12 @@ def main(argv=None) -> None:
 
     trainer = FaultTolerantTrainer(step_fn, args.ckpt,
                                    save_every=args.save_every)
+    # The same store serving reads: the measured plans are shared.
+    tuner = make_kernel_tuner(cache) if args.kernel_autotune else None
     t0 = time.perf_counter()
-    params, opt_state, log = trainer.run(params, opt_state, data_iter(),
-                                         num_steps=args.steps)
+    with flags.kernel_tuner(tuner):
+        params, opt_state, log = trainer.run(params, opt_state, data_iter(),
+                                             num_steps=args.steps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -130,6 +133,9 @@ def main(argv=None) -> None:
                   f"gnorm {m['grad_norm']:.3f}")
     tok_s = args.batch * args.seq * len(log) / dt
     print(f"done: {len(log)} steps in {dt:.1f}s ({tok_s:.0f} tok/s)")
+    if tuner is not None:
+        print(f"kernel autotune: {tuner.searches} measured searches, "
+              f"{tuner.cache_hits} persisted winners reused")
     if args.explain_decisions:
         print(ExecutionModel.of(cache).explain())
     if not args.no_cal_cache:

@@ -17,8 +17,10 @@ whose three implementations share one signature:
 
 With a cache, the cache is updated in place: the new K/V rows are
 written at their positions and attention runs over the cache through a
-flash-attention kernel (``kernels/flash_attention.py``).  Two cache
-layouts:
+flash-attention kernel (``kernels/flash_attention.py``, called through
+``kernels/ops.py``: with a kernel tuner in ``flags.KERNEL_TUNER`` each
+call's plan is measured on the call itself, with none the analytic
+prior holds).  Two cache layouts:
 
 * contiguous (the slot pool): per layer ``{"k","v"}`` of shape
   ``(B, Hkv, S, D)``; attention through ``flash_attention``, whose
@@ -76,9 +78,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import build
-from ..kernels.flash_attention import (attention_ref, flash_attention,
-                                       paged_flash_attention)
+from ..kernels import ops as kops
+from ..kernels.flash_attention import attention_ref
 from . import common as cm
+from . import flags
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +160,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              scale=scale)
     build.refuse_grad("flash attention (kernel 2, forward only)",
                       "attn_impl='chunked' to train", q, k, v)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           lens, causal=causal, window=window, scale=scale)
+    return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), lens, causal=causal,
+                                window=window, scale=scale,
+                                tuner=flags.KERNEL_TUNER)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,9 +266,10 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         hkv = k.shape[2]
         ck.index_copy_(0, write.flat, k.reshape(-1, hkv, hd).to(ck.dtype))
         cv.index_copy_(0, write.flat, v.reshape(-1, hkv, hd).to(cv.dtype))
-        out = paged_flash_attention(qt, ck, cv, write.page_table,
-                                    write.kv_lens,
-                                    page_size=write.page_size, causal=True)
+        out = kops.paged_flash_attention(
+            qt, ck, cv, write.page_table, write.kv_lens,
+            page_size=write.page_size, causal=True,
+            tuner=flags.KERNEL_TUNER)
     else:
         out = _cached_attention(qt, k.transpose(1, 2), v.transpose(1, 2),
                                 ck, cv, write, window)
@@ -294,7 +300,8 @@ def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         cv[r2, :, at] = new_v
         # No window mask: a ring (one row per lane) holds exactly the
         # window, and its rows are not in position order.
-        return flash_attention(qt, ck, cv, write.kv_lens, causal=True)
+        return kops.flash_attention(qt, ck, cv, write.kv_lens, causal=True,
+                                    tuner=flags.KERNEL_TUNER)
     at = write.pos % s_cache if window is not None else write.pos
     if write.pos < 0 or at + length > s_cache:
         raise ValueError(
@@ -306,15 +313,15 @@ def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         # Rows are positions (always so without a window).
         ck[:, :, at:at + length] = kt
         cv[:, :, at:at + length] = vt
-        return flash_attention(qt, ck, cv, write.kv_lens, causal=True,
-                               window=window)
+        return kops.flash_attention(qt, ck, cv, write.kv_lens, causal=True,
+                                    window=window, tuner=flags.KERNEL_TUNER)
     # A chunk past the wrap: the ring in position order, then the chunk,
     # attended before the chunk overwrites the ring's oldest rows.
     order = (at + torch.arange(s_cache, device=ck.device)) % s_cache
     kbuf = torch.cat([ck.index_select(2, order), kt], dim=2)
     vbuf = torch.cat([cv.index_select(2, order), vt], dim=2)
-    out = flash_attention(qt, kbuf, vbuf, write.kv_lens, causal=True,
-                          window=window)
+    out = kops.flash_attention(qt, kbuf, vbuf, write.kv_lens, causal=True,
+                               window=window, tuner=flags.KERNEL_TUNER)
     ck[:, :, at:at + length] = kt
     cv[:, :, at:at + length] = vt
     return out

@@ -14,14 +14,18 @@ The three norms go through kernel 1's autograd entries
 their plain versions on the CPU) whenever autograd records the call;
 when it records nothing (serving, ``torch.no_grad``), they call the
 same forward entry directly, without the autograd wrapper's host cost
-on every eager prefill forward.
+on every eager prefill forward.  With a measured kernel tuner set
+(``flags.KERNEL_TUNER``) ``rmsnorm`` and ``add_rmsnorm`` resolve kernel
+1's warps per block through it and pass them down; with none they pass
+nothing.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import build, rmsnorm as krms
+from ..kernels import build, ops as kops, rmsnorm as krms
+from . import flags
 
 
 def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -47,21 +51,28 @@ def embed(p: dict, tokens: torch.Tensor,
     return _cast(rows.view(*tokens.shape, -1), compute_dtype)
 
 
+def _warps(entry: str, x: torch.Tensor) -> int | None:
+    tuner = flags.KERNEL_TUNER
+    return None if tuner is None else kops.norm_warps(tuner, entry, x)
+
+
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim: the CUDA kernel for a CUDA tensor, its
     plain version for a CPU tensor (``kernels/rmsnorm.py``)."""
+    warps = _warps("rmsnorm", x)
     if build.records_grad(x, p["g"]):
-        return krms.RMSNormFn.apply(x, p["g"], eps)
-    return krms.rmsnorm(x, p["g"], eps=eps)
+        return krms.RMSNormFn.apply(x, p["g"], eps, warps)
+    return krms.rmsnorm(x, p["g"], eps=eps, warps=warps)
 
 
 def add_rmsnorm(p: dict, x: torch.Tensor, y: torch.Tensor,
                 eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """The residual ``x + y`` and its RMSNorm in one launch of kernel 1:
     returns (x + y, rmsnorm(x + y))."""
+    warps = _warps("add_rmsnorm", x)
     if build.records_grad(x, y, p["g"]):
-        return krms.AddRMSNormFn.apply(x, y, p["g"], eps)
-    return krms.add_rmsnorm(x, y, p["g"], eps=eps)
+        return krms.AddRMSNormFn.apply(x, y, p["g"], eps, warps)
+    return krms.add_rmsnorm(x, y, p["g"], eps=eps, warps=warps)
 
 
 def qk_norm_rope(pq: dict, pk: dict, q: torch.Tensor, k: torch.Tensor,

@@ -29,6 +29,13 @@ the page table rides in as data, fixed for the dispatch (the host
 resolves allocation and copy-on-write before it), and every attention
 reads the pages through the paged kernel.
 
+Every factory takes ``kernel_tuner`` (an ``autotune.KernelTuner``, the
+reference's measured kernel blocks; None: the one ``models.flags``
+holds): each dispatch runs under ``models.flags.kernel_tuner``, so kernel
+1's warps and kernels 2 and 3's attention plans are measured ones,
+resolved on the dispatch's own lanes in the eager step before a graph's
+capture (``graphs.StepRunner``).
+
 Self-speculative decoding (``make_spec_decode_step`` and its paged twin)
 drafts ``d - 1`` tokens per lane from the lane's own token history
 (prompt lookup), verifies all ``d`` positions in one forward, accepts
@@ -50,7 +57,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core import strict
-from ..models import lm
+from ..models import flags, lm
 from .graphs import DecodeGraphs, StepRunner
 
 # One fused step serves every depth up to this; the scheduler clamps
@@ -83,11 +90,18 @@ def device_sync(device: torch.device) -> None:
             torch.cuda.synchronize(device)
 
 
-def _refuse_tuner(kernel_tuner) -> None:
-    if kernel_tuner is not None:
-        raise NotImplementedError(
-            "measured kernel blocks (kernel_tuner) are not ported to "
-            "PyTorch yet (ROADMAP.md: tooling)")
+def _host_copy(caches: list, host: list) -> None:
+    """A deliberate device-to-host copy of one cache row (the first
+    store's row 0) into a pinned buffer (``host``, made at the first
+    call, which is the eager step before a capture), for the launch
+    audit's gate self-test (``analysis/launch_audit.py``); the scheduler
+    never makes it.  Asynchronous, so a graph captures it as a copy
+    node."""
+    row = next(t for c in caches for t in c.values() if t is not None)[0]
+    if not host or host[0].shape != row.shape or host[0].dtype != row.dtype:
+        host[:] = [torch.empty(row.shape, dtype=row.dtype,
+                               pin_memory=row.device.type == "cuda")]
+    host[0].copy_(row, non_blocking=True)
 
 
 def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
@@ -100,16 +114,17 @@ def make_lane_step(cfg: ArchConfig, *, window: int | None = None,
     place for the lanes whose ``keep`` flag (on the device; None: all) is
     set.  With ``page_size`` the caches are the paged pool's stores, read
     through ``page_table``.  Every decode step body calls exactly this
-    function.  ``kernel_tuner`` (the reference's measured kernel blocks)
-    is refused: not ported yet.
+    function.  The forward runs under ``kernel_tuner`` (or the one
+    ``models.flags`` holds).
     """
-    _refuse_tuner(kernel_tuner)
 
     def lanes(params, caches, toks, poss, page_table=None, keep=None):
-        logits, _ = lm.forward_cached(params, toks[:, None], caches, poss,
-                                      cfg, window=window, write_keep=keep,
-                                      page_table=page_table,
-                                      page_size=page_size)
+        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER):
+            logits, _ = lm.forward_cached(params, toks[:, None], caches,
+                                          poss, cfg, window=window,
+                                          write_keep=keep,
+                                          page_table=page_table,
+                                          page_size=page_size)
         return torch.argmax(logits[:, 0], dim=-1)
 
     return lanes
@@ -150,15 +165,19 @@ def _budgets(steps, max_depth: int) -> list[int]:
     return [min(max(int(s), 0), max_depth) for s in steps]
 
 
-def fused_body(lanes: Callable) -> Callable:
+def fused_body(lanes: Callable, inject_host_copy: bool = False) -> Callable:
     """One decode step over a ``StepState`` (the reference's loop body):
     every lane runs, ``keep`` drops the writes of lanes whose budget is
-    spent, and only active lanes take their next token and advance."""
+    spent, and only active lanes take their next token and advance.
+    ``inject_host_copy`` adds ``_host_copy`` after the forward."""
+    host: list = []
 
     def body(params, caches, st):
         active = st.rem > 0
         nxt = lanes(params, caches, st.toks, st.poss, page_table=st.table,
                     keep=active)
+        if inject_host_copy:
+            _host_copy(caches, host)
         st.toks.copy_(torch.where(active, nxt, st.toks))
         st.out.index_copy_(0, st.j, st.toks[None])
         step = active.long()
@@ -170,32 +189,37 @@ def fused_body(lanes: Callable) -> Callable:
 
 
 def _fused_loop(cfg: ArchConfig, lanes: Callable, max_depth: int,
-                graphs: DecodeGraphs | None,
-                page_size: int | None) -> Callable:
+                graphs: DecodeGraphs | None, page_size: int | None,
+                kernel_tuner=None,
+                inject_host_copy: bool = False) -> Callable:
     """The dispatch shared by the contiguous and the paged fused steps
     (``page_table`` None for the contiguous pool): the inputs copied into
     the runner's state, ``max(steps)`` steps, the outputs copied out (a
     later dispatch reuses the state while this one's are still read)."""
     max_depth = max(int(max_depth), 1)
     runner = StepRunner(graphs or DecodeGraphs(), "fused",
-                        fused_body(lanes), length=1,
+                        fused_body(lanes, inject_host_copy), length=1,
                         heads=(cfg.n_heads, cfg.n_kv_heads),
                         widths=STEP_WIDTHS, page_size=page_size)
 
     def fused(params, caches, page_table, toks, poss, steps):
         budget = _budgets(steps, max_depth)
-        st = runner.load(params, caches, toks, poss, budget, max_depth,
-                         table=page_table)
-        for _ in range(max(budget, default=0)):
-            runner.step()
+        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER):
+            st = runner.load(params, caches, toks, poss, budget, max_depth,
+                             table=page_table)
+            for _ in range(max(budget, default=0)):
+                runner.step()
         return caches, st.out.clone(), st.toks.clone()
 
+    fused.runner = runner
     return fused
 
 
 def make_fused_decode_step(cfg: ArchConfig, *, window: int | None = None,
+                           kernel_tuner=None,
                            max_depth: int = DEFAULT_MAX_DEPTH,
-                           graphs: DecodeGraphs | None = None) -> Callable:
+                           graphs: DecodeGraphs | None = None,
+                           _inject_host_copy: bool = False) -> Callable:
     """Build the fused decode step.
 
     ``fused(params, caches, toks, poss, steps)`` advances lane ``i`` by
@@ -212,20 +236,29 @@ def make_fused_decode_step(cfg: ArchConfig, *, window: int | None = None,
     On the card each step is one replay of a captured graph
     (``serve/graphs.py``); ``graphs`` shares a memory pool and the
     attention scratch between steps (the scheduler passes one for all of
-    its own).
+    its own).  ``kernel_tuner``: the measured kernel plans the step's
+    forward takes.  ``_inject_host_copy`` (the launch audit's gate
+    self-test only) adds a device-to-host copy of a cache row to the
+    body, as the reference's ``_inject_reshard`` adds a reshard; the
+    scheduler never sets it.
     """
-    loop = _fused_loop(cfg, make_lane_step(cfg, window=window), max_depth,
-                       graphs, None)
+    loop = _fused_loop(cfg, make_lane_step(cfg, window=window,
+                                           kernel_tuner=kernel_tuner),
+                       max_depth, graphs, None, kernel_tuner,
+                       _inject_host_copy)
 
     def fused(params, caches, toks, poss, steps):
         return loop(params, caches, None, toks, poss, steps)
 
+    fused.runner = loop.runner
     return fused
 
 
 def make_paged_decode_step(cfg: ArchConfig, *, page_size: int,
+                           kernel_tuner=None,
                            max_depth: int = DEFAULT_MAX_DEPTH,
-                           graphs: DecodeGraphs | None = None) -> Callable:
+                           graphs: DecodeGraphs | None = None,
+                           _inject_host_copy: bool = False) -> Callable:
     """The fused decode step over a paged pool.
 
     ``fused(params, caches, page_tables, toks, poss, steps)`` — the
@@ -234,9 +267,12 @@ def make_paged_decode_step(cfg: ArchConfig, *, page_size: int,
     data, fixed for the dispatch: the host resolves allocation and
     copy-on-write before it.  Each active lane writes its new K/V row at
     ``table[pos // ps] * ps + pos % ps``; an inactive lane's row goes to
-    the scratch page 0."""
-    return _fused_loop(cfg, make_lane_step(cfg, page_size=page_size),
-                       max_depth, graphs, page_size)
+    the scratch page 0.  ``kernel_tuner`` and ``_inject_host_copy`` as
+    for ``make_fused_decode_step``."""
+    return _fused_loop(cfg, make_lane_step(cfg, page_size=page_size,
+                                           kernel_tuner=kernel_tuner),
+                       max_depth, graphs, page_size, kernel_tuner,
+                       _inject_host_copy)
 
 
 # ---------------------------------------------------------------------------
@@ -349,18 +385,18 @@ def make_spec_lane_step(cfg: ArchConfig, *, depth: int | None = None,
     every fed position.  It is the same ``lm.forward_cached`` the plain
     lane runs, fed a chunk.  With ``depth`` (the reference's keyword)
     the lanes refuse ``seqs`` of another width; without it they take the
-    width of ``seqs``.  ``kernel_tuner`` is refused, as in
-    ``make_lane_step``."""
-    _refuse_tuner(kernel_tuner)
+    width of ``seqs``.  ``kernel_tuner`` as in ``make_lane_step``."""
     _check_spec_arch(cfg, window)
 
     def lanes(params, caches, seqs, poss, page_table=None, keep=None):
         if depth is not None and seqs.shape[1] != depth:
             raise ValueError(f"verify lanes built for depth {depth} fed "
                              f"{seqs.shape[1]} positions")
-        logits, _ = lm.forward_cached(
-            params, seqs, caches, poss, cfg, window=window, write_keep=keep,
-            all_logits=True, page_table=page_table, page_size=page_size)
+        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER):
+            logits, _ = lm.forward_cached(
+                params, seqs, caches, poss, cfg, window=window,
+                write_keep=keep, all_logits=True, page_table=page_table,
+                page_size=page_size)
         return torch.argmax(logits, dim=-1)
 
     return lanes
@@ -404,8 +440,8 @@ def spec_body(lanes: Callable, depth: int) -> Callable:
 
 
 def _spec_loop(cfg: ArchConfig, lanes: Callable, depth: int, max_depth: int,
-               graphs: DecodeGraphs | None,
-               page_size: int | None) -> Callable:
+               graphs: DecodeGraphs | None, page_size: int | None,
+               kernel_tuner=None) -> Callable:
     """The speculative dispatch shared by the contiguous and the paged
     steps (``page_table`` None for the contiguous pool)."""
     d = depth
@@ -417,18 +453,19 @@ def _spec_loop(cfg: ArchConfig, lanes: Callable, depth: int, max_depth: int,
 
     def fused(params, caches, page_table, hist, toks, poss, steps):
         budget = _budgets(steps, max_depth)
-        st = runner.load(params, caches, toks, poss, budget, max_depth,
-                         table=page_table, hist=hist)
         blind = -(-max(budget, default=0) // d)   # rounds surely needed
         reads = 0
         rnd = 0
-        while any(budget):
-            if rnd >= blind:
-                reads += 1
-                if to_host(st.rem.amax()).tolist() <= 0:
-                    break
-            runner.step()
-            rnd += 1
+        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER):
+            st = runner.load(params, caches, toks, poss, budget, max_depth,
+                             table=page_table, hist=hist)
+            while any(budget):
+                if rnd >= blind:
+                    reads += 1
+                    if to_host(st.rem.amax()).tolist() <= 0:
+                        break
+                runner.step()
+                rnd += 1
         # A lane is active for a prefix of the rounds and emits >= 1 token
         # per active round: loop rounds = max lane rounds, verify events =
         # their sum, and every dispatched token is emitted by exit.
@@ -437,11 +474,12 @@ def _spec_loop(cfg: ArchConfig, lanes: Callable, depth: int, max_depth: int,
         return (caches, st.hist.clone(), st.out.clone(), st.toks.clone(),
                 stats, reads)
 
+    fused.runner = runner
     return fused
 
 
 def make_spec_decode_step(cfg: ArchConfig, *, depth: int,
-                          window: int | None = None,
+                          window: int | None = None, kernel_tuner=None,
                           max_depth: int = DEFAULT_MAX_DEPTH,
                           graphs: DecodeGraphs | None = None) -> Callable:
     """Build the self-speculative fused decode step.
@@ -460,19 +498,22 @@ def make_spec_decode_step(cfg: ArchConfig, *, depth: int,
     verify events, tokens emitted) and ``reads`` the number of round-
     count reads the host made (see the module docstring).  On the card
     each round is one replay of a graph captured per width.
+    ``kernel_tuner``: the measured kernel plans the verify forward takes.
     """
     d = max(int(depth), 2)
-    loop = _spec_loop(cfg, make_spec_lane_step(cfg, depth=d, window=window),
-                      d, max_depth, graphs, None)
+    loop = _spec_loop(cfg, make_spec_lane_step(cfg, depth=d, window=window,
+                                               kernel_tuner=kernel_tuner),
+                      d, max_depth, graphs, None, kernel_tuner)
 
     def fused(params, caches, hist, toks, poss, steps):
         return loop(params, caches, None, hist, toks, poss, steps)
 
+    fused.runner = loop.runner
     return fused
 
 
 def make_paged_spec_decode_step(cfg: ArchConfig, *, depth: int,
-                                page_size: int,
+                                page_size: int, kernel_tuner=None,
                                 max_depth: int = DEFAULT_MAX_DEPTH,
                                 graphs: DecodeGraphs | None = None
                                 ) -> Callable:
@@ -485,5 +526,6 @@ def make_paged_spec_decode_step(cfg: ArchConfig, *, depth: int,
     scratch page."""
     d = max(int(depth), 2)
     return _spec_loop(cfg, make_paged_spec_lane_step(
-        cfg, depth=d, page_size=page_size, max_len=0), d, max_depth, graphs,
-        page_size)
+        cfg, depth=d, page_size=page_size, max_len=0,
+        kernel_tuner=kernel_tuner), d, max_depth, graphs, page_size,
+        kernel_tuner)

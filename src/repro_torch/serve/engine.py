@@ -10,7 +10,9 @@ scheduler does not serve one) and whenever ``frontend_feats`` are
 given, as the reference does.  The features (B, T, d) go to every
 forward of the batch, where the ``cross_attn`` layers attend them.
 ``make_decode_step`` is that path's pure step, and ``make_prefill_step``
-the one-shot prefill over the full-sequence ``lm.forward``.
+the one-shot prefill over the full-sequence ``lm.forward``.  A
+``kernel_tuner`` (the measured kernel plans) applies around every
+forward of both paths, as the reference applies it around its traces.
 """
 from __future__ import annotations
 
@@ -24,9 +26,9 @@ from ..core.executor import SequentialExecutor
 from ..core.future import Future
 from ..core.properties import params_of
 from ..device import resolve_device
-from ..models import lm
+from ..models import flags, lm
 from .decode_loop import to_host
-from .scheduler import ServeScheduler, _not_ported
+from .scheduler import ServeScheduler
 
 
 def prefill_segments(s: int, chunk: int, *, pos: int = 0,
@@ -50,15 +52,18 @@ def prefill_segments(s: int, chunk: int, *, pos: int = 0,
     return segs
 
 
-def make_decode_step(cfg: ArchConfig, *,
-                     window: int | None = None) -> Callable:
+def make_decode_step(cfg: ArchConfig, *, window: int | None = None,
+                     kernel_tuner=None) -> Callable:
     """``(params, caches, tokens (B, L), pos, frontend_feats=None) ->
     (logits (B, 1, V), caches)``: one cached forward at position ``pos``
-    (an int), the caches updated in place."""
+    (an int), the caches updated in place, under ``kernel_tuner`` (or
+    the one ``models.flags`` holds)."""
 
     def decode_step(params, caches, tokens, pos, frontend_feats=None):
-        return lm.forward_cached(params, tokens, caches, pos, cfg,
-                                 window=window, frontend_feats=frontend_feats)
+        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER):
+            return lm.forward_cached(params, tokens, caches, pos, cfg,
+                                     window=window,
+                                     frontend_feats=frontend_feats)
 
     return decode_step
 
@@ -88,9 +93,6 @@ class ServeEngine:
                  executor=None, kernel_tuner=None,
                  dispatch_depth: int | str | None = None,
                  mesh=None, device: str | torch.device = "cuda"):
-        if kernel_tuner is not None:
-            raise _not_ported("measured kernel blocks (kernel_tuner)",
-                              "tooling")
         self.cfg = cfg
         self.params = params
         self.window = window if window is not None else cfg.attn_window
@@ -102,9 +104,11 @@ class ServeEngine:
         self.acc = acc or params_of(self.executor) or AdaptiveCoreChunk()
         self.dispatch_depth = dispatch_depth
         self.mesh = mesh
+        self.kernel_tuner = kernel_tuner
         self._caches = None   # lazy: the scheduled path never builds it
         self.pos = 0
-        self._decode = make_decode_step(cfg, window=self.window)
+        self._decode = make_decode_step(cfg, window=self.window,
+                                        kernel_tuner=kernel_tuner)
         self._sched = None   # lazily built, reused across generate() calls
 
     @property
@@ -192,6 +196,7 @@ class ServeEngine:
             self._sched = ServeScheduler(
                 self.cfg, self.params, n_slots=bsz, max_len=self.max_len,
                 window=self.window, executor=self.executor, acc=self.acc,
+                kernel_tuner=self.kernel_tuner,
                 dispatch_depth=self.dispatch_depth, mesh=self.mesh,
                 device=self.device)
         rids = [self._sched.submit(prompt[i], max_new_tokens=n_new)

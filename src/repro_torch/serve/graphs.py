@@ -26,7 +26,15 @@ largest step (every verify width, the cache's capacity) before the first
 capture, binds it around every capture (``kfa.scratch_buffer``) and
 holds it as long as the graphs; a capture that would need more, or that
 runs with no bound buffer, raises in the wrapper
-(``kernels/flash_attention._scratch_ptr``).  All captures of a device
+(``kernels/flash_attention._scratch_ptr``).  A graph also bakes in the
+kernels' plans: with a measured kernel tuner
+(``models.flags.KERNEL_TUNER`` when the dispatch loads the runner) the
+eager step before the capture resolves every plan on the dispatch's own
+lanes (a search synchronises, so it may not run inside the capture,
+where a miss raises), the scratch is sized for the largest plan any
+candidate may take (``tuning.attention_scratch_reserve``), and the tuner
+and the winners the capture used join its key: another tuner, or a
+changed winner, captures anew.  All captures of a device
 share one side stream: the cuBLAS handle keeps a workspace for every
 stream it ever ran on, for the life of the process.
 
@@ -39,6 +47,7 @@ forward's (B, L) and that tally).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -47,6 +56,8 @@ import torch
 from ..core import strict
 from ..kernels import build
 from ..kernels import flash_attention as kfa
+from ..kernels import tuning
+from ..models import flags
 
 # Called with the ``Capture`` at every replay (``chip_smoke.ForwardSpy``
 # counts kernel 1 per forward through it).
@@ -146,7 +157,9 @@ class StepRunner:
     """One step body over its ``StepState``.  ``heads`` (Hq, Hkv),
     ``page_size`` and ``widths`` (every query length a step of these
     graphs attends with) size the attention scratch; ``length`` is the
-    query length of this step's forward."""
+    query length of this step's forward.  The kernel tuner the body's
+    forward resolves its plans through is ``models.flags.KERNEL_TUNER``
+    at ``load``."""
 
     def __init__(self, graphs: DecodeGraphs, kind: str,
                  body: Callable[[Any, list, StepState], None], *,
@@ -159,12 +172,18 @@ class StepRunner:
         self.heads = heads
         self.widths = widths
         self.page_size = page_size
+        self.tuner = None         # flags.KERNEL_TUNER at the last load
         self.state: StepState | None = None
         self._key = None
         self._params = None
         self._caches: list | None = None
         self._capture: Capture | None = None
         self._generation = -1
+        self._plans: tuple = ()   # (key, winner) the capture baked in
+
+    def _plans_changed(self, tuner) -> bool:
+        return tuner is not self.tuner or tuner is not None and any(
+            tuner.winner(key) != winner for key, winner in self._plans)
 
     def load(self, params, caches: list, toks: torch.Tensor,
              poss: torch.Tensor, budget: list[int], max_depth: int,
@@ -173,13 +192,16 @@ class StepRunner:
         """Copy one dispatch's inputs into the state (a new state, and a
         new capture at the next step, when the key changed)."""
         dev = toks.device
+        tuner = flags.KERNEL_TUNER
         key = (dev, len(budget), max_depth,
                None if table is None else tuple(table.shape),
                None if hist is None else tuple(hist.shape),
                tuple(t.data_ptr() for c in caches for t in c.values()))
         if key != self._key or params is not self._params \
-                or self._generation != self.graphs.generation:
+                or self._generation != self.graphs.generation \
+                or self._plans_changed(tuner):
             self._key, self._params, self._caches = key, params, caches
+            self.tuner = tuner
             self._capture = None
             self._generation = self.graphs.generation
             self.state = StepState.empty(
@@ -219,7 +241,9 @@ class StepRunner:
 
     def _scratch_need(self) -> int:
         """Bytes of attention scratch the largest step needs, sized from
-        the first attention layer's store (0 with no attention layer)."""
+        the first attention layer's store (0 with no attention layer):
+        the analytic plans', or with a tuner the largest any candidate
+        plan may take."""
         st = self.state
         store = next((c["k"] for c in self._caches if "k" in c), None)
         if store is None:
@@ -227,6 +251,9 @@ class StepRunner:
         skv = store.shape[2] if st.table is None \
             else st.table.shape[1] * self.page_size
         hq, hkv = self.heads
+        if self.tuner is not None:
+            return tuning.attention_scratch_reserve(
+                len(st.toks), hq, hkv, self.widths, skv, store.dtype)
         return max(kfa.attention_plan(len(st.toks), hq, hkv, sq,
                                       store.dtype).scratch_bytes(skv)
                    for sq in self.widths)
@@ -244,7 +271,11 @@ class StepRunner:
         self._generation = graphs.generation
         here = torch.cuda.current_stream(dev)
         side.wait_stream(here)
-        with kfa.scratch_buffer(graphs.scratch):
+        tuner = self.tuner
+        with kfa.scratch_buffer(graphs.scratch), (
+                tuner.recording() if tuner is not None
+                else contextlib.nullcontext({})) as plans:
+            # The eager step resolves every plan the capture will read.
             with torch.cuda.stream(side):
                 self.body(params, caches, st)
             before = build.snapshot()
@@ -254,6 +285,7 @@ class StepRunner:
                     self.body(params, caches, st)
             tally = build.tally_since(before)
             build.restore(before)          # a capture launches nothing
+        self._plans = tuple(plans.items())
         here.wait_stream(side)
         graphs.captures[self.kind] += 1
         return Capture(graph, tally, (len(st.toks), self.length))

@@ -41,8 +41,18 @@ decisions and the drain.  Every timed thunk synchronises the card
 drain's readiness probe is one CUDA event recorded after each fused
 dispatch, and its tokens come back in one copy.
 
-Not ported yet (ROADMAP.md): mesh serving and measured kernel blocks
-(``kernel_tuner``).  Passing either raises ``NotImplementedError``.
+A ``kernel_tuner`` (``kernels/autotune.KernelTuner``) applies around
+every tick (``models.flags.kernel_tuner``): kernel 1's warps and
+kernels 2 and 3's attention plans are then measured on the served
+calls themselves, resolved before each graph capture and held in the
+tuner's store.  ``warmup`` measures the prefill buckets; a decode step
+keeps its analytic plans until its first dispatch over a full pool,
+which measures them on those lanes and captures the step anew.
+``decode_cost_analysis`` counts one decode-loop iteration of the live
+step (``analysis/roofline.py``).
+
+Not ported yet (ROADMAP.md): mesh serving (``mesh``), which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,14 +75,15 @@ from ..core.model import (DEFAULT_SPEC_ACCEPT, DecisionKey, ExecutionModel,
                           decision_overhead_s)
 from ..core.properties import params_of
 from ..device import resolve_device
-from ..models import lm
+from ..kernels import build
+from ..models import flags, lm
 from ..train.autotune import serve_profiles
 from .decode_loop import (DEFAULT_MAX_DEPTH, DEFAULT_SPEC_HISTORY,
                           SPEC_DEPTH_CANDIDATES, _check_spec_arch,
                           device_sync, make_fused_decode_step,
                           make_paged_decode_step, make_paged_spec_decode_step,
                           make_spec_decode_step, to_host)
-from .graphs import DecodeGraphs
+from .graphs import DecodeGraphs, StepState
 from .kv_cache import (PagedKVCachePool, SlotKVCachePool, host_to_device,
                        refuse_cross_attention)
 
@@ -201,9 +212,6 @@ class ServeScheduler:
         refuse_cross_attention(cfg, "ServeScheduler")
         if mesh is not None:
             raise _not_ported("mesh-sharded serving", "multi-GPU")
-        if kernel_tuner is not None:
-            raise _not_ported("measured kernel blocks (kernel_tuner)",
-                              "tooling")
         if admission not in ("greedy", "adaptive"):
             raise ValueError(
                 f"admission must be 'greedy' or 'adaptive', "
@@ -212,6 +220,7 @@ class ServeScheduler:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        self.kernel_tuner = kernel_tuner
         self.window = window if window is not None else cfg.attn_window
         if self.window is not None and self.window <= 0:
             self.window = None
@@ -355,6 +364,8 @@ class ServeScheduler:
         # Fused-step variants ("fused" or ("spec", d)) that have run once:
         # the timed sync never records a cold call.
         self._warm_steps: set = set()
+        # Decode steps that run under the kernel tuner (_dispatch_tuner).
+        self._tuned_steps: set = set()
         self._dev_toks: torch.Tensor | None = None
         self._tok_overrides: dict[int, int] = {}
         # In-flight fused dispatches: (out_buf, stats, spec width,
@@ -464,60 +475,69 @@ class ServeScheduler:
         the kernels' first build and launch) into free slot 0, so the
         first timed tick measures compute; on the card this captures
         every decode graph.  Slot 0's rows (its scratch pages, when
-        paged) take the garbage; masking hides it."""
+        paged) take the garbage; masking hides it.
+
+        With a kernel tuner the prefill buckets resolve their measured
+        plans here (a first chunk at position 0 is exactly such a call),
+        but the decode steps run the analytic plans, the tuner put aside:
+        their lanes hold no request.  A decode step's plans are measured
+        on its first dispatch over a full pool (``_dispatch_tuner``)."""
         if self.pool.free_slots() != self.pool.n_slots:
             raise RuntimeError("warmup must precede admission")
+        tuner = self.kernel_tuner or flags.KERNEL_TUNER
         n = self.pool.n_slots
         zeros = torch.zeros(n, dtype=torch.long, device=self.device)
         one = [1] + [0] * (n - 1)
         pt = (self.pool.page_table_array(),) if self.paged else ()
-        if self._fused:
-            new_caches, _out, toks = self._fused_step()(
-                self.params, self.pool.caches, *pt, zeros,
-                self.pool.positions_array(), one)
-            self.pool.mark_donated("fused decode warmup")
-            device_sync(self.device)
-            self.pool.adopt(new_caches)
-            self._dev_toks = toks
-            self._warm_steps.add("fused")
-            if self._spec:
-                # Every width a re-decision can land on: a mid-run switch
-                # must never pay a first launch inside a timed window.
-                cap = min(self.max_spec_depth, self.max_dispatch_depth)
-                if self.speculate == "auto":
-                    widths = [c for c in SPEC_DEPTH_CANDIDATES
-                              if 2 <= c <= cap]
-                else:
-                    widths = [self._spec_depth] \
-                        if self._spec_depth >= 2 else []
-                for d in widths:
-                    self._hist_overrides[0] = [0]
-                    new_caches, hist, _out, toks, _st, _reads = \
-                        self._spec_step(d)(
-                            self.params, self.pool.caches, *pt,
-                            self._decode_hist(), self._decode_toks(),
-                            self.pool.positions_array(), one)
-                    self.pool.mark_donated("fused decode warmup")
-                    device_sync(self.device)
-                    self.pool.adopt(new_caches)
-                    self._dev_toks = toks
-                    self._dev_hist = hist
-                    self._warm_steps.add(("spec", d))
-            self._warm_fused = True
-        else:
-            self._fused_step()(self.params, self.pool.caches, zeros,
-                               self.pool.positions_array(), one)
-            device_sync(self.device)
-            self._warm_decode = True
-        if self._pad_ok:
-            for b in self.chunk_buckets:
-                if b < self.max_len:
-                    self._prefill_forward(
-                        0, torch.zeros((1, b), dtype=torch.long,
-                                       device=self.device), 0, b - 1,
-                        pt[0][:1] if pt else None)
-                    self._warm_prefill.add(b)
-            device_sync(self.device)
+        with flags.kernel_tuner(None):
+            if self._fused:
+                new_caches, _out, toks = self._fused_step()(
+                    self.params, self.pool.caches, *pt, zeros,
+                    self.pool.positions_array(), one)
+                self.pool.mark_donated("fused decode warmup")
+                device_sync(self.device)
+                self.pool.adopt(new_caches)
+                self._dev_toks = toks
+                self._warm_steps.add("fused")
+                if self._spec:
+                    # Every width a re-decision can land on: a mid-run switch
+                    # must never pay a first launch inside a timed window.
+                    cap = min(self.max_spec_depth, self.max_dispatch_depth)
+                    if self.speculate == "auto":
+                        widths = [c for c in SPEC_DEPTH_CANDIDATES
+                                  if 2 <= c <= cap]
+                    else:
+                        widths = [self._spec_depth] \
+                            if self._spec_depth >= 2 else []
+                    for d in widths:
+                        self._hist_overrides[0] = [0]
+                        new_caches, hist, _out, toks, _st, _reads = \
+                            self._spec_step(d)(
+                                self.params, self.pool.caches, *pt,
+                                self._decode_hist(), self._decode_toks(),
+                                self.pool.positions_array(), one)
+                        self.pool.mark_donated("fused decode warmup")
+                        device_sync(self.device)
+                        self.pool.adopt(new_caches)
+                        self._dev_toks = toks
+                        self._dev_hist = hist
+                        self._warm_steps.add(("spec", d))
+                self._warm_fused = True
+            else:
+                self._fused_step()(self.params, self.pool.caches, zeros,
+                                   self.pool.positions_array(), one)
+                device_sync(self.device)
+                self._warm_decode = True
+        with flags.kernel_tuner(tuner):
+            if self._pad_ok:
+                for b in self.chunk_buckets:
+                    if b < self.max_len:
+                        self._prefill_forward(
+                            0, torch.zeros((1, b), dtype=torch.long,
+                                           device=self.device), 0, b - 1,
+                            pt[0][:1] if pt else None)
+                        self._warm_prefill.add(b)
+                device_sync(self.device)
 
     def _prefill_forward(self, slot: int, piece: torch.Tensor, pos: int,
                          last: int, page_table: torch.Tensor | None):
@@ -545,20 +565,25 @@ class ServeScheduler:
         The wall-clock of everything that is not a device wait is
         accumulated as ``host_overhead_s`` — the per-dispatch T0 the
         fused path amortises — and, on clean fused decode-only ticks,
-        folded into the calibration store (``serve_host_tick``).  Under
+        folded into the calibration store (``serve_host_tick``); a tick
+        that captured a graph (a step's first dispatch under a kernel
+        tuner, which also measures its plans) is not a clean one.  Under
         strict mode any implicit device→host sync in the round raises.
         """
-        with strict.hot_dispatch_guard():
+        with strict.hot_dispatch_guard(), \
+                flags.kernel_tuner(self.kernel_tuner or flags.KERNEL_TUNER):
             t_start = time.perf_counter()
             self._blocked_s = 0.0
             self._tick_misses = 0
             was_warm = self._warm_fused
+            captures = self.graphs.captures.total()
             rec = self._tick_fused() if self._fused else self._tick_legacy()
             host_s = max(
                 time.perf_counter() - t_start - self._blocked_s, 0.0)
             self.host_overhead_s += host_s
             if self._fused and was_warm and rec.decoded \
-                    and not rec.prefill_ops:
+                    and not rec.prefill_ops \
+                    and self.graphs.captures.total() == captures:
                 model = self.decision_model()
                 if model is not None:
                     model.observe(self.host_tick_key, 1, host_s)
@@ -858,16 +883,20 @@ class ServeScheduler:
         toks_a = host_to_device(toks, torch.long, dev)
         poss_a = pool.positions_array()
         step = self._fused_step()
+        tuner = self._dispatch_tuner("fused")
 
         def run_decode(_):
             # One step of the fused decode (its graph, on the card), as
             # the reference jits this path as one program too.
-            _, _, next_toks = step(params, pool.caches, toks_a, poss_a,
-                                   steps)
+            with flags.kernel_tuner(tuner):
+                _, _, next_toks = step(params, pool.caches, toks_a, poss_a,
+                                       steps)
             device_sync(dev)
             return next_toks
 
-        if self._warm_decode:
+        # A step that first runs under the tuner measures its plans and
+        # captures anew: not timed as a warm one.
+        if self._warm_decode and tuner is step.runner.tuner:
             tag_workload(run_decode, self.decode_key, elems=len(decs))
         t_dev = time.perf_counter()
         fut = self.executor.then_execute(run_decode, Future.ready(None))
@@ -891,6 +920,22 @@ class ServeScheduler:
         return decoded, finished
 
     # -- decode (fused path) -------------------------------------------------
+    def _dispatch_tuner(self, step_id):
+        """The kernel tuner a decode dispatch of ``step_id`` runs under.
+        The first dispatch under it measures the step's plans on its own
+        lanes, so that dispatch must carry the served load: until every
+        slot holds a request the step keeps the analytic plans warmup
+        captured (None); from its first dispatch over a full pool on,
+        the scheduler's tuner (which captures the step anew once)."""
+        tuner = self.kernel_tuner or flags.KERNEL_TUNER
+        if tuner is None:
+            return None
+        if step_id not in self._tuned_steps:
+            if self.pool.free_slots():
+                return None
+            self._tuned_steps.add(step_id)
+        return tuner
+
     def _fused_step(self):
         if self._fused_fn is None:
             if self.paged:
@@ -918,6 +963,70 @@ class ServeScheduler:
                     max_depth=self.max_dispatch_depth, graphs=self.graphs)
             self._spec_fns[depth] = fn
         return fn
+
+    def decode_cost_analysis(self) -> dict:
+        """What one decode-loop iteration of the live step must do, on
+        the scheduler's path (the fused step, contiguous or paged, or the
+        speculative step at the live width): every lane one step at its
+        live position, run once eagerly under a cost count
+        (``analysis/roofline.count_costs``: tensor ops by their formulas
+        and bytes, each kernel by its own count).  The reference's keys
+        (one card: no collective bytes), the flops split into tensor-core
+        and other, and the bound those give (the larger of the bytes
+        over the memory rate and the flops over their peaks).  Every
+        lane's budget is 0, so the step drops every write as a spent lane
+        does (``fused_body``'s ``keep``) and does the same work: the
+        pool, the tokens, the history and the live step's state are left
+        as they were (the paged pool's scratch page 0, which takes the
+        dropped rows, restored), and the launch counters too.
+        """
+        from ..analysis import roofline
+
+        n, dev = self.pool.n_slots, self.device
+        spec = self._fused and self._spec and self._spec_depth >= 2
+        step = self._spec_step(self._spec_depth) if spec \
+            else self._fused_step()
+        table = self.pool.page_table_array() if self.paged else None
+        hist = None
+        if spec:
+            hist = (self._dev_hist.clone() if self._dev_hist is not None
+                    else torch.full((n, self.spec_history), -1,
+                                    dtype=torch.long, device=dev))
+        st = StepState.empty(n, self.max_dispatch_depth, dev,
+                             None if table is None else table.shape,
+                             None if hist is None else hist.shape)
+        if self._dev_toks is not None:
+            st.toks.copy_(self._dev_toks)
+        st.poss.copy_(self.pool.positions_array())
+        if table is not None:
+            st.table.copy_(table)
+        if hist is not None:
+            st.hist.copy_(hist)
+        caches = self.pool.caches
+        ps = self.pool.page_size if self.paged else 0
+        scratch = [(t, t[:ps].clone()) for c in caches
+                   for k, t in c.items() if k in ("k", "v") and ps]
+        before = build.snapshot()
+        try:
+            with strict.allow_sync():
+                costs = roofline.count_costs(step.runner.body, self.params,
+                                             caches, st)
+        finally:
+            for t, rows in scratch:
+                t[:ps].copy_(rows)
+            build.restore(before)
+        bound_s, bound_by = costs.bound()
+        return {"flops_per_device": costs.flops,
+                "hbm_bytes_per_device": costs.bytes,
+                "collective_wire_bytes_per_device": 0.0,
+                "n_devices": 1,
+                "tensor_flops": costs.tensor_flops,
+                "other_flops": costs.other_flops,
+                "bound_s": bound_s, "bound_by": bound_by,
+                "path": (f"spec{self._spec_depth}" if spec else "fused")
+                + ("-paged" if self.paged else ""),
+                "kernels": {name: dataclasses.asdict(w)
+                            for name, w in costs.kernels.items()}}
 
     def _decode_hist(self) -> torch.Tensor:
         """The device-resident per-lane token-history ring the drafter
@@ -1178,23 +1287,29 @@ class ServeScheduler:
         poss_a = self.pool.positions_array()
         step_id = ("spec", spec_d) if use_spec else "fused"
         fused = self._spec_step(spec_d) if use_spec else self._fused_step()
+        tuner = self._dispatch_tuner(step_id)
         # Periodic synced dispatch: the only honest wall-clock of the
-        # device step is one with an empty pipeline around it.
-        timed = step_id in self._warm_steps and \
-            self.decode_dispatches % self.sync_every == 0
+        # device step is one with an empty pipeline around it.  A step
+        # that first runs under the tuner measures its plans and captures
+        # anew: not timed.
+        timed = step_id in self._warm_steps \
+            and tuner is fused.runner.tuner \
+            and self.decode_dispatches % self.sync_every == 0
         if timed:
             self._drain(drop_to=0)
         t_dev = time.perf_counter()
         stats = None
-        if use_spec:
-            new_caches, new_hist, out_buf, final_toks, stats, reads = fused(
-                self.params, self.pool.caches, *pt, self._decode_hist(),
-                toks_a, poss_a, steps)
-            self.host_roundtrips += reads
-        else:
-            new_hist = None
-            new_caches, out_buf, final_toks = fused(
-                self.params, self.pool.caches, *pt, toks_a, poss_a, steps)
+        with flags.kernel_tuner(tuner):
+            if use_spec:
+                new_caches, new_hist, out_buf, final_toks, stats, reads = \
+                    fused(self.params, self.pool.caches, *pt,
+                          self._decode_hist(), toks_a, poss_a, steps)
+                self.host_roundtrips += reads
+            else:
+                new_hist = None
+                new_caches, out_buf, final_toks = fused(
+                    self.params, self.pool.caches, *pt, toks_a, poss_a,
+                    steps)
         self.pool.mark_donated("fused decode dispatch")
         total = sum(take for _, _, take in lanes)
         if timed:

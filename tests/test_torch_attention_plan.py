@@ -171,6 +171,24 @@ def test_plan_constants_match_the_cuda_source():
     for src in ("flash_attention.cu", "paged_attention.cu"):
         text = (CSRC / src).read_text()
         assert "void* scratch" in text and "out, scratch," in text
+        # ... and the plan: keys per split and the tile schedule, at run
+        # time (the defaults above are the prior's).
+        assert "int dtype, int chunk, int block_rows" in text
+        assert "chunk, block_rows" in text
+    # The launch takes the chunk as an argument in place of the
+    # constant, refuses one that is not whole split tiles, and runs the
+    # 64-row wgmma schedule only for bf16 at block_rows == kTileRows.
+    assert "constexpr int chunk = Vec<T>::kChunk" not in HEADER
+    assert "chunk % Vec<T>::kKeys != 0" in HEADER
+    assert "if (block_rows == kTileRows)" in HEADER
+    wrapper = pathlib.Path(tfa.__file__).read_text()
+    assert wrapper.count("plan.chunk or 0, plan.block_rows") == 2
+    for dt in order:
+        default = tfa.attention_plan(1, HQ, HKV, 1, dt)
+        assert default.chunk == tfa.SPLIT_CHUNK[dt]
+        assert default.chunk % default.kv_tile == 0
+        assert tfa.attention_plan(1, HQ, HKV, 256, dt).block_rows == \
+            tfa.tile_schedules(dt)[0]
 
 
 def test_no_library_computes_attention():

@@ -18,6 +18,8 @@ from repro.serve import engine as jengine
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import strict
+from repro_torch.core.calibration import CalibrationCache
+from repro_torch.kernels.autotune import KernelTuner
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm as tlm
 from repro_torch.serve import ServeEngine, make_decode_step
@@ -116,14 +118,24 @@ def test_make_decode_step_matches_reference(models):
 
 
 def test_unported_engine_options_raise(models):
-    """Only ``kernel_tuner`` (the tooling) raises.  Frontend features are
-    taken: an arch with no ``cross_attn`` layer reads none of them, and
-    ``generate`` with them takes the lock-step path (as the reference),
-    with the tokens of a run without them."""
+    """No engine option raises any more: ``kernel_tuner`` (now ported)
+    is taken on both paths, scheduled and lock-step, with the
+    untuned tokens.  Frontend features are taken: an arch with no
+    ``cross_attn`` layer reads none of them, and ``generate`` with them
+    takes the lock-step path (as the reference), with the tokens of a
+    run without them."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="tooling"):
-        ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu",
-                    kernel_tuner=object())
+    tuner = KernelTuner(CalibrationCache(), repeats=1)
+    for lockstep in (False, True):
+        tuned = ServeEngine(tcfg, tparams, batch=1, max_len=16,
+                            device="cpu", kernel_tuner=tuner)
+        untuned = ServeEngine(tcfg, tparams, batch=1, max_len=16,
+                              device="cpu")
+        feats = torch.zeros(1, 4, 8) if lockstep else None
+        assert torch.equal(
+            tuned.generate(_prompt(6, b=1, s=4), 3, frontend_feats=feats),
+            untuned.generate(_prompt(6, b=1, s=4), 3, frontend_feats=feats))
+    assert tuner.searches > 0
     feats = torch.zeros(1, 4, 8)
     engine = ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu")
     plain = ServeEngine(tcfg, tparams, batch=1, max_len=16, device="cpu")

@@ -23,7 +23,9 @@ from repro.models import lm as jlm
 from repro.serve import decode_loop as jdl
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.core.calibration import CalibrationCache
 from repro_torch.kernels import build
+from repro_torch.kernels.autotune import KernelTuner
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import rmsnorm as krms
 from repro_torch.models import lm as tlm
@@ -209,7 +211,9 @@ def test_reference_named_lane_factories_equal_the_folded_ones(models, d):
     ``make_spec_lane_step(page_size=)`` give on the same paged inputs: the
     same tokens and every store row bit for bit; ``depth=`` on the
     verify lanes refuses another width; each takes the reference's
-    keywords and refuses a kernel tuner, as the rest of the port does."""
+    keywords, ``kernel_tuner`` among them: with a tuner the lanes give
+    the untuned tokens and rows (on the CPU the plain versions run and
+    the tuner resolves every plan's key)."""
     import inspect
 
     _, _, tcfg, tparams = models
@@ -244,9 +248,16 @@ def test_reference_named_lane_factories_equal_the_folded_ones(models, d):
                       (jdl.make_spec_lane_step, tdl.make_spec_lane_step)):
         assert set(inspect.signature(ref).parameters) <= \
             set(inspect.signature(port).parameters)
-    with pytest.raises(NotImplementedError, match="tooling"):
-        names[1](tcfg, page_size=PS, max_len=MAX_LEN, kernel_tuner=object(),
-                 **({} if d is None else {"depth": d}))
+    tuner = KernelTuner(CalibrationCache(), repeats=1)
+    tuned = names[1](tcfg, page_size=PS, max_len=MAX_LEN,
+                     kernel_tuner=tuner,
+                     **({} if d is None else {"depth": d}))
+    caches = _torch_tree(stores)
+    got = tuned(tparams, caches, feed, poss, torch.from_numpy(table), keep)
+    assert torch.equal(got, outs[0][0]) and tuner.searches > 0
+    for a, b in zip(caches, outs[0][1], strict=True):
+        for name in ("k", "v"):
+            assert torch.equal(a[name], b[name])
 
 
 # ---------------------------------------------------------------------------

@@ -219,7 +219,9 @@ def test_add_rmsnorm_launches_once(card, dtype):
         s, h = krms.add_rmsnorm(x, y, g, eps=1e-6)
     assert not LIBRARY & set(rec.calls)
     assert [c[0] for c in card.calls] == ["repro_add_rmsnorm"]
-    assert card.calls[0][1][5:9] == (8, 1024, 1e-6, krms._DTYPES[dtype])
+    # rows, d, eps, the block's warps (the default: no plan given), dtype
+    assert card.calls[0][1][5:10] == (8, 1024, 1e-6, krms.DEFAULT_WARPS,
+                                      krms._DTYPES[dtype])
     assert s.shape == h.shape == x.shape and s.dtype == h.dtype == dtype
     assert krms.launches.count == 1
     assert krms.entry_launches["add_rmsnorm"].count == 1
@@ -246,6 +248,7 @@ def test_rmsnorm_launches_once(card):
     assert not LIBRARY & set(rec.calls)
     assert [c[0] for c in card.calls] == ["repro_rmsnorm"]
     assert card.calls[0][1][3:5] == (4096, 1024)
+    assert card.calls[0][1][6] == krms.DEFAULT_WARPS == 8
     assert out.shape == (4096, 1024)
     assert krms.launches.count == krms.entry_launches["rmsnorm"].count == 1
 

@@ -17,6 +17,8 @@ from repro_torch import bridge
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import strict
 from repro_torch.core.acc import StaticCoreChunk
+from repro_torch.core.calibration import CalibrationCache
+from repro_torch.kernels.autotune import KernelTuner
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import (CacheLayoutError, ServeEngine, ServeScheduler,
                                SlotKVCachePool, SlotOverflowError)
@@ -172,12 +174,22 @@ def test_pad_ok_is_the_reference_rule(window):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(kernel_tuner=object())])
+    dict(mesh=object()), dict(kernel_tuner="a KernelTuner")])
 def test_unported_options_raise(models, kwargs):
+    """Mesh-sharded serving is not ported and raises.  A kernel tuner is
+    taken (now ported): it gives the untuned scheduler's
+    tokens, after measured searches on the CPU."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeScheduler(tcfg, tparams, n_slots=2, max_len=32,
-                       dispatch_depth=2, device="cpu", **kwargs)
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServeScheduler(tcfg, tparams, n_slots=2, max_len=32,
+                           dispatch_depth=2, device="cpu", **kwargs)
+        return
+    tuner = KernelTuner(CalibrationCache(), repeats=1)
+    trace = _trace()[:3]
+    tuned, _ = _serve(_port(tcfg, tparams, 2, kernel_tuner=tuner), trace)
+    plain, _ = _serve(_port(tcfg, tparams, 2), trace)
+    assert tuned == plain and tuner.searches > 0
 
 
 @pytest.mark.parametrize("where", ["argument", "config"])

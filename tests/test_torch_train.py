@@ -341,9 +341,24 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     assert "acc plan: data_parallel=1 accum=1" in out
     assert out.count("gnorm") == 3 and "tok/s" in out
     assert "train_plan" in out
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tlaunch.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
-                      "--kernel-autotune"])
+    # --kernel-autotune is taken: the same losses as the untuned run
+    # (kernel 1's warps change no bits; the CPU runs the plain versions),
+    # after measured searches, and the reference's searches/reused line.
+    args = ["--arch", "qwen3-0.6b", "--reduced", "--steps", "2", "--batch",
+            "2", "--seq", "16", "--device", "cpu", "--no-cal-cache",
+            "--accum", "1", "--log-every", "1"]
+    runs = []
+    for extra in ([], ["--kernel-autotune"]):
+        tlaunch.main(args + ["--ckpt", str(tmp_path / f"k{len(extra)}")]
+                     + extra)
+        runs.append(capsys.readouterr().out)
+    losses = [[ln.split("gnorm")[0] for ln in out.splitlines()
+               if ln.startswith("step")] for out in runs]
+    assert losses[0] == losses[1] and len(losses[0]) == 2
+    line = [ln for ln in runs[1].splitlines()
+            if ln.startswith("kernel autotune:")]
+    assert line and "measured searches" in line[0] \
+        and not line[0].startswith("kernel autotune: 0 ")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tlaunch.main(["--arch", "qwen3-0.6b", "--reduced"])
