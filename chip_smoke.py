@@ -237,6 +237,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
               width 4 (the second process: 0 searches), the first round
               beside the launch-audit CLI (rc 0, and rc 1 with
               ``--inject-host-copy``).
+15. mesh    — multi-GPU on ``torch.distributed`` at world size 1 over
+              NCCL (``_mesh_phase``, alone: ``mesh_main()``; NCCL takes
+              one rank per card, so one card proves the code path only):
+              its rendezvous a file in a temporary directory,
+              ``make_serve_mesh(1, 1)``.  qwen3-0.6b at full width, bf16,
+              phase 5's 16 requests with ``serve_pinned_main``'s
+              decisions, contiguous and paged (with speculation at 2):
+              the mesh scheduler's tokens bit-equal to the no-mesh
+              scheduler's, tok/s, TTFT p50 and the fused step's replay
+              time beside the no-mesh run's (``[mesh serve]``); the
+              launch audit of one replay of each mesh step (one graph
+              launch, its NCCL kernels counted, no host copy above 64 B;
+              ``[mesh audit]``); the mesh branches of reduce,
+              inclusive_scan, adjacent_difference and artificial_work
+              (``*_on_mesh``, with the entries' own bodies; the entries
+              take them only with two cores or more) at 2^24 f32 on a
+              one-rank sub-group through kernels 4-7, bit-equal to the
+              no-mesh kernel calls (``[mesh algorithms]``); one
+              int8-compressed data-parallel step at full width and 2
+              layers, each quantisation group's synced gradient within
+              one int8 quantum of the plain f32 mean (``[mesh dp]``).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -889,7 +910,8 @@ def main() -> None:
     # ---------------------------------------------------------- 12. xLSTM
     # -------------------------------------------------------- 13. vision
     # ----------------------------------------------------------- 14. tune
-    for phase in (_xlstm_phase, _vision_phase, _tune_phase):
+    # ---------------------------------------------------------- 15. mesh
+    for phase in (_xlstm_phase, _vision_phase, _tune_phase, _mesh_phase):
         phase_records, phase_launches = phase(torch, dev)
         for name, recs in phase_records.items():
             records[name].extend(recs)
@@ -4797,6 +4819,364 @@ def vision_main() -> None:
     """``python3 -c "import chip_smoke; chip_smoke.vision_main()"``: the
     build and phase 13 alone (the vision family)."""
     _phase_main(13, _vision_phase)
+
+
+# Phase 15: multi-GPU on torch.distributed at world size 1 over NCCL (the
+# one card this machine has; NCCL refuses two ranks on one card).  Serving
+# on ``make_serve_mesh(1, 1)`` against the no-mesh scheduler, the mesh
+# decode step's launch audit, the algorithms' mesh functions through
+# kernels 4-7, one int8-compressed data-parallel step.
+
+MESH_ARCH = "qwen3-0.6b"
+
+
+def _phase5_prompts(torch, vocab: int) -> list:
+    """Phase 5's 16 requests (the same generator calls)."""
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+    return [torch.randint(0, vocab, (n,), generator=rng) for n in lens]
+
+
+def _replay_ms(torch, runner, reps: int = 20):
+    """Median device time of one replay of ``runner``'s captured step
+    (CUDA events around each replay), None with nothing captured.  The
+    step's budgets are spent, so a replay computes every lane and drops
+    every write (``fused_body``'s ``keep``)."""
+    cap = getattr(runner, "_capture", None)
+    if cap is None:
+        return None
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        cap.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def _forward_host15(torch, dev, cfg, sched) -> dict:
+    """Host time and synced span (ms, median of 20 after 5) of one eager
+    ``forward_cached`` of the scheduler's weights on fresh contiguous
+    caches at L = 128 and 1, under its tensor-parallel context (the
+    prefill's path: a chunk runs eagerly)."""
+    from repro_torch.models import flags, lm
+
+    caches = lm.init_caches(sched.pool.part.cfg, 1, 1024, device=dev)
+    gen = torch.Generator().manual_seed(14)
+    out = {}
+    with flags.tensor_parallel(sched.tp):
+        for length in (128, 1):
+            toks = torch.randint(0, cfg.vocab_size, (1, length),
+                                 generator=gen).to(dev)
+            hs, spans = [], []
+            for _ in range(25):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                lm.forward_cached(sched.params, toks, caches, 0, cfg)
+                hs.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t)
+            out[f"L{length}"] = {"host_ms": sorted(hs[5:])[10] * 1e3,
+                                 "span_ms": sorted(spans[5:])[10] * 1e3}
+        # Where an eager forward's host time goes: one more at L = 128,
+        # profiled on the CPU side (self time of each op, top 6).
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            lm.forward_cached(sched.params, toks.new_zeros((1, 128)),
+                              caches, 0, cfg)
+            torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    out["L128_top_self_cpu_us"] = {
+        e.key[:48]: [e.count, round(e.self_cpu_time_total, 1)]
+        for e in ops[:6]}
+    return out
+
+
+def _nccl_probe15(torch, dev, mesh) -> dict:
+    """One eager ``all_reduce`` over the model group at the decode
+    step's residual shape (8 x 1024 bf16), profiled: the NCCL kernels it
+    launches at world size 1 and its host time (median of 20)."""
+    import torch.distributed as dist
+
+    t = torch.ones(8, 1024, dtype=torch.bfloat16, device=dev)
+    hs = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=mesh.groups["model"])
+        hs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dist.all_reduce(t, group=mesh.groups["model"])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"nccl_kernels": sum(e.count for e in kernels
+                                if "nccl" in e.key.lower()),
+            "device_kernels": sum(e.count for e in kernels),
+            "host_us": sorted(hs[5:])[10] * 1e6,
+            "equal": bool((t == 1).all())}
+
+
+def _mesh_serve15(torch, dev, cfg, params, prompts, mesh, *, paged):
+    """One pinned serve run (phase 5's requests, the decisions of
+    ``serve_pinned_main``) on ``mesh`` or none: tokens, tok/s, TTFT, the
+    kernels' launches and the fused step's replay time."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.serve import ServeScheduler, percentile
+
+    kw = dict(paged=True, page_size=16, prefill_interleave=1,
+              speculate=2) if paged else {}
+    sched = ServeScheduler(cfg, params, n_slots=8, max_len=1024,
+                           executor=adaptive(SequentialExecutor(),
+                                             StaticCoreChunk(cores=1)),
+                           dispatch_depth=8, mesh=mesh, device=dev, **kw)
+    sched.warmup()
+    torch.cuda.synchronize()
+    gc.collect()
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
+        counter.reset()
+    t_start = time.monotonic()
+    rids = [sched.submit(p, max_new_tokens=64) for p in prompts]
+    results = sched.run_until_idle()
+    torch.cuda.synchronize()
+    makespan = time.monotonic() - t_start
+    launches = {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+    tokens = [results.get(r) for r in rids]
+    ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
+             for r in rids]
+    n_tok = sum(len(t or ()) for t in tokens)
+    run = {"tokens": tokens, "tok_s": n_tok / makespan,
+           "forward_cached": _forward_host15(torch, dev, cfg, sched),
+           "ttft_p50_ms": percentile(ttfts, 50) * 1e3,
+           "launches": {k: v for k, v in launches.items() if v},
+           "step_ms": _replay_ms(torch, sched._fused_step().runner),
+           "captures": dict(sched.graphs.captures),
+           "replays": sched.graphs.replays}
+    return run, sched
+
+
+def _mesh_algorithms15(torch, dev, mexec) -> tuple[dict, list]:
+    """The mesh branches of reduce, inclusive_scan, adjacent_difference
+    and artificial_work (``*_on_mesh``, the code each entry runs on a
+    mesh once acc picks more than one core, with the entry's own shard
+    bodies) at 2^24 f32 on a one-rank sub-group: each through its kernel
+    and bit-equal to the no-mesh kernel call; the 1-d kernels' launches
+    in these calls.  At world size 1 the entries themselves never take
+    these branches (a plan needs two cores to be parallel)."""
+    import importlib
+
+    from repro_torch.kernels import adjacent_difference as kad
+    from repro_torch.kernels import artificial_work as kaw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import reduce_scan as krs
+
+    x = torch.randn(2 ** 24, generator=torch.Generator(device=dev)
+                    .manual_seed(15), device=dev)
+    plain = {"reduce_sum": ops.reduce_sum(x),
+             "inclusive_scan": ops.inclusive_scan(x),
+             "adjacent_difference": ops.adjacent_difference(x),
+             "artificial_work": ops.artificial_work(x, iters=256)}
+    counters = {"reduce_sum": krs.reduce_launches,
+                "inclusive_scan": krs.scan_launches,
+                "adjacent_difference": kad.launches,
+                "artificial_work": kaw.launches}
+    for c in counters.values():
+        c.reset()
+    # The modules by name: the package's functions reduce and
+    # adjacent_difference shadow their modules as its attributes.
+    alg = {m: importlib.import_module(f"repro_torch.algorithms.{m}")
+           for m in ("reduce", "scan", "adjacent_difference", "stencil")}
+    got = {
+        "reduce_sum": alg["reduce"].reduce_on_mesh(mexec, 1, x),
+        "inclusive_scan": alg["scan"].inclusive_scan_on_mesh(mexec, 1, x),
+        "adjacent_difference": alg["adjacent_difference"]
+        .adjacent_difference_on_mesh(mexec, 1, x),
+        "artificial_work": alg["stencil"].artificial_work_on_mesh(
+            mexec, 1, x, iters=256)}
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    problems = []
+    for name, ref in plain.items():
+        out = got[name].reshape(ref.shape)
+        if not torch.equal(out, ref):
+            err = float((out.float() - ref.float()).abs().max())
+            problems.append(f"mesh {name} differs from the no-mesh kernel "
+                            f"call (max |err| {err:.3g})")
+        if launches[name] <= 0:
+            problems.append(f"mesh {name} launched no kernel")
+    return launches, problems
+
+
+def _mesh_dp15(torch, dev, mesh) -> tuple[dict, list]:
+    """One int8-compressed data-parallel step of qwen3-0.6b at full width
+    and 2 layers (f32 masters, bf16 compute): each quantisation group's
+    synced gradient against the plain f32 mean (at world size 1, the
+    gradient itself) within one int8 quantum of the group (half a
+    quantum from each of the two stages), then the step itself."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.sharding import local_tree
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import grad_compress as gc8
+    from repro_torch.train import train_loop
+
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=2)
+    params = lm.init_params(0, cfg, device=dev, dtype=torch.float32,
+                            draw_on_device=True)
+    batch = make_batch(cfg, 2, 256, kind="train", seed=0, device=dev)
+    group = mesh.groups["data"]
+    flat, tparams = train_loop._trainable(params)
+    loss = train_loop.make_loss_fn(cfg)(tparams, batch)
+    grads = train_loop._grad(loss, flat)
+    worst, problems = 0.0, []
+    for idx in gc8._groups(cfg, params):
+        g = torch.cat([grads[i].float().reshape(-1) for i in idx])
+        q, scale = gc8._quantize(g, group)
+        mean = gc8._int8_allreduce_mean(q, scale, group, 1)
+        quantum = float(g.abs().max()) / 127 + 1e-12
+        err = float((mean - g).abs().max())
+        worst = max(worst, err / quantum)
+        if err > 1.01 * quantum:
+            problems.append(f"group {idx[0]}: |synced - mean| {err:.3g} > "
+                            f"one quantum {quantum:.3g}")
+    opt = adamw.init_state(params)
+    ef = local_tree(gc8.init_error_feedback(params, 1), ("data",), mesh)
+    before = float(tree.leaves(params)[0].float().sum())
+    step = gc8.make_compressed_dp_train_step(cfg, AdamWConfig(lr=1e-3), mesh)
+    t0 = time.perf_counter()
+    params, opt, ef, metrics = step(params, opt, ef, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_loss = float(metrics["loss"])
+    if not math.isfinite(step_loss) \
+            or float(tree.leaves(params)[0].float().sum()) == before:
+        problems.append(f"the compressed step did not train (loss "
+                        f"{step_loss})")
+    return {"loss": step_loss, "worst_err_over_quantum": worst,
+            "groups": len(gc8._groups(cfg, params)),
+            "step_s": step_s}, problems
+
+
+def _mesh_phase(torch, dev):
+    """Phase 15: the mesh paths at world size 1 over NCCL.  Returns ({},
+    {path: launches})."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import launch_audit
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import MeshExecutor
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: unavailable"
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_distributed("cuda", init_method=f"file://{tmp}/rdv",
+                                  rank=0, world_size=1, timeout_s=120)
+        try:
+            mesh = mesh_lib.make_serve_mesh(1, 1)
+            log(f"[mesh] {card}: backend {dist.get_backend()}, world "
+                f"{dist.get_world_size()}, mesh {mesh.shape}")
+            cfg = get_config(MESH_ARCH)
+            params = lm.init_params(0, cfg, device=dev, draw_on_device=True)
+            prompts = _phase5_prompts(torch, cfg.vocab_size)
+            path_launches, runs = {}, {}
+            for pool in ("contiguous", "paged"):
+                paged = pool == "paged"
+                plain, s0 = _mesh_serve15(torch, dev, cfg, params, prompts,
+                                          None, paged=paged)
+                del s0
+                on_mesh, sched = _mesh_serve15(torch, dev, cfg, params,
+                                               prompts, mesh, paged=paged)
+                audit = launch_audit.audit_scheduler(
+                    sched, policy=launch_audit.AuditPolicy(
+                        small_copy_max=64, mesh=True))
+                del sched
+                torch.cuda.empty_cache()
+                same = on_mesh["tokens"] == plain["tokens"]
+                full = all(t is not None and len(t) == 64
+                           for t in on_mesh["tokens"])
+                runs[pool] = {"mesh": on_mesh, "plain": plain}
+                log(f"[mesh serve] {pool}: " + json.dumps({
+                    "card": card, "tokens_bit_equal": same,
+                    "mesh": {k: v for k, v in on_mesh.items()
+                             if k != "tokens"},
+                    "no_mesh": {k: v for k, v in plain.items()
+                                if k != "tokens"}}))
+                log(f"[mesh audit] {pool}: nccl kernels "
+                    f"{audit.kernels.get('nccl', 0)} in one replay; "
+                    + launch_audit.format_report(audit).replace("\n", " | "))
+                if not same or not full:
+                    problems.append(f"{pool}: mesh tokens differ from the "
+                                    f"no-mesh scheduler's (or are short)")
+                if not audit.ok:
+                    problems.append(f"{pool}: launch audit of the mesh step: "
+                                    f"{audit.violations}")
+                if audit.graph_launches != 1:
+                    problems.append(f"{pool}: the audited mesh step made "
+                                    f"{audit.graph_launches} graph launches")
+                need = ("rmsnorm", "paged_flash_attention") if paged \
+                    else ("rmsnorm", "flash_attention")
+                for k in need:
+                    if not on_mesh["launches"].get(k):
+                        problems.append(f"{pool}: the mesh run launched no "
+                                        f"{k}")
+                path_launches[f"phase 15 {MESH_ARCH} mesh 1x1 {pool}"] = \
+                    on_mesh["launches"]
+            del params
+            torch.cuda.empty_cache()
+            probe = _nccl_probe15(torch, dev, mesh)
+            log(f"[mesh nccl] {card}: one eager all_reduce over the model "
+                f"group, 8 x 1024 bf16: " + json.dumps(probe))
+            if not probe["equal"]:
+                problems.append("a one-rank all_reduce changed its input")
+            amesh = mesh_lib.make_mesh((1,), ("data",))
+            alg_launches, alg_problems = _mesh_algorithms15(
+                torch, dev, MeshExecutor(amesh))
+            problems += alg_problems
+            path_launches["phase 15 mesh algorithms 2^24"] = alg_launches
+            log(f"[mesh algorithms] n=2^24 f32, one-rank sub-group: "
+                f"bit-equal to the no-mesh kernel calls: "
+                f"{not alg_problems}; launches {alg_launches}")
+            dp, dp_problems = _mesh_dp15(torch, dev, amesh)
+            problems += dp_problems
+            log(f"[mesh dp] {card}: " + json.dumps(dp))
+        finally:
+            dist.destroy_process_group()
+    log(f"[phase 15] {time.perf_counter() - t_phase:.1f}s")
+    if problems:
+        fail("phase 15: " + "; ".join(problems))
+    return {}, path_launches
+
+
+def mesh_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.mesh_main()"``: the
+    build and phase 15 alone (multi-GPU at world size 1 over NCCL)."""
+    _phase_main(15, _mesh_phase)
 
 
 def _to_device(tree, dev):

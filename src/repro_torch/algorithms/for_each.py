@@ -23,6 +23,9 @@ from . import detail
 def _map(policy, fn: Callable, key, *arrays: torch.Tensor) -> torch.Tensor:
     body = detail.measured_body(fn, *arrays)
     p = detail.plan(policy, arrays[0].shape[0], body, key=key)
+    mexec = detail.mesh_executor_of(p.executor)
+    if mexec is not None and p.parallel:
+        return detail.mesh_map(mexec, p.cores, fn, *arrays)
     return detail.run_map_chunks(p, fn, *arrays)
 
 

@@ -5,7 +5,10 @@ count_if, all_of / any_of / none_of, min_element / max_element.
 each chunk's partial from the reduce_sum kernel (``kernels.ops``; its
 plain version for a CPU tensor).  Every other operator and dtype, and
 the other algorithms here, reduce with plain PyTorch ops, as the
-reference does with jnp.
+reference does with jnp.  On a mesh the partials of the ranks' blocks
+combine by ``all_reduce`` (``reduce_on_mesh`` over
+``detail.mesh_reduce``); min_element / max_element have no mesh path,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -31,17 +34,40 @@ def reduce(policy, x: torch.Tensor, op: Callable = torch.add, init=None):
     add, mul, minimum, maximum, logical_and and logical_or have fused
     partials."""
     identity = _identity_for(op, x.dtype, init)
-    if op is torch.add and x.dtype in KERNEL_DTYPES:
-        partial = ops.reduce_sum
-    else:
-        def partial(c):
-            return _fold(op, c, identity)
-
+    partial = _partial_for(op, x, identity)
     p = _plan_for(policy, x, partial, "reduce")
-    out = detail.run_reduce_chunks(p, partial, op, x)
+    mexec = detail.mesh_executor_of(p.executor)
+    if mexec is not None and p.parallel:
+        out = reduce_on_mesh(mexec, p.cores, x, op, identity)
+    else:
+        out = detail.run_reduce_chunks(p, partial, op, x)
     if init is not None and op is torch.add:
         out = op(out, init)
     return out
+
+
+def reduce_on_mesh(mexec, cores: int, x: torch.Tensor,
+                   op: Callable = torch.add, identity=None):
+    """``reduce``'s mesh branch (without ``init``): each rank of the
+    first ``cores`` of ``mexec``'s mesh folds its block with the entry's
+    partial (the reduce_sum kernel for add over float32 / bfloat16), and
+    the partials combine over the sub-group."""
+    if identity is None:
+        identity = _identity_for(op, x.dtype, None)
+    return detail.mesh_reduce(mexec, cores, x,
+                              _partial_for(op, x, identity),
+                              identity.to(x.dtype), op)
+
+
+def _partial_for(op, x: torch.Tensor, identity: torch.Tensor) -> Callable:
+    """The chunk partial of ``reduce``: the reduce_sum kernel for add
+    over float32 / bfloat16, else a plain fold."""
+    if op is torch.add and x.dtype in KERNEL_DTYPES:
+        return ops.reduce_sum
+
+    def partial(c):
+        return _fold(op, c, identity)
+    return partial
 
 
 def _identity_for(op, dtype, init) -> torch.Tensor:
@@ -96,6 +122,9 @@ def _transform_reduce(policy, x, transform_fn, op, init, tag):
         return _fold(op, t, identity.to(t.dtype))
 
     p = _plan_for(policy, x, partial, tag)
+    mexec = detail.mesh_executor_of(p.executor)
+    if mexec is not None and p.parallel:
+        return detail.mesh_reduce(mexec, p.cores, x, partial, identity, op)
     return detail.run_reduce_chunks(p, partial, op, x)
 
 

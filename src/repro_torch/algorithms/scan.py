@@ -9,6 +9,9 @@ With ``op=torch.add`` over a float32 or bfloat16 tensor, phase 1 of each
 chunk is the inclusive_scan kernel (``kernels.ops``; its plain version
 for a CPU tensor).  Phase 3 stays ``op(offset, chunk)``, as in the
 reference, and other operators and dtypes scan with plain PyTorch ops.
+On a mesh (``inclusive_scan_on_mesh`` over ``detail.mesh_scan``) each
+rank's block is scanned the same way and its total is the reduce_sum
+kernel's.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from ..core.future import when_all
 from ..kernels import ops
 from . import detail
-from .reduce import KERNEL_DTYPES
+from .reduce import KERNEL_DTYPES, _fold, _identity_for
 
 
 def _assoc_scan(op, c: torch.Tensor) -> torch.Tensor:
@@ -33,18 +36,28 @@ def _assoc_scan(op, c: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _local_for(op, x: torch.Tensor) -> Callable:
+    """A chunk's local scan: the inclusive_scan kernel for add over
+    float32 / bfloat16, else a plain scan."""
+    if op is torch.add and x.dtype in KERNEL_DTYPES:
+        return ops.inclusive_scan
+
+    def local(c):
+        return _assoc_scan(op, c)
+    return local
+
+
 def inclusive_scan(policy, x: torch.Tensor,
                    op: Callable = torch.add) -> torch.Tensor:
-    if op is torch.add and x.dtype in KERNEL_DTYPES:
-        local = ops.inclusive_scan
-    else:
-        def local(c):
-            return _assoc_scan(op, c)
-
+    local = _local_for(op, x)
     body = detail.measured_body(local, x)
     p = detail.plan(policy, x.shape[0], body, key=("iscan", str(x.dtype)))
     if not p.parallel:
         return local(x)
+
+    mexec = detail.mesh_executor_of(p.executor)
+    if mexec is not None:
+        return inclusive_scan_on_mesh(mexec, p.cores, x, op)
 
     # Phase 1: local scans (parallel)
     def scan_chunk(c):
@@ -67,6 +80,21 @@ def inclusive_scan(policy, x: torch.Tensor,
     outs = when_all(p.executor.bulk_async_execute(
         detail.on_stream(apply, x), list(enumerate(offsets)))).result()
     return torch.cat(outs)
+
+
+def inclusive_scan_on_mesh(mexec, cores: int, x: torch.Tensor,
+                          op: Callable = torch.add) -> torch.Tensor:
+    """``inclusive_scan``'s mesh branch: each rank of the first ``cores``
+    of ``mexec``'s mesh scans its block with the entry's local scan, its
+    block total from the reduce_sum kernel where the scan is the
+    inclusive_scan kernel's (a plain fold otherwise)."""
+    local = _local_for(op, x)
+    identity = _identity_for(op, x.dtype, None)
+    total = ops.reduce_sum if local is ops.inclusive_scan \
+        else (lambda c: _fold(op, c, identity.to(c.device)))
+    return detail.mesh_scan(
+        mexec, cores, x, local_scan=local, local_total=total,
+        apply_offset=lambda s, off: op(off, s), identity=identity)
 
 
 def exclusive_scan(policy, x: torch.Tensor, init,

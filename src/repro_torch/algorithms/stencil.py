@@ -3,7 +3,8 @@
 
 out[i] = a*x[i-1] + b*x[i] + c*x[i+1], boundaries copied through.  Each
 chunk reads a one-element halo on each side (plain PyTorch ops, as the
-reference runs jnp).  ``artificial_work`` is the paper's compute-bound
+reference runs jnp); on a mesh the halos move between neighbouring
+ranks.  ``artificial_work`` is the paper's compute-bound
 body (Figures 3/4): ``iters`` dependent multiply-adds per element, each
 chunk one launch of the artificial_work kernel (``kernels.ops``; its
 plain version for a CPU tensor), float32 only.
@@ -37,6 +38,15 @@ def stencil3(policy, x: torch.Tensor, a: float = 1.0, b: float = -2.0,
     if not p.parallel:
         return whole(x)
 
+    mexec = detail.mesh_executor_of(p.executor)
+    if mexec is not None:
+        out = detail.mesh_halo_map(mexec, p.cores,
+                                   lambda ext: whole(ext)[1:-1], x)
+        # The true boundaries are copied through (the cyclic halos at the
+        # outermost blocks and any tail padding land there).
+        out[0], out[-1] = x[0], x[-1]
+        return out
+
     # Each chunk applies the whole-array stencil (which copies slice
     # boundaries) to its halo-extended slice and keeps the range it owns;
     # the copies land exactly on the true boundaries because the outermost
@@ -59,9 +69,23 @@ def artificial_work(policy, x: torch.Tensor, iters: int = 256) -> torch.Tensor:
     ``transform`` with the kernel as its body, keyed by ``iters`` where
     the reference keys by the id() of a body made anew on every call: a
     later call with the same ``iters`` reuses the calibration."""
-    def body(c):
-        return ops.artificial_work(c, iters=iters)
-
+    body = _work_body(iters)
     p = detail.plan(policy, x.shape[0], detail.measured_body(body, x),
                     key=("artificial_work", int(iters), str(x.dtype)))
+    mexec = detail.mesh_executor_of(p.executor)
+    if mexec is not None and p.parallel:
+        return artificial_work_on_mesh(mexec, p.cores, x, iters)
     return detail.run_map_chunks(p, body, x)
+
+
+def _work_body(iters: int):
+    def body(c):
+        return ops.artificial_work(c, iters=iters)
+    return body
+
+
+def artificial_work_on_mesh(mexec, cores: int, x: torch.Tensor,
+                            iters: int = 256) -> torch.Tensor:
+    """``artificial_work``'s mesh branch: each rank of the first
+    ``cores`` of ``mexec``'s mesh runs the kernel on its block."""
+    return detail.mesh_map(mexec, cores, _work_body(iters), x)

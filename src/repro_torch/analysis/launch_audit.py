@@ -10,7 +10,10 @@ work inside the step that the plan does not hold.  So the audit profiles
 one replay of the live captured step (``torch.profiler``, CUDA activity)
 and holds its device events against the one-card policy:
 
-* any NCCL kernel is a violation (one card runs no collective);
+* any NCCL kernel is a violation (one card runs no collective), except
+  in a mesh step (``AuditPolicy(mesh=True)``, a scheduler with
+  ``mesh``), whose tensor-parallel collectives are captured in the
+  graph: there they are counted;
 * any copy between the host and the card above ``small_copy_max`` bytes
   is a violation (a dispatch's own copies are its budgets, a few bytes a
   lane; a cache row on its way to the host is KiB or MiB);
@@ -83,11 +86,13 @@ class AuditPolicy:
     """What one card's decode step may do on the device."""
 
     small_copy_max: int = SMALL_COPY_MAX
+    mesh: bool = False       # a mesh step: its NCCL kernels are expected
 
     def violation(self, event: dict) -> str | None:
         """None when the policy allows ``event``; else why it fails."""
         name, cat = event.get("name", ""), event.get("cat", "")
-        if cat == "kernel" and kernel_group(name) == "nccl":
+        if cat == "kernel" and kernel_group(name) == "nccl" \
+                and not self.mesh:
             return f"NCCL kernel {name[:60]} in a one-card step"
         kind = copy_kind(name) if cat == "gpu_memcpy" else None
         if kind in ("HtoD", "DtoH", "HtoH") \
@@ -186,7 +191,9 @@ def audit_scheduler(sched, *, inject_host_copy: bool = False,
     live width) and audit it.  The pool must be idle: the step runs lane
     0 one token into slot 0, as ``warmup`` does, and its outputs are not
     adopted.  ``inject_host_copy`` audits a separate step built with the
-    deliberate host copy (its own graphs) over the same pool."""
+    deliberate host copy (its own graphs) over the same pool.  A mesh
+    scheduler's step runs its own lanes under its tensor-parallel
+    context, audited by default with ``AuditPolicy(mesh=True)``."""
     import torch
 
     from ..models import flags
@@ -202,10 +209,13 @@ def audit_scheduler(sched, *, inject_host_copy: bool = False,
                          "(dispatch_depth != None)")
     if sched.pool.free_slots() != sched.pool.n_slots:
         raise RuntimeError("launch audit: the pool must be idle")
-    n = sched.pool.n_slots
-    pt = (sched.pool.page_table_array(),) if sched.paged else ()
+    lanes = sched.pool.lanes
+    n = lanes.stop - lanes.start
+    pt = (sched.pool.page_table_array()[lanes],) if sched.paged else ()
     toks = torch.zeros(n, dtype=torch.long, device=sched.device)
-    poss = sched.pool.positions_array()
+    poss = sched.pool.positions_array()[lanes]
+    if policy is None and sched.mesh is not None:
+        policy = AuditPolicy(mesh=True)
     one = [1] + [0] * (n - 1)
     spec_d = sched._spec_depth if sched._spec else 1
     args = (toks, poss, one)
@@ -228,7 +238,7 @@ def audit_scheduler(sched, *, inject_host_copy: bool = False,
         # The pool's own tensors, updated in place (its outputs are not
         # adopted: lane 0's row at position 0 takes the garbage), under
         # the kernel tuner the scheduler's dispatches of it run under.
-        with flags.kernel_tuner(tuner):
+        with flags.kernel_tuner(tuner), flags.tensor_parallel(sched.tp):
             step(sched.params, sched.pool.caches, *pt, *args)
 
     call()                       # captures if nothing is captured yet

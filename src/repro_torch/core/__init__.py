@@ -13,18 +13,25 @@ from . import (calibration, cost_model, customization, feedback, model,
 from .acc import AdaptiveCoreChunk, StaticCoreChunk
 from .adaptive import AdaptiveExecutor, adaptive
 from .calibration import CalibrationCache
-from .cost_model import WorkloadProfile, t0_analytic, t_iter_analytic
+from .cost_model import (ADJACENT_DIFFERENCE, WorkloadProfile,
+                         artificial_work, t0_analytic, t_iter_analytic)
 from .customization import (get_chunk_size, measure_iteration,
                             processing_units_count)
 from .executor import (Chunk, Executor, ExecutorBase, HostParallelExecutor,
-                       MeshExecutor, SequentialExecutor, make_chunks)
+                       MeshExecutor, SequentialExecutor, UnsupportedOperation,
+                       make_chunks, mesh_executor_of, unwrap_executor)
 from .feedback import OnlineFeedback, tag_workload
 from .future import Future, when_all
-from .hardware import H100_SXM, HardwareSpec
+from .hardware import (AMD_EPYC_48C, H100_SXM, INTEL_SKYLAKE_40C,
+                       HardwareSpec, this_host)
 from .model import (Decision, DecisionKey, DecisionTrace, ExecutionModel,
                     hardware_key)
 from .overhead_law import AccDecision, decide
 from .policy import ExecutionPolicy, par, par_unseq, seq, unseq
+from .properties import (ExecutorAnnotations, ExecutorProperty,
+                         UnsupportedProperty, params_of, prefer, require,
+                         with_hint, with_params, with_priority)
+from .simmachine import EPYC_48, SKYLAKE_40, SimMachine
 
 __all__ = [
     "calibration", "cost_model", "customization", "feedback", "model",
@@ -39,4 +46,10 @@ __all__ = [
     "Future", "when_all", "H100_SXM", "HardwareSpec", "Decision",
     "DecisionKey", "DecisionTrace", "ExecutionModel", "hardware_key",
     "AccDecision", "decide",
+    "UnsupportedOperation", "unwrap_executor", "mesh_executor_of",
+    "ExecutorAnnotations", "ExecutorProperty", "UnsupportedProperty",
+    "prefer", "require", "params_of", "with_priority", "with_hint",
+    "with_params", "SimMachine", "SKYLAKE_40", "EPYC_48",
+    "ADJACENT_DIFFERENCE", "artificial_work", "this_host",
+    "INTEL_SKYLAKE_40C", "AMD_EPYC_48C",
 ]

@@ -199,17 +199,27 @@ class HostParallelExecutor(ExecutorBase, PropertySupport):
 
 class MeshExecutor(ExecutorBase, PropertySupport):
     """Executor view of a device mesh: any object with a ``shape``
-    mapping axis names to sizes, such as ``launch.mesh.HostMesh`` (one
-    process, a data axis over its cards; ``torch.distributed`` meshes
-    wait for ROADMAP.md A.6).
+    mapping axis names to sizes.  A ``launch.mesh.Mesh`` (ranks of a
+    ``torch.distributed`` job) runs the parallel algorithms' mesh path
+    (``algorithms/detail.mesh_*``); a shape alone (``launch.mesh.
+    HostMesh``, a stub) answers ``num_units`` / ``submesh_size`` for the
+    plans that read them (``train.autotune.choose_plan``).
 
     ``data_axes`` are the axes over which a data-parallel workload may be
     spread; ``num_units`` is their total extent.  ``submesh_size(n)`` maps
     an acc core-count decision onto a realisable device count (a divisor of
     the full extent, so shardings stay regular).
 
+    On a distributed mesh, ``subgroup(cores)`` reads the process group
+    over the mesh's first ``submesh_size(cores)`` ranks (the reference's
+    ``submesh_1d`` takes the first ``cores`` devices), which the mesh
+    made with its other groups (``launch.mesh.Mesh.subgroups``):
+    ``dist.new_group`` is itself a collective, and made lazily after a
+    rank-local decision it would deadlock.  Construction enters no
+    collective.
+
     Bulk execution of Python thunks is *not* provided: running one thunk
-    per chunk on the host would serialize what shard_map runs SPMD, which
+    per chunk on the host would serialize what the mesh runs SPMD, which
     is a silent performance bug, so ``bulk_async_execute`` /
     ``bulk_sync_execute`` raise ``UnsupportedOperation``.  Single-task
     ``sync_execute`` / ``async_execute`` / ``then_execute`` run inline on
@@ -223,6 +233,17 @@ class MeshExecutor(ExecutorBase, PropertySupport):
         for a in self.data_axes:
             n *= mesh.shape[a]
         self._units = n
+
+    def subgroup(self, cores: int) -> tuple[Any, tuple[int, ...]]:
+        """(this rank's process group over the first ``cores`` ranks, or
+        None when it is not one of them; those ranks)."""
+        subgroups = getattr(self.mesh, "subgroups", None)
+        if not subgroups:
+            raise ValueError(
+                "this MeshExecutor's mesh has no process group (a shape "
+                "alone): the mesh path needs a launch.mesh.Mesh, made with "
+                "make_mesh under torch.distributed")
+        return subgroups[self.submesh_size(cores)]
 
     def num_units(self) -> int:
         return self._units
@@ -238,8 +259,10 @@ class MeshExecutor(ExecutorBase, PropertySupport):
     def bulk_async_execute(self, fn, chunks):
         raise UnsupportedOperation(
             "MeshExecutor does not run per-chunk Python thunks (that would "
-            "serialize an SPMD program on the host); the mesh backend "
-            "of the port is still to come (ROADMAP.md).")
+            "serialize an SPMD program on the host). Use the mesh "
+            "backend: repro_torch.algorithms.detail.mesh_map / "
+            "mesh_map_with_left_halo / mesh_reduce / mesh_scan over an "
+            "acc-sized sub-group.")
 
     def bulk_sync_execute(self, fn, chunks):
         # Deliberately not the deprecation shim: fail loudly either way.

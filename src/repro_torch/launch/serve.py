@@ -29,6 +29,15 @@ Calibrations persist under ``--cal-cache-dir`` unless ``--no-cal-cache``;
 shell ``export`` lines and exits:
 
     eval "$(PYTHONPATH=src python -m repro_torch.launch.serve --print-launch-profile)"
+
+``--mesh DATA,MODEL`` serves on a mesh of ranks (``launch/mesh.py``):
+``DATA`` data-parallel replicas of ``MODEL``-way tensor parallelism, one
+process per rank under ``torchrun`` (NCCL on the cards, gloo with
+``--device cpu``); ``--slots`` rounds up to a multiple of the replicas,
+and only rank 0 prints:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-0.6b --reduced --device cpu --mesh 2,2 --no-cal-cache
 """
 from __future__ import annotations
 
@@ -262,6 +271,13 @@ def main(argv=None) -> None:
                     help="dump the ExecutionModel decision trace")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--mesh", default="off",
+                    help="mesh-sharded serving under torchrun: "
+                         "'DATA,MODEL' ranks (e.g. '2,2': 2 data-parallel "
+                         "replicas x 2-way tensor parallel), or 'off' "
+                         "(one device).  Slots round up to a multiple of "
+                         "the replica count; the active lanes become a "
+                         "serve_mesh_batch decision")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights, the prompts and "
                          "the --frontend trace")
@@ -275,6 +291,13 @@ def main(argv=None) -> None:
         ap.error("--arch is required (unless --print-launch-profile)")
 
     device = resolve_device(args.device)
+    mesh, n_slots, lead = None, args.slots, True
+    if args.mesh.strip().lower() not in ("off", "none", ""):
+        mesh, n_slots, lead = _serve_mesh(args, device)
+        if mesh is None:            # this rank is outside the mesh
+            _leave_mesh()
+            return
+        device = mesh.device
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -284,6 +307,12 @@ def main(argv=None) -> None:
     acc = AdaptiveCoreChunk(cache=cache)
     executor = adaptive(SequentialExecutor(), acc)
     tuner = make_kernel_tuner(cache) if args.kernel_autotune else None
+    if mesh is not None and ("cross_attn" in cfg.layer_kinds()
+                             or args.frontend):
+        raise NotImplementedError(
+            "--mesh serves through the scheduler's tick loop: the "
+            "cross-attention engine path and --frontend on a mesh wait for "
+            "ROADMAP.md A.6b")
     if "cross_attn" in cfg.layer_kinds():
         serve_cross_attention(cfg, params, args, executor, device, tuner)
         finish(None, cache, args, tuner)
@@ -291,7 +320,7 @@ def main(argv=None) -> None:
     max_len = args.prompt_len + args.new_tokens + 1
     admission = args.admission or \
         ("adaptive" if args.frontend else "greedy")
-    sched = ServeScheduler(cfg, params, n_slots=args.slots, max_len=max_len,
+    sched = ServeScheduler(cfg, params, n_slots=n_slots, max_len=max_len,
                            executor=executor,
                            dispatch_depth=parse_depth(args.dispatch_depth),
                            admission=admission, paged=args.paged,
@@ -299,7 +328,7 @@ def main(argv=None) -> None:
                            prefill_interleave=parse_auto(
                                args.prefill_interleave),
                            speculate=parse_auto(args.speculate, off_ok=True),
-                           kernel_tuner=tuner, device=device)
+                           kernel_tuner=tuner, mesh=mesh, device=device)
     sched.warmup()
     if args.frontend:
         serve_frontend(sched, args)
@@ -321,6 +350,9 @@ def main(argv=None) -> None:
     ttfts = [sched.requests[r].first_token_at - sched.requests[r].arrival
              for r in rids]
     gen = sum(len(outs[r]) for r in rids)
+    if mesh is not None and not lead:
+        _leave_mesh()
+        return
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"arch={cfg.name} device={where} requests={args.requests} "
@@ -335,6 +367,44 @@ def main(argv=None) -> None:
     print("sample:", outs[rids[0]])
     print_paged_stats(sched)
     finish(sched, cache, args, tuner)
+    if mesh is not None:
+        _leave_mesh()
+
+
+def _serve_mesh(args, device):
+    """(mesh or None outside it, slots rounded up to the replicas,
+    whether this rank prints): the job's process group from torchrun's
+    environment, then the (data, model) serving mesh."""
+    from .mesh import init_distributed, make_serve_mesh, n_data_replicas
+
+    import torch.distributed as dist
+
+    init_distributed(device)
+    data, model_par = (int(x) for x in args.mesh.split(","))
+    mesh = make_serve_mesh(data, model_par)
+    lead = dist.get_rank() == 0
+    if not mesh.contains:
+        return None, args.slots, False
+    reps = n_data_replicas(mesh)
+    n_slots = args.slots
+    if n_slots % reps:          # slot dim must split into replica groups
+        n_slots = -(-n_slots // reps) * reps
+        if lead:
+            print(f"mesh: rounding --slots {args.slots} up to {n_slots} "
+                  f"({reps} data replicas)")
+    if lead:
+        print(f"mesh {data}x{model_par} over {mesh.size} of "
+              f"{dist.get_world_size()} {dist.get_backend()} ranks | "
+              f"{reps} replicas x {n_slots // reps} slots")
+    return mesh, n_slots, lead
+
+
+def _leave_mesh() -> None:
+    """Leave the job's process group (a local act: a rank outside the
+    mesh leaves at once, the others when they are done)."""
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
 
 
 def finish(sched: ServeScheduler | None, cache: CalibrationCache,

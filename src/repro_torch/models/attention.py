@@ -217,9 +217,21 @@ def page_rows(page_table: torch.Tensor, lanes: torch.Tensor,
     return flat.reshape(-1)
 
 
-def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.view(b, s, n, hd)
+def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, L, H·hd) → (B, L, H, hd); H is the heads this rank holds (all
+    of them, or its block under tensor parallelism)."""
+    b, s, width = x.shape
+    return x.view(b, s, width // hd, hd)
+
+
+def _out(p: dict, out: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """``wo`` of the heads' outputs (B, H, L, D) → (B, L, d); row-parallel
+    under a tensor-parallel context that splits the heads."""
+    b, h, length, hd = out.shape
+    out = out.transpose(1, 2).reshape(b, length, h * hd)
+    tp = flags.TP
+    return cm.linear_rows(p["wo"], out, cd,
+                          split=tp is not None and tp.attn)
 
 
 def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -233,13 +245,15 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     L positions through ``sdpa(impl=...)`` (train / one-shot prefill).
     With a cache {"k","v"}: (B, Hkv, S, D), or the paged stores
     (n_pages * ps, Hkv, D) when ``write.page_table`` is set, the new K/V
-    are written as ``write`` says and attention runs over the cache."""
-    b, length, _ = x.shape
+    are written as ``write`` says and attention runs over the cache.
+    The head counts are the projections' widths over ``head_dim``: under
+    a tensor-parallel context (``flags.TP``) this rank's block of heads,
+    its cache holding its block of kv heads, and ``wo`` row-parallel."""
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
-    q = _heads(cm.linear(p["wq"], x, cd), cfg.n_heads, hd)
-    k = _heads(cm.linear(p["wk"], x, cd), cfg.n_kv_heads, hd)
-    v = _heads(cm.linear(p["wv"], x, cd), cfg.n_kv_heads, hd)
+    q = _heads(cm.linear(p["wq"], x, cd), hd)
+    k = _heads(cm.linear(p["wk"], x, cd), hd)
+    v = _heads(cm.linear(p["wv"], x, cd), hd)
     cos, sin = rope
     if cfg.qk_norm:
         q, k = cm.qk_norm_rope(p["q_norm"], p["k_norm"], q, k, cos, sin,
@@ -251,8 +265,7 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if cache is None:
         out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    impl=impl, causal=True, window=window)
-        out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
-        return cm.linear(p["wo"], out, cd)
+        return _out(p, out, cd)
 
     ck, cv = cache["k"], cache["v"]
     qt = q.transpose(1, 2).contiguous()
@@ -273,8 +286,7 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         out = _cached_attention(qt, k.transpose(1, 2), v.transpose(1, 2),
                                 ck, cv, write, window)
-    out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
-    return cm.linear(p["wo"], out, cd)
+    return _out(p, out, cd)
 
 
 def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
@@ -337,9 +349,9 @@ def cross_attention(p: dict, x: torch.Tensor, kv_feats: torch.Tensor,
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
     feats = cm.rmsnorm(p["kv_norm"], kv_feats.to(cd), cfg.norm_eps)
-    q = _heads(cm.linear(p["wq"], x, cd), cfg.n_heads, hd)
-    k = _heads(cm.linear(p["wk"], feats, cd), cfg.n_kv_heads, hd)
-    v = _heads(cm.linear(p["wv"], feats, cd), cfg.n_kv_heads, hd)
+    q = _heads(cm.linear(p["wq"], x, cd), hd)
+    k = _heads(cm.linear(p["wk"], feats, cd), hd)
+    v = _heads(cm.linear(p["wv"], feats, cd), hd)
     if cfg.qk_norm:
         q = cm.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = cm.rmsnorm(p["k_norm"], k, cfg.norm_eps)

@@ -22,8 +22,10 @@ nothing.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..collectives import all_gather_into
 from ..kernels import build, ops as kops, rmsnorm as krms
 from . import flags
 
@@ -42,13 +44,55 @@ def linear(p: dict, x: torch.Tensor,
     return out
 
 
+def linear_rows(p: dict, x: torch.Tensor, compute_dtype: torch.dtype,
+                split: bool) -> torch.Tensor:
+    """``linear`` of a row-parallel weight (``wo``, ``w_down``): with a
+    tensor-parallel context (``flags.TP``) and ``split``, ``x`` holds
+    this rank's columns and ``w`` its rows, and the partial products are
+    summed by one ``all_reduce`` over the model group before the bias."""
+    tp = flags.TP
+    if tp is None or not split:
+        return linear(p, x, compute_dtype)
+    out = _cast(x, compute_dtype) @ _cast(p["w"], compute_dtype)
+    dist.all_reduce(out, group=tp.group)
+    if "b" in p:
+        out = out + _cast(p["b"], compute_dtype)
+    return out
+
+
 def embed(p: dict, tokens: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
     """The table's rows of ``tokens`` in ``compute_dtype``.  A gather by
     ``index_select``, whose backward is an ``index_add_`` (no host
-    synchronisation, so a train step holds under strict mode)."""
-    rows = torch.index_select(p["table"], 0, tokens.reshape(-1))
-    return _cast(rows.view(*tokens.shape, -1), compute_dtype)
+    synchronisation, so a train step holds under strict mode).  With a
+    vocab-parallel context (``flags.TP``) the table is this rank's rows:
+    tokens outside them look up zeros, and an ``all_reduce`` over the
+    model group sums the one rank's row with the others' zeros (exact)."""
+    tp = flags.TP
+    if tp is None or not tp.vocab:
+        rows = torch.index_select(p["table"], 0, tokens.reshape(-1))
+        return _cast(rows.view(*tokens.shape, -1), compute_dtype)
+    n = p["table"].shape[0]
+    local = tokens.reshape(-1) - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.index_select(p["table"], 0, torch.where(inside, local, 0))
+    rows = _cast(torch.where(inside[:, None], rows, 0.0), compute_dtype)
+    dist.all_reduce(rows, group=tp.group)
+    return rows.view(*tokens.shape, -1)
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """The full logits from this rank's vocabulary columns: one
+    ``all_gather`` over the model group with a vocab-parallel context
+    (``flags.TP``), ``logits`` itself without one."""
+    tp = flags.TP
+    if tp is None or not tp.vocab:
+        return logits
+    local = logits.contiguous()
+    out = torch.empty((tp.size * local.shape[0],) + tuple(local.shape[1:]),
+                      dtype=local.dtype, device=local.device)
+    all_gather_into(out, local, group=tp.group)
+    return torch.cat(out.chunk(tp.size), dim=-1)
 
 
 def _warps(entry: str, x: torch.Tensor) -> int | None:

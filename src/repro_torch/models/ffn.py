@@ -1,10 +1,13 @@
-"""Feed-forward blocks: gated GLU (llama-style) or plain MLP."""
+"""Feed-forward blocks: gated GLU (llama-style) or plain MLP.  Under a
+tensor-parallel context (``flags.TP``) the weights are this rank's
+hidden columns and ``w_down`` ends in the model group's all_reduce."""
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
 from . import common as cm
+from . import flags
 
 
 def apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -15,4 +18,6 @@ def apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         up = act(cm.linear(p["w_gate"], x, cd)) * up
     else:
         up = act(up)
-    return cm.linear(p["w_down"], up, cd)
+    tp = flags.TP
+    return cm.linear_rows(p["w_down"], up, cd,
+                          split=tp is not None and tp.ffn)

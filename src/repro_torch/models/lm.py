@@ -102,14 +102,19 @@ def init_params(seed: int, cfg: ArchConfig, *,
     time, so the same seed gives the same weights on every device; with
     ``draw_on_device`` drawn by a generator on ``device`` instead (the
     card's stream of numbers, not the CPU's: no f32 copy of a large
-    model passes through the host)."""
+    model passes through the host).  ``device="meta"`` gives the shapes
+    and dtypes alone, drawing nothing (the sharding rules read them)."""
     check_ported(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev if draw_on_device else "cpu")
+    meta = str(device) == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    gen = torch.Generator(device=dev if draw_on_device and not meta
+                          else "cpu")
     gen.manual_seed(int(seed))
     cd, pd = dtype or compute_dtype(cfg), param_dtype(cfg)
 
     def normal(shape, scale, dtype=cd):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=dev)
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * scale
         return t.to(device=dev, dtype=dtype)
@@ -316,8 +321,8 @@ def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits of the final-normed rows ``h``, in the compute dtype."""
     cd = compute_dtype(cfg)
     if cfg.tie_embeddings:
-        return h.to(cd) @ params["embed"]["table"].to(cd).t()
-    return cm.linear(params["lm_head"], h, cd)
+        return cm.gather_vocab(h.to(cd) @ params["embed"]["table"].to(cd).t())
+    return cm.gather_vocab(cm.linear(params["lm_head"], h, cd))
 
 
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ from .frontend import QueueFullError, RequestRecord, ServeFrontend, TokenStream
 from .kv_cache import (CacheLayoutError, PagedKVCachePool,
                        PagePoolExhaustedError, SlotKVCachePool,
                        SlotOverflowError)
-from .loadgen import (SLOModel, TraceRequest, bursty_trace,
+from .loadgen import (GENERATORS, SLOModel, TraceRequest, bursty_trace,
                       heavy_tailed_trace, materialize, poisson_trace,
                       shared_prefix_trace, templated_trace, trace_summary)
 from .scheduler import (TERMINAL_STATES, PromptTooLongError, Request,
@@ -30,7 +30,7 @@ __all__ = [
     "QueueFullError", "RequestRecord", "ServeFrontend", "TokenStream",
     "CacheLayoutError", "PagedKVCachePool", "PagePoolExhaustedError",
     "SlotKVCachePool", "SlotOverflowError",
-    "SLOModel", "TraceRequest", "bursty_trace", "heavy_tailed_trace",
+    "SLOModel", "TraceRequest", "GENERATORS", "bursty_trace", "heavy_tailed_trace",
     "materialize", "poisson_trace", "shared_prefix_trace",
     "templated_trace", "trace_summary",
     "TERMINAL_STATES", "PromptTooLongError", "Request", "RequestState",

@@ -38,6 +38,14 @@ changed winner, captures anew.  All captures of a device
 share one side stream: the cuBLAS handle keeps a workspace for every
 stream it ever ran on, for the life of the process.
 
+On a mesh (``ServeScheduler(mesh=)``) the body's forward holds the
+tensor-parallel collectives (``models/flags.TP``): NCCL records them
+into the graph like any kernel, each rank capturing its own.  NCCL
+builds a group's communicator at its first collective, which may not
+happen inside a capture, so ``launch/mesh.make_mesh`` runs one eager
+collective on every group of the mesh; gloo has no capture, and on the
+CPU the step runs eagerly as it always does.
+
 Counting: a replay runs no Python, so no wrapper counts its launches.
 The runner records what every ``LaunchCounter`` counted while capturing,
 takes it back (a capture launches nothing) and adds it at each replay;

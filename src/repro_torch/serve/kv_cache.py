@@ -36,6 +36,17 @@ does -- sLSTM's ``m`` too, which a fresh state starts at -1e30 -- and
 the paged pool reuses no prefix for an arch that has one
 (``prefix_cache``).  Neither pool takes a cross-attention arch
 (``refuse_cross_attention``), as in the reference.
+
+With ``mesh`` (a ``launch.mesh.Mesh`` of ('data', 'model')) each rank
+holds its part, by ``launch/sharding.cache_specs`` and
+``paged_cache_specs``: K/V heads split over 'model' where the attention
+heads do (``sharding.tp_plan``); the slot pool holds only its replica's
+slot group (``lanes``, ``n_slots / data`` rows); the paged pool holds
+every page (replicated over 'data': prefix sharing lets any lane map
+any page) and its replica's slot group of recurrent state rows.  The
+host bookkeeping (free list, positions, page tables, prefix cache) is
+the whole pool's and the same on every rank.  A paged replica's writes
+reach the others' copies of the stores through ``exchange_rows``.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from typing import Any
 
 import torch
 
+from ..collectives import all_gather_into
 from ..configs.base import ArchConfig
 from ..core import strict
 from ..device import resolve_device
@@ -96,6 +108,64 @@ def _zero_states(kinds, caches: list, slot: int) -> None:
                 t[slot].zero_()
 
 
+def serve_mesh_replicas(mesh, n_slots: int) -> int:
+    """The data replicas a serving ``mesh`` splits ``n_slots`` into;
+    raises unless it is a ``launch.mesh.Mesh`` over ('data', 'model')
+    whose replicas divide the slots."""
+    if getattr(mesh, "ranks", None) is None \
+            or set(mesh.axis_names) != {"data", "model"}:
+        raise TypeError(
+            "mesh must be a launch.mesh.Mesh over ('data', 'model') "
+            "(launch.mesh.make_serve_mesh)")
+    from ..launch.mesh import n_data_replicas
+
+    n = n_data_replicas(mesh)
+    if n_slots % n:
+        raise ValueError(
+            f"n_slots={n_slots} must divide into {n} data-parallel "
+            f"replicas (mesh {dict(mesh.shape)})")
+    return n
+
+
+class _MeshPart:
+    """A pool's place on a serving mesh: its replica's slot group
+    ``[lo, lo + local)`` of ``n_slots``, the data group, and the config
+    its caches are laid out by (kv heads: this rank's block)."""
+
+    def __init__(self, cfg: ArchConfig, n_slots: int, mesh):
+        if mesh is None:
+            self.mesh, self.replica, self.n_replicas = None, 0, 1
+            self.lo, self.local, self.cfg = 0, n_slots, cfg
+            return
+        from ..launch import sharding
+
+        self.mesh = mesh
+        self.n_replicas = serve_mesh_replicas(mesh, n_slots)
+        self.local = n_slots // self.n_replicas
+        self.replica = mesh.coord("data")
+        self.lo = self.replica * self.local
+        plan = sharding.tp_plan(cfg, mesh)
+        kv = cfg.n_kv_heads // plan.size if plan.attn else cfg.n_kv_heads
+        self.cfg = dataclasses.replace(cfg, n_kv_heads=kv,
+                                       head_dim=cfg.head_dim_)
+
+    @property
+    def lanes(self) -> slice:
+        return slice(self.lo, self.lo + self.local)
+
+    def index(self, slot: int) -> int:
+        """``slot``'s row in this rank's slot group."""
+        i = slot - self.lo
+        if not 0 <= i < self.local:
+            raise ValueError(
+                f"slot {slot} belongs to another data replica (this rank "
+                f"holds slots [{self.lo}, {self.lo + self.local}))")
+        return i
+
+    def holds(self, slot: int) -> bool:
+        return self.lo <= slot < self.lo + self.local
+
+
 class SlotKVCachePool:
     """Fixed-size cache slots with a free-list and per-slot positions."""
 
@@ -104,18 +174,15 @@ class SlotKVCachePool:
                  mesh=None, device: str | torch.device = "cuda"):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded slot pools are not ported yet (ROADMAP.md, "
-                "multi-GPU)")
         refuse_cross_attention(cfg, "SlotKVCachePool")
+        self.part = _MeshPart(cfg, n_slots, mesh)
         self._donated_to: str | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_len = max_len
         self.window = window if window is not None else cfg.attn_window
-        self.caches = lm.init_caches(cfg, n_slots, max_len,
+        self.caches = lm.init_caches(self.part.cfg, self.part.local, max_len,
                                      window=self.window, dtype=dtype,
                                      device=self.device)
         self.kinds = tuple(cfg.layer_kinds())
@@ -158,7 +225,8 @@ class SlotKVCachePool:
         slot = self._free.pop()
         self.owner[slot] = owner
         self.positions[slot] = 0
-        _zero_states(self.kinds, self.caches, slot)
+        if self.part.holds(slot):
+            _zero_states(self.kinds, self.caches, self.part.index(slot))
         return slot
 
     def release(self, slot: int) -> None:
@@ -168,21 +236,32 @@ class SlotKVCachePool:
         self.positions[slot] = 0
         self._free.append(slot)
 
+    @property
+    def lanes(self) -> slice:
+        """The slots whose rows this rank holds (all of them off a
+        mesh): the decode lanes its steps run."""
+        return self.part.lanes
+
+    def holds(self, slot: int) -> bool:
+        return self.part.holds(slot)
+
     # -- slot I/O ------------------------------------------------------------
     def read_slot(self, slot: int) -> list:
         """The slot's caches (K/V and state rows) as a batch-of-1 list of
         **views** into the pool: a forward that writes through them
-        writes the pool."""
-        return [{name: t[slot:slot + 1] for name, t in c.items()}
+        writes the pool.  On a mesh only a slot of this rank's group."""
+        i = self.part.index(slot)
+        return [{name: t[i:i + 1] for name, t in c.items()}
                 for c in self.caches]
 
     def write_slot(self, slot: int, row_caches: list) -> None:
         """Land a batch-of-1 cache list in ``slot``.  Views from
         ``read_slot`` already hold the pool's storage (nothing to do);
         any other row is copied in."""
+        i = self.part.index(slot)
         for c, row in zip(self.caches, row_caches, strict=True):
             for name, t in c.items():
-                dst = t[slot:slot + 1]
+                dst = t[i:i + 1]
                 src = row[name]
                 if src.data_ptr() != dst.data_ptr():
                     dst.copy_(src)
@@ -319,10 +398,6 @@ class PagedKVCachePool:
                  prefix_cache: bool = True):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded page pools are not ported yet (ROADMAP.md, "
-                "multi-GPU)")
         refuse_cross_attention(cfg, "PagedKVCachePool")
         window = window if window is not None else cfg.attn_window
         if window is not None and window > 0:
@@ -331,6 +406,7 @@ class PagedKVCachePool:
                 "windows: a wrapped write would straddle pages shared "
                 "read-only; use SlotKVCachePool for windowed archs")
         lm.check_ported(cfg)
+        self.part = _MeshPart(cfg, n_slots, mesh)
         self._donated_to: str | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -347,13 +423,14 @@ class PagedKVCachePool:
         if self.n_pages < 2:
             raise ValueError(f"n_pages must be >= 2, got {self.n_pages}")
         dtype = dtype or lm.compute_dtype(cfg)
-        shape = (self.n_pages * ps, cfg.n_kv_heads, cfg.head_dim_)
+        shape = (self.n_pages * ps, self.part.cfg.n_kv_heads, cfg.head_dim_)
         self.kinds = tuple(cfg.layer_kinds())
         self.caches = [
             {"k": torch.zeros(shape, dtype=dtype, device=self.device),
              "v": torch.zeros(shape, dtype=dtype, device=self.device)}
             if kind in lm.ATTN_KINDS
-            else lm.init_state(kind, cfg, n_slots, dtype, self.device)
+            else lm.init_state(kind, cfg, self.part.local, dtype,
+                               self.device)
             for kind in self.kinds]
         self._layout_sig = _layout(self.caches)
         self.allocations = 1            # store allocations ever made
@@ -430,8 +507,57 @@ class PagedKVCachePool:
         slot = self._free.pop()
         self.owner[slot] = owner
         self.positions[slot] = 0
-        _zero_states(self.kinds, self.caches, slot)
+        if self.part.holds(slot):
+            _zero_states(self.kinds, self.caches, self.part.index(slot))
         return slot
+
+    @property
+    def lanes(self) -> slice:
+        """The slots whose state rows this rank holds and whose decode
+        lanes its steps run (all of them off a mesh)."""
+        return self.part.lanes
+
+    def holds(self, slot: int) -> bool:
+        return self.part.holds(slot)
+
+    def slot_rows(self, slot: int, lo: int, hi: int) -> list[int]:
+        """The store rows of logical positions ``[lo, hi)`` of ``slot``
+        through its table (host side)."""
+        ps = self.page_size
+        table = self.page_tables[slot]
+        return [table[p // ps] * ps + p % ps for p in range(lo, hi)]
+
+    def exchange_rows(self, rows: list[list[int]]) -> None:
+        """Bring every replica's copy of the stores up to date after a
+        write: ``rows[r]`` lists the store rows data replica ``r`` wrote
+        (every rank passes the same lists: they follow from the host
+        bookkeeping).  One ``all_gather`` over the data group of each
+        replica's rows of every attention store, padded to the longest
+        list with scratch rows, then copied into place.  Nothing to do
+        with one replica: no other copy exists."""
+        part = self.part
+        if part.mesh is None or part.n_replicas == 1:
+            return
+        width = max(len(r) for r in rows)
+        if width == 0:
+            return
+        stores = [t for kind, c in zip(self.kinds, self.caches, strict=True)
+                  if kind in lm.ATTN_KINDS for t in (c["k"], c["v"])]
+        mine = rows[part.replica]
+        idx = host_to_device(mine + [0] * (width - len(mine)), torch.long,
+                             self.device)
+        send = torch.stack([t[idx] for t in stores])
+        recv = torch.empty((part.n_replicas * send.shape[0],)
+                           + tuple(send.shape[1:]), dtype=send.dtype,
+                           device=send.device)
+        all_gather_into(recv, send, group=part.mesh.groups["data"])
+        recv = recv.view((part.n_replicas,) + tuple(send.shape))
+        for r, got in enumerate(rows):
+            if r == part.replica or not got:
+                continue
+            at = host_to_device(got, torch.long, self.device)
+            for j, t in enumerate(stores):
+                t.index_copy_(0, at, recv[r, j, :len(got)])
 
     def acquire_with_prefix(self, owner: Any,
                             prompt) -> tuple[int | None, int]:
@@ -498,10 +624,17 @@ class PagedKVCachePool:
             if pid:
                 self.page_refs[pid] += 1
             self.page_tables[slot][j] = pid
-        for kind, c in zip(self.kinds, self.caches, strict=True):
-            if kind not in lm.ATTN_KINDS:
-                for t in c.values():
-                    t[slot].copy_(t[src])
+        states = any(kind not in lm.ATTN_KINDS for kind in self.kinds)
+        if states and self.part.holds(src) != self.part.holds(slot):
+            raise NotImplementedError(
+                "forking a slot's recurrent state into another data "
+                "replica's slot group")
+        if states and self.part.holds(slot):
+            i, j = self.part.index(slot), self.part.index(src)
+            for kind, c in zip(self.kinds, self.caches, strict=True):
+                if kind not in lm.ATTN_KINDS:
+                    for t in c.values():
+                        t[i].copy_(t[j])
         return slot
 
     def release(self, slot: int) -> None:
@@ -671,8 +804,10 @@ class PagedKVCachePool:
         slot's page table) runs over: every attention layer's stores
         whole, every recurrent layer's state rows of ``slot`` as
         batch-of-1 **views** (updated in place)."""
+        i = self.part.index(slot) if any(
+            kind not in lm.ATTN_KINDS for kind in self.kinds) else 0
         return [c if kind in lm.ATTN_KINDS
-                else {name: t[slot:slot + 1] for name, t in c.items()}
+                else {name: t[i:i + 1] for name, t in c.items()}
                 for kind, c in zip(self.kinds, self.caches, strict=True)]
 
     def read_slot(self, slot: int) -> list:
@@ -684,9 +819,10 @@ class PagedKVCachePool:
             self._validate_tables()
         idx = host_to_device(self._slot_indices(slot), torch.long,
                              self.device)
+        i = slot - self.part.lo
         return [{name: t[idx].permute(1, 0, 2)[None]
                  for name, t in c.items()} if kind in lm.ATTN_KINDS
-                else {name: t[slot:slot + 1].clone()
+                else {name: t[i:i + 1].clone()
                       for name, t in c.items()}
                 for kind, c in zip(self.kinds, self.caches, strict=True)]
 
@@ -704,11 +840,12 @@ class PagedKVCachePool:
             raise SlotOverflowError(slot, hi, self.max_len)
         idx = host_to_device(self._slot_indices(slot)[lo:hi],
                              torch.long, self.device)
+        i = slot - self.part.lo
         for kind, c, row in zip(self.kinds, self.caches, row_caches,
                                 strict=True):
             for name, t in c.items():
                 if kind not in lm.ATTN_KINDS:
-                    t[slot:slot + 1].copy_(row[name])
+                    t[i:i + 1].copy_(row[name])
                     continue
                 piece = row[name][0][:, lo:hi].permute(1, 0, 2)
                 t.index_copy_(0, idx, piece.to(t.dtype))

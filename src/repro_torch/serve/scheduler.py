@@ -51,8 +51,20 @@ which measures them on those lanes and captures the step anew.
 ``decode_cost_analysis`` counts one decode-loop iteration of the live
 step (``analysis/roofline.py``).
 
-Not ported yet (ROADMAP.md): mesh serving (``mesh``), which raises
-``NotImplementedError``.
+With ``mesh`` (``launch.mesh.make_serve_mesh(data, model)``) every rank
+of the mesh runs this scheduler (SPMD) on the same requests: the weights
+are its tensor-parallel block (``launch/sharding.serve_param_specs``,
+the forward under ``models.flags.tensor_parallel``), the pool holds its
+replica's slot group (``pool.lanes``) and each dispatch runs those lanes
+only; the emitted tokens are all-gathered over 'data' after every
+dispatch, a prefill wave's first tokens all-reduced, and a paged
+replica's new K/V rows exchanged (``PagedKVCachePool.exchange_rows``),
+so every rank's request state stays the same.  Every decision that
+reads a timing or the clock is taken on mesh rank 0 and broadcast
+(``_agree``), and every rank's trace records it; a mesh run also decides
+``serve_mesh_batch``, the active-lane cap (``_decide_mesh_batch``).
+Prefill chunk-ops run in order (their collectives must meet).
+Speculation on a mesh needs a data extent of 1 (ROADMAP A.6b).
 """
 from __future__ import annotations
 
@@ -64,7 +76,9 @@ import time
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
+from ..collectives import all_gather_into
 from ..configs.base import ArchConfig
 from ..core import overhead_law, strict
 from ..core.acc import AdaptiveCoreChunk
@@ -72,7 +86,7 @@ from ..core.executor import Chunk, SequentialExecutor
 from ..core.feedback import tag_workload
 from ..core.future import Future, when_all
 from ..core.model import (DEFAULT_SPEC_ACCEPT, DecisionKey, ExecutionModel,
-                          decision_overhead_s)
+                          decision_overhead_s, hardware_key)
 from ..core.properties import params_of
 from ..device import resolve_device
 from ..kernels import build
@@ -85,7 +99,7 @@ from .decode_loop import (DEFAULT_MAX_DEPTH, DEFAULT_SPEC_HISTORY,
                           make_spec_decode_step, to_host)
 from .graphs import DecodeGraphs, StepState
 from .kv_cache import (PagedKVCachePool, SlotKVCachePool, host_to_device,
-                       refuse_cross_attention)
+                       refuse_cross_attention, serve_mesh_replicas)
 
 DEFAULT_PAGE_CANDIDATES = (8, 16, 32, 64)
 
@@ -183,11 +197,6 @@ class TickRecord:
     spec_depth: int = 0
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md: {item})")
-
-
 class ServeScheduler:
     """Continuous batching over a slot or page pool, acc-decided per
     tick."""
@@ -210,8 +219,6 @@ class ServeScheduler:
                  spec_history: int = DEFAULT_SPEC_HISTORY,
                  device: str | torch.device = "cuda"):
         refuse_cross_attention(cfg, "ServeScheduler")
-        if mesh is not None:
-            raise _not_ported("mesh-sharded serving", "multi-GPU")
         if admission not in ("greedy", "adaptive"):
             raise ValueError(
                 f"admission must be 'greedy' or 'adaptive', "
@@ -220,6 +227,29 @@ class ServeScheduler:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        # Mesh-sharded serving: this rank's tensor-parallel weights, its
+        # replica's slot group in the pool (see the module docstring).
+        self.mesh = mesh
+        self.n_replicas = 1
+        self.mesh_desc = None
+        self.tp = None
+        if mesh is not None:
+            from ..launch import sharding
+
+            self.n_replicas = serve_mesh_replicas(mesh, n_slots)
+            if speculate is not None and self.n_replicas > 1:
+                raise NotImplementedError(
+                    "speculative decoding over several data replicas "
+                    "(ROADMAP.md A.6b); serve it with a data extent of 1")
+            self.mesh_desc = "x".join(
+                str(mesh.shape[a]) for a in mesh.axis_names)
+            plan = sharding.tp_plan(cfg, mesh)
+            self.tp = flags.TensorParallel(
+                mesh.groups["model"], plan.size, mesh.coord("model"),
+                plan.attn, plan.ffn, plan.vocab)
+            self.params = sharding.local_tree(
+                params, sharding.serve_param_specs(cfg, params, mesh), mesh)
+        self.slots_per_replica = n_slots // self.n_replicas
         self.kernel_tuner = kernel_tuner
         self.window = window if window is not None else cfg.attn_window
         if self.window is not None and self.window <= 0:
@@ -275,7 +305,7 @@ class ServeScheduler:
                     raise ValueError(
                         f"page_size must be an int or 'auto'; "
                         f"got {page_size!r}")
-                ps = self._decide_page_size()
+                ps = self._agree(self._decide_page_size)
             else:
                 ps = max(int(page_size), 1)
                 model = self.decision_model()
@@ -285,10 +315,10 @@ class ServeScheduler:
                                chunk=ps, inputs=(("fixed", True),))
             self.pool: Any = PagedKVCachePool(
                 cfg, n_slots, max_len, window=self.window, page_size=ps,
-                device=self.device)
+                mesh=mesh, device=self.device)
         else:
             self.pool = SlotKVCachePool(cfg, n_slots, max_len,
-                                        window=self.window,
+                                        window=self.window, mesh=mesh,
                                         device=self.device)
         self.tick_key = DecisionKey("serve_tick", sig)
         if isinstance(dispatch_depth, str):
@@ -348,6 +378,12 @@ class ServeScheduler:
         # width a ``serve_admission`` decision (the front end's mode).
         self.admission = admission
         self.admit_key = DecisionKey("serve_admission", sig)
+        # Mesh-aware batch width (``serve_mesh_batch``): the key's
+        # hardware field carries the mesh shape, so a width chosen on a
+        # (4, 2) mesh never backs a (2, 4) run on the same silicon.
+        self.mesh_key = None if mesh is None else DecisionKey(
+            "serve_mesh_batch", sig,
+            hardware=f"{hardware_key()}|mesh={self.mesh_desc}")
         self.shed_expired = bool(shed_expired)
         self.deadline_misses = 0    # sheds + late finishes
         self.shed = 0               # expired before prefill, dropped
@@ -391,7 +427,39 @@ class ServeScheduler:
         self._warm_prefill: set[int] = set()
         self._warm_decode = False
         if self._spec:
-            self._spec_depth = self._decide_spec_depth()
+            self._spec_depth = self._agree(self._decide_spec_depth)
+
+    # ----------------------------------------------------------------- mesh
+    def _agree(self, decide: Callable[[], Any]) -> Any:
+        """``decide()`` off a mesh; on one, taken on mesh rank 0 and
+        broadcast with the trace entries it recorded (``Mesh.agree``):
+        decisions read timings and the clock, which differ per rank."""
+        if self.mesh is None:
+            return decide()
+        return self.mesh.agree(decide, self.decision_model())
+
+    def _gather_lanes(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every replica's lanes of ``t`` (this rank's along ``dim``), in
+        slot order: an ``all_gather`` over 'data' on a mesh."""
+        if self.mesh is None:
+            return t
+        local = t.movedim(dim, 0).contiguous()
+        out = torch.empty((self.n_replicas * local.shape[0],)
+                          + tuple(local.shape[1:]), dtype=local.dtype,
+                          device=local.device)
+        all_gather_into(out, local, group=self.mesh.groups["data"])
+        return out.movedim(0, dim).contiguous()
+
+    def _exchange(self, writes) -> None:
+        """A paged mesh pool's exchange of the rows each replica wrote:
+        ``writes`` (slot, lo, hi) for every slot written, on every rank."""
+        if not self.paged or self.mesh is None or self.n_replicas == 1:
+            return
+        rows: list[list[int]] = [[] for _ in range(self.n_replicas)]
+        for slot, lo, hi in writes:
+            rows[slot // self.slots_per_replica] += \
+                self.pool.slot_rows(slot, lo, hi)
+        self.pool.exchange_rows(rows)
 
     # ------------------------------------------------------------------ API
     def submit(self, tokens, max_new_tokens: int = 16, *,
@@ -484,20 +552,25 @@ class ServeScheduler:
         on its first dispatch over a full pool (``_dispatch_tuner``)."""
         if self.pool.free_slots() != self.pool.n_slots:
             raise RuntimeError("warmup must precede admission")
+        with flags.tensor_parallel(self.tp):
+            self._warmup()
+
+    def _warmup(self) -> None:
         tuner = self.kernel_tuner or flags.KERNEL_TUNER
-        n = self.pool.n_slots
+        lanes = self.pool.lanes
+        n = lanes.stop - lanes.start
         zeros = torch.zeros(n, dtype=torch.long, device=self.device)
         one = [1] + [0] * (n - 1)
-        pt = (self.pool.page_table_array(),) if self.paged else ()
+        pt = (self.pool.page_table_array()[lanes],) if self.paged else ()
         with flags.kernel_tuner(None):
             if self._fused:
                 new_caches, _out, toks = self._fused_step()(
                     self.params, self.pool.caches, *pt, zeros,
-                    self.pool.positions_array(), one)
+                    self.pool.positions_array()[lanes], one)
                 self.pool.mark_donated("fused decode warmup")
                 device_sync(self.device)
                 self.pool.adopt(new_caches)
-                self._dev_toks = toks
+                self._dev_toks = self._gather_lanes(toks)
                 self._warm_steps.add("fused")
                 if self._spec:
                     # Every width a re-decision can land on: a mid-run switch
@@ -514,18 +587,19 @@ class ServeScheduler:
                         new_caches, hist, _out, toks, _st, _reads = \
                             self._spec_step(d)(
                                 self.params, self.pool.caches, *pt,
-                                self._decode_hist(), self._decode_toks(),
-                                self.pool.positions_array(), one)
+                                self._decode_hist()[lanes],
+                                self._decode_toks()[lanes],
+                                self.pool.positions_array()[lanes], one)
                         self.pool.mark_donated("fused decode warmup")
                         device_sync(self.device)
                         self.pool.adopt(new_caches)
-                        self._dev_toks = toks
-                        self._dev_hist = hist
+                        self._dev_toks = self._gather_lanes(toks)
+                        self._dev_hist = self._gather_lanes(hist)
                         self._warm_steps.add(("spec", d))
                 self._warm_fused = True
             else:
                 self._fused_step()(self.params, self.pool.caches, zeros,
-                                   self.pool.positions_array(), one)
+                                   self.pool.positions_array()[lanes], one)
                 device_sync(self.device)
                 self._warm_decode = True
         with flags.kernel_tuner(tuner):
@@ -533,9 +607,9 @@ class ServeScheduler:
                 for b in self.chunk_buckets:
                     if b < self.max_len:
                         self._prefill_forward(
-                            0, torch.zeros((1, b), dtype=torch.long,
-                                           device=self.device), 0, b - 1,
-                            pt[0][:1] if pt else None)
+                            lanes.start, torch.zeros((1, b), dtype=torch.long,
+                                                     device=self.device),
+                            0, b - 1, pt[0][:1] if pt else None)
                         self._warm_prefill.add(b)
                 device_sync(self.device)
 
@@ -571,7 +645,8 @@ class ServeScheduler:
         strict mode any implicit device→host sync in the round raises.
         """
         with strict.hot_dispatch_guard(), \
-                flags.kernel_tuner(self.kernel_tuner or flags.KERNEL_TUNER):
+                flags.kernel_tuner(self.kernel_tuner or flags.KERNEL_TUNER), \
+                flags.tensor_parallel(self.tp):
             t_start = time.perf_counter()
             self._blocked_s = 0.0
             self._tick_misses = 0
@@ -592,7 +667,7 @@ class ServeScheduler:
     def _tick_legacy(self) -> TickRecord:
         """Per-tick decode: one device round-trip per decoded token."""
         admitted = self._admit()
-        queued, cores, chunk = self._decide()
+        queued, cores, chunk = self._agree(self._decide)
         prefill_ops, pf_finished = self._run_prefill(cores, chunk)
         decoded, dec_finished = self._run_decode()
         finished = pf_finished + dec_finished
@@ -619,12 +694,13 @@ class ServeScheduler:
         n_dec = sum(1 for r in self._active
                     if r.state is RequestState.DECODE)
         if pf_pending:
-            queued, cores, chunk = self._decide()
+            queued, cores, chunk = self._agree(self._decide)
             if self.paged and n_dec:
                 # Chunked-prefill interleave: cap this tick's prefill
                 # chunk-ops to what fits the window the in-flight fused
                 # decode keeps the card busy (``serve_prefill_interleave``).
-                cores = min(cores, self._decide_interleave(chunk))
+                cores = min(cores, self._agree(
+                    lambda: self._decide_interleave(chunk)))
             pre_blocked = self._blocked_s
             prefill_ops, pf_finished = self._run_prefill(cores, chunk)
             if n_dec and not self._inflight:
@@ -663,10 +739,14 @@ class ServeScheduler:
         a ``serve_admission`` decision, not "all of them"; a paged pool
         maps any cached prefix of the prompt into the slot."""
         if self.shed_expired and self._waiting:
-            now = self.clock()
+            # Which requests expired reads the clock: one answer for the
+            # whole mesh.
+            now, expired = self._agree(lambda: (self.clock(), {
+                r.rid for r in self._waiting
+                if r.deadline is not None and self.clock() > r.deadline}))
             kept = []
             for req in self._waiting:
-                if req.deadline is not None and now > req.deadline:
+                if req.rid in expired:
                     req.state = RequestState.SHED
                     req.finished_at = now
                     self.shed += 1
@@ -678,10 +758,12 @@ class ServeScheduler:
         self._waiting.sort(key=lambda r: (
             r.deadline if r.deadline is not None else float("inf"),
             r.arrival, r.rid))
-        width = self._decide_admission()
+        width = self._agree(self._decide_admission)
+        lane_cap = self._agree(self._decide_mesh_batch)
         admitted = []
         while self._waiting and self.pool.free_slots() \
-                and (width is None or len(admitted) < width):
+                and (width is None or len(admitted) < width) \
+                and (lane_cap is None or len(self._active) < lane_cap):
             req = self._waiting.pop(0)
             if self.paged and req.host_tokens is not None:
                 # Map any cached prefix of the prompt read-only into the
@@ -734,6 +816,42 @@ class ServeScheduler:
             evidence=(self.host_tick_key, self.prefill_key),
             inputs=inputs)
         return decision.cores
+
+    def _decide_mesh_batch(self) -> int | None:
+        """Global active-lane cap for a mesh-sharded pool (decision kind
+        ``serve_mesh_batch``), or None off a mesh, with an empty queue or
+        a params object with no store.  The engine amortises the measured
+        per-dispatch host overhead (``serve_host_tick``) against the
+        measured fused device step (``serve_decode_fused``) over the
+        per-replica demand; the cap is ``width * n_replicas``.  Consulted
+        only when there is something to admit."""
+        if self.mesh is None or not self._waiting:
+            return None
+        model = self.decision_model()
+        if model is None:       # static params object: every slot
+            return None
+        demand = len(self._waiting) + len(self._active)
+        evidence = [self.host_tick_key, self.fused_key]
+        inputs: tuple = (("mesh", self.mesh_desc),)
+        host = model.smoothed_t_iter(self.host_tick_key)
+        if host is None:
+            host = self.acc.calibrate_t0(self.executor) \
+                + 4.0 * decision_overhead_s()
+            inputs += (("seeded", True),)
+        dev = model.smoothed_t_iter(self.fused_key)
+        if dev is None:
+            dev = self.acc.measure_iteration(
+                self.executor, self.decode_profile, max(demand, 1),
+                key=self.decode_key)
+            evidence.append(self.decode_key)
+        decision = model.mesh_batch(
+            self.mesh_key, demand=demand, n_replicas=self.n_replicas,
+            slots_per_replica=self.slots_per_replica,
+            host_tick_s=host, device_step_s=dev,
+            eff=getattr(self.acc, "efficiency",
+                        overhead_law.DEFAULT_EFFICIENCY),
+            evidence=tuple(evidence), inputs=inputs)
+        return decision.batch_width
 
     def _decide(self) -> tuple[int, int, int]:
         """(queued tokens, batch width, prefill chunk) for this tick,
@@ -813,6 +931,8 @@ class ServeScheduler:
                               max(time.perf_counter() - t_pg, 0.0))
             pt = self.pool.page_table_array()
         dev = self.device
+        if self.mesh is not None:
+            return self._mesh_prefill(ops, pt)
 
         def run_chunk(chunk: Chunk):
             req, step, padded = ops[chunk.start]
@@ -837,15 +957,59 @@ class ServeScheduler:
         self.host_roundtrips += 1
         self._warm_prefill.update(padded for _, _, padded in ops)
 
+        return self._land_prefill(ops, [
+            None if req.remaining_prefill > step
+            # First-token sync: the host needs this token to route the
+            # request into decode.
+            else to_host(torch.argmax(logits[0, 0])).tolist()
+            for (req, step, _), logits in zip(ops, outs, strict=True)])
+
+    def _mesh_prefill(self, ops: list, pt: torch.Tensor | None):
+        """A prefill wave on a mesh: this replica's chunk-ops, in order
+        (their tensor-parallel collectives must meet), each timed into
+        ``serve_prefill``; the paged rows every replica wrote exchanged;
+        the finishing requests' first tokens all-reduced over 'data'
+        (each is its own replica's, zeros elsewhere) in one read."""
+        dev = self.device
+        model = self.decision_model()
+        firsts = torch.zeros(len(ops), dtype=torch.long, device=dev)
+        t_dev = time.perf_counter()
+        for i, (req, step, padded) in enumerate(ops):
+            if not self.pool.holds(req.slot):
+                continue
+            piece = torch.zeros(padded, dtype=torch.long)
+            piece[:step] = req.tokens[req.prefilled:req.prefilled + step]
+            t0 = time.perf_counter()
+            logits = self._prefill_forward(
+                req.slot, piece.to(dev, non_blocking=True)[None],
+                req.prefilled, step - 1,
+                None if pt is None else pt[req.slot:req.slot + 1])
+            device_sync(dev)
+            if model is not None and padded in self._warm_prefill:
+                model.observe(self.prefill_key, step,
+                              time.perf_counter() - t0)
+            if req.remaining_prefill == step:
+                firsts[i] = torch.argmax(logits[0, 0])
+        self._exchange([(req.slot, req.prefilled, req.prefilled + padded)
+                        for req, _, padded in ops])
+        dist.all_reduce(firsts, group=self.mesh.groups["data"])
+        toks = to_host(firsts).tolist()
+        self._blocked_s += time.perf_counter() - t_dev
+        self.host_roundtrips += 1
+        self._warm_prefill.update(padded for _, _, padded in ops)
+        return self._land_prefill(ops, [
+            None if req.remaining_prefill > step else toks[i]
+            for i, (req, step, _) in enumerate(ops)])
+
+    def _land_prefill(self, ops: list, firsts: list):
+        """Advance each op's request; a request whose prompt is done
+        takes its first token (``firsts``) and moves to decode."""
         prefill_ops, finished = [], []
-        for (req, step, _), logits in zip(ops, outs, strict=True):
+        for (req, step, _), tok in zip(ops, firsts, strict=True):
             req.prefilled += step
             self.pool.positions[req.slot] = req.prefilled
             prefill_ops.append((req.rid, step))
-            if req.remaining_prefill == 0:
-                # First-token sync: the host needs this token to route
-                # the request into decode.
-                tok = to_host(torch.argmax(logits[0, 0])).tolist()
+            if tok is not None:
                 req.out.append(tok)
                 req.first_token_at = self.clock()
                 req.state = RequestState.DECODE
@@ -880,8 +1044,9 @@ class ServeScheduler:
             toks[r.slot] = r.out[-1]
             steps[r.slot] = 1
         pool, params, dev = self.pool, self.params, self.device
-        toks_a = host_to_device(toks, torch.long, dev)
-        poss_a = pool.positions_array()
+        lanes = pool.lanes
+        toks_a = host_to_device(toks, torch.long, dev)[lanes]
+        poss_a = pool.positions_array()[lanes]
         step = self._fused_step()
         tuner = self._dispatch_tuner("fused")
 
@@ -890,7 +1055,8 @@ class ServeScheduler:
             # the reference jits this path as one program too.
             with flags.kernel_tuner(tuner):
                 _, _, next_toks = step(params, pool.caches, toks_a, poss_a,
-                                       steps)
+                                       steps[lanes])
+            next_toks = self._gather_lanes(next_toks)
             device_sync(dev)
             return next_toks
 
@@ -908,6 +1074,8 @@ class ServeScheduler:
         self.decode_loop_iters += 1
         self.host_roundtrips += 2   # sync + copy
 
+        self._exchange([(r.slot, self.pool.positions[r.slot],
+                         self.pool.positions[r.slot] + 1) for r in decs])
         decoded, finished = [], []
         for r in decs:
             self.pool.positions[r.slot] += 1
@@ -982,6 +1150,11 @@ class ServeScheduler:
         """
         from ..analysis import roofline
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "decode_cost_analysis counts one card's step; a mesh "
+                "step's per-device count with its collective bytes is the "
+                "dry-run roofline's (ROADMAP.md A.7b)")
         n, dev = self.pool.n_slots, self.device
         spec = self._fused and self._spec and self._spec_depth >= 2
         step = self._spec_step(self._spec_depth) if spec \
@@ -1243,7 +1416,7 @@ class ServeScheduler:
         decs = [r for r in self._active if r.state is RequestState.DECODE]
         if not decs:
             return [], [], 0, 0, 0
-        depth = self._decide_depth(decs)
+        depth = self._agree(lambda: self._decide_depth(decs))
         self._last_depth = depth
         spec_d = self._spec_depth if self._spec else 1
         if self._spec and self.speculate == "auto" and spec_d < 2 \
@@ -1257,14 +1430,14 @@ class ServeScheduler:
         # reserved: a window must never write past the cache.
         margin = spec_d - 1 if use_spec else 0
         steps = [0] * self.pool.n_slots
-        lanes = []
+        lanes_taken = []
         for r in decs:
             budget = min(r.max_new_tokens - len(r.out) - r.pending_out,
                          self.max_len - margin
                          - self.pool.positions[r.slot])
             take = max(min(depth, budget), 0)
             steps[r.slot] = take
-            lanes.append((r, r.slot, take))
+            lanes_taken.append((r, r.slot, take))
         pt = ()
         if self.paged:
             # Allocation and copy-on-write land before the dispatch reads
@@ -1273,18 +1446,19 @@ class ServeScheduler:
             # writable span by the draft margin, so a rejected draft only
             # ever lands in a page this slot owns alone.
             t_pg = time.perf_counter()
-            for _, slot, take in lanes:
+            for _, slot, take in lanes_taken:
                 if take:
                     pos = self.pool.positions[slot]
                     self.pool.ensure_writable(
                         slot, pos, min(pos + take + margin, self.max_len))
             model = self.decision_model()
             if model is not None:
-                model.observe(self.page_mgmt_key, len(lanes),
+                model.observe(self.page_mgmt_key, len(lanes_taken),
                               max(time.perf_counter() - t_pg, 0.0))
-            pt = (self.pool.page_table_array(),)
-        toks_a = self._decode_toks()
-        poss_a = self.pool.positions_array()
+            pt = (self.pool.page_table_array()[self.pool.lanes],)
+        lanes = self.pool.lanes
+        toks_a = self._decode_toks()[lanes]
+        poss_a = self.pool.positions_array()[lanes]
         step_id = ("spec", spec_d) if use_spec else "fused"
         fused = self._spec_step(spec_d) if use_spec else self._fused_step()
         tuner = self._dispatch_tuner(step_id)
@@ -1303,15 +1477,22 @@ class ServeScheduler:
             if use_spec:
                 new_caches, new_hist, out_buf, final_toks, stats, reads = \
                     fused(self.params, self.pool.caches, *pt,
-                          self._decode_hist(), toks_a, poss_a, steps)
+                          self._decode_hist()[lanes], toks_a, poss_a,
+                          steps[lanes])
                 self.host_roundtrips += reads
+                new_hist = self._gather_lanes(new_hist)
             else:
                 new_hist = None
                 new_caches, out_buf, final_toks = fused(
                     self.params, self.pool.caches, *pt, toks_a, poss_a,
-                    steps)
+                    steps[lanes])
+        out_buf = self._gather_lanes(out_buf, dim=1)
+        final_toks = self._gather_lanes(final_toks)
+        self._exchange([(slot, self.pool.positions[slot],
+                         self.pool.positions[slot] + take)
+                        for _, slot, take in lanes_taken if take])
         self.pool.mark_donated("fused decode dispatch")
-        total = sum(take for _, _, take in lanes)
+        total = sum(take for _, _, take in lanes_taken)
         if timed:
             device_sync(self.device)
             dt = time.perf_counter() - t_dev
@@ -1330,16 +1511,17 @@ class ServeScheduler:
                 else:
                     # Width-1 seconds per iteration, the denominator of
                     # the online width cost (``_decide_spec_depth``).
-                    iters = max((take for _, _, take in lanes), default=0)
+                    iters = max((take for _, _, take in lanes_taken),
+                                default=0)
                     if iters > 0:
                         model.observe(self.fused_iter_key, iters, dt)
             if self._page_size_auto:
                 # Re-decide with the page-management and prefill costs
                 # observed so far: the refined size drives the next pool
                 # over this store (the geometry of this one is fixed).
-                self._decide_page_size()
+                self._agree(self._decide_page_size)
             if self._spec and self.speculate == "auto":
-                self._spec_depth = self._decide_spec_depth()
+                self._spec_depth = self._agree(self._decide_spec_depth)
         self._warm_fused = True
         self._warm_steps.add(step_id)
         self.pool.adopt(new_caches)
@@ -1349,18 +1531,18 @@ class ServeScheduler:
         self.decode_dispatches += 1
         self.decode_tokens += total
         if stats is None:
-            self.decode_loop_iters += max((take for _, _, take in lanes),
-                                          default=0)
+            self.decode_loop_iters += max(
+                (take for _, _, take in lanes_taken), default=0)
         # else: speculative rounds vary; counted at drain from the stats.
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record()
         self._inflight.append(
-            (out_buf, stats, spec_d if use_spec else 0, ready, lanes))
+            (out_buf, stats, spec_d if use_spec else 0, ready, lanes_taken))
 
         decoded, finished = [], []
-        for r, slot, take in lanes:
+        for r, slot, take in lanes_taken:
             self.pool.advance(slot, take)
             r.pending_out += take
             decoded.append(r.rid)

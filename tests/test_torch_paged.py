@@ -393,7 +393,7 @@ def test_paged_pool_refuses_windows_and_meshes(models):
     _, _, tcfg, _ = models
     with pytest.raises(ValueError, match="SWA"):
         PagedKVCachePool(tcfg, 2, 16, window=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_serve_mesh"):
         PagedKVCachePool(tcfg, 2, 16, mesh=object(), device="cpu")
 
 

@@ -176,12 +176,13 @@ def test_pad_ok_is_the_reference_rule(window):
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(kernel_tuner="a KernelTuner")])
 def test_unported_options_raise(models, kwargs):
-    """Mesh-sharded serving is not ported and raises.  A kernel tuner is
-    taken (now ported): it gives the untuned scheduler's
+    """Mesh-sharded serving takes a ``launch.mesh.Mesh`` (served over
+    gloo ranks in ``tests/test_torch_mesh.py``); anything else raises.  A
+    kernel tuner is taken (now ported): it gives the untuned scheduler's
     tokens, after measured searches on the CPU."""
     _, _, tcfg, tparams = models
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="make_serve_mesh"):
             ServeScheduler(tcfg, tparams, n_slots=2, max_len=32,
                            dispatch_depth=2, device="cpu", **kwargs)
         return
