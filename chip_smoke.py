@@ -258,6 +258,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
               int8-compressed data-parallel step at full width and 2
               layers, each quantisation group's synced gradient within
               one int8 quantum of the plain f32 mean (``[mesh dp]``).
+16. fsdp    — the FSDP × TP training step (``train/sharded.py``) at
+              world size 1 over NCCL (``_fsdp_phase``, alone:
+              ``fsdp_main()``): qwen3-0.6b at full width and depth, f32,
+              two ``make_sharded_train_step`` steps of 4 x 512 at accum 2
+              against two ``make_train_step`` steps from the same weights
+              and batch (each after one untimed warm-up step on another
+              copy): losses, norms and every parameter bit for bit,
+              median step ms, kernel 1's forward and backward launches
+              and the collective calls per step (``[fsdp train]``);
+              mixtral-8x22b at full width, one pattern group, bf16
+              parameters and moments, one step under global dispatch and
+              one under ``moe_dispatch_groups(2)``, the same comparison,
+              the bytes reckoned beforehand and
+              ``torch.cuda.max_memory_allocated`` (``[fsdp moe]``);
+              ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b
+              --shape train_4k --mesh single`` as a subprocess beside them,
+              which must exit 0 (``[dryrun]``, its report row).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -911,7 +928,9 @@ def main() -> None:
     # -------------------------------------------------------- 13. vision
     # ----------------------------------------------------------- 14. tune
     # ---------------------------------------------------------- 15. mesh
-    for phase in (_xlstm_phase, _vision_phase, _tune_phase, _mesh_phase):
+    # ------------------------------------------------- 16. FSDP × TP step
+    for phase in (_xlstm_phase, _vision_phase, _tune_phase, _mesh_phase,
+                  _fsdp_phase):
         phase_records, phase_launches = phase(torch, dev)
         for name, recs in phase_records.items():
             records[name].extend(recs)
@@ -5177,6 +5196,247 @@ def mesh_main() -> None:
     """``python3 -c "import chip_smoke; chip_smoke.mesh_main()"``: the
     build and phase 15 alone (multi-GPU at world size 1 over NCCL)."""
     _phase_main(15, _mesh_phase)
+
+
+# Phase 16: the FSDP × TP training step (``train/sharded.py``) at world
+# size 1 over NCCL against the unsharded step, and the dry run.
+FSDP_ARCH = "qwen3-0.6b"
+FSDP_BATCH, FSDP_SEQ, FSDP_ACCUM = 4, 512, 2
+FSDP_MOE_ARCH = "mixtral-8x22b"
+FSDP_MOE_BATCH, FSDP_MOE_SEQ = 2, 256
+
+
+def _card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: unavailable"
+
+
+def _same_tree(torch, a, b) -> tuple[bool, float]:
+    """(every leaf bit-equal, the largest difference relative to the
+    leaf's largest magnitude)."""
+    from repro_torch import tree
+
+    equal, worst = True, 0.0
+    for x, y in zip(tree.leaves(a), tree.leaves(b), strict=True):
+        if not torch.equal(x, y):
+            equal = False
+            d = float((x.float() - y.float()).abs().max())
+            worst = max(worst, d / max(float(y.float().abs().max()), 1e-30))
+    return equal, worst
+
+
+def _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch, *,
+                  accum: int, steps: int, sharded: bool,
+                  warmup: bool = True) -> dict:
+    """``steps`` steps of the sharded (on ``mesh``) or the unsharded
+    step from a copy of ``params``: losses, norms, step ms, kernel 1's
+    forward and backward launches and the collective calls per step, the
+    final parameters.  With ``warmup``, one untimed step on another copy
+    first (the first call's library and communicator set-up)."""
+    if warmup:
+        _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch,
+                      accum=accum, steps=1, sharded=sharded, warmup=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    from repro_torch import collectives, tree
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train import sharded as tsharded
+
+    p = tree.map_leaves(lambda t: t.clone(), params)
+    opt = adamw.init_state(p, opt_cfg)
+    if sharded:
+        p, opt = tsharded.shard_train_state(p, opt, mesh, cfg=cfg)
+        batch = tsharded.shard_batch(batch, mesh, accum)
+        step = tsharded.make_sharded_train_step(cfg, opt_cfg, mesh,
+                                                accum=accum)
+    else:
+        step = make_train_step(cfg, opt_cfg, accum=accum)
+    calls: list = []
+    out = {"loss": [], "grad_norm": [], "ms": [], "fwd": [], "bwd": [],
+           "collectives": []}
+    collectives.collective_sinks.append(lambda *c: calls.append(c))
+    try:
+        for _ in range(steps):
+            krms.reset_counts()
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["loss"].append(m["loss"].clone())
+            out["grad_norm"].append(m["grad_norm"].clone())
+            out["fwd"].append(krms.launches.count)
+            out["bwd"].append(krms.bwd_launches.count)
+            out["collectives"].append(len(calls))
+    finally:
+        collectives.collective_sinks.clear()
+    out["params"] = p
+    return out
+
+
+def _fsdp_compare16(torch, name, a, b, problems) -> dict:
+    """The sharded run ``a`` against the unsharded ``b``: bit for bit."""
+    loss = all(torch.equal(x, y) for x, y in zip(a["loss"], b["loss"],
+                                                 strict=True))
+    norm = all(torch.equal(x, y) for x, y in zip(a["grad_norm"],
+                                                 b["grad_norm"],
+                                                 strict=True))
+    same, worst = _same_tree(torch, a["params"], b["params"])
+    if not (loss and norm and same):
+        problems.append(f"{name}: sharded != unsharded at world size 1 "
+                        f"(loss {loss}, norm {norm}, params {same}, worst "
+                        f"relative {worst:.3g})")
+    for k in ("fwd", "bwd"):
+        if not all(a[k]):
+            problems.append(f"{name}: a sharded step launched no kernel 1 "
+                            f"{'forward' if k == 'fwd' else 'backward'}")
+    return {"loss_bit_equal": loss, "grad_norm_bit_equal": norm,
+            "params_bit_equal": same, "worst_rel": worst,
+            "loss": [float(x) for x in a["loss"]],
+            "grad_norm": [float(x) for x in a["grad_norm"]],
+            "sharded_ms": [round(x, 3) for x in a["ms"]],
+            "unsharded_ms": [round(x, 3) for x in b["ms"]],
+            "kernel1_fwd_per_step": a["fwd"], "kernel1_bwd_per_step": a["bwd"],
+            "collectives_per_step": a["collectives"]}
+
+
+def _fsdp_phase(torch, dev):
+    """Phase 16: the FSDP × TP step at world size 1 over NCCL against the
+    unsharded step, bit for bit (qwen3-0.6b at full width and depth, two
+    steps of accum 2; mixtral-8x22b at full width, one pattern group, one
+    step under global dispatch and one under ``moe_dispatch_groups(2)``),
+    and ``launch/dryrun.py`` for qwen3-0.6b train_4k on the single-pod
+    mesh.  Returns ({}, {path: launches})."""
+    import statistics
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import flags, lm
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    card = _card_line()
+    problems: list = []
+    path_launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The dry run is a count on meta tensors on the host: it runs
+        # beside the card's work.
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             FSDP_ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
+             os.path.join(tmp, "dryrun")], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            mesh_lib.init_distributed("cuda", init_method=f"file://{tmp}/rdv",
+                                      rank=0, world_size=1, timeout_s=120)
+            try:
+                mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+                # [fsdp train]: qwen3-0.6b, f32 masters and moments.
+                cfg = get_config(FSDP_ARCH)
+                params = lm.init_params(0, cfg, device=dev,
+                                        dtype=torch.float32,
+                                        draw_on_device=True)
+                batch = make_batch(cfg, FSDP_BATCH, FSDP_SEQ, seed=0,
+                                   device=dev)
+                opt_cfg = AdamWConfig(lr=1e-4)
+                plain = _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh,
+                                      batch, accum=FSDP_ACCUM, steps=2,
+                                      sharded=False)
+                krms.reset_counts()
+                shard = _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh,
+                                      batch, accum=FSDP_ACCUM, steps=2,
+                                      sharded=True)
+                path_launches[f"phase 16 {FSDP_ARCH} fsdp 1x1 train"] = {
+                    "rmsnorm": sum(shard["fwd"]),
+                    "rmsnorm_backward": sum(shard["bwd"])}
+                rec = _fsdp_compare16(torch, "fsdp train", shard, plain,
+                                      problems)
+                rec.update(card=card, arch=FSDP_ARCH,
+                           batch=[FSDP_BATCH, FSDP_SEQ], accum=FSDP_ACCUM,
+                           sharded_median_ms=statistics.median(shard["ms"]),
+                           unsharded_median_ms=statistics.median(
+                               plain["ms"]))
+                log("[fsdp train] " + json.dumps(rec))
+                del params, plain, shard, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+                # [fsdp moe]: mixtral-8x22b, one pattern group, bf16
+                # parameters and moments.
+                mcfg = dataclasses.replace(
+                    get_config(FSDP_MOE_ARCH),
+                    n_layers=len(get_config(FSDP_MOE_ARCH).block_pattern),
+                    param_dtype="bfloat16")
+                mparams = lm.init_params(0, mcfg, device=dev,
+                                         dtype=torch.bfloat16,
+                                         draw_on_device=True)
+                n = sum(t.numel() for t in tree.leaves(mparams))
+                reckoned = {"params_bytes": 2 * n, "moments_bytes": 4 * n,
+                            "per_copy_bytes": 6 * n,
+                            "grads_bytes": 2 * n,
+                            "resident_bytes": 2 * n + 2 * (6 * n)
+                            + 2 * n}
+                mbatch = make_batch(mcfg, FSDP_MOE_BATCH, FSDP_MOE_SEQ,
+                                    seed=1, device=dev)
+                mopt = AdamWConfig(lr=1e-4, moment_dtype="bfloat16")
+                torch.cuda.reset_peak_memory_stats()
+                for groups in (None, 2):
+                    with flags.moe_dispatch_groups(groups):
+                        plain = _fsdp_steps16(torch, dev, mcfg, mparams,
+                                              mopt, mesh, mbatch, accum=1,
+                                              steps=1, sharded=False)
+                        shard = _fsdp_steps16(torch, dev, mcfg, mparams,
+                                              mopt, mesh, mbatch, accum=1,
+                                              steps=1, sharded=True)
+                    name = "global" if groups is None else f"groups{groups}"
+                    rec = _fsdp_compare16(torch, f"fsdp moe {name}", shard,
+                                          plain, problems)
+                    rec.update(card=card, arch=FSDP_MOE_ARCH,
+                               layers=mcfg.n_layers, dispatch=name,
+                               batch=[FSDP_MOE_BATCH, FSDP_MOE_SEQ],
+                               params=n, reckoned=reckoned,
+                               max_memory_allocated=
+                               torch.cuda.max_memory_allocated())
+                    log("[fsdp moe] " + json.dumps(rec))
+                    del plain, shard
+                    torch.cuda.empty_cache()
+                del mparams, mbatch
+                gc.collect()
+                torch.cuda.empty_cache()
+            finally:
+                dist.destroy_process_group()
+        finally:
+            out, err = dry.communicate(timeout=600)
+    rows = [line for line in out.splitlines() if line.startswith(
+        ("OK", "FAIL", "PORT", "SKIP"))]
+    log(f"[dryrun] {card}: exit {dry.returncode}; " + " | ".join(rows))
+    if dry.returncode != 0 or not any(r.startswith("OK") for r in rows):
+        problems.append(f"the dry run failed (exit {dry.returncode}): "
+                        f"{err[-2000:]}")
+    log(f"[phase 16] {time.perf_counter() - t_phase:.1f}s")
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    return {}, path_launches
+
+
+def fsdp_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.fsdp_main()"``: the
+    build and phase 16 alone (the FSDP × TP step at world size 1 over
+    NCCL, and the dry run)."""
+    _phase_main(16, _fsdp_phase)
 
 
 def _to_device(tree, dev):

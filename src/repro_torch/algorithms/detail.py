@@ -44,6 +44,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from .. import collectives
 from ..collectives import all_gather_into
 from ..core import customization as cp
 from ..core.calibration import DeviceBody
@@ -238,7 +239,7 @@ def _gather(sub: SubMesh, blk: torch.Tensor | None) -> torch.Tensor:
     if out is None:
         shape, dtype = box[0]
         out = torch.empty(shape, dtype=dtype, device=mesh.device)
-    dist.broadcast(out, src=sub.ranks[0], group=mesh.whole)
+    collectives.broadcast(out, sub.ranks[0], mesh.whole)
     return out
 
 
@@ -264,12 +265,8 @@ def _halo(sub: SubMesh, send: torch.Tensor, shift: int) -> torch.Tensor:
     if c == 1:
         return send.clone()
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send.contiguous(),
-                      sub.ranks[(i + shift) % c], group=sub.group),
-           dist.P2POp(dist.irecv, recv, sub.ranks[(i - shift) % c],
-                      group=sub.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    collectives.send_recv(send.contiguous(), sub.ranks[(i + shift) % c],
+                          recv, sub.ranks[(i - shift) % c], sub.group)
     return recv
 
 
@@ -347,7 +344,7 @@ def mesh_reduce(mexec, cores: int, x: torch.Tensor, local_partial: Callable,
     if sub.group is not None:
         part = local_partial(_block(sub, xp)).reshape(1)
         if op in _REDUCE_OPS and part.dtype != torch.bool:
-            dist.all_reduce(part, op=_REDUCE_OPS[op], group=sub.group)
+            collectives.all_reduce(part, sub.group, op=_REDUCE_OPS[op])
     parts = _gather(sub, part)
     if op in _REDUCE_OPS and parts.dtype != torch.bool:
         return parts[0]

@@ -23,23 +23,38 @@ inputs, and the attention kernels in bf16) and the rest, and each is
 divided by its own peak: 989 TFLOP/s bf16 (``core.hardware.H100_SXM``)
 and 67 TFLOP/s f32 outside the tensor cores (``H100_F32_FLOPS``), both
 NVIDIA's H100 SXM data sheet, bytes by 3.35 TB/s.  A bound is the larger
-of the bytes' time and the flops' time.  ``collective_s`` is 0 on one
-card.  The dry-run half (``analyze``, ``analyze_calibrated``: a compiled
-multi-device artifact) waits for the multi-GPU port (ROADMAP.md).
+of the bytes' time and the flops' time.
+
+The count also records the call's collectives (``collectives.py``'s
+sink: kind, bytes of the result buffer, the group's size; the tensor-op
+mode skips the ``c10d`` ops themselves) and the peak of the bytes of the
+tensors the call made and still holds, each storage tallied when it is
+made and dropped when it is freed (a storage shared by views counts
+once; the arguments' own storages are not the call's).
+
+``analyze`` turns one rank's count of one call into the reference's
+``RooflineReport`` (the dry run's, ``launch/dryrun.py``): per-device
+flops and bytes, the collectives' wire bytes by the reference's formula
+(``collective_bytes``, ``wire_bytes``) over NVLink's 450 GB/s.  The
+reference's ``analyze_calibrated`` corrects XLA's cost analysis, which
+counts a loop body once; an eager count sees every iteration, so it
+needs no calibration (ROADMAP.md A.7b).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
+import weakref
 from typing import Callable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
+from .. import collectives as coll
 from ..configs.base import ArchConfig, ShapeConfig
-from ..core.hardware import H100_SXM
+from ..core.hardware import H100_SXM, HardwareSpec
 from ..kernels import build
 from ..kernels import flash_attention as kfa
 
@@ -150,6 +165,60 @@ def format_row(r: RooflineReport) -> str:
             f"hbm {(r.argument_bytes+r.peak_memory_bytes)/2**30:6.2f}GiB")
 
 
+def collective_bytes(records: list) -> dict:
+    """Per-kind totals of a count's collectives (``Costs.collectives``),
+    as the reference's ``collective_bytes`` reads them off partitioned
+    HLO: ``{"bytes": {kind: result bytes, "total", "wire_total"},
+    "counts": {kind: calls}}``.  A collective over a group of one rank
+    moves nothing (XLA emits none): it is counted as a call and adds no
+    bytes."""
+    out: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for kind, nbytes, size in records:
+        counts[kind] = counts.get(kind, 0) + 1
+        out[kind] = out.get(kind, 0.0) + (float(nbytes) if size > 1 else 0.0)
+    out["total"] = sum(out.values())
+    out["wire_total"] = wire_bytes(out)
+    return {"bytes": out, "counts": counts}
+
+
+def wire_bytes(byte_map: dict) -> float:
+    """The reference's ring-wire model: an all-reduce crosses the ring
+    twice (2× its buffer), every other collective ~1× its result."""
+    total = 0.0
+    for kind, v in byte_map.items():
+        if kind in ("total", "wire_total"):
+            continue
+        total += 2.0 * v if kind == "all-reduce" else v
+    return total
+
+
+def analyze(costs: "Costs", *, cfg: ArchConfig, shape: ShapeConfig,
+            mesh_name: str, chips: int, argument_bytes: float = 0.0,
+            hw: HardwareSpec = H100_SXM) -> RooflineReport:
+    """The roofline of one rank's count of one call (``count_costs``):
+    compute at the tensor-core and f32 peaks, memory at HBM's rate, the
+    collectives' wire bytes at NVLink's; ``peak_memory_bytes`` the
+    count's peak, ``argument_bytes`` what the caller passed in."""
+    detail = collective_bytes(costs.collectives)
+    cb = float(detail["bytes"]["wire_total"])
+    flops = costs.flops
+    mf = model_flops(cfg, shape)
+    return RooflineReport(
+        arch=cfg.name, shape=shape.name, mesh=mesh_name, chips=chips,
+        flops_per_device=flops, bytes_per_device=costs.bytes,
+        collective_bytes_per_device=cb, collective_detail=detail,
+        compute_s=costs.tensor_flops / hw.peak_flops
+        + costs.other_flops / H100_F32_FLOPS,
+        memory_s=costs.bytes / hw.mem_bw,
+        collective_s=cb / hw.link_bw,
+        model_flops=mf,
+        useful_fraction=mf / (flops * chips) if flops else 0.0,
+        peak_memory_bytes=float(costs.peak_bytes),
+        argument_bytes=float(argument_bytes),
+        peak_flops=hw.peak_flops)
+
+
 # ---------------------------------------------------------------------------
 # the count of one eager call
 # ---------------------------------------------------------------------------
@@ -164,6 +233,10 @@ class Costs:
     bytes: float = 0.0
     kernels: dict = dataclasses.field(
         default_factory=lambda: collections.defaultdict(build.Work))
+    # (kind, result bytes, group size) of every collective, in order.
+    collectives: list = dataclasses.field(default_factory=list)
+    # The most bytes of tensors the call had made and held at once.
+    peak_bytes: float = 0.0
 
     @property
     def flops(self) -> float:
@@ -213,7 +286,22 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of an op's arguments or results (nested tuples, lists
+    and dicts)."""
+    out: list[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+
+    walk(tree)
+    return out
 
 
 def op_bytes(func, args, kwargs, out) -> int:
@@ -249,36 +337,224 @@ def op_flops(func, args, kwargs, out) -> tuple[float, bool]:
     return flops, tensor
 
 
-class _TensorOpCount(TorchDispatchMode):
+class _LiveBytes:
+    """The bytes of the storages a call made that are still alive, and
+    their peak: a storage is tallied the first time a new result holds it
+    (an op's result that aliases no argument, or a kernel wrapper's) and
+    untallied when it is freed.  A storage held only by a reference
+    cycle (a frame kept by a traceback, say) is freed when the garbage
+    collector finds it, so before the tally passes its peak by more than
+    ``slack`` the collector runs: the peak is that of reachable storages,
+    to within the slack (1% of the peak, at least ``min_slack`` bytes)."""
+
+    min_slack = 256 << 20
+
     def __init__(self, costs: Costs):
-        super().__init__()
         self.costs = costs
+        self.live = 0
+        self.seen: set[int] = set()
+        self.collected = 0
+
+    def _free(self, key: int, nbytes: int) -> None:
+        self.seen.discard(key)
+        self.live -= nbytes
+
+    def made(self, out) -> None:
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self.seen:
+                continue
+            nbytes = st.nbytes()
+            self.seen.add(key)
+            self.live += nbytes
+            weakref.finalize(st, self._free, key, nbytes)
+        if self.live > self.collected + max(self.min_slack,
+                                            0.01 * self.collected):
+            gc.collect()
+            self.collected = max(self.collected, self.live)
+        self.costs.peak_bytes = max(self.costs.peak_bytes, self.live)
+
+
+_HASHABLE = (int, float, bool, str, type(None), torch.dtype, torch.device,
+             torch.memory_format, torch.layout)
+
+
+def _meta_key(x):
+    """A hashable key of an op argument: a meta tensor by its shape,
+    strides and dtype; None where there is none."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            return None
+        return (x.shape, x.stride(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        keys = [type(x)]
+        for v in x:
+            k = _meta_key(v)
+            if k is None and v is not None:
+                return None
+            keys.append(k)
+        return tuple(keys)
+    return x if isinstance(x, _HASHABLE) else None
+
+
+_fresh: dict = {}
+
+
+def _memoizable(func) -> bool:
+    """Whether an op's results are new tensors, none aliasing or writing
+    an argument (its meta result then depends on its arguments' metadata
+    alone)."""
+    known = _fresh.get(func)
+    if known is None:
+        schema = func._schema
+        known = _fresh[func] = not func.is_view and all(
+            a.alias_info is None for a in list(schema.arguments)
+            + list(schema.returns))
+    return known
+
+
+def _empty(shape, stride, dtype) -> torch.Tensor:
+    return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+
+
+def _spec(out):
+    """How to make ``out`` (meta tensors) again, or None."""
+    def meta(t):
+        return isinstance(t, torch.Tensor) and t.device.type == "meta"
+
+    if meta(out):
+        return (tuple(out.shape), out.stride(), out.dtype)
+    if isinstance(out, tuple) and out and all(map(meta, out)):
+        return [(tuple(t.shape), t.stride(), t.dtype) for t in out]
+    return None
+
+
+def _remake(spec):
+    return tuple(_empty(*s) for s in spec) if isinstance(spec, list) \
+        else _empty(*spec)
+
+
+def _op_key(func, args, kwargs):
+    """The memo key of an op whose results are new tensors and whose
+    arguments are meta tensors and hashable values; None otherwise."""
+    if not _memoizable(func):
+        return None
+    k = _meta_key((args, tuple(sorted(kwargs.items()))))
+    return None if k is None else (func, k)
+
+
+def _fresh_results(func, args, kwargs, out) -> bool:
+    """Whether the op's results are new storages: no alias in its schema
+    and none found (``_unsafe_view`` aliases without saying so)."""
+    if not _memoizable(func):
+        return False
+    ins = {id(t.untyped_storage()) for t in _tensors((args, kwargs))}
+    return not any(id(t.untyped_storage()) in ins for t in _tensors(out))
+
+
+class _QuietMemo(TorchDispatchMode):
+    """A kernel wrapper's own ops (counted by its ``Work``, not one by
+    one), their meta results remembered as ``_TensorOpCount`` does."""
+
+    def __init__(self, known: dict):
+        super().__init__()
+        self.known = known
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        key = _op_key(func, args, kwargs)
+        spec = self.known.get(key, 0) if key is not None else None
+        if spec:
+            return _remake(spec)
         out = func(*args, **kwargs)
-        flops, tensor = op_flops(func, args, kwargs, out)
-        self.costs.add(build.Work(
-            tensor_flops=flops if tensor else 0.0,
-            other_flops=0.0 if tensor else flops,
-            bytes=op_bytes(func, args, kwargs, out)))
+        if spec == 0:
+            self.known[key] = _spec(out) if _fresh_results(
+                func, args, kwargs, out) else None
+        return out
+
+
+class _TensorOpCount(TorchDispatchMode):
+    """Counts every op (``op_flops``, ``op_bytes``) and tallies the
+    storages of its new results.  An op on meta tensors met again with
+    the same arguments' metadata (a dry-run cell repeats every layer's
+    ops thousands of times) makes its results with ``empty_strided`` and
+    adds the count it added the first time, instead of running its meta
+    kernel (in Python, hundreds of microseconds each) and counting
+    again.  ``c10d`` ops are counted as collectives
+    (``collectives.collective_sinks``), not here."""
+
+    def __init__(self, costs: Costs, live: _LiveBytes):
+        super().__init__()
+        self.costs = costs
+        self.live = live
+        self.known: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        key = _op_key(func, args, kwargs)
+        hit = self.known.get(key) if key is not None else None
+        if hit is not None and hit[0] is not None:
+            spec, work, fresh = hit
+            out = _remake(spec)
+        else:
+            out = func(*args, **kwargs)
+            if hit is not None:
+                _, work, fresh = hit
+            else:
+                work = None
+                if func.namespace != "c10d":
+                    flops, tensor = op_flops(func, args, kwargs, out)
+                    work = build.Work(
+                        tensor_flops=flops if tensor else 0.0,
+                        other_flops=0.0 if tensor else flops,
+                        bytes=op_bytes(func, args, kwargs, out))
+                fresh = _fresh_results(func, args, kwargs, out)
+                if key is not None:
+                    self.known[key] = (_spec(out) if fresh else None, work,
+                                       fresh)
+        if fresh:
+            self.live.made(out)
+        if work is not None:
+            self.costs.add(work)
         return out
 
 
 def count_costs(fn: Callable, *args, **kwargs) -> Costs:
     """Run ``fn(*args, **kwargs)`` once, eagerly, and count what it must
-    do (module docstring).  The call's own effects happen as usual."""
+    do, its collectives and its peak of live bytes (module docstring).
+    The call's own effects happen as usual."""
     costs = Costs()
+    live = _LiveBytes(costs)
 
     def kernel(name: str, work: build.Work) -> None:
         costs.add(work)
         costs.kernels[name] = costs.kernels[name] + work
 
+    def collective(kind: str, nbytes: int, size: int) -> None:
+        costs.collectives.append((kind, nbytes, size))
+
+    quiet: dict = {}
+
+    def quiet_mode():
+        return _QuietMemo(quiet)
+
     build.work_sinks.append(kernel)
+    build.result_sinks.append(live.made)
+    build.quiet_modes.append(quiet_mode)
+    coll.collective_sinks.append(collective)
+    # The objects made before the count are none of its garbage: the
+    # collections of the memory tally skip them.
+    gc.collect()
+    gc.freeze()
     try:
-        with _TensorOpCount(costs):
+        with _TensorOpCount(costs, live):
             fn(*args, **kwargs)
     finally:
+        gc.unfreeze()
         build.work_sinks.remove(kernel)
+        build.result_sinks.remove(live.made)
+        build.quiet_modes.remove(quiet_mode)
+        coll.collective_sinks.remove(collective)
     costs.kernels = dict(costs.kernels)
     return costs

@@ -78,6 +78,9 @@ H100_SXM = HardwareSpec(
     hop_latency=1e-6,              # NVLink hop (seed)
     vmem_bytes=227 * 1024,         # shared memory per block
 )
+# The card's device memory (H100 SXM 80 GB, NVIDIA's data sheet): what a
+# dry-run cell's arguments and peak must fit in.
+H100_MEMORY_BYTES = 80e9
 
 # --- The paper's two evaluation machines (for figure reproduction) -------
 INTEL_SKYLAKE_40C = HardwareSpec(

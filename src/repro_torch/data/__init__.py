@@ -1,3 +1,3 @@
-from .synthetic import TokenPipeline, batch_shapes, make_batch
+from .synthetic import TokenPipeline, batch_shapes, input_specs, make_batch
 
-__all__ = ["TokenPipeline", "batch_shapes", "make_batch"]
+__all__ = ["TokenPipeline", "batch_shapes", "input_specs", "make_batch"]

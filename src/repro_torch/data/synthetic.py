@@ -4,8 +4,9 @@ draws, so a seed gives the JAX package's batch token for token.  Tokens
 and labels are int64 here (the index type of PyTorch's gathers).  A
 vision arch's batch also holds ``frontend_feats`` (B, T, d), the stub
 frontend's patch embeddings: ``randn · 0.02`` from the same stream, in
-the compute dtype.  The dry-run's ``input_specs`` waits for multi-GPU
-(ROADMAP.md A.6)."""
+the compute dtype.  ``input_specs`` gives the dry run's inputs as meta
+tensors of the reference's shapes and dtypes (its ``ShapeDtypeStruct``s:
+tokens and labels int32), which the model takes as they are."""
 from __future__ import annotations
 
 import queue
@@ -14,7 +15,7 @@ import threading
 import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..device import resolve_device
 from ..models import lm
 
@@ -31,6 +32,22 @@ def batch_shapes(cfg: ArchConfig, batch: int, seq: int,
             (batch, cfg.num_frontend_tokens, cfg.d_model),
             lm.compute_dtype(cfg))
     return shapes
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                kind_override: str | None = None) -> dict:
+    """Meta tensors standing for every model input of a dry-run cell, no
+    storage: a decode step's one new token a sequence, a prefill's or a
+    train step's whole sequences (with labels for training), and a
+    vision arch's ``frontend_feats``; the reference's shapes and dtypes
+    (tokens and labels int32)."""
+    kind = kind_override or shape.kind
+    seq = 1 if kind == "decode" else shape.seq_len
+    shapes = batch_shapes(cfg, shape.global_batch, seq,
+                          "train" if kind == "train" else kind)
+    return {k: torch.empty(s, dtype=torch.int32 if d == torch.int64 else d,
+                           device="meta")
+            for k, (s, d) in shapes.items()}
 
 
 def make_batch(cfg: ArchConfig, batch: int, seq: int, *,

@@ -10,6 +10,7 @@ this module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -107,6 +108,31 @@ def check(err: int, name: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# Set by ``plain_on_meta``: meta tensors take the wrappers' plain
+# versions.
+_PLAIN_META = False
+
+
+def plain(x) -> bool:
+    """Whether a kernel wrapper runs its plain version for ``x``: a CPU
+    tensor, or a meta tensor under ``plain_on_meta`` (the dry run's
+    count on the meta device, which computes shapes only).  A meta tensor
+    otherwise stands for a card's (the wrappers' card branch)."""
+    kind = x.device.type
+    return kind == "cpu" or (kind == "meta" and _PLAIN_META)
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    global _PLAIN_META
+    prev = _PLAIN_META
+    _PLAIN_META = True
+    try:
+        yield
+    finally:
+        _PLAIN_META = prev
 
 
 def records_grad(*tensors) -> bool:
@@ -222,6 +248,12 @@ class Work:
 # Active cost counts: each is called with (kernel name, Work) once per
 # wrapper call while it is listed (``analysis/roofline.count_costs``).
 work_sinks: list[Callable[[str, Work], None]] = []
+# Called with each counted wrapper call's result while a count is active
+# (the count's memory tally sees the tensors a wrapper makes).
+result_sinks: list[Callable[[Any], None]] = []
+# Context managers a counted wrapper's own body runs under while a count
+# is active (the count's op memo, which counts nothing).
+quiet_modes: list[Callable[[], Any]] = []
 
 
 def counted(name: str, work: Callable[..., Work]):
@@ -243,6 +275,12 @@ def counted(name: str, work: Callable[..., Work]):
                 w = work(*args, **kwargs)
                 for sink in list(work_sinks):
                     sink(name, w)
-                return fn(*args, **kwargs)
+                with contextlib.ExitStack() as stack:
+                    for mode in quiet_modes:
+                        stack.enter_context(mode())
+                    out = fn(*args, **kwargs)
+                for sink in list(result_sinks):
+                    sink(out)
+                return out
         return wrapper
     return deco

@@ -264,19 +264,29 @@ def _work(q: torch.Tensor, hkv: int, skv: int, kv_lens, causal: bool,
     once, each kv head's visible keys' K and V read once, the lengths
     (and ``extra_bytes``), 4 * D operations per visible (query row, key):
     on the tensor cores in bf16, on the CUDA cores in f32.  Reads the
-    lengths on the host."""
+    lengths on the host; meta lengths hold no values, and count as every
+    lane at Skv (the dry run's decode at its cache's last position)."""
     b, hq, sq, d = q.shape
-    lens = torch.full((b,), skv, dtype=torch.long) if kv_lens is None \
+    lens = torch.full((b,), skv, dtype=torch.long) \
+        if kv_lens is None or kv_lens.device.type == "meta" \
         else kv_lens.detach().to("cpu", torch.long)
-    kj = torch.arange(skv)
+    # Row r of a lane sits at position qi = len - Sq + r and sees the
+    # keys lo..hi: below the length, causal, within the window.  Each
+    # row's keys are one interval, and the rows' intervals overlap, so a
+    # lane reads the keys from its least lo to its largest hi.
     qi = lens[:, None] - sq + torch.arange(sq)[None]
-    mask = (kj[None, None] < lens[:, None, None]).expand(b, sq, skv)
-    if causal:
-        mask = mask & (qi[:, :, None] >= kj[None, None])
-    if window is not None:
-        mask = mask & ((qi[:, :, None] - kj[None, None]) < window)
-    visible = int(mask.sum()) * hq
-    keys_read = int(mask.any(dim=1).sum()) * hkv
+    hi = torch.minimum(qi, lens[:, None] - 1) if causal \
+        else (lens[:, None] - 1).expand(b, sq)
+    lo = (qi - window + 1).clamp(min=0) if window is not None \
+        else torch.zeros_like(qi)
+    n = (hi - lo + 1).clamp(min=0)
+    seen = n > 0
+    big = torch.iinfo(torch.long).max
+    first = torch.where(seen, lo, big).amin(dim=1)
+    last = torch.where(seen, hi, -1).amax(dim=1)
+    visible = int(n.sum()) * hq
+    keys_read = int(torch.where(seen.any(dim=1), last - first + 1,
+                                0).sum()) * hkv
     item = q.element_size()
     flops = 4 * d * visible
     return build.Work(
@@ -356,7 +366,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); kv_lens (B,) int32
     (default: every lane at Skv).  Returns (B, Hq, Sq, D) in q's type.
     ``plan``: the schedule (default ``attention_plan``'s), checked."""
-    if q.device.type == "cpu":
+    if build.plain(q):
         if plan is not None and k.dim() == 4:
             _plan_of("flash_attention", plan, q, k.shape[1])
         return attention_ref(q, k, v, kv_lens, causal=causal, window=window,
@@ -484,7 +494,7 @@ def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
     plan in both kernels, so they give the same bits."""
     _check_paged(q, k_store, v_store, page_table, kv_lens, page_size)
     plan = _plan_of("paged_flash_attention", plan, q, k_store.shape[1])
-    if q.device.type == "cpu":
+    if build.plain(q):
         return paged_attention_ref(q, k_store, v_store, page_table, kv_lens,
                                    page_size=page_size, causal=causal,
                                    scale=scale)

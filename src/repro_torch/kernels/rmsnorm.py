@@ -282,7 +282,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
     """x: (..., d), γ: (d,).  Leading dims are flattened to rows;
     ``warps`` per block (``WARPS``, default ``DEFAULT_WARPS``)."""
     warps = _warps("rmsnorm", warps)
-    if x.device.type == "cpu":
+    if build.plain(x):
         return rmsnorm_ref(x, gamma, eps)
     _require_card("rmsnorm", x)
     build.refuse_grad("rmsnorm", "kernels.rmsnorm.RMSNormFn.apply",
@@ -309,7 +309,7 @@ def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, *,
     rmsnorm(s, γ)`` (the same bits as ``rmsnorm`` on that ``s``);
     ``warps`` as for ``rmsnorm``."""
     warps = _warps("add_rmsnorm", warps)
-    if x.device.type == "cpu":
+    if build.plain(x):
         return add_rmsnorm_ref(x, y, gamma, eps)
     _require_card("add_rmsnorm", x)
     build.refuse_grad("add_rmsnorm", "kernels.rmsnorm.AddRMSNormFn.apply",
@@ -341,7 +341,7 @@ def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
     cos/sin: (B, L, D/2) f32.  Returns (q', k') of q's and k's shapes:
     each head row normed, rounded to the type, rotated (rotate-half) and
     rounded again, the bits of ``rmsnorm`` followed by ``rope_ref``."""
-    if q.device.type == "cpu":
+    if build.plain(q):
         return qk_norm_rope_ref(q, k, gamma_q, gamma_k, cos, sin, eps)
     _require_card("qk_norm_rope", q)
     build.refuse_grad("qk_norm_rope", "kernels.rmsnorm.QKNormRopeFn.apply",
@@ -452,7 +452,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
     dγ in γ's, dγ summed over the rows in a fixed order (two calls give
     the same bits).  One C call, two kernels: the rows, then the sum of
     dγ's partial rows."""
-    if x.device.type == "cpu":
+    if build.plain(x):
         return rmsnorm_bwd_ref(x, gamma, dy, eps)
     _require_card("rmsnorm_bwd", x)
     code, (dy,) = _bwd_rows("rmsnorm_bwd", x, dy)
@@ -479,7 +479,7 @@ def add_rmsnorm_bwd(s: torch.Tensor, gamma: torch.Tensor, dh: torch.Tensor,
     """(d(x + y), dγ) of ``add_rmsnorm`` from its residual s, the norm's
     output gradient dh and the residual's own gradient ds (None: s was
     not used), added in the same pass."""
-    if s.device.type == "cpu":
+    if build.plain(s):
         return add_rmsnorm_bwd_ref(s, gamma, dh, ds, eps)
     _require_card("add_rmsnorm_bwd", s)
     grads = (dh,) if ds is None else (dh, ds)
@@ -509,7 +509,7 @@ def qk_norm_rope_bwd(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
                      ) -> tuple[torch.Tensor, ...]:
     """(dq, dk, dγq, dγk) of ``qk_norm_rope`` for the gradients of q' and
     k', both tensors in one launch."""
-    if q.device.type == "cpu":
+    if build.plain(q):
         return qk_norm_rope_bwd_ref(q, k, gamma_q, gamma_k, cos, sin,
                                     dq_out, dk_out, eps)
     _require_card("qk_norm_rope_bwd", q)

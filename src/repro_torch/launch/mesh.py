@@ -29,8 +29,15 @@ deadlock).
 ``n_data_replicas``, ``data_axes`` and ``batch_axes`` read any object
 with a ``shape`` mapping, as the reference's do, so a stub mesh works
 with no process group.  ``make_host_mesh`` is the one-process view of
-the visible cards (``HostMesh``); ``make_production_mesh`` (the dry
-run's 256/512-device meshes) waits for ROADMAP A.6b.
+the visible cards (``HostMesh``).
+
+``make_production_mesh`` gives the dry run's (16, 16) and (2, 16, 16)
+meshes.  The dry run has no 512 cards: it joins a ``"fake"`` process
+group of 512 ranks as rank 0 (``init_fake``), whose collectives return
+at once and move nothing, and runs on meta tensors
+(``launch/dryrun.py``).  On a fake group the mesh's host-object group is
+a group of the default backend (a gloo group cannot be made there), and
+the eager probe of ``_build`` runs on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -108,6 +115,24 @@ def init_distributed(device: str | torch.device = "cuda", *,
     return dev
 
 
+def init_fake(world_size: int) -> None:
+    """Join a ``"fake"`` process group of ``world_size`` ranks as rank 0
+    (``torch.testing``'s ``FakeStore``): every group of it can be made,
+    and its collectives return at once without moving data.  For the
+    dry run's count on meta tensors; nothing else of the port runs on
+    it.  A process that already joined a group keeps it."""
+    if dist.is_initialized():
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+
+
+def is_fake() -> bool:
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def _default_device() -> torch.device:
     """This rank's device under the default group's backend."""
     if dist.get_backend() == "nccl":
@@ -121,7 +146,9 @@ class Mesh:
 
     ``ranks`` holds the global rank at every mesh coordinate;
     ``groups[axis]`` is this rank's process group along ``axis`` (the
-    ranks that differ from it in that coordinate only), ``whole`` the
+    ranks that differ from it in that coordinate only), and, on a mesh
+    with a 'pod' axis, ``groups[("pod", "data")]`` along both (the ranks
+    that hold other rows of a batch); ``whole`` the
     group over every rank of the mesh, ``ctrl`` a gloo group over the
     same ranks for host objects.  A rank outside the mesh (a serving
     mesh over a subset) holds None for each.  ``subgroups[d]`` is, for
@@ -200,11 +227,12 @@ def _new_group(ranks: list[int], timeout_s, backend=None):
 def _build(ranks: np.ndarray, axes: tuple[str, ...], device: torch.device,
            timeout_s: float | None) -> Mesh:
     """Every group of the mesh, created by every rank of the job in one
-    fixed order (axis by axis, lines in index order; the whole mesh; the
-    gloo group; the prefix sub-groups in increasing size), each waiting
-    at most ``timeout_s``; this rank keeps its own."""
+    fixed order (axis by axis, lines in index order; with a 'pod' axis
+    the ('pod', 'data') lines; the whole mesh; the host-object group; the
+    prefix sub-groups in increasing size), each waiting at most
+    ``timeout_s``; this rank keeps its own."""
     me = dist.get_rank()
-    groups: dict[str, Any] = {}
+    groups: dict[Any, Any] = {}
     for i, axis in enumerate(axes):
         lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
         groups[axis] = None
@@ -212,9 +240,24 @@ def _build(ranks: np.ndarray, axes: tuple[str, ...], device: torch.device,
             g = _new_group([int(r) for r in line], timeout_s)
             if me in line:
                 groups[axis] = g
+    if "pod" in axes and "data" in axes:
+        # The batch axes together: every line over (pod, data) at one
+        # model coordinate.
+        both = (axes.index("pod"), axes.index("data"))
+        rest = [i for i in range(len(axes)) if i not in both]
+        lines = np.transpose(ranks, rest + list(both)).reshape(
+            -1, ranks.shape[both[0]] * ranks.shape[both[1]])
+        groups[("pod", "data")] = None
+        for line in lines:
+            g = _new_group([int(r) for r in line], timeout_s)
+            if me in line:
+                groups[("pod", "data")] = g
     flat = [int(r) for r in ranks.reshape(-1)]
     whole = _new_group(flat, timeout_s)
-    ctrl = _new_group(flat, timeout_s, backend="gloo")
+    # A fake group (the dry run) makes no gloo group: the host objects
+    # go over a group of its own backend.
+    ctrl = _new_group(flat, timeout_s,
+                      backend=None if is_fake() else "gloo")
     inside = me in flat
     subgroups = {}
     for d in range(1, len(flat) + 1):
@@ -228,7 +271,7 @@ def _build(ranks: np.ndarray, axes: tuple[str, ...], device: torch.device,
         # One eager collective on every group of this rank: NCCL builds a
         # group's communicator at its first collective, which must not be
         # inside a CUDA graph capture (the decode steps capture theirs).
-        probe = torch.zeros(1, device=device)
+        probe = torch.zeros(1, device="cpu" if is_fake() else device)
         for g in list(groups.values()) + [whole]:
             dist.all_reduce(probe, group=g)
     return mesh
@@ -272,11 +315,27 @@ def make_serve_mesh(data: int, model: int, *,
                      timeout_s=timeout_s)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The dry run's (16, 16) / (2, 16, 16) meshes: not ported."""
-    raise NotImplementedError(
-        "make_production_mesh belongs to the production dry run, which is "
-        "not ported yet (ROADMAP.md A.6b)")
+def make_production_mesh(*, multi_pod: bool = False,
+                         timeout_s: float | None = None) -> Mesh:
+    """The dry run's meshes, as the reference's: (16, 16) ("data",
+    "model") over the first 256 ranks, or with ``multi_pod`` (2, 16, 16)
+    ("pod", "data", "model") over 512.  Every rank of the job must call
+    it; the dry run calls it on a fake group (``init_fake``), where its
+    device is the meta device."""
+    shape, axes = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
+        else ((16, 16), ("data", "model"))
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs a process group: "
+                           "call init_fake(512) (the dry run) or "
+                           "init_distributed first")
+    if is_fake():
+        need = int(np.prod(shape))
+        if need > dist.get_world_size():
+            raise ValueError(f"mesh {shape} needs {need} ranks, the job has "
+                             f"{dist.get_world_size()}")
+        return _build(np.arange(need).reshape(shape), axes,
+                      torch.device("meta"), timeout_s)
+    return make_mesh(shape, axes, timeout_s=timeout_s)
 
 
 def data_axes(mesh) -> tuple[str, ...]:

@@ -26,7 +26,10 @@ its block.  Here each rank takes its own block of a full tensor with
 ``local_shard`` / ``local_tree``.  What mesh serving slices is
 ``serve_param_specs``: ``param_specs`` with 'data' dropped, except that
 an attention block whose heads do not split over 'model' stays whole on
-every rank (``tp_plan``), where GSPMD would shard a head's dims.
+every rank (``tp_plan``), where GSPMD would shard a head's dims.  What
+the sharded train step holds is ``train_param_specs``: ``param_specs``
+with the same attention rule ('data' still splitting the leaves), its
+gradients synced as ``grad_reduction`` says.
 """
 from __future__ import annotations
 
@@ -229,42 +232,44 @@ def paged_cache_specs(cfg: ArchConfig, mesh, n_slots: int,
 # The port's own: which blocks mesh serving splits, and each rank's block
 # ---------------------------------------------------------------------------
 
-# Block kinds tensor parallelism covers; the others wait for A.6b.
+# Block kinds tensor parallelism covers (a MoE feed-forward too); the
+# others wait for A.6b.
 TP_KINDS = ("attn",)
 
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """What mesh serving splits over 'model': attention heads (q and kv
-    heads both divide), the feed-forward hidden dim, the vocabulary
-    (embedding rows, head columns).  A part that does not divide runs
-    whole on every rank, with no collective."""
+    """What a mesh splits over 'model': attention heads (q and kv heads
+    both divide), the feed-forward hidden dim, the vocabulary (embedding
+    rows, head columns), the experts' hidden dim.  A part that does not
+    divide runs whole on every rank, with no collective."""
 
     size: int
     attn: bool
     ffn: bool
     vocab: bool
+    moe: bool = False
 
 
 def tp_plan(cfg: ArchConfig, mesh) -> TPPlan:
     """The tensor-parallel plan of ``cfg`` on ``mesh``'s 'model' axis.
     Raises ``NotImplementedError`` for a block kind TP does not cover
-    (MoE, Mamba2, xLSTM, cross-attention) when the axis is above 1."""
+    (Mamba2, xLSTM, cross-attention) when the axis is above 1."""
     m = dict(mesh.shape).get("model", 1)
     if m > 1:
-        kinds = set(cfg.layer_kinds())
-        other = sorted(kinds - set(TP_KINDS))
-        if other or cfg.n_experts:
-            what = other + (["moe"] if cfg.n_experts else [])
+        other = sorted(set(cfg.layer_kinds()) - set(TP_KINDS))
+        if other:
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism over 'model' covers "
-                f"attention and dense feed-forward blocks; {what} wait for "
-                f"ROADMAP.md A.6b (serve it with a model extent of 1)")
+                f"attention, dense and MoE feed-forward blocks; {other} "
+                f"wait for ROADMAP.md A.6b (use a model extent of 1)")
+    split_ff = bool(cfg.d_ff) and cfg.d_ff % m == 0
     return TPPlan(
         size=m,
         attn=cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0,
-        ffn=bool(cfg.d_ff) and cfg.d_ff % m == 0,
-        vocab=cfg.vocab_size % m == 0)
+        ffn=split_ff,
+        vocab=cfg.vocab_size % m == 0,
+        moe=split_ff and bool(cfg.n_experts))
 
 
 _ATTN_LEAF = re.compile(r"(^|/)attn/")
@@ -341,3 +346,57 @@ def local_tree(tree_: Any, specs: Any, mesh) -> Any:
     return tree.unflatten(tree_, [
         local_shard(t, s, mesh).contiguous()
         for t, s in zip(flat, spec_flat, strict=True)])
+
+
+# ---------------------------------------------------------------------------
+# The training plan: FSDP over 'data' × tensor parallelism over 'model'
+# ---------------------------------------------------------------------------
+
+def _drop_model(spec: tuple) -> tuple:
+    return tuple(None if a == "model" else a for a in spec)
+
+
+def train_param_specs(cfg: ArchConfig, params: Any, mesh) -> Any:
+    """The specs the sharded train step holds the parameters by:
+    ``param_specs`` (FSDP over 'data', tensor parallelism over 'model'),
+    except that an attention block whose heads do not split
+    (``tp_plan``) keeps 'model' out of its leaves' specs and runs whole
+    on every model rank, 'data' still splitting them (GSPMD would split a
+    head's dims instead)."""
+    plan = tp_plan(cfg, mesh)
+    specs = param_specs(params, mesh)
+    if plan.attn:
+        return specs
+    return tree.unflatten(params, [
+        _drop_model(spec) if _ATTN_LEAF.search(_path_str(path)) else spec
+        for (path, _), spec in zip(tree.with_paths(params),
+                                   spec_leaves(specs), strict=True)])
+
+
+def split_axes(spec: tuple, mesh) -> tuple[str, ...]:
+    """The axes of extent above 1 that ``spec`` splits its leaf over."""
+    axes: list[str] = []
+    for ax in spec:
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a is not None and mesh.shape.get(a, 1) > 1:
+                axes.append(a)
+    return tuple(axes)
+
+
+def grad_reduction(spec: tuple, mesh) -> tuple[tuple[str, str], ...]:
+    """How the sharded step syncs the gradient of a leaf held by
+    ``spec``, as (collective, axis) pairs in order: a leaf split over
+    'data' is reduce-scattered over it (the FSDP gather's backward), one
+    replicated over 'data' all-reduced; then every leaf all-reduced over
+    'pod'.  Nothing is reduced over 'model': each model rank computes
+    its own block, or all of a replicated leaf's gradient.  Every sum is
+    then divided by the batch ranks' count (the mean)."""
+    out = []
+    if "data" in mesh.shape:
+        data_split = any(a == "data" or (isinstance(a, tuple) and "data" in a)
+                         for a in spec)
+        out.append(("reduce-scatter" if data_split else "all-reduce",
+                    "data"))
+    if "pod" in mesh.shape:
+        out.append(("all-reduce", "pod"))
+    return tuple(out)

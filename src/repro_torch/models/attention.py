@@ -248,16 +248,24 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     are written as ``write`` says and attention runs over the cache.
     The head counts are the projections' widths over ``head_dim``: under
     a tensor-parallel context (``flags.TP``) this rank's block of heads,
-    its cache holding its block of kv heads, and ``wo`` row-parallel."""
+    its cache holding its block of kv heads, ``x`` through *f* and ``wo``
+    row-parallel."""
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
+    tp = flags.TP
+    x = cm.column_input(x, tp is not None and tp.attn)
     q = _heads(cm.linear(p["wq"], x, cd), hd)
     k = _heads(cm.linear(p["wk"], x, cd), hd)
     v = _heads(cm.linear(p["wv"], x, cd), hd)
     cos, sin = rope
     if cfg.qk_norm:
-        q, k = cm.qk_norm_rope(p["q_norm"], p["k_norm"], q, k, cos, sin,
-                               cfg.norm_eps)
+        # The q/k-norm gains are replicated: under split heads each model
+        # rank holds part of their gradient (*f* sums it).
+        split = tp is not None and tp.attn
+        q, k = cm.qk_norm_rope(
+            {"g": cm.column_input(p["q_norm"]["g"], split)},
+            {"g": cm.column_input(p["k_norm"]["g"], split)}, q, k, cos, sin,
+            cfg.norm_eps)
     else:
         q = cm.apply_rope(q, cos, sin)
         k = cm.apply_rope(k, cos, sin)

@@ -18,14 +18,21 @@ on every eager prefill forward.  With a measured kernel tuner set
 (``flags.KERNEL_TUNER``) ``rmsnorm`` and ``add_rmsnorm`` resolve kernel
 1's warps per block through it and pass them down; with none they pass
 nothing.
+
+Under a tensor-parallel context (``flags.TP``) the row-parallel products
+end in *g* (``linear_rows``, ``embed``), the input of every
+column-parallel one goes through *f* (``column_input``) and the
+vocabulary-parallel logits through the gather (``gather_vocab``): the
+differentiable collectives of ``collectives.py``, which train as the
+reference's GSPMD step does.  Under an FSDP context (``flags.FSDP``)
+``fsdp_params`` gathers a subtree's 'data' blocks.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..collectives import all_gather_into
+from .. import collectives
 from ..kernels import build, ops as kops, rmsnorm as krms
 from . import flags
 
@@ -49,12 +56,13 @@ def linear_rows(p: dict, x: torch.Tensor, compute_dtype: torch.dtype,
     """``linear`` of a row-parallel weight (``wo``, ``w_down``): with a
     tensor-parallel context (``flags.TP``) and ``split``, ``x`` holds
     this rank's columns and ``w`` its rows, and the partial products are
-    summed by one ``all_reduce`` over the model group before the bias."""
+    summed by one ``all_reduce`` over the model group before the bias
+    (*g*: under autograd the gradient passes through)."""
     tp = flags.TP
     if tp is None or not split:
         return linear(p, x, compute_dtype)
     out = _cast(x, compute_dtype) @ _cast(p["w"], compute_dtype)
-    dist.all_reduce(out, group=tp.group)
+    out = collectives.reduce_from_model(out, tp.group)
     if "b" in p:
         out = out + _cast(p["b"], compute_dtype)
     return out
@@ -77,22 +85,48 @@ def embed(p: dict, tokens: torch.Tensor,
     inside = (local >= 0) & (local < n)
     rows = torch.index_select(p["table"], 0, torch.where(inside, local, 0))
     rows = _cast(torch.where(inside[:, None], rows, 0.0), compute_dtype)
-    dist.all_reduce(rows, group=tp.group)
+    rows = collectives.reduce_from_model(rows, tp.group)
     return rows.view(*tokens.shape, -1)
+
+
+def column_input(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """The input of a column-parallel product (``wq``/``wk``/``wv``,
+    ``w_up``/``w_gate``, the head, the experts' up products): with a
+    tensor-parallel context that splits it, *f* — the same values, and
+    in the backward the model ranks' partial gradients summed."""
+    tp = flags.TP
+    if tp is None or not split:
+        return x
+    return collectives.copy_to_model(x, tp.group)
 
 
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     """The full logits from this rank's vocabulary columns: one
     ``all_gather`` over the model group with a vocab-parallel context
-    (``flags.TP``), ``logits`` itself without one."""
+    (``flags.TP``; its backward keeps this rank's columns), ``logits``
+    itself without one."""
     tp = flags.TP
     if tp is None or not tp.vocab:
         return logits
-    local = logits.contiguous()
-    out = torch.empty((tp.size * local.shape[0],) + tuple(local.shape[1:]),
-                      dtype=local.dtype, device=local.device)
-    all_gather_into(out, local, group=tp.group)
-    return torch.cat(out.chunk(tp.size), dim=-1)
+    return collectives.gather_last(logits, tp.group, tp.size, tp.index)
+
+
+def fsdp_params(p, specs):
+    """``p`` (a subtree of the parameters, ``specs`` its training specs)
+    with every leaf whose spec holds 'data' gathered over the data axis
+    (``collectives.fsdp_gather``) under an FSDP context
+    (``flags.FSDP``); ``p`` itself without one."""
+    ctx = flags.FSDP
+    if ctx is None:
+        return p
+    if isinstance(p, dict):
+        return {k: fsdp_params(v, specs[k]) for k, v in p.items()}
+    if isinstance(p, list):
+        return [fsdp_params(v, s) for v, s in zip(p, specs, strict=True)]
+    if p is None or "data" not in specs:
+        return p
+    return collectives.fsdp_gather(p, ctx.group, ctx.size, ctx.index,
+                                   specs.index("data"))
 
 
 def _warps(entry: str, x: torch.Tensor) -> int | None:

@@ -1,6 +1,7 @@
 """Feed-forward blocks: gated GLU (llama-style) or plain MLP.  Under a
 tensor-parallel context (``flags.TP``) the weights are this rank's
-hidden columns and ``w_down`` ends in the model group's all_reduce."""
+hidden columns, the input goes through *f* and ``w_down`` ends in the
+model group's all_reduce (*g*)."""
 from __future__ import annotations
 
 import torch
@@ -13,11 +14,12 @@ from . import flags
 def apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     cd = getattr(torch, cfg.compute_dtype)
     act = cm.act_fn(cfg.act)
+    tp = flags.TP
+    split = tp is not None and tp.ffn
+    x = cm.column_input(x, split)
     up = cm.linear(p["w_up"], x, cd)
     if cfg.ffn_gated:
         up = act(cm.linear(p["w_gate"], x, cd)) * up
     else:
         up = act(up)
-    tp = flags.TP
-    return cm.linear_rows(p["w_down"], up, cd,
-                          split=tp is not None and tp.ffn)
+    return cm.linear_rows(p["w_down"], up, cd, split=split)

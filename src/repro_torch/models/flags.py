@@ -1,5 +1,6 @@
 """Model-layer flags (the counterpart of ``repro.models.flags``): the
-measured kernel tuner and the tensor-parallel context.
+measured kernel tuner, the tensor-parallel and FSDP contexts, the MoE
+dispatch groups and the reference's dry-run context managers.
 
 ``KERNEL_TUNER`` is an ``autotune.KernelTuner`` or None.  When set, the
 model layers resolve kernel 1's warps per block and kernels 2 and 3's
@@ -18,8 +19,32 @@ lookup plus an ``all_reduce`` and the head's local logits are
 ``all_gather``-ed (``common.linear_rows``, ``common.embed``,
 ``lm._head``).  A part its plan leaves whole runs on every rank with no
 collective.  The scheduler sets it around each tick, as it does the
-tuner.  The rest of the reference's flags (activation sharding, MoE
-dispatch groups, unrolled accounting) serve its dry run (ROADMAP A.6b).
+tuner.  ``TensorParallel.moe`` splits the experts' hidden dim the
+same way (``models/moe.py``).
+
+``FSDP`` is an ``FSDPContext`` or None.  When set, every leaf a forward
+reads whose training spec holds 'data' is this rank's block over the
+data axis, gathered where it is read: a layer's leaves at the start of the
+layer, inside its ``torch.utils.checkpoint`` region, so that remat
+gathers them again in the backward and no two layers' gathered weights
+are alive at once; the embedding and the head's at their use
+(``lm.py``).  The gather's backward reduce-scatters the gradient
+(``collectives.fsdp_gather``).  It also names the batch ranks (every
+'pod' and 'data' coordinate), over which the MoE layers place their
+choices and take their aux loss (``models/moe.py``).  The sharded train
+step sets it (``train/sharded.py``), and the dry run around prefill and
+decode too.
+
+``MOE_DISPATCH_GROUPS`` (None or a count) makes the MoE dispatch
+group-local, as the reference's does: capacity and places are taken
+within each of that many groups of the call's tokens
+(``moe_dispatch_groups``).
+
+``unroll_for_accounting`` and ``activation_sharding`` are the
+reference's context managers, kept for its callers: an eager count sees
+every iteration of every loop, so there is nothing to unroll, and the
+hand-written SPMD of the port places every activation by construction,
+so ``constrain`` returns its input (ROADMAP.md, Divergences).
 """
 from __future__ import annotations
 
@@ -29,6 +54,10 @@ from typing import Any
 
 KERNEL_TUNER = None
 TP = None
+FSDP = None
+MOE_DISPATCH_GROUPS = None
+UNROLL_FOR_ACCOUNTING = False
+ACT_SHARDING = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +72,27 @@ class TensorParallel:
     attn: bool
     ffn: bool
     vocab: bool
+    moe: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FSDPContext:
+    """This rank's place on the data axes of a training mesh.
+
+    ``group`` / ``size`` / ``index``: the 'data' axis, over which the
+    leaves whose spec holds 'data' are split; ``specs``: the parameter
+    tree's specs (``launch/sharding.train_param_specs``), the same
+    structure as the parameters; ``batch`` / ``batch_size`` /
+    ``batch_index``: every rank that holds other rows of the batch ('pod'
+    and 'data'), this rank's index among them in the global row order."""
+
+    group: Any
+    size: int
+    index: int
+    specs: Any
+    batch: Any
+    batch_size: int
+    batch_index: int
 
 
 @contextlib.contextmanager
@@ -65,3 +115,53 @@ def tensor_parallel(tp: TensorParallel | None):
         yield
     finally:
         TP = prev
+
+
+@contextlib.contextmanager
+def fsdp(ctx: FSDPContext | None):
+    global FSDP
+    prev = FSDP
+    FSDP = ctx
+    try:
+        yield
+    finally:
+        FSDP = prev
+
+
+@contextlib.contextmanager
+def moe_dispatch_groups(g):
+    global MOE_DISPATCH_GROUPS
+    prev = MOE_DISPATCH_GROUPS
+    MOE_DISPATCH_GROUPS = g
+    try:
+        yield
+    finally:
+        MOE_DISPATCH_GROUPS = prev
+
+
+@contextlib.contextmanager
+def unroll_for_accounting():
+    global UNROLL_FOR_ACCOUNTING
+    prev = UNROLL_FOR_ACCOUNTING
+    UNROLL_FOR_ACCOUNTING = True
+    try:
+        yield
+    finally:
+        UNROLL_FOR_ACCOUNTING = prev
+
+
+@contextlib.contextmanager
+def activation_sharding(sharding):
+    global ACT_SHARDING
+    prev = ACT_SHARDING
+    ACT_SHARDING = sharding
+    try:
+        yield
+    finally:
+        ACT_SHARDING = prev
+
+
+def constrain(x):
+    """The identity: activations sit where the SPMD code put them."""
+    return x
+

@@ -39,6 +39,16 @@ the frontend features), ``ln2`` and the feed-forward.  They attend the
 batch's ``frontend_feats`` (B, T, d), which ``forward``, ``loss_fn`` and
 ``forward_cached`` take; their cache entry is None, because the K/V are
 recomputed from the features at every step, as in the reference.
+
+On a training mesh (``flags.FSDP``, ``train/sharded.py``) the
+parameters are this rank's blocks: each layer gathers its leaves' 'data'
+blocks at its start, inside its ``torch.utils.checkpoint`` region, so
+remat gathers them again in the backward and the gathered weights of
+two layers are never alive at once; the embedding and the head gather
+theirs where they are read.  ``forward_cached`` reads the same context,
+so prefill and decode run over FSDP weights too (the dry run's).
+Tensor parallelism (``flags.TP``) splits heads, hidden dims and the
+vocabulary inside the blocks (``models/common.py``).
 """
 from __future__ import annotations
 
@@ -50,7 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import attention, common as cm, ffn, mamba2, moe, xlstm
+from . import attention, common as cm, ffn, flags, mamba2, moe, xlstm
 
 AUX_LOSS_WEIGHT = 0.01
 _PORTED_KINDS = ("attn", "mamba2", "shared_attn", "mlstm", "slstm",
@@ -317,12 +327,39 @@ def _next_norm(params: dict, cfg: ArchConfig, layer: int,
     return last
 
 
+def _gathered(params: dict, name: str):
+    """``params[name]`` with its 'data' blocks gathered under an FSDP
+    context (``common.fsdp_params``)."""
+    ctx = flags.FSDP
+    if ctx is None:
+        return params[name]
+    return cm.fsdp_params(params[name], ctx.specs[name])
+
+
+def _layer_block(params: dict, layer: int, kind: str, x: torch.Tensor,
+                 h: torch.Tensor, **kw):
+    """``_apply_block`` of layer ``layer``, its parameters (and the
+    shared block's, for a ``shared_attn`` layer) gathered first under an
+    FSDP context: inside the layer's checkpoint region, when there is
+    one."""
+    p, shared = params["layers"][layer], params.get("shared_block")
+    ctx = flags.FSDP
+    if ctx is not None:
+        p = cm.fsdp_params(p, ctx.specs["layers"][layer])
+        if kind == "shared_attn":
+            shared = cm.fsdp_params(shared, ctx.specs["shared_block"])
+    return _apply_block(kind, p, x, h, shared=shared, **kw)
+
+
 def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits of the final-normed rows ``h``, in the compute dtype."""
     cd = compute_dtype(cfg)
+    tp = flags.TP
+    h = cm.column_input(h, tp is not None and tp.vocab)
     if cfg.tie_embeddings:
-        return cm.gather_vocab(h.to(cd) @ params["embed"]["table"].to(cd).t())
-    return cm.gather_vocab(cm.linear(params["lm_head"], h, cd))
+        table = _gathered(params, "embed")["table"]
+        return cm.gather_vocab(h.to(cd) @ table.to(cd).t())
+    return cm.gather_vocab(cm.linear(_gathered(params, "lm_head"), h, cd))
 
 
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -350,23 +387,22 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     two fused adds); the last add carries the final norm.  With
     ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
     counterpart of ``jax.checkpoint(group_body)``): only its inputs are
-    kept, and it runs again in the backward."""
+    kept, and it runs again in the backward (an FSDP layer's gather
+    with it)."""
     check_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     window = window if window is not None else cfg.attn_window
-    x = cm.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = cm.embed(_gathered(params, "embed"), tokens, compute_dtype(cfg))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-    layers = params["layers"]
     h = cm.rmsnorm(_ln1(params, cfg, 0), x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer, kind in enumerate(cfg.layer_kinds()):
         nxt = _next_norm(params, cfg, layer, params["final_norm"])
-        body = functools.partial(_apply_block, kind, layers[layer],
+        body = functools.partial(_layer_block, params, layer, kind,
                                  cfg=cfg, next_norm=nxt, rope=rope,
                                  window=window, impl=attn_impl,
-                                 shared=params.get("shared_block"),
                                  feats=batch.get("frontend_feats"))
         if remat:
             x, h, a = checkpoint(body, x, h, use_reentrant=False,
@@ -386,7 +422,7 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *,
                           remat=remat)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    picked = lf.gather(-1, batch["labels"][..., None]).squeeze(-1)
+    picked = lf.gather(-1, batch["labels"][..., None].long()).squeeze(-1)
     return torch.mean(lse - picked) + AUX_LOSS_WEIGHT * aux
 
 
@@ -424,7 +460,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     (logits (B, 1, V) of the last position or of ``logit_index``, or (B,
     L, V) of every position with ``all_logits``, caches)."""
     window = window if window is not None else cfg.attn_window
-    x = cm.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = cm.embed(_gathered(params, "embed"), tokens, compute_dtype(cfg))
     b, length = tokens.shape
     dev = tokens.device
     steps = torch.arange(length, device=dev)
@@ -486,14 +522,12 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     # Rotary angles depend only on the positions: once per forward, not
     # once per layer (XLA dedupes the per-layer copies; eager would not).
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-    layers = params["layers"]
     h = cm.rmsnorm(_ln1(params, cfg, 0), x, cfg.norm_eps)
     for layer, kind in enumerate(cfg.layer_kinds()):
-        x, h, _ = _apply_block(kind, layers[layer], x, h, cfg,
+        x, h, _ = _layer_block(params, layer, kind, x, h, cfg=cfg,
                                next_norm=_next_norm(params, cfg, layer, None),
                                rope=rope, window=window,
                                cache=caches[layer], write=write,
-                               shared=params.get("shared_block"),
                                feats=frontend_feats)
     if all_logits:
         xs = x

@@ -81,14 +81,17 @@ def _groups(leaves: list[torch.Tensor]) -> list[list[int]]:
 
 @torch.no_grad()
 def update(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
-           lr: torch.Tensor | float | None = None
+           lr: torch.Tensor | float | None = None, *,
+           grad_norm: torch.Tensor | None = None
            ) -> tuple[Any, dict, dict]:
     """One AdamW step in place.  Returns (params, state, metrics), the
     first two the objects passed in, updated; ``metrics["grad_norm"]`` is
     the pre-clip global norm (a 0-d device tensor).  The leaves are
     updated in groups of ``GROUP_BYTES`` (the same arithmetic per
     element), so the update's temporaries stay a few GB for a model of
-    any size."""
+    any size.  ``grad_norm``: the global norm, where ``grads`` are one
+    rank's blocks of a sharded gradient (``train/sharded.py`` computes it
+    over the ranks); by default ``global_norm(grads)``."""
     lr = cfg.lr if lr is None else lr
     step = state["step"] + 1
     p_leaves = tree.leaves(params)
@@ -96,7 +99,7 @@ def update(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
     m_leaves, v_leaves = tree.leaves(state["m"]), tree.leaves(state["v"])
     if not len(p_leaves) == len(g_leaves) == len(m_leaves) == len(v_leaves):
         raise ValueError("params, grads and moments differ in structure")
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if cfg.grad_clip else None
 

@@ -76,9 +76,8 @@ import time
 from typing import Any, Callable, Sequence
 
 import torch
-import torch.distributed as dist
 
-from ..collectives import all_gather_into
+from ..collectives import all_gather_into, all_reduce
 from ..configs.base import ArchConfig
 from ..core import overhead_law, strict
 from ..core.acc import AdaptiveCoreChunk
@@ -246,7 +245,7 @@ class ServeScheduler:
             plan = sharding.tp_plan(cfg, mesh)
             self.tp = flags.TensorParallel(
                 mesh.groups["model"], plan.size, mesh.coord("model"),
-                plan.attn, plan.ffn, plan.vocab)
+                plan.attn, plan.ffn, plan.vocab, plan.moe)
             self.params = sharding.local_tree(
                 params, sharding.serve_param_specs(cfg, params, mesh), mesh)
         self.slots_per_replica = n_slots // self.n_replicas
@@ -992,7 +991,7 @@ class ServeScheduler:
                 firsts[i] = torch.argmax(logits[0, 0])
         self._exchange([(req.slot, req.prefilled, req.prefilled + padded)
                         for req, _, padded in ops])
-        dist.all_reduce(firsts, group=self.mesh.groups["data"])
+        all_reduce(firsts, self.mesh.groups["data"])
         toks = to_host(firsts).tolist()
         self._blocked_s += time.perf_counter() - t_dev
         self.host_roundtrips += 1

@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from .. import tree
-from ..collectives import all_gather_into
+from ..collectives import all_gather_into, all_reduce, all_to_all_into
 from ..configs.base import ArchConfig
 from ..optim import adamw
 from . import train_loop
@@ -47,7 +47,7 @@ def _quantize(g: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 values and the group-wide scale (max |g| over every rank,
     / 127, floored at 1e-12)."""
     scale = g.abs().max().float().reshape(1)
-    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    all_reduce(scale, group, op=dist.ReduceOp.MAX)
     scale = torch.clamp(scale / 127.0, min=1e-12)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -62,11 +62,11 @@ def _int8_allreduce_mean(q: torch.Tensor, scale: torch.Tensor, group,
         q = torch.cat([q, q.new_zeros(pad)])
     # reduce-scatter stage: rank j's i-th piece goes to rank i (int8 wire)
     shards = torch.empty_like(q)
-    dist.all_to_all_single(shards, q, group=group)
+    all_to_all_into(shards, q, group)
     local_sum = shards.reshape(n_dev, -1).to(torch.int32).sum(0)
     # requantise the reduced piece for the int8 gather stage
     s2 = local_sum.abs().max().float().reshape(1)
-    dist.all_reduce(s2, op=dist.ReduceOp.MAX, group=group)
+    all_reduce(s2, group, op=dist.ReduceOp.MAX)
     s2 = torch.clamp(s2 / 127.0, min=1e-12)
     q2 = torch.clamp(torch.round(local_sum.float() / s2), -127,
                      127).to(torch.int8)
@@ -131,7 +131,7 @@ def make_compressed_dp_train_step(cfg: ArchConfig,
         params, opt_state, metrics = adamw.update(
             tree.unflatten(params, synced), opt_state, params, opt_cfg)
         loss = loss.detach().float().reshape(1)
-        dist.all_reduce(loss, group=group)
+        all_reduce(loss, group)
         return (params, opt_state, tree.unflatten(ef, ef_new),
                 dict(metrics, loss=(loss / n_dev)[0]))
 

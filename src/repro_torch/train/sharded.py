@@ -1,0 +1,180 @@
+"""The FSDP × TP training step on a mesh of ``torch.distributed`` ranks:
+the counterpart of ``jax.jit(make_train_step(...), in_shardings=...)``
+with the reference's ``sharding.param_specs`` / ``opt_specs`` /
+``batch_specs`` (``src/repro/launch/dryrun.py``, ``lower_train``).
+
+GSPMD partitions the reference's one program; here every rank runs this
+step on its own blocks (SPMD), and the collectives are written out:
+
+* the parameters and the optimizer state are held by
+  ``sharding.train_param_specs`` / ``opt_specs``: a leaf's 'data' blocks
+  (FSDP) and 'model' blocks (tensor parallelism), each rank its own
+  (``shard_train_state``);
+* the batch by rows over the batch axes ('pod' and 'data'), each
+  microbatch's rows split in rank order (``shard_batch``);
+* the forward gathers each layer's 'data' blocks inside the layer's
+  checkpoint region and runs tensor parallelism over 'model'
+  (``models/lm.py``, ``models/common.py``, under ``flags.fsdp`` and
+  ``flags.tensor_parallel``); the gathers' backward reduce-scatters the
+  gradients of the FSDP leaves over 'data';
+* the gradients of the leaves replicated over 'data' are all-reduced
+  over it, every gradient over 'pod', and every sum divided by the
+  batch ranks' count: the mean the reference's loss takes over the
+  global batch (``sharding.grad_reduction``);
+* the clip norm is the norm of the whole gradient, each element counted
+  once (``global_norm``), and AdamW updates each rank's blocks in place.
+
+``make_train_step`` keeps the reference's signature; this step adds the
+mesh.  With one rank it computes what ``make_train_step`` does, op for
+op.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from .. import collectives, tree
+from ..configs.base import ArchConfig
+from ..launch import sharding
+from ..models import flags, lm
+from ..optim import adamw
+from . import train_loop
+
+
+def _axis(mesh, axis: str) -> tuple[Any, int, int]:
+    """(group, extent, this rank's index) of ``axis``; (None, 1, 0)
+    where the mesh has no such axis."""
+    if axis not in mesh.shape:
+        return None, 1, 0
+    return mesh.groups[axis], mesh.shape[axis], mesh.coord(axis)
+
+
+def batch_ranks(mesh) -> tuple[Any, int, int]:
+    """(group, count, this rank's index) of the ranks that hold other
+    rows of the batch: 'pod' × 'data', in the reference's row order."""
+    pod, n_pod, i_pod = _axis(mesh, "pod")
+    data, n_data, i_data = _axis(mesh, "data")
+    if pod is None:
+        return data, n_data, i_data
+    return mesh.groups[("pod", "data")], n_pod * n_data, \
+        i_pod * n_data + i_data
+
+
+def contexts(cfg: ArchConfig, mesh, specs: Any
+             ) -> tuple[flags.TensorParallel | None, flags.FSDPContext]:
+    """The model-layer contexts of this rank on ``mesh``: tensor
+    parallelism over 'model' (None at an extent of 1) and FSDP over
+    'data', with the batch ranks."""
+    plan = sharding.tp_plan(cfg, mesh)
+    tp = None
+    if plan.size > 1:
+        tp = flags.TensorParallel(mesh.groups["model"], plan.size,
+                                  mesh.coord("model"), plan.attn, plan.ffn,
+                                  plan.vocab, plan.moe)
+    data, n_data, i_data = _axis(mesh, "data")
+    batch, n, idx = batch_ranks(mesh)
+    return tp, flags.FSDPContext(data, n_data, i_data, specs, batch, n, idx)
+
+
+def train_specs(cfg: ArchConfig, mesh, *, master: bool = False
+                ) -> tuple[Any, dict]:
+    """(parameter specs, optimizer-state specs) of ``cfg`` on ``mesh``."""
+    meta = lm.init_params(0, cfg, device="meta")
+    pspec = sharding.train_param_specs(cfg, meta, mesh)
+    return pspec, sharding.opt_specs(pspec, master=master)
+
+
+def shard_train_state(params: Any, opt_state: dict, mesh, *,
+                      cfg: ArchConfig) -> tuple[Any, dict]:
+    """This rank's blocks of the full ``params`` and ``opt_state``
+    (``local_tree`` by ``train_param_specs`` / ``opt_specs``)."""
+    pspec, ospec = train_specs(cfg, mesh, master="master" in opt_state)
+    local_opt = {k: (sharding.local_tree(v, ospec[k], mesh)
+                     if k != "step" else v.clone())
+                 for k, v in opt_state.items()}
+    return sharding.local_tree(params, pspec, mesh), local_opt
+
+
+def shard_batch(batch: dict, mesh, accum: int = 1) -> dict:
+    """This rank's rows of the global ``batch``.  The reference cuts
+    microbatch i as the global rows ``i·B/a … (i+1)·B/a``
+    (``src/repro/train/train_loop.py``) and GSPMD splits each over the
+    batch ranks; so this rank holds, of each microbatch, its r-th of
+    those rows, the microbatches in order (contiguous ``B/n`` rows would
+    give a microbatch other tokens, and a MoE layer other capacities and
+    drops)."""
+    _, n, r = batch_ranks(mesh)
+    b = next(iter(batch.values())).shape[0]
+    if b % (n * max(accum, 1)):
+        raise ValueError(f"batch {b} does not split into {accum} "
+                         f"microbatches over {n} batch ranks")
+    a = max(accum, 1)
+    mb, per = b // a, b // (a * n)
+    rows = [i * mb + r * per + j for i in range(a) for j in range(per)]
+    return {k: v[torch.tensor(rows, device=v.device)].contiguous()
+            for k, v in batch.items()}
+
+
+def global_norm(grads: list[torch.Tensor], specs: list, mesh
+                ) -> torch.Tensor:
+    """The norm of the whole gradient from this rank's blocks: each
+    leaf's f32 sum of squares, summed over the axes its spec splits it
+    on, so that every element counts once (a leaf replicated over
+    'model' is not counted once per model rank).  With nothing split it
+    is ``adamw.global_norm``."""
+    classes: dict[tuple[str, ...], list[torch.Tensor]] = {}
+    for g, spec in zip(grads, specs, strict=True):
+        classes.setdefault(sharding.split_axes(spec, mesh), []).append(g)
+    if set(classes) <= {()}:
+        return adamw.global_norm(grads)
+    total = None
+    for axes, gs in classes.items():
+        norms = torch._foreach_norm([g.float() for g in gs])
+        sq = torch.linalg.vector_norm(torch.stack(norms)).square().reshape(1)
+        for a in axes:
+            collectives.all_reduce(sq, mesh.groups[a])
+        total = sq if total is None else total + sq
+    return total.sqrt()[0]
+
+
+def make_sharded_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                            mesh, *, accum: int = 1,
+                            attn_impl: str = "chunked", remat: bool = True,
+                            accum_dtype: str = "float32",
+                            lr_fn: Callable | None = None) -> Callable:
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)`` run
+    by every rank of ``mesh`` on its blocks (``shard_train_state``) and
+    rows (``shard_batch``); the blocks are updated in place, as
+    ``make_train_step`` updates whole tensors.  ``metrics["loss"]`` is
+    the global batch's mean loss, ``metrics["grad_norm"]`` the whole
+    gradient's norm, on every rank."""
+    pspec, _ = train_specs(cfg, mesh)
+    specs = sharding.spec_leaves(pspec)
+    reductions = [sharding.grad_reduction(s, mesh) for s in specs]
+    tp, fsdp = contexts(cfg, mesh, pspec)
+    loss_fn = train_loop.make_loss_fn(cfg, attn_impl=attn_impl, remat=remat)
+    adt = getattr(torch, accum_dtype)
+    n = fsdp.batch_size
+
+    def step(params, opt_state, batch):
+        with flags.tensor_parallel(tp), flags.fsdp(fsdp):
+            loss, grads = train_loop.loss_and_grads(loss_fn, params, batch,
+                                                    accum, adt)
+        grads = list(grads)
+        for g, how in zip(grads, reductions, strict=True):
+            for op, axis in how:
+                if op == "all-reduce":
+                    collectives.all_reduce(g, mesh.groups[axis])
+        if n > 1:
+            torch._foreach_div_(grads, float(n))
+            loss = collectives.all_reduce(loss.reshape(1).clone(),
+                                          fsdp.batch)[0] / n
+        gnorm = global_norm(grads, specs, mesh)
+        lr = lr_fn(opt_state["step"]) if lr_fn is not None else None
+        params, opt_state, metrics = adamw.update(
+            tree.unflatten(params, grads), opt_state, params, opt_cfg,
+            lr=lr, grad_norm=gnorm)
+        return params, opt_state, dict(metrics, loss=loss)
+
+    return step

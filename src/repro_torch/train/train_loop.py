@@ -47,6 +47,37 @@ def _grad(loss: torch.Tensor, flat: list[torch.Tensor]) -> list:
             for p, g in zip(flat, grads, strict=True)]
 
 
+def loss_and_grads(loss_fn: Callable, params, batch: dict, accum: int,
+                   accum_dtype: torch.dtype
+                   ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """(loss, the gradient of every leaf of ``params`` in ``tree``'s
+    order): over the whole batch, or as the mean of ``accum``
+    microbatches (the batch's rows cut in ``accum`` contiguous parts, in
+    order), their gradients summed in ``accum_dtype``."""
+    flat, tparams = _trainable(params)
+    if accum <= 1:
+        loss = loss_fn(tparams, batch)
+        return loss.detach(), _grad(loss, flat)
+    # `accum` microbatches (chunks) in order, gradients summed in
+    # `accum_dtype` (f32 default; bf16 halves the buffer).
+    b = batch["tokens"].shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} does not split into {accum} "
+                         f"microbatches")
+    micro = [dict(zip(batch, parts)) for parts in
+             zip(*(t.chunk(accum) for t in batch.values()))]
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=batch["tokens"].device)
+    g_acc = [torch.zeros_like(p, dtype=accum_dtype) for p in flat]
+    for mb in micro:
+        l_mb = loss_fn(tparams, mb)
+        g = _grad(l_mb, flat)
+        torch._foreach_add_(g_acc, [x.to(accum_dtype) for x in g])
+        loss = loss + l_mb.detach()
+    return loss / accum, torch._foreach_div([x.float() for x in g_acc],
+                                            accum)
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
                     accum: int = 1, attn_impl: str = "chunked",
                     remat: bool = True, lr_fn: Callable | None = None,
@@ -55,30 +86,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
     adt = getattr(torch, accum_dtype)
 
     def train_step(params, opt_state, batch):
-        flat, tparams = _trainable(params)
-        if accum <= 1:
-            loss = loss_fn(tparams, batch)
-            grads = _grad(loss, flat)
-            loss = loss.detach()
-        else:
-            # `accum` microbatches (chunks) in order, gradients summed in
-            # `accum_dtype` (f32 default; bf16 halves the buffer).
-            b = batch["tokens"].shape[0]
-            if b % accum:
-                raise ValueError(f"batch {b} does not split into {accum} "
-                                 f"microbatches")
-            micro = [dict(zip(batch, parts)) for parts in
-                     zip(*(t.chunk(accum) for t in batch.values()))]
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
-            g_acc = [torch.zeros_like(p, dtype=adt) for p in flat]
-            for mb in micro:
-                l_mb = loss_fn(tparams, mb)
-                g = _grad(l_mb, flat)
-                torch._foreach_add_(g_acc, [x.to(adt) for x in g])
-                loss = loss + l_mb.detach()
-            loss = loss / accum
-            grads = torch._foreach_div([x.float() for x in g_acc], accum)
+        loss, grads = loss_and_grads(loss_fn, params, batch, accum, adt)
         lr = lr_fn(opt_state["step"]) if lr_fn is not None else None
         params, opt_state, metrics = adamw.update(
             tree.unflatten(params, list(grads)), opt_state, params, opt_cfg,

@@ -21,8 +21,9 @@ Scenarios:
   request spec (``tests/test_multidevice.py``): tokens equal to the JAX
   package's single-device ``ServeScheduler``, the same on every rank,
   ``serve_mesh_batch`` entries keyed ``mesh=DxM`` with ``batch_width ==
-  cores · n_replicas``, the same decisions in every rank's trace; a MoE
-  arch refused on a model extent of 2;
+  cores · n_replicas``, the same decisions in every rank's trace; the
+  reduced mixtral-8x22b (MoE, its experts' hidden dim split) served on
+  (1, 2) giving the JAX package's single-device tokens;
 * compressed data parallelism — two steps of the reduced qwen3 on (4,)
   against the reference's ``make_compressed_dp_train_step`` (run in a
   subprocess with 4 forced host devices): parameters within 2e-5 and
@@ -337,10 +338,20 @@ SERVE_MESHES = [(2, 2), (1, 2), (2, 1)]
 SERVE_RUNS = [(depth, paged) for depth in (1, 4) for paged in (False, True)]
 
 
-def mesh_serving(rank, arrays, tokens):
+# The MoE run on (1, 2): mixtral's ring at prefill chunks of 1, where
+# the reference's ring is exact (tests/test_torch_moe.py).
+MOE_SERVE = dict(n_slots=2, max_len=64, dispatch_depth=2, chunk_buckets=(1,))
+
+
+def _moe_trace():
+    rng = np.random.default_rng(11)
+    return [(rng.integers(0, 256, n), 6) for n in (20, 33, 9, 40)]
+
+
+def mesh_serving(rank, arrays, tokens, moe_arrays):
     from repro_torch import bridge
     from repro_torch.configs import get_config
-    from repro_torch.core.acc import AdaptiveCoreChunk
+    from repro_torch.core.acc import AdaptiveCoreChunk, StaticCoreChunk
     from repro_torch.core.adaptive import adaptive
     from repro_torch.core.executor import SequentialExecutor
     from repro_torch.launch.mesh import make_serve_mesh, n_data_replicas
@@ -375,16 +386,19 @@ def mesh_serving(rank, arrays, tokens):
                               for e in trace.entries()],
                 "page_size": [e.decision.chunk for e in
                               trace.entries("serve_page_size")]}
-    refusal = None
+    moe_tokens = None
     mesh = make_serve_mesh(1, 2)
     if mesh.contains:
-        try:
-            ServeScheduler(get_config("grok-1-314b").reduced(), None,
-                           n_slots=2, max_len=32, dispatch_depth=2,
-                           mesh=mesh, device="cpu")
-        except NotImplementedError as exc:
-            refusal = str(exc)
-    return {"runs": out, "refusal": refusal}
+        mcfg = get_config("mixtral-8x22b").reduced()
+        sched = ServeScheduler(
+            mcfg, bridge.from_reference(moe_arrays, mcfg, device="cpu"),
+            acc=StaticCoreChunk(cores=2), mesh=mesh, device="cpu",
+            **MOE_SERVE)
+        assert sched.tp.moe and sched.tp.size == 2
+        rids = [sched.submit(p, m) for p, m in _moe_trace()]
+        outs = sched.run_until_idle()
+        moe_tokens = [outs[r] for r in rids]
+    return {"runs": out, "moe": moe_tokens}
 
 
 @pytest.fixture(scope="module")
@@ -400,9 +414,11 @@ def serving_run(tmp_path_factory):
     arrays = jax.tree.map(np.asarray, jparams)
     tokens = np.asarray(jmake_batch(jcfg, 3, 14, kind="prefill",
                                     seed=11)["tokens"])
+    mcfg = jax_config("mixtral-8x22b").reduced()
+    mparams = jlm.init_params(jax.random.PRNGKey(0), mcfg)
     res = spawn(tmp_path_factory.mktemp("serve"), "mesh_serving", 4,
-                arrays, tokens)
-    return jcfg, jparams, tokens, res
+                arrays, tokens, jax.tree.map(np.asarray, mparams))
+    return jcfg, jparams, tokens, res, (mcfg, mparams)
 
 
 @pytest.fixture(scope="module")
@@ -413,7 +429,7 @@ def jax_serve_tokens(serving_run):
     from repro.core.executor import SequentialExecutor as JSeq
     from repro.serve import ServeScheduler as JScheduler
 
-    jcfg, jparams, tokens, _ = serving_run
+    jcfg, jparams, tokens, *_ = serving_run
     ref = {}
     for depth in (1, 4):
         sched = JScheduler(jcfg, jparams, n_slots=2, max_len=48,
@@ -434,7 +450,7 @@ def test_mesh_serving_matches_jax_single_device(serving_run, jax_serve_tokens,
     """Tokens on the mesh equal the JAX package's single-device
     scheduler's, on every rank of the mesh; every rank's trace holds the
     same decisions."""
-    *_, res = serving_run
+    res = serving_run[3]
     ranks = range(shape[0] * shape[1])
     runs = [res[r]["runs"][shape, depth, paged] for r in ranks]
     assert runs[0]["tokens"] == jax_serve_tokens[depth]
@@ -449,7 +465,7 @@ def test_mesh_serving_matches_jax_single_device(serving_run, jax_serve_tokens,
 def test_mesh_batch_decisions_carry_the_mesh(serving_run, shape):
     """``serve_mesh_batch`` entries key the mesh shape into the hardware
     field and cap the lanes at ``cores * n_replicas``."""
-    *_, res = serving_run
+    res = serving_run[3]
     desc = f"mesh={shape[0]}x{shape[1]}"
     for depth, paged in SERVE_RUNS:
         entries = res[0]["runs"][shape, depth, paged]["mesh_batch"]
@@ -460,10 +476,22 @@ def test_mesh_batch_decisions_carry_the_mesh(serving_run, shape):
 
 
 def test_moe_refused_on_a_model_extent_of_two(serving_run):
-    *_, res = serving_run
+    """The reduced mixtral-8x22b served on (1, 2), its experts' hidden dim
+    split over 'model', gives the JAX package's single-device tokens on
+    both ranks; the ranks outside the mesh serve nothing."""
+    from repro.core.acc import StaticCoreChunk as JStatic
+    from repro.serve import ServeScheduler as JScheduler
+
+    res = serving_run[3]
+    mcfg, mparams = serving_run[4]
+    sched = JScheduler(mcfg, mparams, acc=JStatic(cores=2), **MOE_SERVE)
+    rids = [sched.submit(p, m) for p, m in _moe_trace()]
+    outs = sched.run_until_idle()
+    ref = [outs[r] for r in rids]
+    assert [len(o) for o in ref] == [m for _, m in _moe_trace()]
     for rank in (0, 1):
-        assert res[rank]["refusal"] and "A.6b" in res[rank]["refusal"]
-    assert res[2]["refusal"] is None and res[3]["refusal"] is None
+        assert res[rank]["moe"] == ref
+    assert res[2]["moe"] is None and res[3]["moe"] is None
 
 
 # ---------------------------------------------------------------------------
@@ -624,16 +652,13 @@ def test_compressed_dp_error_feedback_matches_reference(dp_run):
 # no process group: the package surface and the mesh launch audit
 # ---------------------------------------------------------------------------
 
-# Reference exports the port leaves out on purpose (ROADMAP.md A.12,
-# A.6b, A.7b): the TPU preset; the kernel functions, whose names are the
-# port's kernel modules; the dry run's ``input_specs`` and the dry-run
-# roofline's ``analyze`` / ``collective_bytes``.
+# Reference exports the port leaves out on purpose (ROADMAP.md A.12):
+# the TPU preset; the kernel functions, whose names are the port's kernel
+# modules.
 DELIBERATE = {
     "core": {"TPU_V5E"},
     "kernels": {"adjacent_difference", "artificial_work", "flash_attention",
                 "inclusive_scan", "reduce_sum", "ref", "rmsnorm"},
-    "data": {"input_specs"},
-    "analysis": {"analyze", "collective_bytes"},
 }
 
 

@@ -257,8 +257,8 @@ def test_local_tree_and_serve_specs():
 
 def test_tp_plan_keeps_unsplittable_heads_whole_and_refuses_other_blocks():
     """Heads that do not divide the model axis keep their attention block
-    whole on every rank; MoE and the recurrent kinds refuse a model
-    extent above 1 and serve at 1."""
+    whole on every rank; the recurrent and cross-attention kinds refuse a
+    model extent above 1 and serve at 1; MoE splits its experts."""
     cfg = get_config("qwen3-0.6b").reduced()     # 4 q heads, 2 kv heads
     params = tlm.init_params(0, cfg, device="meta")
     mesh = _stub({"data": 1, "model": 4})
@@ -269,18 +269,55 @@ def test_tp_plan_keeps_unsplittable_heads_whole_and_refuses_other_blocks():
                                sharding.spec_leaves(specs), strict=True):
         if "attn" in path:
             assert all(a is None for a in spec), (path, spec)
-    for name in ("grok-1-314b", "zamba2-1.2b", "xlstm-350m",
-                 "llama-3.2-vision-11b"):
+    for name in ("zamba2-1.2b", "xlstm-350m", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="A.6b"):
             sharding.tp_plan(get_config(name), _stub({"data": 1,
                                                       "model": 2}))
         assert sharding.tp_plan(get_config(name),
                                 _stub({"data": 4, "model": 1})).size == 1
+    # MoE splits its experts' hidden dim; grok's 48 q and 8 kv heads do
+    # not both divide 16, so its attention stays whole.
+    grok = sharding.tp_plan(get_config("grok-1-314b"),
+                            _stub({"data": 16, "model": 16}))
+    assert (grok.size, grok.attn, grok.moe, grok.vocab) == (16, False, True,
+                                                           True)
+    assert sharding.tp_plan(get_config("grok-1-314b"),
+                            _stub({"data": 4, "model": 1})).size == 1
+
+
+_PRODUCTION_MESHES = """
+import json
+from repro_torch.launch import mesh
+mesh.init_fake(512)
+out = {}
+for multi in (False, True):
+    m = mesh.make_production_mesh(multi_pod=multi)
+    out[str(multi)] = [m.shape, m.size, str(m.device)]
+print(json.dumps(out))
+"""
 
 
 def test_production_mesh_waits_for_the_dry_run():
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    """The dry run's meshes on a fake group of 512 ranks: (16, 16)
+    ("data", "model") over 256, (2, 16, 16) ("pod", "data", "model")
+    over 512, on the meta device; with no process group it raises."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    with pytest.raises(RuntimeError, match="init_fake"):
         tmesh.make_production_mesh()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", _PRODUCTION_MESHES], capture_output=True,
+        text=True, timeout=120, cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["False"] == [{"data": 16, "model": 16}, 256, "meta"]
+    assert got["True"] == [{"pod": 2, "data": 16, "model": 16}, 512,
+                           "meta"]
 
 
 @pytest.mark.parametrize("shape,trailing", [
