@@ -275,6 +275,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
               ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b
               --shape train_4k --mesh single`` as a subprocess beside them,
               which must exit 0 (``[dryrun]``, its report row).
+17. tp      — tensor parallelism of the recurrent and cross-attention
+              blocks and the sequence-split decode at world size 1 over
+              NCCL (``_tp_phase``, alone: ``tp_main()``): kernel 2 with
+              its rows' log-sum-exp out at the main decode shape (B 8,
+              Hq 16, Hkv 8, D 128, kv 1-1024), danube's ring (B 2, Hq
+              32, Hkv 8, D 80, kv 4096 and a partial lane) and the
+              sequence-split decode's (B 1, a 64-row ring), bf16 and
+              f32: the output bit-equal to the call without statistics,
+              the statistics within 1e-5 of the plain version's, both
+              timed with L2 flushed beside ``torch.compile``'d
+              ``flex_attention`` (``[kernel flash_attention_lse]``); the
+              cache cut into 2 and 4 blocks, merged by
+              ``attention.merge_blocks`` against the whole cache
+              (``[merge]``); zamba2-1.2b and xlstm-350m at full width
+              and depth on ``make_serve_mesh(1, 1)``, 4 x 64-token
+              prompts + 16 new tokens with every decision pinned,
+              contiguous and paged: tokens bit-equal to the no-mesh
+              scheduler's (``[tp serve]``); one sharded train step of
+              zamba2 (6 layers), xlstm (8) and llama-vision (5), every
+              block family on its tensor-parallel path at size 1
+              (``split_at_one``),
+              against the unsharded one, bit for bit (``[tp train]``);
+              danube at full width and depth, batch 1, a 64-row window,
+              96 steps one token a step through ``ServeEngine`` with
+              ``cache_seq_model`` (the ring's rows on a one-rank 'model'
+              axis, written past its end, kernel 2 with statistics, the
+              gather and the merge) against no mesh at per-lane
+              positions (the ring read in its row order), every step's
+              logits bit-equal (``[seq decode]``; its launches are the
+              ``flash_attention_lse`` entry's).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -929,12 +959,17 @@ def main() -> None:
     # ----------------------------------------------------------- 14. tune
     # ---------------------------------------------------------- 15. mesh
     # ------------------------------------------------- 16. FSDP × TP step
+    # ----------------------------- 17. TP blocks, sequence-split decode
     for phase in (_xlstm_phase, _vision_phase, _tune_phase, _mesh_phase,
-                  _fsdp_phase):
+                  _fsdp_phase, _tp_phase):
         phase_records, phase_launches = phase(torch, dev)
         for name, recs in phase_records.items():
-            records[name].extend(recs)
+            records.setdefault(name, []).extend(recs)
         path_launches.update(phase_launches)
+    # Kernel 2 with its statistics runs on the sequence-split decode only.
+    launches["flash_attention_lse"] = sum(
+        counts.get("flash_attention_lse", 0)
+        for counts in path_launches.values())
 
     path_launches = {"phase 5 qwen3-0.6b contiguous": {
         k: launches[k] for k in ("rmsnorm", "flash_attention")},
@@ -945,6 +980,9 @@ def main() -> None:
     srcs = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:19"),
             "flash_attention": (
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:93"),
+            "flash_attention_lse": (
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:93"),
             "paged_flash_attention": (
@@ -968,6 +1006,7 @@ def main() -> None:
         # Serve kernels: the decode shape in bf16, the serve path's own.
         # 1-d kernels: n = 2^24 in f32, the paper's largest size.
         head = recs[0] if name in ("rmsnorm", "flash_attention",
+                                   "flash_attention_lse",
                                    "paged_flash_attention",
                                    "rmsnorm_backward") else next(
             r for r in recs if r["shape"] == f"n={KERNEL_SIZES_1D[1]} float32")
@@ -4883,7 +4922,8 @@ def _forward_host15(torch, dev, cfg, sched) -> dict:
     prefill's path: a chunk runs eagerly)."""
     from repro_torch.models import flags, lm
 
-    caches = lm.init_caches(sched.pool.part.cfg, 1, 1024, device=dev)
+    caches = lm.init_caches(cfg, 1, 1024, device=dev,
+                            tp=sched.pool.part.plan)
     gen = torch.Generator().manual_seed(14)
     out = {}
     with flags.tensor_parallel(sched.tp):
@@ -5231,9 +5271,10 @@ def _same_tree(torch, a, b) -> tuple[bool, float]:
 
 def _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch, *,
                   accum: int, steps: int, sharded: bool,
-                  warmup: bool = True) -> dict:
-    """``steps`` steps of the sharded (on ``mesh``) or the unsharded
-    step from a copy of ``params``: losses, norms, step ms, kernel 1's
+                  warmup: bool = True, split_at_one: bool = False) -> dict:
+    """``steps`` steps of the sharded (on ``mesh``; ``split_at_one``: its
+    argument) or the unsharded step from a copy of ``params``: losses,
+    norms, step ms, kernel 1's
     forward and backward launches and the collective calls per step, the
     final parameters.  With ``warmup``, one untimed step on another copy
     first (the first call's library and communicator set-up)."""
@@ -5254,7 +5295,8 @@ def _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch, *,
         p, opt = tsharded.shard_train_state(p, opt, mesh, cfg=cfg)
         batch = tsharded.shard_batch(batch, mesh, accum)
         step = tsharded.make_sharded_train_step(cfg, opt_cfg, mesh,
-                                                accum=accum)
+                                                accum=accum,
+                                                split_at_one=split_at_one)
     else:
         step = make_train_step(cfg, opt_cfg, accum=accum)
     calls: list = []
@@ -5326,6 +5368,7 @@ def _fsdp_phase(torch, dev):
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import flags, lm
     from repro_torch.optim import AdamWConfig
+    from repro_torch.train import sharded as tsharded
 
     t_phase = time.perf_counter()
     card = _card_line()
@@ -5421,7 +5464,7 @@ def _fsdp_phase(torch, dev):
         finally:
             out, err = dry.communicate(timeout=600)
     rows = [line for line in out.splitlines() if line.startswith(
-        ("OK", "FAIL", "PORT", "SKIP"))]
+        ("OK", "FAIL", "SKIP"))]
     log(f"[dryrun] {card}: exit {dry.returncode}; " + " | ".join(rows))
     if dry.returncode != 0 or not any(r.startswith("OK") for r in rows):
         problems.append(f"the dry run failed (exit {dry.returncode}): "
@@ -5437,6 +5480,389 @@ def fsdp_main() -> None:
     build and phase 16 alone (the FSDP × TP step at world size 1 over
     NCCL, and the dry run)."""
     _phase_main(16, _fsdp_phase)
+
+
+# Phase 17: tensor parallelism of the recurrent and cross-attention
+# blocks and the sequence-split decode at world size 1 over NCCL, and
+# kernel 2's softmax statistics.
+TP_SERVE_ARCHS = ("zamba2-1.2b", "xlstm-350m")
+TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 4, 64, 16
+TP_TRAIN = (("zamba2-1.2b", None), ("xlstm-350m", None),
+            ("llama-3.2-vision-11b", 5))     # (arch, layers: a pattern group)
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 2, 128
+TP_FAMILY = {"attn": "attn", "shared_attn": "attn", "mamba2": "mamba",
+             "mlstm": "mlstm", "slstm": "slstm", "cross_attn": "xattn"}
+# danube's sequence-split decode: a window of 64 rows (the engine's own
+# option; danube's 4096 would take 4096 steps to wrap), so that the
+# 96 steps write past the ring's end.
+SEQ_ARCH, SEQ_PROMPT, SEQ_NEW, SEQ_MAX = "h2o-danube-1.8b", 64, 32, 512
+SEQ_WINDOW = 64
+
+
+def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged):
+    """One serve run with every decision pinned (one core, depth 4, the
+    paged pool's page size 16, chunks of at most 64) on ``mesh`` or
+    none: the tokens, tok/s and the kernels' launches."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.serve import ServeScheduler
+
+    kw = dict(paged=True, page_size=16) if paged else {}
+    sched = ServeScheduler(cfg, params, n_slots=TP_PROMPTS,
+                           max_len=TP_PROMPT_LEN + TP_NEW + 1,
+                           executor=adaptive(SequentialExecutor(),
+                                             StaticCoreChunk(cores=1)),
+                           dispatch_depth=4, chunk_buckets=(64,), mesh=mesh,
+                           device=dev, **kw)
+    sched.warmup()
+    torch.cuda.synchronize()
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
+        counter.reset()
+    t0 = time.monotonic()
+    rids = [sched.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    results = sched.run_until_idle()
+    torch.cuda.synchronize()
+    took = time.monotonic() - t0
+    tokens = [results.get(r) for r in rids]
+    launches = {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+    return {"tokens": tokens,
+            "tok_s": sum(len(t or ()) for t in tokens) / took,
+            "tp": None if sched.tp is None else {
+                k: v for k, v in dataclasses.asdict(
+                    dataclasses.replace(sched.tp, group=None)).items()
+                if k != "group"},
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def _flex_lse17(torch, q, k, v, lens):
+    """The library call that computes kernel 2 with statistics:
+    ``flex_attention`` (compiled, as PyTorch documents it) with ``lens``
+    as a block mask built here, outside the timed call, and the rows'
+    log-sum-exp out.  Returns a call giving (o, lse)."""
+    import inspect
+
+    from torch.nn.attention import flex_attention as fa
+
+    b, _, sq, _ = q.shape
+    skv = k.shape[2]
+
+    def visible(bi, h, qi, kv):
+        return kv < lens[bi]
+
+    mask = fa.create_block_mask(visible, b, None, sq, skv, device=q.device)
+    flex = torch.compile(fa.flex_attention, dynamic=False)
+    if "return_aux" in inspect.signature(fa.flex_attention).parameters:
+        aux = fa.AuxRequest(lse=True)
+
+        def call():
+            o, out = flex(q, k, v, block_mask=mask, enable_gqa=True,
+                          return_aux=aux)
+            return o, out.lse
+        return call
+    return lambda: flex(q, k, v, block_mask=mask, enable_gqa=True,
+                        return_lse=True)
+
+
+def _lse_cases17(torch, bench) -> tuple[list, list]:
+    """Kernel 2 with its rows' log-sum-exp out at the main run's decode
+    shape, danube's ring (one lane full, one partial) and the
+    sequence-split decode's (``_seq_decode17``: batch 1, the ring of
+    ``SEQ_WINDOW`` rows, a length from its run): the output bit-equal to
+    the call without statistics, the statistics within 1e-5 of the plain
+    version's, both calls timed with L2 flushed beside the plain version
+    and ``flex_attention`` (``_flex_lse17``); then the merge of the cache
+    cut into 2 and 4 blocks (a short lane leaves the later blocks empty),
+    each block through kernel 2 with statistics, merged by the mesh
+    path's ``merge_blocks``, against kernel 2 over the whole cache."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.attention import merge_blocks
+
+    records, problems = [], []
+    gen = torch.Generator().manual_seed(17)
+    main_lens = torch.randint(1, 1025, (8,), generator=gen).tolist()
+    main_lens[0], main_lens[1] = 1, 1024
+    ring_lens = [4096, int(torch.randint(1, 4097, (1,), generator=gen))]
+    seq_lens = [int(torch.randint(1, SEQ_WINDOW + 1, (1,), generator=gen))]
+    # The sequence-split decode's shape first: the ``kernels`` line's.
+    cases = (("seq decode", 1, 32, 8, SEQ_WINDOW, 80, seq_lens),
+             ("decode", 8, 16, 8, 1024, 128, main_lens),
+             ("danube ring", 2, 32, 8, 4096, 80, ring_lens))
+    for name, b, hq, hkv, skv, d, kv_lens in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = bench.randn(b, hq, 1, d, dtype=dtype)
+            k = bench.randn(b, hkv, skv, d, dtype=dtype)
+            v = bench.randn(b, hkv, skv, d, dtype=dtype)
+            lens = torch.tensor(kv_lens, dtype=torch.int32, device=bench.dev)
+            o, lse = kfa.flash_attention(q, k, v, lens, return_lse=True)
+            o0 = kfa.flash_attention(q, k, v, lens)
+            ref, ref_lse = kfa.attention_ref(q, k, v, lens, return_lse=True)
+            library = _flex_lse17(torch, q, k, v, lens)
+            lib_o, lib_lse = library()
+            torch.cuda.synchronize()
+            same = torch.equal(o, o0)
+            lse_err = float((lse - ref_lse).abs().max())
+            atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 \
+                else (1e-2, 1e-2)
+            ok_o, err = within(torch, o, ref, atol, rtol)
+            bound, by = work_bound(kfa.flash_attention_work(
+                q, k, v, lens, return_lse=True))
+            tag = f"{name} B={b} Hq={hq} Hkv={hkv} Sq=1 Skv={skv} D={d} " \
+                  f"kv={kv_lens if b < 8 else '1-1024'} {str(dtype)[6:]}"
+            rec = dict(
+                shape=tag, path=kfa.attention_plan(b, hq, hkv, 1, dtype).path,
+                err=err, lse_err=lse_err, ok=ok_o and lse_err <= 1e-5 and same,
+                bit_equal_without_lse=same,
+                tol=f"o atol={atol} rtol={rtol}; lse 1e-5",
+                ms=time_ms(torch, lambda: kfa.flash_attention(
+                    q, k, v, lens, return_lse=True), flush=bench.flush),
+                without_lse_ms=time_ms(torch, lambda: kfa.flash_attention(
+                    q, k, v, lens), flush=bench.flush),
+                plain_ms=time_ms(torch, lambda: kfa.attention_ref(
+                    q, k, v, lens, return_lse=True), flush=bench.flush),
+                library_ms=time_ms(torch, library, flush=bench.flush),
+                library="torch.compile(flex_attention) with a block mask "
+                        "of the lengths, enable_gqa, the lse out",
+                library_err=float((lib_o.float() - ref.float()).abs().max()),
+                library_lse_err=float((lib_lse.float() - ref_lse).abs().max()),
+                bound_ms=bound, bound_by=by)
+            log(f"[kernel flash_attention_lse] {json.dumps(rec)}")
+            records.append(rec)
+            if not rec["ok"]:
+                problems.append(f"lse {tag}: o bit-equal {same}, o err "
+                                f"{err:.3g}, lse err {lse_err:.3g}")
+            for blocks in (2, 4):
+                blk = skv // blocks
+                outs, lses = [], []
+                for i in range(blocks):
+                    local = (lens - i * blk).clamp(0, blk).to(torch.int32)
+                    ob, lb = kfa.flash_attention(
+                        q, k[:, :, i * blk:(i + 1) * blk].contiguous(),
+                        v[:, :, i * blk:(i + 1) * blk].contiguous(), local,
+                        return_lse=True)
+                    outs.append(ob)
+                    lses.append(lb)
+                got, got_lse = merge_blocks(torch.stack(outs),
+                                            torch.stack(lses))
+                # f32 1e-5; bf16 2^-7 of the largest output magnitude: each
+                # block's output, the merged one and the whole cache's are
+                # rounded to bf16 once each.
+                tol = 1e-5 if dtype == torch.float32 \
+                    else 2.0 ** -7 * float(o.abs().max())
+                m_err = float((got.float() - o.float()).abs().max())
+                ml_err = float((got_lse - lse).abs().max())
+                empty = sum(int((lens - i * blk <= 0).sum())
+                            for i in range(blocks))
+                log(f"[merge] {tag} in {blocks} blocks ({empty} empty lane "
+                    f"blocks): max |merged - whole| {m_err:.3g} (tol "
+                    f"{tol:.3g}), lse {ml_err:.3g} (tol 1e-5)")
+                if m_err > tol or ml_err > 1e-5:
+                    problems.append(f"merge {tag} {blocks} blocks: {m_err:.3g}"
+                                    f", lse {ml_err:.3g}")
+            del q, k, v
+    return records, problems
+
+
+def _seq_decode17(torch, dev, card, problems) -> dict:
+    """danube at full width and depth, batch 1, one token a step through
+    ``ServeEngine``'s lock-step path on ``make_serve_mesh(1, 1)`` with
+    ``cache_seq_model`` (the ring's rows on 'model', the new row written
+    at ``pos % SEQ_WINDOW``, past the ring's end after ``SEQ_WINDOW``
+    steps; kernel 2 with its statistics, the one-rank gather and
+    ``merge_blocks``) against the same tokens with no mesh through
+    ``lm.forward_cached`` at per-lane positions (kernel 2 over the ring
+    in its row order, as the split path reads it; the lock-step no-mesh
+    path attends a wrapped ring in position order instead): every step's
+    logits bit-equal (the merge of one block is the block), the launches
+    of the statistics' calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(SEQ_ARCH)
+    params = lm.init_params(0, cfg, device=dev, draw_on_device=True)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SEQ_PROMPT),
+                           generator=torch.Generator().manual_seed(17))
+    eng = ServeEngine(cfg, params, batch=1, max_len=SEQ_MAX,
+                      window=SEQ_WINDOW, mesh=mesh_lib.make_serve_mesh(1, 1),
+                      cache_seq_model=True, device=dev)
+    caches = lm.init_caches(cfg, 1, SEQ_MAX, window=SEQ_WINDOW, device=dev)
+
+    def per_lane(tok, t):
+        with torch.no_grad():
+            return lm.forward_cached(params, tok.to(dev), caches,
+                                     torch.tensor([t], device=dev), cfg,
+                                     window=SEQ_WINDOW)[0]
+
+    runs = {}
+    for name, step in (("seq over model 1x1", lambda tok, t: eng.decode(tok)),
+                       ("no mesh, per lane", per_lane)):
+        kfa.lse_launches.reset()
+        logits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(SEQ_PROMPT):
+            logits.append(step(prompt[:, t:t + 1], t))
+        for t in range(SEQ_PROMPT, SEQ_PROMPT + SEQ_NEW):
+            logits.append(step(logits[-1].argmax(-1), t))
+        torch.cuda.synchronize()
+        runs[name] = {"logits": torch.cat(logits, 1), "ms_per_step":
+                      (time.perf_counter() - t0) * 1e3 / len(logits),
+                      "lse_launches": kfa.lse_launches.count}
+    a, b = runs["seq over model 1x1"], runs["no mesh, per lane"]
+    same = torch.equal(a["logits"], b["logits"])
+    rec = {"card": card, "arch": SEQ_ARCH, "steps": SEQ_PROMPT + SEQ_NEW,
+           "window": SEQ_WINDOW, "ring_rows": eng.caches[0]["k"].shape[2],
+           "bit_equal": same,
+           "seq_blocks": None if eng.seq is None else eng.seq.size,
+           "lse_launches": a["lse_launches"],
+           "no_mesh_lse_launches": b["lse_launches"],
+           "finite": bool(torch.isfinite(a["logits"]).all()),
+           "ms_per_step": {k: r["ms_per_step"] for k, r in runs.items()}}
+    log("[seq decode] " + json.dumps(rec))
+    want = (SEQ_PROMPT + SEQ_NEW) * cfg.n_layers
+    if not (same and rec["finite"]) or rec["seq_blocks"] != 1 \
+            or rec["ring_rows"] != SEQ_WINDOW \
+            or SEQ_WINDOW >= rec["steps"] \
+            or a["lse_launches"] != want or b["lse_launches"]:
+        problems.append(f"sequence-split decode: {rec} (kernel 2 with "
+                        f"statistics {want} times expected)")
+    del params, eng, caches
+    return rec
+
+
+def _tp_phase(torch, dev):
+    """Phase 17: zamba2 and xlstm served on ``make_serve_mesh(1, 1)``
+    against no mesh; kernel 2's statistics and the block merge; the
+    sharded train step of zamba2, xlstm and llama-vision (every block
+    family on its tensor-parallel path, at size 1) against the unsharded
+    one; the sequence-split decode.  Returns ({"flash_attention_
+    lse": records}, {path: launches})."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import sharded as tsharded
+
+    t_phase = time.perf_counter()
+    card = _card_line()
+    problems, path_launches = [], {}
+    bench = KernelBench(torch, dev, seed=17, kernels=())
+    records, lse_problems = _lse_cases17(torch, bench)
+    bench.close()
+    problems += lse_problems
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_distributed("cuda", init_method=f"file://{tmp}/rdv",
+                                  rank=0, world_size=1, timeout_s=120)
+        try:
+            mesh = mesh_lib.make_serve_mesh(1, 1)
+            for arch in TP_SERVE_ARCHS:
+                cfg = get_config(arch)
+                params = lm.init_params(0, cfg, device=dev,
+                                        draw_on_device=True)
+                gen = torch.Generator().manual_seed(17)
+                prompts = [torch.randint(0, cfg.vocab_size, (TP_PROMPT_LEN,),
+                                         generator=gen)
+                           for _ in range(TP_PROMPTS)]
+                for paged in (False, True):
+                    pool = "paged" if paged else "contiguous"
+                    plain = _tp_serve17(torch, dev, cfg, params, prompts,
+                                        None, paged=paged)
+                    on_mesh = _tp_serve17(torch, dev, cfg, params, prompts,
+                                          mesh, paged=paged)
+                    same = on_mesh["tokens"] == plain["tokens"]
+                    full = all(t is not None and len(t) == TP_NEW
+                               for t in on_mesh["tokens"])
+                    log(f"[tp serve] {arch} {pool}: " + json.dumps({
+                        "card": card, "tokens_bit_equal": same,
+                        "mesh": {k: v for k, v in on_mesh.items()
+                                 if k != "tokens"},
+                        "no_mesh_tok_s": plain["tok_s"]}))
+                    if not (same and full):
+                        problems.append(f"{arch} {pool}: mesh tokens differ "
+                                        f"from the no-mesh scheduler's")
+                    need = ["rmsnorm"]
+                    if "shared_attn" in cfg.layer_kinds():
+                        need.append("paged_flash_attention" if paged
+                                    else "flash_attention")
+                    for k in need:
+                        if not on_mesh["launches"].get(k):
+                            problems.append(f"{arch} {pool}: the mesh run "
+                                            f"launched no {k}")
+                    path_launches[f"phase 17 {arch} mesh 1x1 {pool}"] = \
+                        on_mesh["launches"]
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+            tmesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+            for arch, layers in TP_TRAIN:
+                base = get_config(arch)
+                cfg = dataclasses.replace(
+                    base, n_layers=layers or len(base.block_pattern))
+                params = lm.init_params(0, cfg, device=dev,
+                                        dtype=torch.float32,
+                                        draw_on_device=True)
+                batch = make_batch(cfg, TP_TRAIN_BATCH, TP_TRAIN_SEQ, seed=0,
+                                   device=dev)
+                opt_cfg = AdamWConfig(lr=1e-4)
+                plain = _fsdp_steps16(torch, dev, cfg, params, opt_cfg, tmesh,
+                                      batch, accum=1, steps=1, sharded=False,
+                                      warmup=False)
+                shard = _fsdp_steps16(torch, dev, cfg, params, opt_cfg, tmesh,
+                                      batch, accum=1, steps=1, sharded=True,
+                                      warmup=False, split_at_one=True)
+                rec = _fsdp_compare16(torch, f"tp train {arch}", shard, plain,
+                                      problems)
+                # The step's tensor-parallel context (size 1, asked for):
+                # each family of the arch on its split path.
+                tp = tsharded.contexts(cfg, tmesh, None, split_at_one=True)[0]
+                split = {f: tp is not None and getattr(tp, f)
+                         for k, f in TP_FAMILY.items()
+                         if k in cfg.layer_kinds()}
+                if tp is None or not all(split.values()):
+                    problems.append(f"tp train {arch}: a block family off "
+                                    f"its split path: {split}")
+                rec.update(card=card, arch=arch, layers=cfg.n_layers,
+                           batch=[TP_TRAIN_BATCH, TP_TRAIN_SEQ],
+                           tp_size=None if tp is None else tp.size,
+                           split=split,
+                           sharded_ms=shard["ms"], unsharded_ms=plain["ms"])
+                log("[tp train] " + json.dumps(rec))
+                path_launches[f"phase 17 {arch} train 1x1"] = {
+                    "rmsnorm": sum(shard["fwd"]),
+                    "rmsnorm_backward": sum(shard["bwd"])}
+                del params, plain, shard, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+            seq = _seq_decode17(torch, dev, card, problems)
+            path_launches[f"phase 17 {SEQ_ARCH} seq over model 1x1"] = {
+                "flash_attention_lse": seq["lse_launches"]}
+        finally:
+            dist.destroy_process_group()
+    log(f"[phase 17] {time.perf_counter() - t_phase:.1f}s")
+    if problems:
+        fail("phase 17: " + "; ".join(problems))
+    return {"flash_attention_lse": records}, path_launches
+
+
+def tp_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.tp_main()"``: the build
+    and phase 17 alone (tensor parallelism of the recurrent and
+    cross-attention blocks, the sequence-split decode and kernel 2's
+    softmax statistics at world size 1 over NCCL)."""
+    _phase_main(17, _tp_phase)
 
 
 def _to_device(tree, dev):

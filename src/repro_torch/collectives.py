@@ -116,6 +116,14 @@ def gather_dim(t: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     return torch.cat(out.chunk(size), dim=dim)
 
 
+def gather_stack(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` stacked along a new dim 0 in rank
+    order (one ``all_gather``): the blocks of a sequence-split decode's
+    attention and softmax statistics, which ``models/attention.
+    merge_blocks`` merges."""
+    return gather_dim(t, group, size, 0).view((size,) + tuple(t.shape))
+
+
 def scatter_dim(t: torch.Tensor, group, size: int, dim: int
                 ) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum over ``group`` of

@@ -25,7 +25,11 @@ using repro_fa::kMaxD;
 using repro_fa::launch;
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), out like q, all contiguous and
-// 16-byte aligned; kv_lens (B,) int32 on the device; scratch: the split
+// 16-byte aligned; kv_lens (B,) int32 on the device; lse: null, or (B, Hq,
+// Sq) f32 on the device for each query row's log-sum-exp of its scaled
+// scores (natural units, -inf for a row with no visible key: the partial
+// softmax statistics a sequence-split decode merges across ranks; `out` is
+// the same with or without it); scratch: the split
 // path's partials, B * Hkv * ceil(Skv / chunk) * 2080 floats (may be null
 // on the tile path).  chunk: the split path's keys per split, a multiple
 // of 64 in bf16 and of 32 in f32 (256 and 128 by default); block_rows:
@@ -35,7 +39,8 @@ using repro_fa::launch;
 // success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* kv_lens,
-                                     void* out, void* scratch, int B, int Hq,
+                                     void* out, void* lse, void* scratch,
+                                     int B, int Hq,
                                      int Hkv, int Sq, int Skv, int D,
                                      float scale, int causal, int window,
                                      int dtype, int chunk, int block_rows,
@@ -49,12 +54,13 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     ContiguousKV<float> kv{static_cast<const float*>(k),
                            static_cast<const float*>(v), Hkv, Skv, D};
     return launch<float>(q, kv, lens, out, scratch, B, Hq, Hkv, Sq, Skv, D,
-                         scale, causal, window, chunk, block_rows, s);
+                         scale, causal, window, chunk, block_rows, s,
+                         static_cast<float*>(lse));
   }
   ContiguousKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
                                  static_cast<const __nv_bfloat16*>(v), Hkv,
                                  Skv, D};
   return launch<__nv_bfloat16>(q, kv, lens, out, scratch, B, Hq, Hkv, Sq,
                                Skv, D, scale, causal, window, chunk,
-                               block_rows, s);
+                               block_rows, s, static_cast<float*>(lse));
 }

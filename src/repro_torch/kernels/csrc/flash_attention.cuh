@@ -402,6 +402,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// A row's log-sum-exp of its scaled scores in natural units, from its
+// running max m and sum l in the units the dtype's softmax exponentiates
+// (log2 units in bf16, natural in f32; kLn2 turns log2 into natural);
+// -inf for a row with no visible key (l == 0).
+constexpr float kLn2 = 0.6931471805599453f;
+template <typename T> __device__ __forceinline__ float row_lse(float m,
+                                                               float l) {
+  if (l == 0.f) return -INFINITY;
+  if constexpr (sizeof(T) == 2) return (m + log2f(l)) * kLn2;
+  else return m + logf(l);
+}
+
 // chunk > 0: split path, blockIdx.x is the split, the block holds all
 // R = Sq * group rows (<= kSplitRows) and writes partials to `part`.
 // chunk == 0: the tile path's 16-row schedule (f32's only one, bf16's
@@ -420,8 +432,9 @@ template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
 flash_split_kernel(const T* __restrict__ q, KV kv,
                    const int* __restrict__ kv_lens, T* __restrict__ out,
-                   float* __restrict__ part, int Hq, int Hkv, int Sq, int Skv,
-                   int D, float scale, int causal, int window, int chunk) {
+                   float* __restrict__ part, float* __restrict__ lse, int Hq,
+                   int Hkv, int Sq, int Skv, int D, float scale, int causal,
+                   int window, int chunk) {
   using S = SplitSmem<T>;
   constexpr bool kMma = sizeof(T) == 2;
   constexpr int KT = S::KT;
@@ -753,6 +766,11 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     }
     return;
   }
+  if (lse != nullptr && tid < rows) {
+    const int gr = r0 + tid;
+    lse[(static_cast<int64_t>(b) * Hq + hk * group + gr % group) * Sq +
+        gr / group] = row_lse<T>(MLs[2 * tid], MLs[2 * tid + 1]);
+  }
   if (tid >= D) return;
 #pragma unroll
   for (int r = 0; r < kSplitRows; ++r) {
@@ -779,8 +797,9 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_combine_kernel(const float* __restrict__ part,
                      const int* __restrict__ kv_lens, T* __restrict__ out,
-                     int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-                     int window, int chunk, int n_x) {
+                     float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                     int Skv, int D, int causal, int window, int chunk,
+                     int n_x) {
   // The split kernel has finished and its partials are visible.
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -810,6 +829,9 @@ flash_combine_kernel(const float* __restrict__ part,
   const int s = r / group, h = hk * group + r % group;
   out[((static_cast<int64_t>(b) * Hq + h) * Sq + s) * D + tid] =
       Vec<T>::from(ll == 0.f ? 0.f : o / ll);
+  // The row's statistics over every split: one more store.
+  if (lse != nullptr && tid == 0)
+    lse[(static_cast<int64_t>(b) * Hq + h) * Sq + s] = row_lse<T>(mm, ll);
 }
 
 // ------------------------------------------- tile path, bf16 tensor cores
@@ -840,8 +862,9 @@ template <typename KV>
 __global__ void __launch_bounds__(kThreads)
 flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
                   const int* __restrict__ kv_lens,
-                  __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sq,
-                  int Skv, int D, float scale_log2, int causal, int window) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int Hq, int Hkv, int Sq, int Skv, int D, float scale_log2,
+                  int causal, int window) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem + TileSmem::kQ;
@@ -965,6 +988,9 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
     const int gr = r0 + 16 * warp + (lane >> 2) + 8 * h;
     const int s = gr / group, hq = hk * group + gr % group;
     bf16* orow = out + ((static_cast<int64_t>(b) * Hq + hq) * Sq + s) * D;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<int64_t>(b) * Hq + hq) * Sq + s] =
+          row_lse<bf16>(m[h], l[h]);
     const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -993,12 +1019,15 @@ int allow_smem(K kernel, int bytes) {
 // default), or kSplitRows, the split kernel's loop over the whole kv range
 // (f32's only schedule).  `part` is the wrapper's scratch: B * Hkv *
 // ceil(Skv / chunk) splits of kPartFloats floats, needed by the split
-// path only.
+// path only.  `lse`, where not null, receives each query row's
+// log-sum-exp of its scaled scores, f32 (B, Hq, Sq) in natural units
+// (-inf for a row with no visible key): one store a row, in whichever
+// kernel writes the row's output; the output's bits do not depend on it.
 template <typename T, typename KV>
 int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
            int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
            int causal, int window, int chunk, int block_rows,
-           cudaStream_t s) {
+           cudaStream_t s, float* lse = nullptr) {
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
   const int R = Sq * (Hq / Hkv);
@@ -1013,8 +1042,8 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
     if (n_x > 0) {
       flash_split_kernel<T, KV>
           <<<dim3(n_x, Hkv, B), kThreads, SplitSmem<T>::kBytes, s>>>(
-              qt, kv, kv_lens, ot, pf, Hq, Hkv, Sq, Skv, D, scale, causal,
-              window, chunk);
+              qt, kv, kv_lens, ot, pf, lse, Hq, Hkv, Sq, Skv, D, scale,
+              causal, window, chunk);
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return static_cast<int>(e);
     }
@@ -1033,7 +1062,7 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
     cfg.numAttrs = 1;
     return static_cast<int>(cudaLaunchKernelEx(
         &cfg, flash_combine_kernel<T>, static_cast<const float*>(pf), kv_lens,
-        ot, Hq, Hkv, Sq, Skv, D, causal, window, chunk, n_x));
+        ot, lse, Hq, Hkv, Sq, Skv, D, causal, window, chunk, n_x));
   }
   if (block_rows != kSplitRows && (sizeof(T) != 2 || block_rows != kTileRows))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1044,14 +1073,14 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
       if (tile_ready != 0) return tile_ready;
       const dim3 grid((R + kTileRows - 1) / kTileRows, Hkv, B);
       flash_tile_kernel<KV><<<grid, kThreads, TileSmem::kBytes, s>>>(
-          qt, kv, kv_lens, ot, Hq, Hkv, Sq, Skv, D,
+          qt, kv, kv_lens, ot, lse, Hq, Hkv, Sq, Skv, D,
           scale * 1.4426950408889634f, causal, window);
       return static_cast<int>(cudaGetLastError());
     }
   }
   const dim3 grid((R + kSplitRows - 1) / kSplitRows, Hkv, B);
   flash_split_kernel<T, KV><<<grid, kThreads, SplitSmem<T>::kBytes, s>>>(
-      qt, kv, kv_lens, ot, nullptr, Hq, Hkv, Sq, Skv, D, scale, causal,
+      qt, kv, kv_lens, ot, nullptr, lse, Hq, Hkv, Sq, Skv, D, scale, causal,
       window, 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,10 @@ split, or the tile path's schedule, which the wrapper checks, passes to
 the C call and sizes the split path's scratch from.  The default plan
 gives the bits the kernels gave before plans were measured.
 
+Kernel 2 may also return each query row's log-sum-exp (``return_lse``):
+the partial softmax statistics by which the blocks of a cache cut over
+ranks merge (``models/attention.merge_blocks``).
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``attention_ref``, ``paged_attention_ref``) for CPU tensors.
 Kernel 2's counter keys each launch by (B, Sq, Skv, window or 0, dtype
@@ -46,6 +50,9 @@ import torch
 from . import build
 
 launches = build.LaunchCounter("flash_attention")
+# Kernel 2's calls with the softmax statistics out (a subset of
+# ``launches``): the sequence-split decode's.
+lse_launches = build.LaunchCounter("flash_attention_lse")
 paged_launches = build.LaunchCounter("paged_flash_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -215,7 +222,7 @@ def _scratch_ptr(plan: AttentionPlan, skv: int, device: torch.device,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_lens: torch.Tensor | None = None, *,
                   causal: bool = True, window: int | None = None,
-                  scale: float | None = None) -> torch.Tensor:
+                  scale: float | None = None, return_lse: bool = False):
     """Masked full-softmax attention in f32.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0 (GQA by head
@@ -223,7 +230,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are padding.  Queries are end-aligned per lane (row r of lane b sits
     at ``kv_lens[b] - Sq + r``); ``window`` keeps keys with
     ``qi - kj < window``.  A row with no visible key gives 0, as the
-    flash kernel does.
+    flash kernel does.  With ``return_lse`` returns (out, lse): lse (B,
+    Hq, Sq) f32 the log-sum-exp of each row's scaled visible scores,
+    -inf for a row with none.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -250,7 +259,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     o = torch.where(l == 0, torch.zeros_like(o), o / torch.where(
         l == 0, torch.ones_like(l), l))
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    out = o.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0, float("-inf"), m + torch.log(l))
+    return out, lse.reshape(b, hq, sq)
 
 
 def _require_card(name: str, x: torch.Tensor) -> None:
@@ -297,9 +310,12 @@ def _work(q: torch.Tensor, hkv: int, skv: int, kv_lens, causal: bool,
 
 
 def flash_attention_work(q, k, v, kv_lens=None, *, causal=True,
-                         window=None, **_) -> build.Work:
-    """Kernel 2's work for one call (``_work``)."""
-    return _work(q, k.shape[1], k.shape[2], kv_lens, causal, window)
+                         window=None, return_lse=False, **_) -> build.Work:
+    """Kernel 2's work for one call (``_work``); with ``return_lse`` the
+    rows' f32 statistics written too."""
+    b, hq, sq, _ = q.shape
+    return _work(q, k.shape[1], k.shape[2], kv_lens, causal, window,
+                 extra_bytes=4 * b * hq * sq if return_lse else 0)
 
 
 def paged_flash_attention_work(q, k_store, v_store, page_table, kv_lens, *,
@@ -317,7 +333,7 @@ def paged_flash_attention_work(q, k_store, v_store, page_table, kv_lens, *,
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -362,15 +378,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_lens: torch.Tensor | None = None, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None,
-                    plan: AttentionPlan | None = None) -> torch.Tensor:
+                    plan: AttentionPlan | None = None,
+                    return_lse: bool = False):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); kv_lens (B,) int32
-    (default: every lane at Skv).  Returns (B, Hq, Sq, D) in q's type.
-    ``plan``: the schedule (default ``attention_plan``'s), checked."""
+    (default: every lane at Skv).  Returns (B, Hq, Sq, D) in q's type, or
+    with ``return_lse`` (out, lse): lse (B, Hq, Sq) f32, each row's
+    log-sum-exp of its scaled visible scores (-inf for a row with none),
+    stored by the kernel that writes the row (``out``'s bits are the
+    same either way).  ``plan``: the schedule (default
+    ``attention_plan``'s), checked."""
     if build.plain(q):
         if plan is not None and k.dim() == 4:
             _plan_of("flash_attention", plan, q, k.shape[1])
         return attention_ref(q, k, v, kv_lens, causal=causal, window=window,
-                             scale=scale)
+                             scale=scale, return_lse=return_lse)
     _require_card("flash_attention", q)
     b, hq, sq, d = q.shape
     if kv_lens is None:
@@ -382,15 +403,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     plan = _plan_of("flash_attention", plan, q, hkv)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
-                out.data_ptr(), _scratch_ptr(plan, skv, q.device, stream), b,
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                _scratch_ptr(plan, skv, q.device, stream), b,
                 hq, hkv, sq, skv, d, float(scale), int(causal),
                 0 if window is None else int(window), _DTYPES[q.dtype],
                 plan.chunk or 0, plan.block_rows, stream)
     build.check(err, "flash_attention")
     launches.add((b, sq, skv, 0 if window is None else int(window),
                   _DTYPES[q.dtype]))
-    return out
+    if lse is None:
+        return out
+    lse_launches.add((b, sq, skv, _DTYPES[q.dtype]))
+    return out, lse
 
 
 # ---------------------------------------------------------------------------

@@ -171,12 +171,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_lens: torch.Tensor | None = None, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, plan=None,
-                    tuner=None) -> torch.Tensor:
+                    tuner=None, return_lse: bool = False):
     """Kernel 2; ``plan`` pins the schedule, else a ``tuner`` measures
-    it on this call, else ``attention_plan``'s prior."""
+    it on this call, else ``attention_plan``'s prior.  ``return_lse``:
+    (out, the rows' log-sum-exp), as ``flash_attention.flash_attention``
+    returns them."""
     def call(p):
         return _kfa.flash_attention(q, k, v, kv_lens, causal=causal,
-                                    window=window, scale=scale, plan=p)
+                                    window=window, scale=scale, plan=p,
+                                    return_lse=return_lse)
 
     if plan is None and tuner is not None:
         plan = attention_plan_for(tuner, q, k.shape[1], k.shape[2], call,

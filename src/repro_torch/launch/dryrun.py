@@ -29,14 +29,23 @@ passed in), ``peak_memory_bytes`` (the most bytes of tensors the step
 made and held at once, counted storage by storage) and ``fits``
 (arguments plus peak within the H100's 80 GB), and ``attention``:
 "split" where the q and kv heads both divide 'model', else "whole" (every
-model rank runs the block whole, 'data' still splitting its leaves).  It
-is a count made on meta tensors, not a measurement.
+model rank runs the block whole, 'data' still splitting its leaves), and
+``cache_seq``: the mesh axis a decode cell's K/V caches hold their
+sequence on (None, 'data' when the batch does not split over the batch
+axes, 'model' under ``--cache-seq-model``).  It is a count made on meta
+tensors, not a measurement.
+
+Every block kind splits over 'model' by its own flag of
+``sharding.tp_plan`` or runs whole; a decode cell's caches are rank 0's
+blocks by ``cache_specs`` (recurrent states in the local layout too),
+and a sequence on a mesh axis runs the sequence-split decode
+(``models/attention.py``).
 
 A cell's status: ``skipped`` (the reference's ``shape_applicable``
-reason, or a plan-only run's non-train cell), ``not_ported`` (a block
-kind tensor parallelism does not cover on a model axis of 16, or a cache
-whose sequence lands on a mesh axis: ROADMAP.md A.6b), ``planned``
+reason, or a plan-only run's non-train cell), ``planned``
 (``--plan-only``), ``ok`` or ``error``; only ``error`` fails the run.
+``--seq-shard`` and ``--moe-ff2d`` raise ``NotImplementedError`` (ROADMAP.md
+A.6b item 4).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -76,10 +85,6 @@ _A6B = "ROADMAP.md A.6b"
 _meshes: dict[bool, mesh_lib.Mesh] = {}
 
 
-class NotPorted(Exception):
-    """A cell the port cannot run yet (ROADMAP.md A.6b)."""
-
-
 def _mesh(multi_pod: bool):
     """(the production mesh, its name, its chips), made once per process
     on the fake group."""
@@ -104,14 +109,7 @@ def _long_window(cfg, shape):
 
 def _nbytes(*trees) -> int:
     return sum(t.numel() * t.element_size()
-               for tr in trees for t in tree.leaves(tr))
-
-
-def _tp(cfg, mesh) -> sharding.TPPlan:
-    try:
-        return sharding.tp_plan(cfg, mesh)
-    except NotImplementedError as exc:
-        raise NotPorted(str(exc)) from exc
+               for tr in trees for t in tree.leaves(tr) if t is not None)
 
 
 def _count(step, *args) -> roofline.Costs:
@@ -125,7 +123,6 @@ def count_train(cfg, shape, mesh, *, accum: int, attn_impl: str,
                 bf16_params: bool = False
                 ) -> tuple[roofline.Costs, int]:
     """(the count of rank 0's sharded train step, its argument bytes)."""
-    _tp(cfg, mesh)
     if bf16_params:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     opt_cfg = adamw.AdamWConfig(moment_dtype=moment_dtype,
@@ -145,19 +142,22 @@ def count_train(cfg, shape, mesh, *, accum: int, attn_impl: str,
     return costs, _nbytes(lp, lo, lb)
 
 
-def _serve_params(cfg, mesh, *, no_fsdp: bool = False):
+def _serve_params(cfg, mesh, *, no_fsdp: bool = False,
+                  seq_over_model: bool = False):
     """(rank 0's blocks of the serving weights, the contexts over them):
-    FSDP × TP by the training specs, or tensor parallel only."""
+    FSDP × TP by the training specs, or tensor parallel only
+    (``seq_over_model``: the attention blocks whole)."""
     params = lm.init_params(0, cfg, device="meta")
-    specs = sharding.serve_param_specs(cfg, params, mesh) if no_fsdp \
-        else sharding.train_param_specs(cfg, params, mesh)
-    tp, fsdp = sharded.contexts(cfg, mesh, specs)
+    specs = (sharding.serve_param_specs if no_fsdp
+             else sharding.train_param_specs)(cfg, params, mesh,
+                                              seq_over_model=seq_over_model)
+    tp, fsdp = sharded.contexts(cfg, mesh, specs,
+                                seq_over_model=seq_over_model)
     return sharding.local_tree(params, specs, mesh), tp, fsdp
 
 
 def count_prefill(cfg, shape, mesh, *, attn_impl: str
                   ) -> tuple[roofline.Costs, int]:
-    _tp(cfg, mesh)
     cfg = _serve_cfg(cfg)
     lp, tp, fsdp = _serve_params(cfg, mesh)
     lb = sharded.shard_batch(input_specs(cfg, shape), mesh)
@@ -172,49 +172,55 @@ def count_prefill(cfg, shape, mesh, *, attn_impl: str
     return _count(run, lp, lb), _nbytes(lp, lb)
 
 
-def count_decode(cfg, shape, mesh, *, serve_no_fsdp: bool = False
+def _cache_seq(cfg, shape, mesh, cache_seq_model: bool) -> str | None:
+    """The mesh axis a decode cell's K/V caches hold their sequence on
+    (``sharding.cache_seq_axis`` at the cell's cache length)."""
+    window = _long_window(cfg, shape)
+    return sharding.cache_seq_axis(
+        cfg, mesh, shape.global_batch,
+        min(window, shape.seq_len) if window else shape.seq_len,
+        seq_over_model=cache_seq_model)
+
+
+def count_decode(cfg, shape, mesh, *, serve_no_fsdp: bool = False,
+                 cache_seq_model: bool = False
                  ) -> tuple[roofline.Costs, int]:
-    plan = _tp(cfg, mesh)
+    """(the count of rank 0's decode step at the cache's last position,
+    its argument bytes).  The caches are rank 0's blocks by
+    ``cache_specs``: kv heads where attention splits, the recurrent
+    states' heads or channels where their blocks split, and the K/V
+    sequence on 'data' when the batch does not split over the batch axes
+    (every batch rank then holds the whole batch) or on 'model' with
+    ``cache_seq_model`` (the attention blocks whole)."""
     cfg = _serve_cfg(cfg)
     window = _long_window(cfg, shape)
-    cache_len = min(window, shape.seq_len) if window else shape.seq_len
-    for spec in sharding.cache_specs(cfg, mesh, shape.global_batch,
-                                     cache_len):
-        if spec is not None and "k" in spec and spec["k"][2] is not None:
-            raise NotPorted(
-                f"{cfg.name} {shape.name}: the cache's sequence lands on "
-                f"mesh axis {spec['k'][2]!r} (batch {shape.global_batch} "
-                f"does not split over the data axes); waits for {_A6B}")
-    lp, tp, fsdp = _serve_params(cfg, mesh, no_fsdp=serve_no_fsdp)
-    tokens = sharded.shard_batch(input_specs(cfg, shape), mesh)["tokens"]
-    b = tokens.shape[0]
-    kv = cfg.n_kv_heads // plan.size if plan.attn else cfg.n_kv_heads
-    local_cfg = dataclasses.replace(cfg, n_kv_heads=kv,
-                                    head_dim=cfg.head_dim_)
-    caches = _meta_caches(local_cfg, b, shape.seq_len, window)
-    step = serve_engine.make_decode_step(cfg, window=window)
+    axis = _cache_seq(cfg, shape, mesh, cache_seq_model)
+    lp, tp, fsdp = _serve_params(cfg, mesh, no_fsdp=serve_no_fsdp,
+                                 seq_over_model=axis == "model")
+    batch = input_specs(cfg, shape)
+    if shape.global_batch % mesh_lib.n_data_replicas(mesh):
+        # The batch does not split: every batch rank holds all of it (and
+        # so no MoE layer places its tokens across them).
+        fsdp = dataclasses.replace(fsdp, batch=None, batch_size=1,
+                                   batch_index=0)
+    else:
+        batch = sharded.shard_batch(batch, mesh)
+    tokens = batch["tokens"]
+    seq = None if axis is None else flags.SeqSplit(
+        mesh.groups[axis], mesh.shape[axis], mesh.coord(axis))
+    caches = lm.init_caches(cfg, tokens.shape[0], shape.seq_len,
+                            window=window, device="meta", tp=tp,
+                            seq_blocks=1 if seq is None else seq.size)
+    feats = batch.get("frontend_feats")      # the cross_attn layers'
+    step = serve_engine.make_decode_step(cfg, window=window, tp=tp, seq=seq)
 
     @torch.no_grad()
-    def run(params, caches_, tokens_):
-        with flags.tensor_parallel(tp), flags.fsdp(fsdp):
-            return step(params, caches_, tokens_, shape.seq_len - 1)
+    def run(params, caches_, tokens_, feats_):
+        with flags.fsdp(fsdp):
+            return step(params, caches_, tokens_, shape.seq_len - 1, feats_)
 
-    return _count(run, lp, caches, tokens), _nbytes(lp, caches, tokens)
-
-
-def _meta_caches(cfg, batch: int, max_len: int, window) -> list:
-    """``lm.init_caches``'s per-layer caches as meta tensors."""
-    dtype = lm.compute_dtype(cfg)
-    out = []
-    for kind in cfg.layer_kinds():
-        if kind not in lm.ATTN_KINDS:
-            raise NotPorted(f"{cfg.name}: a {kind} layer's state in the "
-                            f"dry run waits for {_A6B}")
-        s = min(window, max_len) if window is not None else max_len
-        shape = (batch, cfg.n_kv_heads, s, cfg.head_dim_)
-        out.append({"k": torch.empty(shape, dtype=dtype, device="meta"),
-                    "v": torch.empty(shape, dtype=dtype, device="meta")})
-    return out
+    return _count(run, lp, caches, tokens, feats), \
+        _nbytes(lp, caches, batch)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
@@ -231,10 +237,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     ``mesh``: count on this mesh of the fake group instead of the
     production mesh named by ``multi_pod``."""
     for flag, name in ((seq_shard, "--seq-shard"),
-                       (cache_seq_model, "--cache-seq-model"),
                        (moe_ff2d, "--moe-ff2d")):
         if flag:
-            raise NotImplementedError(f"{name} is not ported yet ({_A6B})")
+            raise NotImplementedError(f"{name} is not ported yet ({_A6B} "
+                                      f"item 4)")
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, reason = shape_applicable(cfg, shape)
@@ -287,14 +293,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
                                              attn_impl=attn_impl)
         else:
             costs, arg_bytes = count_decode(cfg, shape, mesh,
-                                            serve_no_fsdp=serve_no_fsdp)
+                                            serve_no_fsdp=serve_no_fsdp,
+                                            cache_seq_model=cache_seq_model)
         seconds = time.time() - t0
         report = roofline.analyze(costs, cfg=cfg, shape=shape,
                                   mesh_name=mesh_name, chips=chips,
                                   argument_bytes=arg_bytes)
         rec = report.to_dict()
-        plan = sharding.tp_plan(cfg, mesh)
+        seq_axis = _cache_seq(cfg, shape, mesh, cache_seq_model) \
+            if shape.kind == "decode" else None
+        plan = sharding.tp_plan(cfg, mesh,
+                                seq_over_model=seq_axis == "model")
         rec.update(status="ok", accum=accum, seconds=seconds,
+                   cache_seq=seq_axis,
                    tensor_flops=costs.tensor_flops,
                    attention="split" if plan.attn else "whole",
                    fits=arg_bytes + costs.peak_bytes <= H100_MEMORY_BYTES,
@@ -302,10 +313,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
                             for k, w in costs.kernels.items()})
         return done(rec, f"OK    {roofline.format_row(report)}  "
                          f"(count {seconds:.0f}s, accum={accum})")
-    except NotPorted as exc:
-        return done({"status": "not_ported", "reason": str(exc)},
-                    f"PORT  {arch:22s} {shape_name:12s} {mesh_name:6s} "
-                    f"{str(exc)[:160]}")
     except Exception as exc:  # noqa: BLE001 - report and continue the sweep
         return done({"status": "error",
                      "error": f"{type(exc).__name__}: {exc}",
@@ -340,8 +347,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seq-shard", action="store_true",
                     help=f"Megatron-SP activations (not ported: {_A6B})")
     ap.add_argument("--cache-seq-model", action="store_true",
-                    help=f"decode KV cache's sequence over 'model' (not "
-                         f"ported: {_A6B})")
+                    help="decode KV cache's sequence over 'model' (the "
+                         "attention blocks whole, the blocks merged by "
+                         "their softmax statistics)")
     ap.add_argument("--moe-local", action="store_true",
                     help="group-local MoE dispatch (a group per batch "
                          "rank)")
@@ -370,7 +378,7 @@ def main(argv: list[str] | None = None) -> None:
     # One acc object (one calibration cache, one ExecutionModel engine)
     # for the whole sweep, so every cell's plan lands in one trace.
     acc = AdaptiveCoreChunk()
-    n_ok = n_skip = n_port = n_fail = 0
+    n_ok = n_skip = n_fail = 0
     for arch in archs:
         for shape_name in shapes:
             for mp in meshes:
@@ -390,10 +398,9 @@ def main(argv: list[str] | None = None) -> None:
                                plan_only=args.plan_only)
                 n_ok += rec["status"] in ("ok", "planned")
                 n_skip += rec["status"] == "skipped"
-                n_port += rec["status"] == "not_ported"
                 n_fail += rec["status"] == "error"
     print(f"\ndry-run: {n_ok} ok, {n_skip} skipped (documented), "
-          f"{n_port} not ported ({_A6B}), {n_fail} failed")
+          f"{n_fail} failed")
     if args.explain_decisions:
         from ..core.model import ExecutionModel
 

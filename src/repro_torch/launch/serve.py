@@ -34,7 +34,12 @@ shell ``export`` lines and exits:
 ``DATA`` data-parallel replicas of ``MODEL``-way tensor parallelism, one
 process per rank under ``torchrun`` (NCCL on the cards, gloo with
 ``--device cpu``); ``--slots`` rounds up to a multiple of the replicas,
-and only rank 0 prints:
+and only rank 0 prints.  Every arch the scheduler serves takes any model
+extent: each block splits its heads or channels over 'model' where they
+divide and runs whole where they do not (``launch/sharding.tp_plan``;
+zamba2's Mamba2 heads, xlstm's mLSTM heads and sLSTM channels too).  A
+cross-attention arch and ``--frontend`` are refused on a mesh (ROADMAP.md
+A.6b item 5):
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch qwen3-0.6b --reduced --device cpu --mesh 2,2 --no-cal-cache
@@ -312,7 +317,7 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--mesh serves through the scheduler's tick loop: the "
             "cross-attention engine path and --frontend on a mesh wait for "
-            "ROADMAP.md A.6b")
+            "ROADMAP.md A.6b item 5")
     if "cross_attn" in cfg.layer_kinds():
         serve_cross_attention(cfg, params, args, executor, device, tuner)
         finish(None, cache, args, tuner)

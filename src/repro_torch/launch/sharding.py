@@ -24,12 +24,19 @@ layer's leaf has one more leading None than the port's.
 The reference hands specs to ``jax.device_put``, which gives every device
 its block.  Here each rank takes its own block of a full tensor with
 ``local_shard`` / ``local_tree``.  What mesh serving slices is
-``serve_param_specs``: ``param_specs`` with 'data' dropped, except that
-an attention block whose heads do not split over 'model' stays whole on
-every rank (``tp_plan``), where GSPMD would shard a head's dims.  What
-the sharded train step holds is ``train_param_specs``: ``param_specs``
-with the same attention rule ('data' still splitting the leaves), its
-gradients synced as ``grad_reduction`` says.
+``serve_param_specs``: ``param_specs`` with 'data' dropped, laid out for
+the hand-written tensor parallelism (``_tp_spec``): a block whose heads
+or channels do not split over 'model' stays whole on every rank
+(``tp_plan``), where GSPMD would shard a head's dims; a concatenated
+projection splits segment by segment (``Segments``), where the
+reference's contiguous block of its columns would cut across its parts
+and GSPMD would reshard behind it (the Mamba2 ``in_proj``: z, x and Δ by
+heads, B and C replicated; the conv channels alike; the mLSTM ``w_if``
+and the sLSTM ``w_zifo`` gate by gate); zamba2's ``proj`` stays whole.
+What the sharded train step holds is ``train_param_specs``: the same
+layout of ``param_specs`` ('data' still splitting the leaves), its
+gradients synced as ``grad_reduction`` says.  ``param_specs`` and
+``cache_specs`` stay the reference's, rule for rule.
 """
 from __future__ import annotations
 
@@ -229,65 +236,145 @@ def paged_cache_specs(cfg: ArchConfig, mesh, n_slots: int,
 
 
 # ---------------------------------------------------------------------------
-# The port's own: which blocks mesh serving splits, and each rank's block
+# The port's own: which blocks a mesh splits, and each rank's block
 # ---------------------------------------------------------------------------
-
-# Block kinds tensor parallelism covers (a MoE feed-forward too); the
-# others wait for A.6b.
-TP_KINDS = ("attn",)
-
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """What a mesh splits over 'model': attention heads (q and kv heads
-    both divide), the feed-forward hidden dim, the vocabulary (embedding
-    rows, head columns), the experts' hidden dim.  A part that does not
-    divide runs whole on every rank, with no collective."""
+    """What a mesh splits over 'model': attention heads (``attn``, q and
+    kv heads both divide; ``xattn`` the same rule for the cross-attention
+    blocks), the feed-forward hidden dim, the vocabulary (embedding rows,
+    head columns), the experts' hidden dim, the Mamba2 heads (``mamba``),
+    the mLSTM heads (``mlstm``) and the sLSTM channels (``slstm``).  A
+    part that does not divide runs whole on every model rank, with no
+    collective."""
 
     size: int
     attn: bool
     ffn: bool
     vocab: bool
     moe: bool = False
+    mamba: bool = False
+    mlstm: bool = False
+    slstm: bool = False
+    xattn: bool = False
 
 
-def tp_plan(cfg: ArchConfig, mesh) -> TPPlan:
+def tp_plan(cfg: ArchConfig, mesh, *, seq_over_model: bool = False
+            ) -> TPPlan:
     """The tensor-parallel plan of ``cfg`` on ``mesh``'s 'model' axis.
-    Raises ``NotImplementedError`` for a block kind TP does not cover
-    (Mamba2, xLSTM, cross-attention) when the axis is above 1."""
+    ``seq_over_model``: the decode caches hold their sequence over
+    'model' (``cache_specs``), so every model rank needs every q head for
+    its block of rows and the self-attention blocks run whole."""
     m = dict(mesh.shape).get("model", 1)
-    if m > 1:
-        other = sorted(set(cfg.layer_kinds()) - set(TP_KINDS))
-        if other:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism over 'model' covers "
-                f"attention, dense and MoE feed-forward blocks; {other} "
-                f"wait for ROADMAP.md A.6b (use a model extent of 1)")
+    kinds = set(cfg.layer_kinds())
     split_ff = bool(cfg.d_ff) and cfg.d_ff % m == 0
+    heads = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
     return TPPlan(
         size=m,
-        attn=cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0,
+        attn=heads and not seq_over_model,
         ffn=split_ff,
         vocab=cfg.vocab_size % m == 0,
-        moe=split_ff and bool(cfg.n_experts))
+        moe=split_ff and bool(cfg.n_experts),
+        mamba="mamba2" in kinds and cfg.ssm_heads % m == 0,
+        mlstm="mlstm" in kinds and cfg.ssm_heads % m == 0,
+        slstm="slstm" in kinds and cfg.d_inner % m == 0,
+        xattn="cross_attn" in kinds and heads)
 
 
-_ATTN_LEAF = re.compile(r"(^|/)attn/")
+def tensor_parallel(cfg: ArchConfig, mesh, **kw):
+    """This rank's ``models.flags.TensorParallel`` on ``mesh``'s 'model'
+    axis: the plan's flags, the model group and this rank's index."""
+    from ..models import flags
+
+    plan = tp_plan(cfg, mesh, **kw)
+    return flags.TensorParallel(
+        mesh.groups["model"], plan.size, mesh.coord("model"),
+        **{f.name: getattr(plan, f.name)
+           for f in dataclasses.fields(TPPlan) if f.name != "size"})
 
 
-def serve_param_specs(cfg: ArchConfig, params: Any, mesh) -> Any:
-    """The specs mesh serving slices the weights by: ``param_specs`` with
-    'data' dropped (each replica holds a full TP copy), and every leaf of
-    an attention block whose heads do not split (``tp_plan``) whole."""
-    plan = tp_plan(cfg, mesh)
-    specs = param_specs(params, mesh, drop_axes=("data",))
-    if plan.attn:
-        return specs
-    flat = [(path, spec) for (path, _), spec in zip(
-        tree.with_paths(params), spec_leaves(specs), strict=True)]
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry for a dim made of consecutive segments (the columns
+    of a concatenated projection): segment i has ``sizes[i]`` entries and
+    is split over ``axis`` where ``split[i]``, replicated otherwise.  A
+    rank's block is its block of every split segment and the whole of
+    every other, in order (``local_shard``)."""
+
+    axis: str
+    sizes: tuple
+    split: tuple
+
+    def local_sizes(self, n: int) -> tuple:
+        return tuple(s // n if sp else s
+                     for s, sp in zip(self.sizes, self.split, strict=True))
+
+
+def _segments(cfg: ArchConfig, leaf: str) -> Segments | None:
+    """The segment layout of a block leaf whose dim concatenates parts
+    that split differently (or each on its own) over 'model'."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    if leaf == "mamba/in_proj/w":          # z, x, B, C, dt
+        return Segments("model", (di, di, n, n, h),
+                        (True, True, False, False, True))
+    if leaf in ("mamba/conv_w", "mamba/conv_b"):   # x, B, C
+        return Segments("model", (di, n, n), (True, False, False))
+    if leaf == "mlstm/w_if/w":             # i and f, one column a head
+        return Segments("model", (h, h), (True, True))
+    if leaf == "slstm/w_zifo/w":           # z, i, f, o
+        return Segments("model", (di,) * 4, (True,) * 4)
+    return None
+
+
+# A block's leaves by family; each family is its plan flag's name.
+_BLOCK = re.compile(r"(?:^|/)(attn|xattn|mamba|mlstm|slstm)/(.+)$")
+_HEAD_VECTORS = ("a_log", "dt_bias", "d_skip")
+
+
+def _tp_spec(cfg: ArchConfig, plan: TPPlan, path: str, spec: tuple,
+             shape: tuple) -> tuple:
+    """A leaf's spec of ``param_specs`` laid out for the port's
+    hand-written tensor parallelism: a block whose plan flag is false,
+    and the zamba2 ``proj`` of a ``shared_attn`` layer, keep 'model' out
+    of their leaves; a split block's concatenated projections split by
+    segments (``_segments``) and the Mamba2 per-head vectors by heads."""
+    if re.search(r"^layers/\d+/proj/w$", path):
+        return _drop_model(spec)
+    m = _BLOCK.search(path)
+    if m is None:
+        return spec
+    family, leaf = m.group(1), m.group(1) + "/" + m.group(2)
+    if not getattr(plan, family):
+        return _drop_model(spec)
+    if plan.size == 1:
+        return spec
+    seg = _segments(cfg, leaf)
+    if seg is not None:
+        return tuple(spec[:-1]) + (seg,) if len(spec) == len(shape) \
+            else (None,) * (len(shape) - 1) + (seg,)
+    if family == "mamba" and m.group(2) in _HEAD_VECTORS:
+        return ("model",)
+    return spec
+
+
+def _laid_out(cfg: ArchConfig, params: Any, specs: Any,
+              plan: TPPlan) -> Any:
     return tree.unflatten(params, [
-        () if _ATTN_LEAF.search(_path_str(path)) else spec
-        for path, spec in flat])
+        _tp_spec(cfg, plan, _path_str(path), spec, tuple(leaf.shape))
+        for (path, leaf), spec in zip(tree.with_paths(params),
+                                      spec_leaves(specs), strict=True)])
+
+
+def serve_param_specs(cfg: ArchConfig, params: Any, mesh, *,
+                      seq_over_model: bool = False) -> Any:
+    """The specs mesh serving slices the weights by: ``param_specs`` with
+    'data' dropped (each replica holds a full TP copy), laid out by
+    ``_tp_spec``: every leaf of a block the plan (``tp_plan``) leaves
+    whole is whole on every rank."""
+    plan = tp_plan(cfg, mesh, seq_over_model=seq_over_model)
+    specs = param_specs(params, mesh, drop_axes=("data",))
+    return _laid_out(cfg, params, specs, plan)
 
 
 def serve_shardings(cfg: ArchConfig, mesh, params, n_slots: int,
@@ -297,6 +384,19 @@ def serve_shardings(cfg: ArchConfig, mesh, params, n_slots: int,
     pool's cache specs from ``cache_specs``."""
     return (serve_param_specs(cfg, params, mesh),
             cache_specs(cfg, mesh, n_slots, max_len))
+
+
+def cache_seq_axis(cfg: ArchConfig, mesh, global_batch: int,
+                   cache_len: int, *, seq_over_model: bool = False
+                   ) -> str | None:
+    """The mesh axis ``cache_specs`` puts the K/V caches' sequence on
+    ('data' when the batch does not split over the data axes, 'model'
+    under ``seq_over_model``), or None."""
+    for spec in cache_specs(cfg, mesh, global_batch, cache_len,
+                            seq_over_model=seq_over_model):
+        if spec is not None and "k" in spec:
+            return spec["k"][2]
+    return None
 
 
 def _axis_index(mesh, ax) -> tuple[int, int]:
@@ -318,12 +418,34 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
+        if isinstance(ax, Segments):
+            out = _segment_block(out, dim, ax, mesh)
+            continue
         n, idx = _axis_index(mesh, ax)
         if out.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                              f"into {n} blocks ({spec})")
         out = out.chunk(n, dim=dim)[idx]
     return out
+
+
+def _segment_block(t: torch.Tensor, dim: int, seg: Segments, mesh
+                   ) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` under ``seg``."""
+    if sum(seg.sizes) != t.shape[dim]:
+        raise ValueError(f"segments {seg.sizes} do not cover dim {dim} of "
+                         f"{tuple(t.shape)}")
+    n, idx = _axis_index(mesh, seg.axis)
+    pieces = []
+    for piece, split in zip(t.split(list(seg.sizes), dim=dim), seg.split,
+                            strict=True):
+        if split and n > 1:
+            if piece.shape[dim] % n:
+                raise ValueError(f"a segment of {piece.shape[dim]} does "
+                                 f"not split into {n} blocks")
+            piece = piece.chunk(n, dim=dim)[idx]
+        pieces.append(piece)
+    return torch.cat(pieces, dim=dim)
 
 
 def spec_leaves(specs: Any) -> list:
@@ -356,31 +478,51 @@ def _drop_model(spec: tuple) -> tuple:
     return tuple(None if a == "model" else a for a in spec)
 
 
-def train_param_specs(cfg: ArchConfig, params: Any, mesh) -> Any:
+def train_param_specs(cfg: ArchConfig, params: Any, mesh, *,
+                      seq_over_model: bool = False) -> Any:
     """The specs the sharded train step holds the parameters by:
     ``param_specs`` (FSDP over 'data', tensor parallelism over 'model'),
-    except that an attention block whose heads do not split
-    (``tp_plan``) keeps 'model' out of its leaves' specs and runs whole
-    on every model rank, 'data' still splitting them (GSPMD would split a
-    head's dims instead)."""
-    plan = tp_plan(cfg, mesh)
-    specs = param_specs(params, mesh)
-    if plan.attn:
-        return specs
-    return tree.unflatten(params, [
-        _drop_model(spec) if _ATTN_LEAF.search(_path_str(path)) else spec
-        for (path, _), spec in zip(tree.with_paths(params),
-                                   spec_leaves(specs), strict=True)])
+    laid out by ``_tp_spec``: a block whose heads or channels do not
+    split (``tp_plan``) keeps 'model' out of its leaves' specs and runs
+    whole on every model rank, 'data' still splitting them (GSPMD would
+    split a head's dims instead); a split block's concatenated
+    projections split by segments.  ``seq_over_model``: ``tp_plan``'s
+    (the self-attention blocks whole)."""
+    plan = tp_plan(cfg, mesh, seq_over_model=seq_over_model)
+    return _laid_out(cfg, params, param_specs(params, mesh), plan)
 
 
 def split_axes(spec: tuple, mesh) -> tuple[str, ...]:
-    """The axes of extent above 1 that ``spec`` splits its leaf over."""
+    """The axes of extent above 1 that ``spec`` splits its leaf over (a
+    ``Segments`` entry: its axis, where a segment splits)."""
     axes: list[str] = []
     for ax in spec:
+        if isinstance(ax, Segments):
+            ax = ax.axis if any(ax.split) else None
         for a in (ax if isinstance(ax, tuple) else (ax,)):
             if a is not None and mesh.shape.get(a, 1) > 1:
                 axes.append(a)
     return tuple(axes)
+
+
+def split_parts(block: torch.Tensor, spec: tuple, mesh
+                ) -> list[tuple[torch.Tensor, tuple[str, ...]]]:
+    """A rank's ``block`` of a leaf as (part, the axes the part is split
+    over): the block itself with ``split_axes``, or, under a
+    ``Segments`` entry, its split segments and its replicated ones apart
+    (a replicated segment is the same on every rank of the axis)."""
+    for dim, ax in enumerate(spec):
+        if not isinstance(ax, Segments) or mesh.shape.get(ax.axis, 1) == 1:
+            continue
+        rest = tuple(a for i, a in enumerate(spec) if i != dim)
+        other = split_axes(rest, mesh)
+        pieces = block.split(list(ax.local_sizes(mesh.shape[ax.axis])),
+                             dim=dim)
+        out = []
+        for piece, split in zip(pieces, ax.split, strict=True):
+            out.append((piece, other + ((ax.axis,) if split else ())))
+        return out
+    return [(block, split_axes(spec, mesh))]
 
 
 def grad_reduction(spec: tuple, mesh) -> tuple[tuple[str, str], ...]:
@@ -389,7 +531,9 @@ def grad_reduction(spec: tuple, mesh) -> tuple[tuple[str, str], ...]:
     'data' is reduce-scattered over it (the FSDP gather's backward), one
     replicated over 'data' all-reduced; then every leaf all-reduced over
     'pod'.  Nothing is reduced over 'model': each model rank computes
-    its own block, or all of a replicated leaf's gradient.  Every sum is
+    its own block, or all of a replicated leaf's gradient; the forward
+    sums over 'model' what a replicated segment of a split block reads
+    (*f* on the Mamba2 B/C columns, ``models/mamba2.py``).  Every sum is
     then divided by the batch ranks' count (the mean)."""
     out = []
     if "data" in mesh.shape:

@@ -60,6 +60,13 @@ reference's does.
 ``jax.lax.dynamic_update_slice`` clamps a write that would run past the
 cache; here such a write raises instead.
 
+Under a sequence split (``flags.SEQ``: the reference's caches with their
+sequence on 'data' when the batch does not split, or on 'model' under
+``--cache-seq-model``) each rank holds one contiguous block of the rows
+and a decode step runs ``_seq_split_attention``: the new row written on
+its owner, kernel 2 over each block with its rows' log-sum-exp, the
+ranks' results gathered and merged by ``merge_blocks``.
+
 ``cross_attention`` (the vision family's ``cross_attn`` layers) attends
 the frontend features: ``kv_norm`` on them, K/V projected from them,
 non-causal, no rotary embedding.  Without a cache it goes through
@@ -76,6 +83,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import collectives
 from ..configs.base import ArchConfig
 from ..kernels import build
 from ..kernels import ops as kops
@@ -297,12 +305,78 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     return _out(p, out, cd)
 
 
+def merge_blocks(o: torch.Tensor, lse: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention over a cache cut into blocks, from each block's
+    attention and its rows' log-sum-exp: o (n, B, Hq, Sq, D) in any
+    float type, lse (n, B, Hq, Sq) f32, the blocks in order.  Returns
+    (o (B, Hq, Sq, D) in o's type, lse (B, Hq, Sq) f32): each block's
+    output weighted by ``exp(lse - max lse)`` and the weights' sum
+    divided out, in f32, summed in block order (so every rank that
+    merges the same blocks gets the same bits).  A block with no visible
+    key (lse -inf) weighs 0; a row with none in any block gives 0 and
+    -inf, as kernel 2 does."""
+    top = lse.amax(dim=0)
+    base = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse - base)                       # 0 where lse is -inf
+    num = (o.float() * w[..., None]).sum(dim=0)
+    den = w.sum(dim=0)
+    out = torch.where(den[..., None] > 0,
+                      num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
+    return out.to(o.dtype), torch.where(den > 0, base + torch.log(den),
+                                        float("-inf"))
+
+
+def _seq_split_attention(qt: torch.Tensor, kt: torch.Tensor,
+                         vt: torch.Tensor, ck: torch.Tensor,
+                         cv: torch.Tensor, write: CacheWrite,
+                         window: int | None, seq) -> torch.Tensor:
+    """A decode step over a cache whose rows are cut into ``seq.size``
+    contiguous blocks, this rank's ``ck``/``cv`` (B, Hkv, S_r, D) block
+    ``seq.index`` (``flags.SEQ``): the new row is written on the rank
+    that holds its global row (``pos``, or ``pos % S`` in a ring); each
+    rank runs kernel 2 over its block with its own lengths, clamp(len -
+    offset, 0, S_r), and the rows' log-sum-exp out; the ranks' (o, lse),
+    packed in one f32 buffer, are gathered in rank order and merged
+    (``merge_blocks``).  A ring holds exactly the window, so no window
+    mask is applied, as on the per-lane path."""
+    length, blk = qt.shape[2], ck.shape[2]
+    if not isinstance(write.pos, int) or length != 1:
+        raise NotImplementedError(
+            "a cache with its sequence on a mesh axis takes one new row "
+            "at one position for the whole batch (a decode step); prefill "
+            "it row by row")
+    total = blk * seq.size
+    lo = seq.index * blk
+    pos = write.pos
+    at = pos % total if window is not None else pos
+    if pos < 0 or at >= total:
+        raise ValueError(f"cache write at {pos} runs past the cache length "
+                         f"{total}")
+    if lo <= at < lo + blk:
+        ck[:, :, at - lo] = kt[:, :, 0].to(ck.dtype)
+        cv[:, :, at - lo] = vt[:, :, 0].to(cv.dtype)
+    filled = min(pos + 1, total)
+    lens = torch.full((qt.shape[0],), min(max(filled - lo, 0), blk),
+                      dtype=torch.int32, device=qt.device)
+    o, lse = kops.flash_attention(qt, ck, cv, lens, causal=True,
+                                  tuner=flags.KERNEL_TUNER, return_lse=True)
+    # One gather a layer: o (exact in f32) and lse packed side by side.
+    both = collectives.gather_stack(
+        torch.cat([o.float(), lse[..., None]], dim=-1), seq.group, seq.size)
+    return merge_blocks(both[..., :-1], both[..., -1])[0].to(o.dtype)
+
+
 def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
                       ck: torch.Tensor, cv: torch.Tensor, write: CacheWrite,
                       window: int | None) -> torch.Tensor:
     """The contiguous cache's write and attention: qt (B, Hq, L, D); kt,
     vt (B, Hkv, L, D) the new rows; ck, cv (B, Hkv, S, D), a ring of S
-    rows under ``window`` (the module docstring's three cases)."""
+    rows under ``window`` (the module docstring's three cases), or one
+    block of the rows under a sequence split (``flags.SEQ``)."""
+    if flags.SEQ is not None:
+        return _seq_split_attention(qt, kt, vt, ck, cv, write, window,
+                                    flags.SEQ)
     length, s_cache = qt.shape[2], ck.shape[2]
     kt, vt = kt.to(ck.dtype), vt.to(cv.dtype)
     if not isinstance(write.pos, int):
@@ -352,29 +426,45 @@ def cross_attention(p: dict, x: torch.Tensor, kv_feats: torch.Tensor,
                     ) -> torch.Tensor:
     """x: (B, L, d) queries; kv_feats: (B, T, d) frontend embeddings.
     Non-causal, no rotary embedding; q/k-norm only if the config sets
-    it.  ``impl``: ``sdpa``'s ("flash": kernel 2)."""
+    it.  ``impl``: ``sdpa``'s ("flash": kernel 2).  Under a
+    tensor-parallel context that splits the heads (``flags.TP.xattn``)
+    the projections are this rank's heads, ``kv_norm`` runs over the
+    whole features on every rank and ``wo`` is row-parallel."""
     b, length, _ = x.shape
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
-    feats = cm.rmsnorm(p["kv_norm"], kv_feats.to(cd), cfg.norm_eps)
-    q = _heads(cm.linear(p["wq"], x, cd), hd)
+    tp = flags.TP
+    split = tp is not None and tp.xattn
+    # Every rank norms the whole features; its heads read them (*f*).
+    feats = cm.column_input(
+        cm.rmsnorm(p["kv_norm"], kv_feats.to(cd), cfg.norm_eps), split)
+    q = _heads(cm.linear(p["wq"], cm.column_input(x, split), cd), hd)
     k = _heads(cm.linear(p["wk"], feats, cd), hd)
     v = _heads(cm.linear(p["wv"], feats, cd), hd)
     if cfg.qk_norm:
-        q = cm.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = cm.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        q = cm.rmsnorm({"g": cm.column_input(p["q_norm"]["g"], split)}, q,
+                       cfg.norm_eps)
+        k = cm.rmsnorm({"g": cm.column_input(p["k_norm"]["g"], split)}, k,
+                       cfg.norm_eps)
     out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                impl=impl, causal=False)
-    out = out.transpose(1, 2).reshape(b, length, cfg.n_heads * hd)
-    return cm.linear(p["wo"], out, cd)
+    out = out.transpose(1, 2).reshape(b, length, q.shape[2] * hd)
+    return cm.linear_rows(p["wo"], out, cd, split=split)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                window: int | None, dtype: torch.dtype,
-               device: torch.device) -> dict:
+               device: torch.device, tp=None, seq_blocks: int = 1) -> dict:
     """Per-layer ``{"k","v"}`` of shape (B, Hkv, S, D): ``S = max_len``,
-    or under a window the ring's ``min(window, max_len)`` rows."""
+    or under a window the ring's ``min(window, max_len)`` rows.  On a
+    mesh rank: ``tp`` (a plan that splits the attention heads) gives its
+    Hkv / size kv heads, and ``seq_blocks`` its S / seq_blocks rows."""
     s = min(window, max_len) if window is not None else max_len
-    shape = (batch, cfg.n_kv_heads, s, cfg.head_dim_)
+    if s % seq_blocks:
+        raise ValueError(f"{s} cache rows do not split into {seq_blocks} "
+                         f"blocks")
+    hkv = cfg.n_kv_heads // tp.size if tp is not None and tp.attn \
+        else cfg.n_kv_heads
+    shape = (batch, hkv, s // seq_blocks, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

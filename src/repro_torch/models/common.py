@@ -93,11 +93,33 @@ def column_input(x: torch.Tensor, split: bool) -> torch.Tensor:
     """The input of a column-parallel product (``wq``/``wk``/``wv``,
     ``w_up``/``w_gate``, the head, the experts' up products): with a
     tensor-parallel context that splits it, *f* — the same values, and
-    in the backward the model ranks' partial gradients summed."""
+    in the backward the model ranks' partial gradients summed.  Else,
+    under autograd recording, a view: like *f*, it sums its readers'
+    gradients before they join the input's other readers' (zamba2's
+    shared block also adds its input to the residual), so a step sums
+    them in one order with or without a split."""
     tp = flags.TP
     if tp is None or not split:
-        return x
+        return x.view_as(x) if torch.is_grad_enabled() and x.requires_grad \
+            else x
     return collectives.copy_to_model(x, tp.group)
+
+
+def replicated_segment(w: torch.Tensor, lo: int, hi: int,
+                       split: bool) -> torch.Tensor:
+    """``w`` whose last-dim entries ``[lo, hi)`` are replicated over the
+    model group inside a block whose other entries are split (the Mamba2
+    B/C columns and conv channels): under a tensor-parallel context that
+    splits the block and autograd recording, those entries go through
+    *f*, since each model rank's heads read them and hold part of their
+    gradient; ``w`` itself otherwise (no copy)."""
+    tp = flags.TP
+    if tp is None or not split or not (torch.is_grad_enabled()
+                                       and w.requires_grad):
+        return w
+    return torch.cat([w[..., :lo],
+                      collectives.copy_to_model(w[..., lo:hi], tp.group),
+                      w[..., hi:]], dim=-1)
 
 
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:

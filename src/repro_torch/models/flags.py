@@ -20,7 +20,19 @@ lookup plus an ``all_reduce`` and the head's local logits are
 ``lm._head``).  A part its plan leaves whole runs on every rank with no
 collective.  The scheduler sets it around each tick, as it does the
 tuner.  ``TensorParallel.moe`` splits the experts' hidden dim the
-same way (``models/moe.py``).
+same way (``models/moe.py``); ``mamba``, ``mlstm`` and ``slstm`` the
+recurrent blocks' heads or channels, their states holding this rank's
+(``models/mamba2.py``, ``models/xlstm.py``), and ``xattn`` the
+cross-attention heads (``attention.cross_attention``).
+
+``SEQ`` is a ``SeqSplit`` or None.  When set, every K/V cache a cached
+forward reads holds a contiguous block of the cache's rows, the other
+ranks of ``SEQ.group`` the others: a decode step writes its new row on
+the rank that holds it, each rank runs kernel 2 over its rows with the
+softmax statistics out, and the ranks merge (``attention.merge_blocks``;
+the counterpart of the reference's caches with the sequence on 'data'
+or 'model').  The dry run and the lock-step engine set it
+(``serve/engine.make_decode_step``).
 
 ``FSDP`` is an ``FSDPContext`` or None.  When set, every leaf a forward
 reads whose training spec holds 'data' is this rank's block over the
@@ -54,6 +66,7 @@ from typing import Any
 
 KERNEL_TUNER = None
 TP = None
+SEQ = None
 FSDP = None
 MOE_DISPATCH_GROUPS = None
 UNROLL_FOR_ACCOUNTING = False
@@ -73,6 +86,23 @@ class TensorParallel:
     ffn: bool
     vocab: bool
     moe: bool = False
+    mamba: bool = False
+    mlstm: bool = False
+    slstm: bool = False
+    xattn: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """The mesh axis a decode cache holds its sequence over
+    (``launch/sharding.cache_seq_axis``): ``group`` its process group,
+    ``size`` its extent, ``index`` this rank's block of contiguous rows
+    (rows ``[index · S, (index + 1) · S)`` of the cache's global rows, S
+    the rows a rank holds)."""
+
+    group: Any
+    size: int
+    index: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +145,17 @@ def tensor_parallel(tp: TensorParallel | None):
         yield
     finally:
         TP = prev
+
+
+@contextlib.contextmanager
+def cache_seq(seq: SeqSplit | None):
+    global SEQ
+    prev = SEQ
+    SEQ = seq
+    try:
+        yield
+    finally:
+        SEQ = prev
 
 
 @contextlib.contextmanager

@@ -48,7 +48,13 @@ two layers are never alive at once; the embedding and the head gather
 theirs where they are read.  ``forward_cached`` reads the same context,
 so prefill and decode run over FSDP weights too (the dry run's).
 Tensor parallelism (``flags.TP``) splits heads, hidden dims and the
-vocabulary inside the blocks (``models/common.py``).
+vocabulary inside the blocks (``models/common.py``), for every block
+kind: attention (a ``shared_attn`` layer's shared block too, its
+per-layer ``proj`` whole on every rank), cross-attention, Mamba2 and the
+xLSTM blocks, each by its own flag of the plan; a cache holds the local
+heads and channels (``init_caches(..., tp=...)``).  Under a sequence
+split of the caches (``flags.SEQ``) a K/V cache holds one block of the
+rows and decode merges the ranks' blocks (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -470,7 +476,9 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
     # rows (``attention.init_cache``); ring 0: rows are positions.
     store = next((caches[i]["k"] for i, kind in enumerate(cfg.layer_kinds())
                   if kind in ATTN_KINDS), None)
-    ring = store.shape[2] \
+    # Under a sequence split a cache holds one block of the ring's rows.
+    ring = store.shape[2] * (flags.SEQ.size if flags.SEQ is not None
+                             else 1) \
         if window is not None and page_table is None and store is not None \
         else 0
     if per_lane:
@@ -543,31 +551,41 @@ def forward_cached(params: dict, tokens: torch.Tensor, caches: list, pos,
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 window: int | None = None, dtype: torch.dtype | None = None,
-                device: str | torch.device = "cuda") -> list:
+                device: str | torch.device = "cuda", tp=None,
+                seq_blocks: int = 1) -> list:
     """Per layer: ``{"k", "v"}`` for attention (``attention.init_cache``),
     a recurrent layer's state (``init_state``), None for ``cross_attn``
-    (its K/V come from the features at every step)."""
+    (its K/V come from the features at every step).  The local layout of
+    a mesh rank: ``tp`` (a ``launch/sharding.TPPlan`` or
+    ``flags.TensorParallel``) gives this rank's kv heads, where the
+    attention heads split, and its block of each recurrent state's heads
+    or channels; ``seq_blocks`` cuts the K/V rows into that many
+    contiguous blocks, of which this rank holds one (``flags.SEQ``).
+    ``device="meta"`` gives the shapes alone (the dry run's)."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     window = window if window is not None else cfg.attn_window
     return [attention.init_cache(cfg, batch, max_len, window=window,
-                                 dtype=dtype, device=dev)
+                                 dtype=dtype, device=dev, tp=tp,
+                                 seq_blocks=seq_blocks)
             if kind in ATTN_KINDS
             else None if kind == "cross_attn"
-            else init_state(kind, cfg, batch, dtype, dev)
+            else init_state(kind, cfg, batch, dtype, dev, tp=tp)
             for kind in cfg.layer_kinds()]
 
 
 def init_state(kind: str, cfg: ArchConfig, batch: int, dtype: torch.dtype,
-               device: torch.device) -> dict:
+               device: torch.device, tp=None) -> dict:
     """The recurrent state of a ``mamba2`` (``{"ssm", "conv"}``, the conv
     carry in ``dtype``), ``mlstm`` (``{"mem"}``) or ``slstm`` (``{"c",
-    "n", "m"}``) layer, B rows, as its module initialises it."""
+    "n", "m"}``) layer, B rows, as its module initialises it: this
+    rank's heads or channels under a plan ``tp`` that splits them."""
     if kind == "mamba2":
-        return mamba2.init_state(cfg, batch, dtype, device)
+        return mamba2.init_state(cfg, batch, dtype, device, tp=tp)
     if kind == "mlstm":
-        return xlstm.mlstm_init_state(cfg, batch, device)
+        return xlstm.mlstm_init_state(cfg, batch, device, tp=tp)
     if kind == "slstm":
-        return xlstm.slstm_init_state(cfg, batch, device)
+        return xlstm.slstm_init_state(cfg, batch, device, tp=tp)
     raise ValueError(f"block kind {kind!r} has no recurrent state")

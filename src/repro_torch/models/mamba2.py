@@ -10,6 +10,15 @@ updated **in place** (``copy_`` into the tensors given): the pools hold
 it at fixed addresses, which the decode graphs replay against.  A lane
 whose ``keep`` flag is False (a spent lane of a decode step), or that
 ``rows`` leaves out, keeps its state as it was.
+
+Under tensor parallelism (``flags.TP.mamba``) a rank holds its block of
+the heads: its z, x and Δ columns of ``in_proj``, its x conv channels,
+its ``a_log``/``dt_bias``/``d_skip`` and its rows of the row-parallel
+``out_proj``, whose partial products one ``all_reduce`` sums.  B and C
+are shared by every head, so every rank holds their columns and conv
+channels whole (``launch/sharding.Segments``) and computes them; their
+gradient goes through *f* (``common.replicated_segment``).  The states
+hold the local heads and channels.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import common as cm
-from . import gla
+from . import flags, gla
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -40,10 +49,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b.float()).to(x.dtype), new_state
 
 
-def _project(p: dict, xin: torch.Tensor, cfg: ArchConfig):
-    """``in_proj`` split into z (the gate), x, B, C and the raw Δ."""
-    di, n = cfg.d_inner, cfg.ssm_state
-    zxbcdt = cm.linear(p["in_proj"], xin, getattr(torch, cfg.compute_dtype))
+def _project(p: dict, xin: torch.Tensor, cfg: ArchConfig, di: int,
+             split: bool):
+    """``in_proj`` split into z (the gate), x, B, C and the raw Δ, over
+    ``di`` inner channels (this rank's); B and C are the replicated
+    columns (``common.replicated_segment``)."""
+    n = cfg.ssm_state
+    w = cm.replicated_segment(p["in_proj"]["w"], 2 * di, 2 * di + 2 * n,
+                              split)
+    zxbcdt = cm.linear({"w": w}, cm.column_input(xin, split),
+                       getattr(torch, cfg.compute_dtype))
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di],
             zxbcdt[..., 2 * di:2 * di + n],
             zxbcdt[..., 2 * di + n:2 * di + 2 * n],
@@ -80,14 +95,19 @@ def apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     compute dtype.  With ``state`` the L new tokens run one recurrent
     step each from it, and it is updated in place (``keep`` / ``rows``:
     the lanes that write, see the module docstring)."""
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hd = cfg.ssm_head_dim
+    # The heads this rank holds: all of them, or its block under tensor
+    # parallelism (``flags.TP.mamba``), whose parameters are its blocks.
+    h, n, hd = p["a_log"].shape[0], cfg.ssm_state, cfg.ssm_head_dim
+    di = h * hd
     cd = getattr(torch, cfg.compute_dtype)
-    z, x, b_, c_, dt_raw = _project(p, xin, cfg)
+    tp = flags.TP
+    split = tp is not None and tp.mamba
+    z, x, b_, c_, dt_raw = _project(p, xin, cfg, di, split)
 
     conv_in = torch.cat([x, b_, c_], dim=-1)
     conv_out, new_conv = _causal_conv(
-        conv_in, p["conv_w"], p["conv_b"],
+        conv_in, cm.replicated_segment(p["conv_w"], di, di + 2 * n, split),
+        cm.replicated_segment(p["conv_b"], di, di + 2 * n, split),
         None if state is None else state["conv"])
     x = conv_out[..., :di]
     b_ = conv_out[..., di:di + n]
@@ -130,15 +150,19 @@ def apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(bsz, length, di).to(cd)
     y = y * F.silu(z.float()).to(cd)
-    return cm.linear(p["out_proj"], y, cd)
+    return cm.linear_rows(p["out_proj"], y, cd, split=split)
 
 
 def init_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
-               device: torch.device) -> dict:
+               device: torch.device, tp=None) -> dict:
     """``ssm`` (B, H, N, P) f32 and the conv carry (B, W-1, C) in
-    ``dtype``, zeroed."""
-    h, n, hd = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    conv_ch = cfg.d_inner + 2 * n
+    ``dtype``, zeroed; under a tensor-parallel plan ``tp`` that splits
+    the heads, this rank's H / size heads and their x channels (B and C
+    whole)."""
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    h = cfg.ssm_heads // tp.size if tp is not None and tp.mamba \
+        else cfg.ssm_heads
+    conv_ch = h * hd + 2 * n
     return {"ssm": torch.zeros((batch, h, n, hd), dtype=torch.float32,
                                device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch),

@@ -19,7 +19,15 @@ served sequence starts ``m`` at 0 (ROADMAP.md, faults of the reference).
 
 A state is updated **in place** (``copy_`` into the tensors given), the
 lanes ``keep`` drops or ``rows`` leaves out unchanged, as
-``models/mamba2.py`` does.  Plain PyTorch: the reference's xLSTM is
+``models/mamba2.py`` does.
+
+Under tensor parallelism a rank holds its block of the mLSTM heads
+(``flags.TP.mlstm``: its columns of ``wq``/``wk``/``wv``/``w_o``, its
+heads' i and f columns of ``w_if``, the ones-column normaliser per head)
+or of the sLSTM channels (``flags.TP.slstm``: its block of each of
+``w_zifo``'s four gates); the input goes through *f*, ``out_proj`` is
+row-parallel (one ``all_reduce``), and the states hold the local heads
+or channels.  Plain PyTorch: the reference's xLSTM is
 plain ``jnp`` and reaches no Pallas kernel.
 """
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import common as cm
-from . import gla
+from . import flags, gla
 from .mamba2 import _lane_mask, _store
 
 SLSTM_M0 = -1e30
@@ -51,8 +59,13 @@ def mlstm_apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     compute dtype; with ``state`` {"mem"} the L tokens step it, in
     place."""
     bsz, length, _ = xin.shape
-    di, h, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    # The heads this rank holds (all, or its block: ``flags.TP.mlstm``).
+    h, hd = p["w_if"]["w"].shape[-1] // 2, cfg.ssm_head_dim
+    di = h * hd
     cd = getattr(torch, cfg.compute_dtype)
+    tp = flags.TP
+    split = tp is not None and tp.mlstm
+    xin = cm.column_input(xin, split)
     q = cm.linear(p["wq"], xin, cd).view(bsz, length, h, hd) * (hd ** -0.5)
     k = cm.linear(p["wk"], xin, cd).view(bsz, length, h, hd)
     v = cm.linear(p["wv"], xin, cd).view(bsz, length, h, hd)
@@ -84,13 +97,16 @@ def mlstm_apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     num, den = y1[..., :hd], y1[..., hd:]
     yh = num / torch.clamp(den.abs(), min=1.0)
     y = (o.view(bsz, length, h, hd) * yh).reshape(bsz, length, di).to(cd)
-    return cm.linear(p["out_proj"], y, cd)
+    return cm.linear_rows(p["out_proj"], y, cd, split=split)
 
 
-def mlstm_init_state(cfg: ArchConfig, batch: int,
-                     device: torch.device) -> dict:
-    """``mem`` (B, H, P, P + 1) f32, zeroed."""
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+def mlstm_init_state(cfg: ArchConfig, batch: int, device: torch.device,
+                     tp=None) -> dict:
+    """``mem`` (B, H, P, P + 1) f32, zeroed (this rank's H / size heads
+    under a plan ``tp`` that splits them)."""
+    hd = cfg.ssm_head_dim
+    h = cfg.ssm_heads // tp.size if tp is not None and tp.mlstm \
+        else cfg.ssm_heads
     return {"mem": torch.zeros((batch, h, hd, hd + 1), dtype=torch.float32,
                                device=device)}
 
@@ -106,17 +122,22 @@ def slstm_apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     compute dtype; with ``state`` {"c", "n", "m"} the L tokens step from
     it and it is updated in place, else they step from a fresh state."""
     bsz, length, _ = xin.shape
-    di = cfg.d_inner
+    # The channels this rank holds (all, or its block: ``flags.TP.slstm``);
+    # the recurrence is per channel, so none is read across ranks.
+    di = p["w_zifo"]["w"].shape[-1] // 4
     cd = getattr(torch, cfg.compute_dtype)
-    zifo = cm.linear(p["w_zifo"], xin, cd).float()
+    tp = flags.TP
+    split = tp is not None and tp.slstm
+    zifo = cm.linear(p["w_zifo"], cm.column_input(xin, split), cd).float()
     z = torch.tanh(zifo[..., :di])
     i_raw = zifo[..., di:2 * di]
     log_f = F.logsigmoid(zifo[..., 2 * di:3 * di])
     o = torch.sigmoid(zifo[..., 3 * di:])
 
     if state is None:
-        fresh = slstm_init_state(cfg, bsz, xin.device)
-        c, n, m = fresh["c"], fresh["n"], fresh["m"]
+        c = torch.zeros((bsz, di), dtype=torch.float32, device=xin.device)
+        n = torch.zeros_like(c)
+        m = torch.full_like(c, SLSTM_M0)
     else:
         c, n, m = state["c"], state["n"], state["m"]
     hs = []
@@ -134,13 +155,15 @@ def slstm_apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
         for name, new in (("c", c), ("n", n), ("m", m)):
             _store(state[name], new, mask)
     h = torch.stack(hs, dim=1) * o
-    return cm.linear(p["out_proj"], h.to(cd), cd)
+    return cm.linear_rows(p["out_proj"], h.to(cd), cd, split=split)
 
 
-def slstm_init_state(cfg: ArchConfig, batch: int,
-                     device: torch.device) -> dict:
-    """``c``, ``n`` (B, d_inner) f32 zeroed, ``m`` at -1e30."""
-    di = cfg.d_inner
+def slstm_init_state(cfg: ArchConfig, batch: int, device: torch.device,
+                     tp=None) -> dict:
+    """``c``, ``n`` (B, d_inner) f32 zeroed, ``m`` at -1e30 (this rank's
+    d_inner / size channels under a plan ``tp`` that splits them)."""
+    di = cfg.d_inner // tp.size if tp is not None and tp.slstm \
+        else cfg.d_inner
     return {"c": torch.zeros((batch, di), dtype=torch.float32,
                              device=device),
             "n": torch.zeros((batch, di), dtype=torch.float32,

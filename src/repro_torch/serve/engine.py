@@ -13,9 +13,17 @@ forward of the batch, where the ``cross_attn`` layers attend them.
 the one-shot prefill over the full-sequence ``lm.forward``.  A
 ``kernel_tuner`` (the measured kernel plans) applies around every
 forward of both paths, as the reference applies it around its traces.
+
+On a mesh (``mesh``) the lock-step batch runs on this rank's
+tensor-parallel blocks (every block kind, by the plan) and every data
+replica runs the whole batch, except that a batch that does not split
+over 'data' puts the caches' sequence there, as the reference's
+``cache_specs`` do (``cache_seq_model``: on 'model'); such a cache is
+prefilled one row a step (``models/attention.py``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -52,15 +60,31 @@ def prefill_segments(s: int, chunk: int, *, pos: int = 0,
     return segs
 
 
+def _contexts(tp, seq) -> contextlib.ExitStack:
+    """The mesh contexts a step runs under: ``tp`` (a
+    ``flags.TensorParallel``) and ``seq`` (a ``flags.SeqSplit``) where
+    given; what the caller's context holds where None."""
+    stack = contextlib.ExitStack()
+    if tp is not None:
+        stack.enter_context(flags.tensor_parallel(tp))
+    if seq is not None:
+        stack.enter_context(flags.cache_seq(seq))
+    return stack
+
+
 def make_decode_step(cfg: ArchConfig, *, window: int | None = None,
-                     kernel_tuner=None) -> Callable:
+                     kernel_tuner=None, tp=None, seq=None) -> Callable:
     """``(params, caches, tokens (B, L), pos, frontend_feats=None) ->
     (logits (B, 1, V), caches)``: one cached forward at position ``pos``
     (an int), the caches updated in place, under ``kernel_tuner`` (or
-    the one ``models.flags`` holds)."""
+    the one ``models.flags`` holds).  A mesh rank's step: ``tp`` and
+    ``seq`` (``_contexts``), the params its blocks and the caches its
+    local layout (``lm.init_caches(..., tp=..., seq_blocks=...)``); a
+    cache with its sequence on a mesh axis takes one row a step."""
 
     def decode_step(params, caches, tokens, pos, frontend_feats=None):
-        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER):
+        with flags.kernel_tuner(kernel_tuner or flags.KERNEL_TUNER), \
+                _contexts(tp, seq):
             return lm.forward_cached(params, tokens, caches, pos, cfg,
                                      window=window,
                                      frontend_feats=frontend_feats)
@@ -69,18 +93,39 @@ def make_decode_step(cfg: ArchConfig, *, window: int | None = None,
 
 
 def make_prefill_step(cfg: ArchConfig, *, window: int | None = None,
-                      attn_impl: str = "chunked") -> Callable:
+                      attn_impl: str = "chunked", tp=None) -> Callable:
     """One-shot prefill: ``(params, batch {"tokens": (B, S)}) -> logits
     (B, 1, V)`` of the last position, from the full-sequence forward (no
     cache is written).  ``attn_impl="flash"`` runs kernel 2 on the card;
-    call it under ``torch.no_grad()`` when the parameters require grad."""
+    call it under ``torch.no_grad()`` when the parameters require grad.
+    ``tp``: a mesh rank's tensor-parallel context, its params its
+    blocks."""
 
     def prefill_step(params, batch):
-        logits, _ = lm.forward(params, batch, cfg, window=window,
-                               attn_impl=attn_impl)
+        with _contexts(tp, None):
+            logits, _ = lm.forward(params, batch, cfg, window=window,
+                                   attn_impl=attn_impl)
         return logits[:, -1:]
 
     return prefill_step
+
+
+def _seq_split(cfg: ArchConfig, mesh, batch: int, rows: int,
+               cache_seq_model: bool) -> tuple[str | None,
+                                               flags.SeqSplit | None]:
+    """(axis, split): the mesh axis the lock-step caches of ``rows`` rows
+    hold their sequence on, as ``cache_specs`` names it (on 'data' when
+    the batch does not split over it, on 'model' with
+    ``cache_seq_model``), and its ``flags.SeqSplit``; (None, None) where
+    they keep it whole or off a mesh."""
+    if mesh is None:
+        return None, None
+    from ..launch import sharding
+
+    axis = sharding.cache_seq_axis(cfg, mesh, batch, rows,
+                                   seq_over_model=cache_seq_model)
+    return axis, None if axis is None else flags.SeqSplit(
+        mesh.groups[axis], mesh.shape[axis], mesh.coord(axis))
 
 
 class ServeEngine:
@@ -92,7 +137,8 @@ class ServeEngine:
                  acc: AdaptiveCoreChunk | None = None,
                  executor=None, kernel_tuner=None,
                  dispatch_depth: int | str | None = None,
-                 mesh=None, device: str | torch.device = "cuda"):
+                 mesh=None, cache_seq_model: bool = False,
+                 device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.params = params
         self.window = window if window is not None else cfg.attn_window
@@ -107,16 +153,44 @@ class ServeEngine:
         self.kernel_tuner = kernel_tuner
         self._caches = None   # lazy: the scheduled path never builds it
         self.pos = 0
-        self._decode = make_decode_step(cfg, window=self.window,
-                                        kernel_tuner=kernel_tuner)
+        self._seq_axis, self.seq = _seq_split(
+            cfg, mesh, batch, min(self.window, max_len) if self.window
+            else max_len, cache_seq_model)
+        self._lock = None   # lazy: (params, tp, decode step), lock-step path
         self._sched = None   # lazily built, reused across generate() calls
+
+    def _lockstep(self) -> tuple:
+        """(params, tensor-parallel context, decode step) of the lock-step
+        batch, built on its first use.  Off a mesh: the params, None and
+        the plain step.  On one: this rank's tensor-parallel blocks
+        (``serve_param_specs``), every data replica running the whole
+        batch; with the caches' sequence on 'model' (``self.seq``) the
+        attention runs whole."""
+        if self._lock is None:
+            params, tp = self.params, None
+            if self.mesh is not None:
+                from ..launch import sharding
+
+                whole = self._seq_axis == "model"
+                params = sharding.local_tree(
+                    self.params, sharding.serve_param_specs(
+                        self.cfg, self.params, self.mesh,
+                        seq_over_model=whole), self.mesh)
+                tp = sharding.tensor_parallel(self.cfg, self.mesh,
+                                              seq_over_model=whole)
+            self._lock = (params, tp, make_decode_step(
+                self.cfg, window=self.window, kernel_tuner=self.kernel_tuner,
+                tp=tp, seq=self.seq))
+        return self._lock
 
     @property
     def caches(self) -> list:
         if self._caches is None:
-            self._caches = lm.init_caches(self.cfg, self.batch, self.max_len,
-                                          window=self.window,
-                                          device=self.device)
+            _, tp, _ = self._lockstep()
+            self._caches = lm.init_caches(
+                self.cfg, self.batch, self.max_len, window=self.window,
+                device=self.device, tp=tp,
+                seq_blocks=1 if self.seq is None else self.seq.size)
         return self._caches
 
     @caches.setter
@@ -142,20 +216,28 @@ class ServeEngine:
         feats = self._feats(frontend_feats)
         tokens = self._tokens(tokens)
         s = tokens.shape[1]
+        params, _, decode = self._lockstep()
+        if self.seq is not None:
+            chunk = 1       # a sequence-split cache takes one row a step
         if chunk is None:
             from ..train.autotune import token_profile
 
-            d = self.acc.decide_for_profile(
-                self.executor, token_profile(self.cfg, training=False), s)
-            chunk = max(min(d.chunk_elems, s), 1)
+            def decide():
+                return self.acc.decide_for_profile(
+                    self.executor, token_profile(self.cfg, training=False),
+                    s).chunk_elems
+
+            # On a mesh every rank must run the same chunks: mesh rank 0
+            # decides (a decision may read timings, which differ).
+            chunk = max(min(decide() if self.mesh is None
+                            else self.mesh.agree(decide), s), 1)
 
         def step_for(start: int, step: int):
             piece = tokens[:, start:start + step]
 
             def run(state):
                 _, caches, pos = state
-                logits, caches = self._decode(self.params, caches, piece,
-                                              pos, feats)
+                logits, caches = decode(params, caches, piece, pos, feats)
                 return logits, caches, pos + step
 
             return run
@@ -171,9 +253,9 @@ class ServeEngine:
         """One forward of ``tokens`` (B, L) at the engine's position;
         returns its last logits (B, 1, V)."""
         tokens = self._tokens(tokens)
-        logits, self.caches = self._decode(self.params, self.caches, tokens,
-                                           self.pos,
-                                           self._feats(frontend_feats))
+        params, _, decode = self._lockstep()
+        logits, self.caches = decode(params, self.caches, tokens, self.pos,
+                                     self._feats(frontend_feats))
         self.pos += tokens.shape[1]
         return logits
 
@@ -182,10 +264,12 @@ class ServeEngine:
         """Greedy generation; ``prompt`` (B, S); returns (B, n_new) long
         token ids on the host.  Through the scheduler (one request per
         row) while the engine holds no cache state, the arch has no
-        ``cross_attn`` layer and no features are given; else the
-        lock-step batch loop, as in the reference."""
+        ``cross_attn`` layer, no features are given and the caches keep
+        their sequence whole; else the lock-step batch loop, as in the
+        reference."""
         if frontend_feats is None and self.pos == 0 \
-                and "cross_attn" not in self.cfg.layer_kinds():
+                and "cross_attn" not in self.cfg.layer_kinds() \
+                and self.seq is None:
             return self._generate_scheduled(prompt, n_new)
         return self._generate_lockstep(prompt, n_new, frontend_feats)
 

@@ -40,7 +40,9 @@ the paged pool reuses no prefix for an arch that has one
 With ``mesh`` (a ``launch.mesh.Mesh`` of ('data', 'model')) each rank
 holds its part, by ``launch/sharding.cache_specs`` and
 ``paged_cache_specs``: K/V heads split over 'model' where the attention
-heads do (``sharding.tp_plan``); the slot pool holds only its replica's
+heads do (``sharding.tp_plan``), and a recurrent state's heads or
+channels where its block's do (Mamba2's conv carry: this rank's x
+channels and the B/C channels whole); the slot pool holds only its replica's
 slot group (``lanes``, ``n_slots / data`` rows); the paged pool holds
 every page (replicated over 'data': prefix sharing lets any lane map
 any page) and its replica's slot group of recurrent state rows.  The
@@ -129,13 +131,17 @@ def serve_mesh_replicas(mesh, n_slots: int) -> int:
 
 class _MeshPart:
     """A pool's place on a serving mesh: its replica's slot group
-    ``[lo, lo + local)`` of ``n_slots``, the data group, and the config
-    its caches are laid out by (kv heads: this rank's block)."""
+    ``[lo, lo + local)`` of ``n_slots``, the data group, and the
+    tensor-parallel plan its caches are laid out by (``plan``: this
+    rank's kv heads and each recurrent state's heads or channels,
+    ``lm.init_caches(..., tp=plan)``; ``kv_heads``: the kv heads it
+    holds)."""
 
     def __init__(self, cfg: ArchConfig, n_slots: int, mesh):
         if mesh is None:
             self.mesh, self.replica, self.n_replicas = None, 0, 1
-            self.lo, self.local, self.cfg = 0, n_slots, cfg
+            self.lo, self.local, self.plan = 0, n_slots, None
+            self.kv_heads = cfg.n_kv_heads
             return
         from ..launch import sharding
 
@@ -144,10 +150,9 @@ class _MeshPart:
         self.local = n_slots // self.n_replicas
         self.replica = mesh.coord("data")
         self.lo = self.replica * self.local
-        plan = sharding.tp_plan(cfg, mesh)
-        kv = cfg.n_kv_heads // plan.size if plan.attn else cfg.n_kv_heads
-        self.cfg = dataclasses.replace(cfg, n_kv_heads=kv,
-                                       head_dim=cfg.head_dim_)
+        self.plan = plan = sharding.tp_plan(cfg, mesh)
+        self.kv_heads = cfg.n_kv_heads // plan.size if plan.attn \
+            else cfg.n_kv_heads
 
     @property
     def lanes(self) -> slice:
@@ -182,9 +187,9 @@ class SlotKVCachePool:
         self.n_slots = n_slots
         self.max_len = max_len
         self.window = window if window is not None else cfg.attn_window
-        self.caches = lm.init_caches(self.part.cfg, self.part.local, max_len,
+        self.caches = lm.init_caches(cfg, self.part.local, max_len,
                                      window=self.window, dtype=dtype,
-                                     device=self.device)
+                                     device=self.device, tp=self.part.plan)
         self.kinds = tuple(cfg.layer_kinds())
         self._layout_sig = _layout(self.caches)
         self.allocations = 1            # init_caches calls ever made
@@ -423,14 +428,14 @@ class PagedKVCachePool:
         if self.n_pages < 2:
             raise ValueError(f"n_pages must be >= 2, got {self.n_pages}")
         dtype = dtype or lm.compute_dtype(cfg)
-        shape = (self.n_pages * ps, self.part.cfg.n_kv_heads, cfg.head_dim_)
+        shape = (self.n_pages * ps, self.part.kv_heads, cfg.head_dim_)
         self.kinds = tuple(cfg.layer_kinds())
         self.caches = [
             {"k": torch.zeros(shape, dtype=dtype, device=self.device),
              "v": torch.zeros(shape, dtype=dtype, device=self.device)}
             if kind in lm.ATTN_KINDS
             else lm.init_state(kind, cfg, self.part.local, dtype,
-                               self.device)
+                               self.device, tp=self.part.plan)
             for kind in self.kinds]
         self._layout_sig = _layout(self.caches)
         self.allocations = 1            # store allocations ever made
@@ -534,15 +539,16 @@ class PagedKVCachePool:
         bookkeeping).  One ``all_gather`` over the data group of each
         replica's rows of every attention store, padded to the longest
         list with scratch rows, then copied into place.  Nothing to do
-        with one replica: no other copy exists."""
+        with one replica (no other copy exists) or no attention layer (an
+        xLSTM stack: its states are slot rows of each replica's own)."""
         part = self.part
         if part.mesh is None or part.n_replicas == 1:
             return
         width = max(len(r) for r in rows)
-        if width == 0:
-            return
         stores = [t for kind, c in zip(self.kinds, self.caches, strict=True)
                   if kind in lm.ATTN_KINDS for t in (c["k"], c["v"])]
+        if width == 0 or not stores:
+            return
         mine = rows[part.replica]
         idx = host_to_device(mine + [0] * (width - len(mine)), torch.long,
                              self.device)

@@ -242,10 +242,7 @@ class ServeScheduler:
                     "(ROADMAP.md A.6b); serve it with a data extent of 1")
             self.mesh_desc = "x".join(
                 str(mesh.shape[a]) for a in mesh.axis_names)
-            plan = sharding.tp_plan(cfg, mesh)
-            self.tp = flags.TensorParallel(
-                mesh.groups["model"], plan.size, mesh.coord("model"),
-                plan.attn, plan.ffn, plan.vocab, plan.moe)
+            self.tp = sharding.tensor_parallel(cfg, mesh)
             self.params = sharding.local_tree(
                 params, sharding.serve_param_specs(cfg, params, mesh), mesh)
         self.slots_per_replica = n_slots // self.n_replicas

@@ -17,6 +17,11 @@ step on its own blocks (SPMD), and the collectives are written out:
   (``models/lm.py``, ``models/common.py``, under ``flags.fsdp`` and
   ``flags.tensor_parallel``); the gathers' backward reduce-scatters the
   gradients of the FSDP leaves over 'data';
+* every block kind splits over 'model' by its own flag of the plan
+  (``sharding.tp_plan``: attention and cross-attention heads, Mamba2 and
+  mLSTM heads, sLSTM channels) or runs whole; a segment of a split leaf
+  that every model rank holds whole (the Mamba2 B/C columns) has its
+  gradient summed over 'model' by *f* in the forward, and nowhere else;
 * the gradients of the leaves replicated over 'data' are all-reduced
   over it, every gradient over 'pod', and every sum divided by the
   batch ranks' count: the mean the reference's loss takes over the
@@ -61,17 +66,16 @@ def batch_ranks(mesh) -> tuple[Any, int, int]:
         i_pod * n_data + i_data
 
 
-def contexts(cfg: ArchConfig, mesh, specs: Any
+def contexts(cfg: ArchConfig, mesh, specs: Any, *,
+             split_at_one: bool = False, **plan
              ) -> tuple[flags.TensorParallel | None, flags.FSDPContext]:
     """The model-layer contexts of this rank on ``mesh``: tensor
-    parallelism over 'model' (None at an extent of 1) and FSDP over
-    'data', with the batch ranks."""
-    plan = sharding.tp_plan(cfg, mesh)
-    tp = None
-    if plan.size > 1:
-        tp = flags.TensorParallel(mesh.groups["model"], plan.size,
-                                  mesh.coord("model"), plan.attn, plan.ffn,
-                                  plan.vocab, plan.moe)
+    parallelism over 'model' (None at an extent of 1 unless
+    ``split_at_one``; ``plan``: ``sharding.tp_plan``'s keywords) and
+    FSDP over 'data', with the batch ranks."""
+    m = mesh.shape.get("model", 0)
+    tp = sharding.tensor_parallel(cfg, mesh, **plan) \
+        if m > 1 or (m == 1 and split_at_one) else None
     data, n_data, i_data = _axis(mesh, "data")
     batch, n, idx = batch_ranks(mesh)
     return tp, flags.FSDPContext(data, n_data, i_data, specs, batch, n, idx)
@@ -121,11 +125,13 @@ def global_norm(grads: list[torch.Tensor], specs: list, mesh
     """The norm of the whole gradient from this rank's blocks: each
     leaf's f32 sum of squares, summed over the axes its spec splits it
     on, so that every element counts once (a leaf replicated over
-    'model' is not counted once per model rank).  With nothing split it
+    'model' is not counted once per model rank, nor a replicated segment
+    of a split leaf: ``sharding.split_parts``).  With nothing split it
     is ``adamw.global_norm``."""
     classes: dict[tuple[str, ...], list[torch.Tensor]] = {}
     for g, spec in zip(grads, specs, strict=True):
-        classes.setdefault(sharding.split_axes(spec, mesh), []).append(g)
+        for part, axes in sharding.split_parts(g, spec, mesh):
+            classes.setdefault(axes, []).append(part)
     if set(classes) <= {()}:
         return adamw.global_norm(grads)
     total = None
@@ -142,17 +148,21 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                             mesh, *, accum: int = 1,
                             attn_impl: str = "chunked", remat: bool = True,
                             accum_dtype: str = "float32",
-                            lr_fn: Callable | None = None) -> Callable:
+                            lr_fn: Callable | None = None,
+                            split_at_one: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (params, opt_state, metrics)`` run
     by every rank of ``mesh`` on its blocks (``shard_train_state``) and
     rows (``shard_batch``); the blocks are updated in place, as
     ``make_train_step`` updates whole tensors.  ``metrics["loss"]`` is
     the global batch's mean loss, ``metrics["grad_norm"]`` the whole
-    gradient's norm, on every rank."""
+    gradient's norm, on every rank.  ``split_at_one``: at a 'model'
+    extent of 1 the blocks still run their tensor-parallel paths, with
+    one-rank collectives (the vocab gather copies the logits), which
+    checks those paths on one card; off, the step pays none of them."""
     pspec, _ = train_specs(cfg, mesh)
     specs = sharding.spec_leaves(pspec)
     reductions = [sharding.grad_reduction(s, mesh) for s in specs]
-    tp, fsdp = contexts(cfg, mesh, pspec)
+    tp, fsdp = contexts(cfg, mesh, pspec, split_at_one=split_at_one)
     loss_fn = train_loop.make_loss_fn(cfg, attn_impl=attn_impl, remat=remat)
     adt = getattr(torch, accum_dtype)
     n = fsdp.batch_size

@@ -40,8 +40,14 @@ CELLS = [
     ("c", "mixtral-8x22b", "train_4k", False,
      {"accum": 2, "moe_local": True, "tag": "local"}),
     ("d", "grok-1-314b", "decode_32k", True, {}),
-    ("d", "zamba2-1.2b", "train_4k", False, {}),
     ("d", "qwen3-0.6b", "long_500k", False, {}),
+    # The Mamba2 blocks split over 'model' (counted for real: ~50 s, a
+    # group of its own).
+    ("e", "zamba2-1.2b", "train_4k", False, {"accum": 2}),
+    # Caches with the sequence on a mesh axis: 'data' (batch 1), 'model'.
+    ("f", "h2o-danube-1.8b", "long_500k", False, {}),
+    ("f", "qwen1.5-32b", "decode_32k", False,
+     {"cache_seq_model": True, "tag": "seqmodel"}),
 ]
 
 SCRIPT = textwrap.dedent("""
@@ -235,16 +241,38 @@ def test_decode_cell_counts_over_fsdp_weights_on_two_pods(runs):
 
 
 def test_unported_and_inapplicable_cells(runs):
-    """zamba2's Mamba2 blocks on 'model' 16 are ``not_ported``, naming
-    A.6b; a full-attention arch at ``long_500k`` is ``skipped`` with the
+    """No cell is ``not_ported`` any more: zamba2's Mamba2 blocks split
+    over 'model' 16 (``ok``, the Mamba2 heads split, the shared attention
+    too), and danube's ``long_500k`` decode at batch 1 holds its ring's
+    rows over 'data' (``ok``, ``cache_seq`` 'data', kernel 2 counted); a
+    full-attention arch at ``long_500k`` is ``skipped`` with the
     reference's reason."""
     rec = _cell(runs, "zamba2-1.2b", "train_4k", "single")
-    assert rec["status"] == "not_ported" and "A.6b" in rec["reason"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["attention"] == "split" and rec["tensor_flops"] > 0
+    rec = _cell(runs, "h2o-danube-1.8b", "long_500k", "single")
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cache_seq"] == "data" and "flash_attention" in rec["kernels"]
+    assert rec["collective_detail"]["counts"]["all-gather"] > 0
     rec = _cell(runs, "qwen3-0.6b", "long_500k", "single")
     ok, reason = jshape_applicable(jax_config("qwen3-0.6b"),
                                    JSHAPES["long_500k"])
     assert not ok and rec == {"cell": "qwen3-0.6b__long_500k__single",
                               "status": "skipped", "reason": reason}
+
+
+def test_cache_seq_model_fits_qwen15_decode(runs):
+    """``--cache-seq-model``: qwen1.5-32b's decode_32k cache holds its
+    sequence over 'model' (its 40 kv heads do not split over 16), the
+    attention blocks whole, and rank 0's step fits the card: the cache a
+    rank holds is 64 layers x K and V x 8 rows x 40 heads x 2048 x 128 x
+    2 bytes = 21.5 GB."""
+    rec = _cell(runs, "qwen1.5-32b", "decode_32k", "single", "seqmodel")
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cache_seq"] == "model" and rec["attention"] == "whole"
+    assert rec["fits"] is True
+    cache = 64 * 2 * 8 * 40 * (32768 // 16) * 128 * 2
+    assert cache <= rec["argument_bytes"] <= 80e9
 
 
 def test_production_meshes_on_the_fake_group(runs):

@@ -31,6 +31,7 @@ import nothing of JAX, the references are computed in the parent.
 """
 import contextlib
 import dataclasses
+import importlib
 import pickle
 import queue
 import traceback
@@ -56,7 +57,10 @@ def _worker(rank, world, init, scenario, args, out):
         mesh_lib.init_distributed("cpu", init_method=init, rank=rank,
                                   world_size=world, timeout_s=COLLECTIVE_S)
         torch.set_num_threads(1)
-        result = globals()[scenario](rank, *args)
+        module, _, name = scenario.rpartition(":")
+        fn = vars(importlib.import_module(module))[name] if module \
+            else globals()[name]
+        result = fn(rank, *args)
         out.put((rank, "ok", pickle.dumps(result)))
     except Exception:                        # reported to the parent
         out.put((rank, "error", traceback.format_exc()))
@@ -68,10 +72,12 @@ def _worker(rank, world, init, scenario, args, out):
 
 
 def spawn(tmp_path, scenario: str, world: int, *args) -> dict:
-    """``scenario(rank, *args)`` on ``world`` gloo ranks: {rank: result}."""
+    """``scenario(rank, *args)`` on ``world`` gloo ranks: {rank: result}.
+    ``scenario`` names a function of this module, or of another test
+    module as "module:function"."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    init = f"file://{tmp_path}/rendezvous-{scenario}"
+    init = f"file://{tmp_path}/rendezvous-{scenario.replace(':', '-')}"
     procs = [ctx.Process(target=_worker,
                          args=(r, world, init, scenario, args, out))
              for r in range(world)]

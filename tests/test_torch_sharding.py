@@ -257,8 +257,10 @@ def test_local_tree_and_serve_specs():
 
 def test_tp_plan_keeps_unsplittable_heads_whole_and_refuses_other_blocks():
     """Heads that do not divide the model axis keep their attention block
-    whole on every rank; the recurrent and cross-attention kinds refuse a
-    model extent above 1 and serve at 1; MoE splits its experts."""
+    whole on every rank; no block kind is refused any more: the
+    recurrent and cross-attention families split at a model extent of 2
+    and, where their heads or channels do not divide 16, run whole
+    there; MoE splits its experts."""
     cfg = get_config("qwen3-0.6b").reduced()     # 4 q heads, 2 kv heads
     params = tlm.init_params(0, cfg, device="meta")
     mesh = _stub({"data": 1, "model": 4})
@@ -269,10 +271,25 @@ def test_tp_plan_keeps_unsplittable_heads_whole_and_refuses_other_blocks():
                                sharding.spec_leaves(specs), strict=True):
         if "attn" in path:
             assert all(a is None for a in spec), (path, spec)
-    for name in ("zamba2-1.2b", "xlstm-350m", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            sharding.tp_plan(get_config(name), _stub({"data": 1,
-                                                      "model": 2}))
+    families = ("attn", "mamba", "mlstm", "slstm", "xattn")
+    # (arch, model extent): the families that split; every other runs
+    # whole (or the arch has none).
+    splits = {
+        ("zamba2-1.2b", 2): {"attn", "mamba"},
+        ("zamba2-1.2b", 16): {"attn", "mamba"},       # 64 heads, 32 attn
+        # xlstm-350m: 4 heads of 512 in d_inner 2048.
+        ("xlstm-350m", 2): {"attn", "mlstm", "slstm"},
+        ("xlstm-350m", 16): {"slstm"},
+        # llama-3.2-vision-11b: 32 q heads, 8 kv heads.
+        ("llama-3.2-vision-11b", 2): {"attn", "xattn"},
+        ("llama-3.2-vision-11b", 16): set(),
+    }
+    for (name, m), split in splits.items():
+        plan = sharding.tp_plan(get_config(name),
+                                _stub({"data": 16 // m, "model": m}))
+        assert plan.size == m
+        assert {f for f in families if getattr(plan, f)} == split, \
+            (name, m, plan)
         assert sharding.tp_plan(get_config(name),
                                 _stub({"data": 4, "model": 1})).size == 1
     # MoE splits its experts' hidden dim; grok's 48 q and 8 kv heads do
