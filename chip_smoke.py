@@ -176,7 +176,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
               row and the next decode step against ``lm.forward`` (the
               chunk-parallel GLA; 2e-3) (``[hybrid chunked]``); tokens
               contiguous == paged.  bf16 serving as in phase 9 (16
-              requests, prompts 64-512, both pools, speculation off; each
+              requests, prompts 64-256, both pools, speculation off; each
               forward 45 kernel-1 launches; K/V and state MiB of each
               pool), ``graph_identity`` (tokens, K/V and every state row),
               a profiled serve window (idle share, kernels by group), a
@@ -188,7 +188,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
               attends, kernel 1 is its path's one kernel), as phase 11:
               f32 logits card vs CPU, the per-token prefill against the
               chunk-parallel forward (``[xlstm chunked]``), contiguous ==
-              paged; bf16 serving of 16 requests (prompts 64-512, 64 new
+              paged; bf16 serving of 16 requests (prompts 64-256, 64 new
               tokens, 8 slots, ``max_len`` 1024, both pools, speculation
               off; 25 kernel-1 launches a forward), ``graph_identity``
               (every state row), a profiled window and a decode census;
@@ -289,7 +289,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
               cache cut into 2 and 4 blocks, merged by
               ``attention.merge_blocks`` against the whole cache
               (``[merge]``); zamba2-1.2b and xlstm-350m at full width
-              and depth on ``make_serve_mesh(1, 1)``, 4 x 64-token
+              and depth on ``make_serve_mesh(1, 1)``, 4 x 32-token
               prompts + 16 new tokens with every decision pinned,
               contiguous and paged: tokens bit-equal to the no-mesh
               scheduler's (``[tp serve]``); one sharded train step of
@@ -305,6 +305,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
               positions (the ring read in its row order), every step's
               logits bit-equal (``[seq decode]``; its launches are the
               ``flash_attention_lse`` entry's).
+18. levers  — the attention rules over 'model', sequence parallelism and
+              the weight-stationary experts at world size 1 over NCCL
+              (``_levers_phase``, alone: ``levers_main()``; at a 'model'
+              extent of 1 every head count divides, so "kv_shared", whose
+              ranks share a kv head, needs m / Hkv > 1 and cannot run on
+              one card: gloo CPU ranks prove it): qwen3-0.6b at full width
+              and depth, f32, three sharded steps of 2 x 128 with
+              ``seq_shard`` on the size-1 split path (``split_at_one``)
+              against three unsharded ones (each after one untimed
+              warm-up step), bit for bit, the collective calls per step
+              and the median ms (``[sp train]``);
+              phase 16's one-layer mixtral and its unsharded reference,
+              one step with ``moe_ff2d`` on the size-1 split path, bit for
+              bit (``[ff2d train]``, run inside phase 16 on its state);
+              musicgen-medium at full width and depth served on
+              ``make_serve_mesh(1, 1)`` through the contiguous pool with
+              the "head_dim" rule forced (``force_attn``: the logits
+              summed over the one-rank 'model' axis, plain attention),
+              4 x 64-token prompts + 16 new tokens: in f32 the
+              scheduler's tokens those of kernel 2's path (no mesh) and
+              every lock-step decode step's logits within 2e-3 of it; in
+              bf16 both lock-step paths' ms a step (``[head_dim
+              serve]``).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -732,12 +755,15 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ----------------------------------------------------------- 2. build
+    # Each phase's start on the host clock ([timing], the wall each took).
+    stamps = {"2 build": time.perf_counter()}
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f}s "
         f"(nvcc wall {build.build_seconds})")
 
     # --------------------------------------------------------- 3. kernels
+    stamps["3 kernels"] = time.perf_counter()
     bench = KernelBench(torch, dev, seed=0,
                         kernels=("rmsnorm", "flash_attention"))
     records = bench.records
@@ -767,6 +793,7 @@ def main() -> None:
         fail("kernel 2 edge sweep: " + "; ".join(sweep_problems))
 
     # ----------------------------------------------------------- 4. model
+    stamps["4 model"] = time.perf_counter()
     base = get_config("qwen3-0.6b")
     cfg32 = dataclasses.replace(base, compute_dtype="float32")
     t0 = time.perf_counter()
@@ -792,6 +819,7 @@ def main() -> None:
         fail("full-width logits differ between the card and the CPU")
 
     # ----------------------------------------------------------- 5. serve
+    stamps["5 serve"] = time.perf_counter()
     t0 = time.perf_counter()
     params = lm.init_params(0, base, device=dev)
     cache = CalibrationCache()
@@ -926,30 +954,36 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 6. algorithms
+    stamps["6 algorithms"] = time.perf_counter()
     algo_records, algo_launches = _algorithms_phase(torch, dev)
     records.update(algo_records)
     launches.update(algo_launches)
 
     # ----------------------------------------------------------- 7. paged
+    stamps["7 paged"] = time.perf_counter()
     paged_records, paged_launches = _paged_phase(torch, dev, base)
     records.update(paged_records)
     launches.update(paged_launches)
 
     # ----------------------------------------------------------- 8. train
+    stamps["8 train"] = time.perf_counter()
     train_records, train_launches = _train_phase(torch, dev, base, card_line)
     records.update(train_records)
     launches.update(train_launches)
 
     # ---------------------------------------------------- 9. dense family
+    stamps["9 dense"] = time.perf_counter()
     dense_records, path_launches = _dense_phase(torch, dev)
     for name, recs in dense_records.items():
         records[name].extend(recs)
     # -------------------------------------------- 10. mixture-of-experts
+    stamps["10 moe"] = time.perf_counter()
     moe_records, moe_launches = _moe_phase(torch, dev)
     for name, recs in moe_records.items():
         records[name].extend(recs)
     path_launches.update(moe_launches)
     # ------------------------------------------------ 11. hybrid Mamba2
+    stamps["11 hybrid"] = time.perf_counter()
     hybrid_records, hybrid_launches = _hybrid_phase(torch, dev)
     for name, recs in hybrid_records.items():
         records[name].extend(recs)
@@ -960,12 +994,21 @@ def main() -> None:
     # ---------------------------------------------------------- 15. mesh
     # ------------------------------------------------- 16. FSDP × TP step
     # ----------------------------- 17. TP blocks, sequence-split decode
-    for phase in (_xlstm_phase, _vision_phase, _tune_phase, _mesh_phase,
-                  _fsdp_phase, _tp_phase):
+    # ------------------------------- 18. attention rules, SP, ff2d experts
+    for n, phase in enumerate((_xlstm_phase, _vision_phase, _tune_phase,
+                               _mesh_phase, _fsdp_phase, _tp_phase,
+                               _levers_phase), start=12):
+        stamps[f"{n} {phase.__name__[1:].removesuffix('_phase')}"] = \
+            time.perf_counter()
         phase_records, phase_launches = phase(torch, dev)
         for name, recs in phase_records.items():
             records.setdefault(name, []).extend(recs)
         path_launches.update(phase_launches)
+    stamps["end"] = time.perf_counter()
+    names = list(stamps)
+    log("[timing] " + json.dumps({
+        a: round(stamps[b] - stamps[a], 1)
+        for a, b in zip(names, names[1:])}))
     # Kernel 2 with its statistics runs on the sequence-split decode only.
     launches["flash_attention_lse"] = sum(
         counts.get("flash_attention_lse", 0)
@@ -3776,6 +3819,12 @@ def _decode_bound_ms(cfg, params, positions, iters) -> float:
     return (weights + 2 * lanes * state + kv + logits) / HBM_BYTES_PER_S * 1e3
 
 
+# The recurrent archs' served prompts (phases 11-12): 64-256 tokens
+# (64-512 before phase 18 came); they prefill token by token, and the
+# cut pays for phase 18.
+RECURRENT_PROMPTS = (64, 257)
+
+
 def _hybrid_phase(torch, dev):
     """Phase 11: zamba2-1.2b on the card at full width and depth.  Returns
     ({kernel: [record]}, {path: {kernel: launches}}), as ``_dense_phase``
@@ -3817,7 +3866,7 @@ def _hybrid_phase(torch, dev):
     torch.cuda.empty_cache()
 
     rng = torch.Generator().manual_seed(3)
-    lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+    lens = torch.randint(*RECURRENT_PROMPTS, (16,), generator=rng).tolist()
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
                for n in lens]
     runs = {}
@@ -3932,7 +3981,7 @@ def _xlstm_phase(torch, dev):
     torch.cuda.empty_cache()
 
     rng = torch.Generator().manual_seed(3)
-    lens = torch.randint(64, 513, (16,), generator=rng).tolist()
+    lens = torch.randint(*RECURRENT_PROMPTS, (16,), generator=rng).tolist()
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
                for n in lens]
     runs = {}
@@ -5271,16 +5320,19 @@ def _same_tree(torch, a, b) -> tuple[bool, float]:
 
 def _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch, *,
                   accum: int, steps: int, sharded: bool,
-                  warmup: bool = True, split_at_one: bool = False) -> dict:
-    """``steps`` steps of the sharded (on ``mesh``; ``split_at_one``: its
-    argument) or the unsharded step from a copy of ``params``: losses,
-    norms, step ms, kernel 1's
-    forward and backward launches and the collective calls per step, the
-    final parameters.  With ``warmup``, one untimed step on another copy
-    first (the first call's library and communicator set-up)."""
+                  warmup: bool = True, split_at_one: bool = False,
+                  **levers) -> dict:
+    """``steps`` steps of the sharded (on ``mesh``; ``split_at_one`` and
+    ``levers``, ``seq_shard`` / ``moe_ff2d``: its arguments) or the
+    unsharded step from a copy of ``params``: losses, norms, step ms,
+    kernel 1's forward and backward launches and the collective calls per
+    step, the final parameters.  With ``warmup``, one untimed step on
+    another copy first (the first call's library and communicator
+    set-up)."""
     if warmup:
         _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch,
-                      accum=accum, steps=1, sharded=sharded, warmup=False)
+                      accum=accum, steps=1, sharded=sharded, warmup=False,
+                      split_at_one=split_at_one, **levers)
         gc.collect()
         torch.cuda.empty_cache()
     from repro_torch import collectives, tree
@@ -5292,11 +5344,13 @@ def _fsdp_steps16(torch, dev, cfg, params, opt_cfg, mesh, batch, *,
     p = tree.map_leaves(lambda t: t.clone(), params)
     opt = adamw.init_state(p, opt_cfg)
     if sharded:
-        p, opt = tsharded.shard_train_state(p, opt, mesh, cfg=cfg)
+        p, opt = tsharded.shard_train_state(
+            p, opt, mesh, cfg=cfg, moe_ff2d=levers.get("moe_ff2d", False))
         batch = tsharded.shard_batch(batch, mesh, accum)
         step = tsharded.make_sharded_train_step(cfg, opt_cfg, mesh,
                                                 accum=accum,
-                                                split_at_one=split_at_one)
+                                                split_at_one=split_at_one,
+                                                **levers)
     else:
         step = make_train_step(cfg, opt_cfg, accum=accum)
     calls: list = []
@@ -5454,7 +5508,31 @@ def _fsdp_phase(torch, dev):
                                max_memory_allocated=
                                torch.cuda.max_memory_allocated())
                     log("[fsdp moe] " + json.dumps(rec))
-                    del plain, shard
+                    del shard
+                    torch.cuda.empty_cache()
+                    if groups is None:
+                        # Phase 18's [ff2d train] on this state: the
+                        # weight-stationary experts on the size-1 split
+                        # path against the same unsharded step.
+                        ff2d = _fsdp_steps16(torch, dev, mcfg, mparams, mopt,
+                                             mesh, mbatch, accum=1, steps=1,
+                                             sharded=True, warmup=False,
+                                             split_at_one=True,
+                                             moe_ff2d=True)
+                        rec = _fsdp_compare16(torch, "ff2d train", ff2d,
+                                              plain, problems)
+                        rec.update(card=card, arch=FSDP_MOE_ARCH,
+                                   layers=mcfg.n_layers,
+                                   batch=[FSDP_MOE_BATCH, FSDP_MOE_SEQ],
+                                   max_memory_allocated=
+                                   torch.cuda.max_memory_allocated())
+                        log("[ff2d train] " + json.dumps(rec))
+                        path_launches[f"phase 18 {FSDP_MOE_ARCH} ff2d 1x1 "
+                                      f"train"] = {
+                            "rmsnorm": sum(ff2d["fwd"]),
+                            "rmsnorm_backward": sum(ff2d["bwd"])}
+                        del ff2d
+                    del plain
                     torch.cuda.empty_cache()
                 del mparams, mbatch
                 gc.collect()
@@ -5486,7 +5564,9 @@ def fsdp_main() -> None:
 # blocks and the sequence-split decode at world size 1 over NCCL, and
 # kernel 2's softmax statistics.
 TP_SERVE_ARCHS = ("zamba2-1.2b", "xlstm-350m")
-TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 4, 64, 16
+# 32-token prompts (64 before phase 18 came): the recurrent archs
+# prefill token by token, and the cut pays for phase 18.
+TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 4, 32, 16
 TP_TRAIN = (("zamba2-1.2b", None), ("xlstm-350m", None),
             ("llama-3.2-vision-11b", 5))     # (arch, layers: a pattern group)
 TP_TRAIN_BATCH, TP_TRAIN_SEQ = 2, 128
@@ -5499,10 +5579,12 @@ SEQ_ARCH, SEQ_PROMPT, SEQ_NEW, SEQ_MAX = "h2o-danube-1.8b", 64, 32, 512
 SEQ_WINDOW = 64
 
 
-def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged):
+def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged,
+                **sched_kw):
     """One serve run with every decision pinned (one core, depth 4, the
     paged pool's page size 16, chunks of at most 64) on ``mesh`` or
-    none: the tokens, tok/s and the kernels' launches."""
+    none (``sched_kw``: more of the scheduler's keywords): the tokens,
+    tok/s and the kernels' launches."""
     from repro_torch.core.acc import StaticCoreChunk
     from repro_torch.core.adaptive import adaptive
     from repro_torch.core.executor import SequentialExecutor
@@ -5512,11 +5594,11 @@ def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged):
 
     kw = dict(paged=True, page_size=16) if paged else {}
     sched = ServeScheduler(cfg, params, n_slots=TP_PROMPTS,
-                           max_len=TP_PROMPT_LEN + TP_NEW + 1,
+                           max_len=max(len(p) for p in prompts) + TP_NEW + 1,
                            executor=adaptive(SequentialExecutor(),
                                              StaticCoreChunk(cores=1)),
                            dispatch_depth=4, chunk_buckets=(64,), mesh=mesh,
-                           device=dev, **kw)
+                           device=dev, **kw, **sched_kw)
     sched.warmup()
     torch.cuda.synchronize()
     krms.reset_counts()
@@ -5863,6 +5945,170 @@ def tp_main() -> None:
     cross-attention blocks, the sequence-split decode and kernel 2's
     softmax statistics at world size 1 over NCCL)."""
     _phase_main(17, _tp_phase)
+
+
+# Phase 18: the attention rules over 'model', sequence parallelism and
+# the weight-stationary experts at world size 1 over NCCL.
+SP_ARCH, SP_STEPS = "qwen3-0.6b", 3
+HEAD_DIM_ARCH, HEAD_DIM_PROMPT_LEN = "musicgen-medium", 64
+
+
+def _head_dim_engine18(torch, dev, cfg, params, prompts, mesh):
+    """``ServeEngine``'s lock-step path over ``prompts`` (B, L): the
+    chunked prefill, then ``TP_NEW`` decode steps of the greedy tokens;
+    on ``mesh`` with the "head_dim" rule forced, else with no mesh
+    (kernel 2).  Every step's last logits, the tokens and the decode
+    steps' synced ms."""
+    from repro_torch.serve import ServeEngine
+
+    kw = dict(mesh=mesh, force_attn="head_dim") if mesh is not None else {}
+    eng = ServeEngine(cfg, params, batch=prompts.shape[0],
+                      max_len=prompts.shape[1] + TP_NEW + 1, device=dev, **kw)
+    logits = [eng.prefill(prompts.to(dev), chunk=prompts.shape[1])[:, -1]]
+    tokens, ms = [], []
+    for _ in range(TP_NEW):
+        tok = logits[-1].argmax(-1)[:, None]
+        tokens.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits.append(eng.decode(tok)[:, -1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rule = None if mesh is None else eng._lockstep()[1].attn
+    return {"logits": torch.stack(logits).float(),
+            "tokens": torch.cat(tokens, 1), "ms": ms, "rule": rule}
+
+
+def _levers_phase(torch, dev):
+    """Phase 18 (its [ff2d train] runs inside phase 16, on its state):
+    [sp train] and [head_dim serve] at world size 1 over NCCL; the
+    "kv_shared" rule needs m / Hkv > 1 ranks of 'model', which one card
+    cannot give.  Returns ({}, {path: launches})."""
+    import statistics
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    card = _card_line()
+    problems, path_launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_distributed("cuda", init_method=f"file://{tmp}/rdv",
+                                  rank=0, world_size=1, timeout_s=120)
+        try:
+            # [sp train]: Megatron-SP on the size-1 split path.
+            tmesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+            cfg = get_config(SP_ARCH)
+            params = lm.init_params(0, cfg, device=dev, dtype=torch.float32,
+                                    draw_on_device=True)
+            batch = make_batch(cfg, TP_TRAIN_BATCH, TP_TRAIN_SEQ, seed=0,
+                               device=dev)
+            opt_cfg = AdamWConfig(lr=1e-4)
+            plain = _fsdp_steps16(torch, dev, cfg, params, opt_cfg, tmesh,
+                                  batch, accum=1, steps=SP_STEPS,
+                                  sharded=False)
+            shard = _fsdp_steps16(torch, dev, cfg, params, opt_cfg, tmesh,
+                                  batch, accum=1, steps=SP_STEPS,
+                                  sharded=True, split_at_one=True,
+                                  seq_shard=True)
+            rec = _fsdp_compare16(torch, "sp train", shard, plain, problems)
+            rec.update(card=card, arch=SP_ARCH,
+                       batch=[TP_TRAIN_BATCH, TP_TRAIN_SEQ],
+                       sharded_median_ms=statistics.median(shard["ms"]),
+                       unsharded_median_ms=statistics.median(plain["ms"]))
+            log("[sp train] " + json.dumps(rec))
+            path_launches[f"phase 18 {SP_ARCH} sp 1x1 train"] = {
+                "rmsnorm": sum(shard["fwd"]),
+                "rmsnorm_backward": sum(shard["bwd"])}
+            del params, plain, shard, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # [head_dim serve]: musicgen with its heads' dims split over
+            # a one-rank 'model' axis, against kernel 2's path.
+            mesh = mesh_lib.make_serve_mesh(1, 1)
+            base = get_config(HEAD_DIM_ARCH)
+            gen = torch.Generator().manual_seed(18)
+            prompts = torch.randint(0, base.vocab_size,
+                                    (TP_PROMPTS, HEAD_DIM_PROMPT_LEN),
+                                    generator=gen)
+            cfg32 = dataclasses.replace(base, compute_dtype="float32")
+            p32 = lm.init_params(0, cfg32, device=dev, draw_on_device=True)
+            serve = {}
+            for name, m, kw in (("kernel 2", None, {}),
+                                ("head_dim 1x1", mesh,
+                                 {"force_attn": "head_dim"})):
+                serve[name] = _tp_serve17(torch, dev, cfg32, p32,
+                                          list(prompts), m, paged=False,
+                                          **kw)
+            lock = {name: _head_dim_engine18(torch, dev, cfg32, p32,
+                                             prompts, m)
+                    for name, m in (("kernel 2", None),
+                                    ("head_dim 1x1", mesh))}
+            del p32
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = lm.init_params(0, base, device=dev, draw_on_device=True)
+            bf16 = {name: _head_dim_engine18(torch, dev, base, params,
+                                             prompts, m)
+                    for name, m in (("head_dim 1x1", mesh),
+                                    ("kernel 2", None))}
+            del params
+            a, b = lock["head_dim 1x1"], lock["kernel 2"]
+            err = float((a["logits"] - b["logits"]).abs().max())
+            rec = {"card": card, "arch": HEAD_DIM_ARCH,
+                   "prompts": [TP_PROMPTS, HEAD_DIM_PROMPT_LEN],
+                   "new": TP_NEW,
+                   "rule": a["rule"],
+                   "f32_scheduler_tokens_equal":
+                       serve["head_dim 1x1"]["tokens"]
+                       == serve["kernel 2"]["tokens"],
+                   "f32_scheduler_launches": {
+                       k: r["launches"] for k, r in serve.items()},
+                   "f32_lockstep_max_abs_logit_err": err,
+                   "f32_lockstep_tokens_equal": torch.equal(a["tokens"],
+                                                            b["tokens"]),
+                   "finite": bool(torch.isfinite(a["logits"]).all()),
+                   "bf16_ms_per_decode_step": {
+                       k: statistics.median(r["ms"])
+                       for k, r in bf16.items()},
+                   "bf16_tokens_equal": torch.equal(
+                       bf16["head_dim 1x1"]["tokens"],
+                       bf16["kernel 2"]["tokens"])}
+            log("[head_dim serve] " + json.dumps(rec))
+            mesh_run = serve["head_dim 1x1"]
+            if not (rec["f32_scheduler_tokens_equal"]
+                    and all(t is not None and len(t) == TP_NEW
+                            for t in mesh_run["tokens"])
+                    and err <= 2e-3 and rec["f32_lockstep_tokens_equal"]
+                    and rec["finite"] and a["rule"] == "head_dim"):
+                problems.append(f"head_dim serve: {rec}")
+            if mesh_run["launches"].get("flash_attention") \
+                    or not mesh_run["launches"].get("rmsnorm"):
+                problems.append(f"head_dim serve launched "
+                                f"{mesh_run['launches']}: kernel 1 and no "
+                                f"kernel 2 expected")
+            path_launches[f"phase 18 {HEAD_DIM_ARCH} head_dim 1x1 "
+                          f"contiguous"] = mesh_run["launches"]
+        finally:
+            dist.destroy_process_group()
+    log(f"[phase 18] {time.perf_counter() - t_phase:.1f}s")
+    if problems:
+        fail("phase 18: " + "; ".join(problems))
+    return {}, path_launches
+
+
+def levers_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.levers_main()"``: the
+    build and phase 18 alone ([sp train], [head_dim serve]; its [ff2d
+    train] runs with phase 16, ``fsdp_main()``)."""
+    _phase_main(18, _levers_phase)
 
 
 def _to_device(tree, dev):

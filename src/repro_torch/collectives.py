@@ -22,7 +22,20 @@ step (``models/common.py``, ``models/lm.py``, ``models/moe.py``):
 * ``gather_last``: the ``all_gather`` of the last dim forward, this
   rank's slice backward — the vocabulary-parallel logits;
 * ``fsdp_gather``: a leaf's 'data' blocks gathered forward, the
-  gradient ``reduce_scatter``-ed (summed) backward;
+  gradient ``reduce_scatter``-ed (summed) backward; the same pair
+  (``gather_rows``) gathers the K/V columns of a ``"kv_shared"``
+  attention block over 'model' and the weight-stationary experts'
+  dispatch buffer over 'data';
+* ``scatter_rows_sum``: ``reduce_scatter`` forward (this rank's block
+  of the sum), ``all_gather`` of the gradient backward — the
+  weight-stationary experts' partial output back to its rows;
+* under sequence parallelism (Megatron-SP, ``models/common.py``):
+  ``gather_seq`` (ḡ: the residual rows of every model rank gathered on
+  the sequence dim; the gradient reduce-scattered, or, for a reader
+  that runs whole, this rank's rows of it), ``scatter_seq_sum`` (the
+  row-parallel sum reduce-scattered on the sequence dim, in place of
+  *g*; backward ``all_gather``) and ``keep_seq`` (this rank's rows of a
+  whole block's output; backward ``all_gather``);
 * ``sum_over``: ``all_reduce`` forward and backward — a sum over the
   batch ranks inside the loss (the MoE aux loss's global means), whose
   every rank's loss reads it: the step sums the ranks' gradients, so
@@ -179,6 +192,35 @@ class _SumOver(torch.autograd.Function):
         return all_reduce(dy.clone(), ctx.group), None
 
 
+class _ScatterDim(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward; backward, the gradient's
+    blocks gathered along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return scatter_dim(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return gather_dim(dy, ctx.group, ctx.size, ctx.dim), None, None, None
+
+
+class _KeepBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` forward (no collective); backward,
+    every rank's gradient block gathered along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, index, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return x.chunk(size, dim=dim)[index].contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (gather_dim(dy, ctx.group, ctx.size, ctx.dim), None, None,
+                None, None)
+
+
 class _GatherDim(torch.autograd.Function):
     """Gather along ``dim`` forward; backward: this rank's block of the
     gradient (``reduce`` False) or its block of the sum over the group
@@ -230,10 +272,52 @@ def gather_last(x: torch.Tensor, group, size: int, index: int
     return gather_dim(x, group, size, dim)
 
 
-def fsdp_gather(x: torch.Tensor, group, size: int, index: int, dim: int
+def gather_rows(x: torch.Tensor, group, size: int, index: int, dim: int
                 ) -> torch.Tensor:
-    """A leaf's blocks over ``group`` concatenated along ``dim``;
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``;
     backward, the gradient's block ``index`` summed over the group."""
     if _records(x):
         return _GatherDim.apply(x, group, size, index, dim, True)
     return gather_dim(x, group, size, dim)
+
+
+# A leaf's 'data' blocks, gathered where the FSDP step reads it.
+fsdp_gather = gather_rows
+
+
+def scatter_rows_sum(x: torch.Tensor, group, size: int, dim: int
+                     ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``group``
+    (one ``reduce_scatter``); backward, the gradient's blocks gathered."""
+    if _records(x):
+        return _ScatterDim.apply(x, group, size, dim)
+    return scatter_dim(x, group, size, dim)
+
+
+def gather_seq(x: torch.Tensor, group, size: int, index: int, *,
+               reduce: bool = True) -> torch.Tensor:
+    """SP's ḡ: the model ranks' rows of ``x`` (B, S/n, ...) gathered on
+    the sequence dim (1) in rank order.  Backward: with ``reduce`` the
+    gradient reduce-scattered (its readers are column-parallel: each rank
+    holds part of it), else this rank's rows of it (a reader that runs
+    whole on every rank, whose gradient each rank holds complete)."""
+    if _records(x):
+        return _GatherDim.apply(x, group, size, index, 1, reduce)
+    return gather_dim(x, group, size, 1)
+
+
+def scatter_seq_sum(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """SP's row-parallel sum: this rank's rows (dim 1) of the sum of
+    ``x`` over ``group``, one ``reduce_scatter``; backward ``all_gather``
+    (in place of *g*)."""
+    return scatter_rows_sum(x, group, size, 1)
+
+
+def keep_seq(x: torch.Tensor, group, size: int, index: int
+             ) -> torch.Tensor:
+    """This rank's rows (dim 1) of ``x``, which every model rank computed
+    whole; backward, the ranks' row gradients gathered, so that the whole
+    computation sees all of its gradient on every rank."""
+    if _records(x):
+        return _KeepBlock.apply(x, group, size, index, 1)
+    return x.chunk(size, dim=1)[index].contiguous()

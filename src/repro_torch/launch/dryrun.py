@@ -15,7 +15,11 @@ their plain versions on meta tensors (``kernels/build.plain_on_meta``):
 
 * a train cell runs one ``train/sharded.make_sharded_train_step`` with
   the acc plan's ``accum`` (``train/autotune.choose_plan`` over a
-  ``MeshExecutor`` of the mesh);
+  ``MeshExecutor`` of the mesh), with ``--seq-shard`` (Megatron-SP: the
+  residual's sequence over 'model' between blocks) and ``--moe-ff2d``
+  (the experts' hidden dim over ('data', 'model'), never gathered) as
+  the step's levers; prefill and decode cells ignore both, as the
+  reference's do;
 * a prefill cell one ``serve/engine.make_prefill_step`` over FSDP
   weights; a decode cell one ``make_decode_step`` at the cache's last
   position (``--serve-no-fsdp``: the weights without their 'data'
@@ -27,13 +31,18 @@ and the collectives' wire bytes of rank 0, over the H100's rates),
 the tensor cores, of ``flops_per_device``), ``argument_bytes`` (the blocks
 passed in), ``peak_memory_bytes`` (the most bytes of tensors the step
 made and held at once, counted storage by storage) and ``fits``
-(arguments plus peak within the H100's 80 GB), and ``attention``:
-"split" where the q and kv heads both divide 'model', else "whole" (every
-model rank runs the block whole, 'data' still splitting its leaves), and
-``cache_seq``: the mesh axis a decode cell's K/V caches hold their
-sequence on (None, 'data' when the batch does not split over the batch
-axes, 'model' under ``--cache-seq-model``).  It is a count made on meta
-tensors, not a measurement.
+(arguments plus peak within the H100's 80 GB), ``attention``: the
+self-attention blocks' rule over 'model' (``sharding.attention_rule``:
+"split" where the q and kv heads both divide it, "kv_shared" where the
+q heads do and each rank reads one kv head, "head_dim" on a decode
+cell whose heads do not divide but whose rotary pairs do, else "whole":
+every model rank runs the block whole, 'data' still splitting its
+leaves; None for an arch with no self-attention), ``cache_seq``: the
+mesh axis a decode cell's K/V caches hold their sequence on (None,
+'data' when the batch does not split over the batch axes, 'model' under
+``--cache-seq-model``), and ``seq_shard`` / ``moe_ff2d``: whether the
+cell's step ran those levers.  It is a count made on meta tensors, not
+a measurement.
 
 Every block kind splits over 'model' by its own flag of
 ``sharding.tp_plan`` or runs whole; a decode cell's caches are rank 0's
@@ -44,8 +53,6 @@ and a sequence on a mesh axis runs the sequence-split decode
 A cell's status: ``skipped`` (the reference's ``shape_applicable``
 reason, or a plan-only run's non-train cell), ``planned``
 (``--plan-only``), ``ok`` or ``error``; only ``error`` fails the run.
-``--seq-shard`` and ``--moe-ff2d`` raise ``NotImplementedError`` (ROADMAP.md
-A.6b item 4).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -81,7 +88,6 @@ from . import sharding
 
 DEFAULT_OUT = "runs/dryrun"
 WORLD = 512
-_A6B = "ROADMAP.md A.6b"
 _meshes: dict[bool, mesh_lib.Mesh] = {}
 
 
@@ -120,8 +126,8 @@ def _count(step, *args) -> roofline.Costs:
 def count_train(cfg, shape, mesh, *, accum: int, attn_impl: str,
                 remat: bool, moment_dtype: str = "float32",
                 accum_dtype: str = "float32", moe_local: bool = False,
-                bf16_params: bool = False
-                ) -> tuple[roofline.Costs, int]:
+                bf16_params: bool = False, seq_shard: bool = False,
+                moe_ff2d: bool = False) -> tuple[roofline.Costs, int]:
     """(the count of rank 0's sharded train step, its argument bytes)."""
     if bf16_params:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
@@ -130,11 +136,12 @@ def count_train(cfg, shape, mesh, *, accum: int, attn_impl: str,
     params = lm.init_params(0, cfg, device="meta",
                             dtype=lm.param_dtype(cfg))
     opt = adamw.init_state(params, opt_cfg)
-    lp, lo = sharded.shard_train_state(params, opt, mesh, cfg=cfg)
+    lp, lo = sharded.shard_train_state(params, opt, mesh, cfg=cfg,
+                                       moe_ff2d=moe_ff2d)
     lb = sharded.shard_batch(input_specs(cfg, shape), mesh, accum)
     step = sharded.make_sharded_train_step(
         cfg, opt_cfg, mesh, accum=accum, attn_impl=attn_impl, remat=remat,
-        accum_dtype=accum_dtype)
+        accum_dtype=accum_dtype, seq_shard=seq_shard, moe_ff2d=moe_ff2d)
     # --moe-local: one dispatch group per batch rank, as the reference.
     with flags.moe_dispatch_groups(mesh_lib.n_data_replicas(mesh)
                                    if moe_local else None):
@@ -143,16 +150,21 @@ def count_train(cfg, shape, mesh, *, accum: int, attn_impl: str,
 
 
 def _serve_params(cfg, mesh, *, no_fsdp: bool = False,
-                  seq_over_model: bool = False):
+                  seq_over_model: bool = False, cached: bool = False):
     """(rank 0's blocks of the serving weights, the contexts over them):
     FSDP × TP by the training specs, or tensor parallel only
-    (``seq_over_model``: the attention blocks whole)."""
+    (``seq_over_model``: the attention blocks whole; ``cached``: a decode
+    cell's plan, whose attention may split its heads' dims)."""
     params = lm.init_params(0, cfg, device="meta")
-    specs = (sharding.serve_param_specs if no_fsdp
-             else sharding.train_param_specs)(cfg, params, mesh,
-                                              seq_over_model=seq_over_model)
+    if no_fsdp:
+        specs = sharding.serve_param_specs(cfg, params, mesh,
+                                           seq_over_model=seq_over_model)
+        cached = True
+    else:
+        specs = sharding.train_param_specs(
+            cfg, params, mesh, seq_over_model=seq_over_model, cached=cached)
     tp, fsdp = sharded.contexts(cfg, mesh, specs,
-                                seq_over_model=seq_over_model)
+                                seq_over_model=seq_over_model, cached=cached)
     return sharding.local_tree(params, specs, mesh), tp, fsdp
 
 
@@ -196,7 +208,7 @@ def count_decode(cfg, shape, mesh, *, serve_no_fsdp: bool = False,
     window = _long_window(cfg, shape)
     axis = _cache_seq(cfg, shape, mesh, cache_seq_model)
     lp, tp, fsdp = _serve_params(cfg, mesh, no_fsdp=serve_no_fsdp,
-                                 seq_over_model=axis == "model")
+                                 seq_over_model=axis == "model", cached=True)
     batch = input_specs(cfg, shape)
     if shape.global_batch % mesh_lib.n_data_replicas(mesh):
         # The batch does not split: every batch rank holds all of it (and
@@ -236,11 +248,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     """One cell's record (module docstring), saved under ``out_dir``.
     ``mesh``: count on this mesh of the fake group instead of the
     production mesh named by ``multi_pod``."""
-    for flag, name in ((seq_shard, "--seq-shard"),
-                       (moe_ff2d, "--moe-ff2d")):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported yet ({_A6B} "
-                                      f"item 4)")
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, reason = shape_applicable(cfg, shape)
@@ -287,7 +294,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
                 cfg, shape, mesh, accum=accum, attn_impl=attn_impl,
                 remat=remat, moment_dtype=moment_dtype,
                 accum_dtype=accum_dtype, moe_local=moe_local,
-                bf16_params=bf16_params)
+                bf16_params=bf16_params, seq_shard=seq_shard,
+                moe_ff2d=moe_ff2d)
         elif shape.kind == "prefill":
             costs, arg_bytes = count_prefill(cfg, shape, mesh,
                                              attn_impl=attn_impl)
@@ -303,11 +311,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         seq_axis = _cache_seq(cfg, shape, mesh, cache_seq_model) \
             if shape.kind == "decode" else None
         plan = sharding.tp_plan(cfg, mesh,
-                                seq_over_model=seq_axis == "model")
+                                seq_over_model=seq_axis == "model",
+                                cached=shape.kind == "decode")
+        train = shape.kind == "train"
         rec.update(status="ok", accum=accum, seconds=seconds,
                    cache_seq=seq_axis,
                    tensor_flops=costs.tensor_flops,
-                   attention="split" if plan.attn else "whole",
+                   attention=plan.attn if set(cfg.layer_kinds())
+                   & set(lm.ATTN_KINDS) else None,
+                   seq_shard=seq_shard and train,
+                   moe_ff2d=moe_ff2d and train,
                    fits=arg_bytes + costs.peak_bytes <= H100_MEMORY_BYTES,
                    kernels={k: dataclasses.asdict(w)
                             for k, w in costs.kernels.items()})
@@ -345,7 +358,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--accum-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--seq-shard", action="store_true",
-                    help=f"Megatron-SP activations (not ported: {_A6B})")
+                    help="Megatron-SP activations: the residual's sequence "
+                         "over 'model' between blocks (train cells)")
     ap.add_argument("--cache-seq-model", action="store_true",
                     help="decode KV cache's sequence over 'model' (the "
                          "attention blocks whole, the blocks merged by "
@@ -354,8 +368,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="group-local MoE dispatch (a group per batch "
                          "rank)")
     ap.add_argument("--moe-ff2d", action="store_true",
-                    help=f"expert ff over both mesh axes (not ported: "
-                         f"{_A6B})")
+                    help="expert ff over both mesh axes, the weights never "
+                         "gathered (train cells)")
     ap.add_argument("--bf16-params", action="store_true",
                     help="bf16 working params + sharded f32 master in the "
                          "optimizer (halves FSDP gather bytes)")

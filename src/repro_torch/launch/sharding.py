@@ -25,9 +25,12 @@ The reference hands specs to ``jax.device_put``, which gives every device
 its block.  Here each rank takes its own block of a full tensor with
 ``local_shard`` / ``local_tree``.  What mesh serving slices is
 ``serve_param_specs``: ``param_specs`` with 'data' dropped, laid out for
-the hand-written tensor parallelism (``_tp_spec``): a block whose heads
-or channels do not split over 'model' stays whole on every rank
-(``tp_plan``), where GSPMD would shard a head's dims; a concatenated
+the hand-written tensor parallelism (``_tp_spec``): an attention block
+lies over 'model' by its rule (``attention_rule``: its heads, its q
+heads sharing each kv head, or, on cached paths, its heads' dims in
+rotary pairs, where GSPMD would shard a head's dims as one block), and
+a block whose heads or channels do not split stays whole on every rank
+(``tp_plan``); a concatenated
 projection splits segment by segment (``Segments``), where the
 reference's contiguous block of its columns would cut across its parts
 and GSPMD would reshard behind it (the Mamba2 ``in_proj``: z, x and Δ by
@@ -169,10 +172,14 @@ def _heads_spec(n_heads: int, head_dim: int, axis_sizes: dict
 
 
 def cache_specs(cfg: ArchConfig, mesh, global_batch: int,
-                cache_len: int, *, seq_over_model: bool = False) -> list:
+                cache_len: int, *, seq_over_model: bool = False,
+                plan: "TPPlan | None" = None) -> list:
     """Per-layer cache specs mirroring ``lm.init_caches`` (K/V
     ``(B, Hkv, S, D)``).  ``seq_over_model``: shard the KV cache sequence
-    dim over 'model' instead of KV heads / head_dim."""
+    dim over 'model' instead of KV heads / head_dim.  With ``plan`` (a
+    ``tp_plan``) the K/V entries follow the port's attention rule
+    (``_kv_entries``) instead of the reference's ``_heads_spec``: what
+    the pools and the engine hold (``lm.init_caches(..., tp=plan)``)."""
     axis_sizes = dict(mesh.shape)
     bax = mesh_lib.batch_axes(mesh)
     n_data = mesh_lib.n_data_replicas(mesh)
@@ -181,7 +188,8 @@ def cache_specs(cfg: ArchConfig, mesh, global_batch: int,
     # When the batch can't occupy the data axes, shard the cache sequence
     # dim instead (long-context sequence parallelism).
     data_ax = "data" if not batch_ok else None
-    hax, dax = _heads_spec(cfg.n_kv_heads, cfg.head_dim_, axis_sizes)
+    hax, dax = _heads_spec(cfg.n_kv_heads, cfg.head_dim_, axis_sizes) \
+        if plan is None else _kv_entries(cfg, plan)
     m = axis_sizes.get("model", 1)
 
     specs: list = []
@@ -215,16 +223,24 @@ def cache_specs(cfg: ArchConfig, mesh, global_batch: int,
 
 
 def paged_cache_specs(cfg: ArchConfig, mesh, n_slots: int,
-                      max_len: int) -> list:
+                      max_len: int, *, plan: "TPPlan | None" = None
+                      ) -> list:
     """Per-layer specs for ``serve/kv_cache.PagedKVCachePool``.  The
     token-major page stores ``(n_pages * page_size, H_kv, D)`` are
     replicated over the data axes (prefix sharing lets any lane map any
     page, so each replica holds every page and the lane updates are
-    exchanged); KV heads shard over 'model' as in ``cache_specs``.
+    exchanged); KV heads shard over 'model' as in ``cache_specs``
+    (``plan``: by the port's attention rule, which the paged pool takes
+    for "split", "kv_shared" and "whole" and refuses for "head_dim").
     Recurrent state stays slot-major, with the ``cache_specs`` rule."""
     axis_sizes = dict(mesh.shape)
-    hax, dax = _heads_spec(cfg.n_kv_heads, cfg.head_dim_, axis_sizes)
-    slot_specs = cache_specs(cfg, mesh, n_slots, max_len)
+    if plan is not None:
+        from ..models.attention import refuse_paged_head_dim
+
+        refuse_paged_head_dim(plan)
+    hax, dax = _heads_spec(cfg.n_kv_heads, cfg.head_dim_, axis_sizes) \
+        if plan is None else _kv_entries(cfg, plan)
+    slot_specs = cache_specs(cfg, mesh, n_slots, max_len, plan=plan)
     specs: list = []
     for kind, slot_spec in zip(cfg.layer_kinds(), slot_specs, strict=True):
         if kind in ("attn", "shared_attn"):
@@ -239,47 +255,102 @@ def paged_cache_specs(cfg: ArchConfig, mesh, n_slots: int,
 # The port's own: which blocks a mesh splits, and each rank's block
 # ---------------------------------------------------------------------------
 
+ATTN_RULES = ("split", "kv_shared", "head_dim", "whole")
+
+
+def attention_rule(n_heads: int, n_kv_heads: int, head_dim: int, m: int,
+                   *, cached: bool, qk_norm: bool = False) -> str:
+    """How an attention block of ``n_heads`` q and ``n_kv_heads`` kv heads
+    of ``head_dim`` lies over a 'model' axis of extent ``m``:
+
+    * "split": both head counts divide by m; each rank its heads;
+    * "kv_shared": the q heads divide by m and m is a multiple of the kv
+      heads (so a rank's q heads read one kv head); the K/V projections
+      keep the reference's contiguous column split (their columns divide
+      by m), and the forward gathers the ranks' columns and keeps that
+      one head;
+    * "head_dim": ``cached`` (a path that reads or writes K/V caches),
+      no q/k-norm (its norm would need a head's sum of squares over
+      'model') and the head dim splits into m blocks of rotary pairs (D /
+      2 divides by m): each rank holds D / m dims of every head, the
+      logits summed over 'model' (the reference's fallback,
+      ``_heads_spec``);
+    * "whole": every rank runs the block whole."""
+    if n_heads % m == 0 and n_kv_heads % m == 0:
+        return "split"
+    if n_heads % m == 0 and m % n_kv_heads == 0 \
+            and (n_kv_heads * head_dim) % m == 0:
+        return "kv_shared"
+    if cached and not qk_norm and head_dim % (2 * m) == 0:
+        return "head_dim"
+    return "whole"
+
+
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """What a mesh splits over 'model': attention heads (``attn``, q and
-    kv heads both divide; ``xattn`` the same rule for the cross-attention
-    blocks), the feed-forward hidden dim, the vocabulary (embedding rows,
-    head columns), the experts' hidden dim, the Mamba2 heads (``mamba``),
-    the mLSTM heads (``mlstm``) and the sLSTM channels (``slstm``).  A
-    part that does not divide runs whole on every model rank, with no
+    """What a mesh splits over 'model': the attention blocks by their
+    rule (``attn`` the self-attention blocks, ``xattn`` the
+    cross-attention ones: one of ``ATTN_RULES``, ``attention_rule``), the
+    feed-forward hidden dim, the vocabulary (embedding rows, head
+    columns), the experts' hidden dim, the Mamba2 heads (``mamba``), the
+    mLSTM heads (``mlstm``) and the sLSTM channels (``slstm``).  A part
+    that does not divide runs whole on every model rank, with no
     collective."""
 
     size: int
-    attn: bool
+    attn: str
     ffn: bool
     vocab: bool
     moe: bool = False
     mamba: bool = False
     mlstm: bool = False
     slstm: bool = False
-    xattn: bool = False
+    xattn: str = "whole"
+
+    def splits(self, family: str) -> bool:
+        """Whether the plan splits ``family``'s blocks over 'model'."""
+        value = getattr(self, family)
+        return value != "whole" if isinstance(value, str) else value
 
 
-def tp_plan(cfg: ArchConfig, mesh, *, seq_over_model: bool = False
-            ) -> TPPlan:
+def tp_plan(cfg: ArchConfig, mesh, *, seq_over_model: bool = False,
+            cached: bool = False, force_attn: str | None = None) -> TPPlan:
     """The tensor-parallel plan of ``cfg`` on ``mesh``'s 'model' axis.
     ``seq_over_model``: the decode caches hold their sequence over
     'model' (``cache_specs``), so every model rank needs every q head for
-    its block of rows and the self-attention blocks run whole."""
+    its block of rows and the self-attention blocks run whole.
+    ``cached``: the plan of a path whose self-attention reads K/V caches
+    (serving, a decode cell), where the "head_dim" rule applies; a
+    full-sequence forward with no cache (the training step, a prefill
+    cell) runs such a block whole.  ``force_attn``: the self-attention
+    rule to use whatever the head counts say (tests, and the size-1
+    paths on one card); forcing "head_dim" on an arch with q/k-norm
+    raises ``NotImplementedError`` (no arch of the registry has both)."""
     m = dict(mesh.shape).get("model", 1)
     kinds = set(cfg.layer_kinds())
     split_ff = bool(cfg.d_ff) and cfg.d_ff % m == 0
-    heads = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, m)
+    if force_attn is not None and force_attn not in ATTN_RULES:
+        raise ValueError(f"unknown attention rule {force_attn!r}")
+    if force_attn == "head_dim" and cfg.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: the head_dim attention split under q/k-norm "
+            f"(the norm would need its sum of squares over 'model')")
+    attn = "whole"
+    if kinds & {"attn", "shared_attn"} and not seq_over_model:
+        attn = force_attn or attention_rule(*heads, cached=cached,
+                                            qk_norm=cfg.qk_norm)
     return TPPlan(
         size=m,
-        attn=heads and not seq_over_model,
+        attn=attn,
         ffn=split_ff,
         vocab=cfg.vocab_size % m == 0,
         moe=split_ff and bool(cfg.n_experts),
         mamba="mamba2" in kinds and cfg.ssm_heads % m == 0,
         mlstm="mlstm" in kinds and cfg.ssm_heads % m == 0,
         slstm="slstm" in kinds and cfg.d_inner % m == 0,
-        xattn="cross_attn" in kinds and heads)
+        xattn=attention_rule(*heads, cached=False)
+        if "cross_attn" in kinds else "whole")
 
 
 def tensor_parallel(cfg: ArchConfig, mesh, **kw):
@@ -292,6 +363,30 @@ def tensor_parallel(cfg: ArchConfig, mesh, **kw):
         mesh.groups["model"], plan.size, mesh.coord("model"),
         **{f.name: getattr(plan, f.name)
            for f in dataclasses.fields(TPPlan) if f.name != "size"})
+
+
+@dataclasses.dataclass(frozen=True)
+class Grouped:
+    """A spec entry for a dim cut into ``blocks`` blocks over ``axis``
+    whose extent is a multiple of ``blocks``: rank i of the axis holds
+    block ``i · blocks // extent``, replicated over the extent / blocks
+    ranks of its group (a "kv_shared" cache's one kv head)."""
+
+    axis: str
+    blocks: int
+
+
+def _kv_entries(cfg: ArchConfig, plan) -> tuple[Any, Any]:
+    """(heads entry, head-dim entry) of a K/V cache under ``plan``'s
+    self-attention rule: this rank's kv heads ("split"), the one kv head
+    its q heads read ("kv_shared"), its rotary-paired block of every
+    head's dims ("head_dim"), or all of it ("whole")."""
+    d = cfg.head_dim_
+    return {"split": ("model", None),
+            "kv_shared": (Grouped("model", cfg.n_kv_heads), None),
+            "head_dim": (None, Segments("model", (d // 2, d // 2),
+                                        (True, True))),
+            "whole": (None, None)}[plan.attn]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,10 +440,12 @@ def _tp_spec(cfg: ArchConfig, plan: TPPlan, path: str, spec: tuple,
     if m is None:
         return spec
     family, leaf = m.group(1), m.group(1) + "/" + m.group(2)
-    if not getattr(plan, family):
+    if not plan.splits(family):
         return _drop_model(spec)
     if plan.size == 1:
         return spec
+    if family == "attn" and plan.attn == "head_dim":
+        return _head_dim_spec(cfg, m.group(2), spec)
     seg = _segments(cfg, leaf)
     if seg is not None:
         return tuple(spec[:-1]) + (seg,) if len(spec) == len(shape) \
@@ -356,6 +453,19 @@ def _tp_spec(cfg: ArchConfig, plan: TPPlan, path: str, spec: tuple,
     if family == "mamba" and m.group(2) in _HEAD_VECTORS:
         return ("model",)
     return spec
+
+
+def _head_dim_spec(cfg: ArchConfig, leaf: str, spec: tuple) -> tuple:
+    """A "head_dim" attention leaf's spec: the 'model' entry of ``wq`` /
+    ``wk`` / ``wv`` (columns, and biases) and of ``wo`` (rows) becomes one
+    segment per half of every head, each split over 'model', so that a
+    rank holds the same block of both halves of every head (dim i and
+    its rotary partner i + D / 2, ``models/common.py``'s rotate-half)."""
+    heads = cfg.n_kv_heads if leaf.startswith(("wk/", "wv/")) \
+        else cfg.n_heads
+    half = cfg.head_dim_ // 2
+    seg = Segments("model", (half,) * (2 * heads), (True,) * (2 * heads))
+    return tuple(seg if a == "model" else a for a in spec)
 
 
 def _laid_out(cfg: ArchConfig, params: Any, specs: Any,
@@ -367,12 +477,14 @@ def _laid_out(cfg: ArchConfig, params: Any, specs: Any,
 
 
 def serve_param_specs(cfg: ArchConfig, params: Any, mesh, *,
-                      seq_over_model: bool = False) -> Any:
+                      seq_over_model: bool = False,
+                      force_attn: str | None = None) -> Any:
     """The specs mesh serving slices the weights by: ``param_specs`` with
     'data' dropped (each replica holds a full TP copy), laid out by
-    ``_tp_spec``: every leaf of a block the plan (``tp_plan``) leaves
-    whole is whole on every rank."""
-    plan = tp_plan(cfg, mesh, seq_over_model=seq_over_model)
+    ``_tp_spec``: every leaf of a block the plan (``tp_plan``, of a
+    cached path) leaves whole is whole on every rank."""
+    plan = tp_plan(cfg, mesh, seq_over_model=seq_over_model, cached=True,
+                   force_attn=force_attn)
     specs = param_specs(params, mesh, drop_axes=("data",))
     return _laid_out(cfg, params, specs, plan)
 
@@ -381,7 +493,7 @@ def serve_shardings(cfg: ArchConfig, mesh, params, n_slots: int,
                     max_len: int) -> tuple[Any, Any]:
     """(param specs, cache specs) for mesh-sharded serving: weights
     tensor-parallel over 'model' only (``serve_param_specs``), the slot
-    pool's cache specs from ``cache_specs``."""
+    pool's cache specs from ``cache_specs`` (the reference's)."""
     return (serve_param_specs(cfg, params, mesh),
             cache_specs(cfg, mesh, n_slots, max_len))
 
@@ -420,6 +532,11 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             continue
         if isinstance(ax, Segments):
             out = _segment_block(out, dim, ax, mesh)
+            continue
+        if isinstance(ax, Grouped):
+            n = mesh.shape[ax.axis]
+            out = out.chunk(ax.blocks, dim=dim)[
+                mesh.coord(ax.axis) * ax.blocks // n]
             continue
         n, idx = _axis_index(mesh, ax)
         if out.shape[dim] % n:
@@ -479,17 +596,21 @@ def _drop_model(spec: tuple) -> tuple:
 
 
 def train_param_specs(cfg: ArchConfig, params: Any, mesh, *,
-                      seq_over_model: bool = False) -> Any:
+                      seq_over_model: bool = False, cached: bool = False,
+                      moe_ff2d: bool = False) -> Any:
     """The specs the sharded train step holds the parameters by:
     ``param_specs`` (FSDP over 'data', tensor parallelism over 'model'),
     laid out by ``_tp_spec``: a block whose heads or channels do not
     split (``tp_plan``) keeps 'model' out of its leaves' specs and runs
     whole on every model rank, 'data' still splitting them (GSPMD would
     split a head's dims instead); a split block's concatenated
-    projections split by segments.  ``seq_over_model``: ``tp_plan``'s
-    (the self-attention blocks whole)."""
-    plan = tp_plan(cfg, mesh, seq_over_model=seq_over_model)
-    return _laid_out(cfg, params, param_specs(params, mesh), plan)
+    projections split by segments.  ``seq_over_model`` and ``cached``:
+    ``tp_plan``'s (a decode cell over FSDP weights is cached).
+    ``moe_ff2d``: the weight-stationary expert rules (the experts' hidden
+    dim over ('data', 'model'), d whole)."""
+    plan = tp_plan(cfg, mesh, seq_over_model=seq_over_model, cached=cached)
+    return _laid_out(cfg, params, param_specs(params, mesh,
+                                              moe_ff2d=moe_ff2d), plan)
 
 
 def split_axes(spec: tuple, mesh) -> tuple[str, ...]:
@@ -528,19 +649,25 @@ def split_parts(block: torch.Tensor, spec: tuple, mesh
 def grad_reduction(spec: tuple, mesh) -> tuple[tuple[str, str], ...]:
     """How the sharded step syncs the gradient of a leaf held by
     ``spec``, as (collective, axis) pairs in order: a leaf split over
-    'data' is reduce-scattered over it (the FSDP gather's backward), one
-    replicated over 'data' all-reduced; then every leaf all-reduced over
-    'pod'.  Nothing is reduced over 'model': each model rank computes
-    its own block, or all of a replicated leaf's gradient; the forward
-    sums over 'model' what a replicated segment of a split block reads
-    (*f* on the Mamba2 B/C columns, ``models/mamba2.py``).  Every sum is
-    then divided by the batch ranks' count (the mean)."""
+    'data' alone is reduce-scattered over it (the FSDP gather's
+    backward), one replicated over 'data' all-reduced, and a
+    weight-stationary expert leaf (its hidden dim over ('data',
+    'model'), ``moe_ff2d``) not reduced over 'data' at all: its rank
+    computed its slice's gradient from every data rank's tokens, which
+    the dispatch buffer's gather brought (``models/moe.py``); then every
+    leaf is all-reduced over 'pod'.  Nothing is reduced over 'model'
+    here: each model rank computes its own block, or all of a replicated
+    leaf's gradient; what a rank holds only part of is summed by *f* in
+    the forward (the Mamba2 B/C columns, ``models/mamba2.py``; the q/k-
+    norm gains of split heads; under sequence parallelism every norm's
+    gain, since a rank's norms read its rows alone, ``models/lm.py``).
+    Every sum is then divided by the batch ranks' count (the mean)."""
     out = []
     if "data" in mesh.shape:
-        data_split = any(a == "data" or (isinstance(a, tuple) and "data" in a)
-                         for a in spec)
-        out.append(("reduce-scatter" if data_split else "all-reduce",
-                    "data"))
+        if "data" in spec:
+            out.append(("reduce-scatter", "data"))
+        elif not any(isinstance(a, tuple) and "data" in a for a in spec):
+            out.append(("all-reduce", "data"))
     if "pod" in mesh.shape:
         out.append(("all-reduce", "pod"))
     return tuple(out)

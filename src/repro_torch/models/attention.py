@@ -232,14 +232,54 @@ def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
     return x.view(b, s, width // hd, hd)
 
 
+def _rule(family: str) -> str:
+    """The attention rule of ``family`` ("attn" or "xattn") under the
+    tensor-parallel context: "whole" with none."""
+    tp = flags.TP
+    return "whole" if tp is None else getattr(tp, family)
+
+
 def _out(p: dict, out: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     """``wo`` of the heads' outputs (B, H, L, D) → (B, L, d); row-parallel
-    under a tensor-parallel context that splits the heads."""
+    under a tensor-parallel context that splits the block (a "head_dim"
+    rank's D / n dims of every head meet its rows of ``wo``)."""
     b, h, length, hd = out.shape
     out = out.transpose(1, 2).reshape(b, length, h * hd)
-    tp = flags.TP
     return cm.linear_rows(p["wo"], out, cd,
-                          split=tp is not None and tp.attn)
+                          split=flags.heads_split(_rule("attn")))
+
+
+def _shared_kv(p: dict, x: torch.Tensor, cd: torch.dtype, hd: int,
+               n_kv: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The "kv_shared" K/V: this rank's contiguous columns of ``wk`` and
+    ``wv`` (the reference's split), the ranks' columns gathered over
+    'model' in one ``all_gather`` (backward: the gradient's block summed
+    over the ranks, ``collectives.gather_rows``), and the one kv head
+    this rank's q heads read, ``index · n_kv // size``, kept: (B, L, 1,
+    D) each."""
+    tp = flags.TP
+    b, length, _ = x.shape
+    k = cm.linear(p["wk"], x, cd)
+    v = cm.linear(p["wv"], x, cd)
+    cols = k.shape[-1]
+    both = collectives.gather_rows(torch.cat([k, v], dim=-1), tp.group,
+                                   tp.size, tp.index, -1)
+    both = both.view(b, length, tp.size, 2, cols)
+    head = tp.index * n_kv // tp.size
+    k = both[:, :, :, 0].reshape(b, length, n_kv, hd)[:, :, head:head + 1]
+    v = both[:, :, :, 1].reshape(b, length, n_kv, hd)[:, :, head:head + 1]
+    return k, v
+
+
+def _rope_block(cos: torch.Tensor, sin: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rotary angles of a "head_dim" rank's dims: its block of the
+    D / 2 frequencies (its dims of each half of a head are the same
+    block, ``launch/sharding._head_dim_spec``)."""
+    tp = flags.TP
+    w = cos.shape[-1] // tp.size
+    lo = tp.index * w
+    return cos[..., lo:lo + w], sin[..., lo:lo + w]
 
 
 def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -255,21 +295,32 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     (n_pages * ps, Hkv, D) when ``write.page_table`` is set, the new K/V
     are written as ``write`` says and attention runs over the cache.
     The head counts are the projections' widths over ``head_dim``: under
-    a tensor-parallel context (``flags.TP``) this rank's block of heads,
-    its cache holding its block of kv heads, ``x`` through *f* and ``wo``
-    row-parallel."""
+    a tensor-parallel context (``flags.TP``) that splits the block, ``x``
+    goes through *f* (``common.block_input``), ``wo`` is row-parallel
+    and, by the attention rule: "split", this rank's block of heads, its
+    cache holding its block of kv heads; "kv_shared", its block of q
+    heads and the one kv head they read (``_shared_kv``), its cache
+    holding that head; "head_dim", its rotary-paired D / n dims of
+    every head and cache row (``_head_dim_attention``)."""
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
-    tp = flags.TP
-    x = cm.column_input(x, tp is not None and tp.attn)
-    q = _heads(cm.linear(p["wq"], x, cd), hd)
-    k = _heads(cm.linear(p["wk"], x, cd), hd)
-    v = _heads(cm.linear(p["wv"], x, cd), hd)
+    rule = _rule("attn")
+    split = flags.heads_split(rule)
+    x = cm.block_input(x, split)
     cos, sin = rope
+    if rule == "head_dim":
+        # This rank's D / n dims of every head, in rotary pairs.
+        hd = hd // flags.TP.size
+        cos, sin = _rope_block(cos, sin)
+    q = _heads(cm.linear(p["wq"], x, cd), hd)
+    if rule == "kv_shared":
+        k, v = _shared_kv(p, x, cd, hd, cfg.n_kv_heads)
+    else:
+        k = _heads(cm.linear(p["wk"], x, cd), hd)
+        v = _heads(cm.linear(p["wv"], x, cd), hd)
     if cfg.qk_norm:
         # The q/k-norm gains are replicated: under split heads each model
         # rank holds part of their gradient (*f* sums it).
-        split = tp is not None and tp.attn
         q, k = cm.qk_norm_rope(
             {"g": cm.column_input(p["q_norm"]["g"], split)},
             {"g": cm.column_input(p["k_norm"]["g"], split)}, q, k, cos, sin,
@@ -279,12 +330,23 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         k = cm.apply_rope(k, cos, sin)
 
     if cache is None:
+        if rule == "head_dim":
+            raise NotImplementedError(
+                "the head_dim attention split runs on the cached path only; "
+                "a full-sequence forward runs such a block whole "
+                "(launch/sharding.tp_plan, cached=False)")
         out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    impl=impl, causal=True, window=window)
         return _out(p, out, cd)
 
     ck, cv = cache["k"], cache["v"]
     qt = q.transpose(1, 2).contiguous()
+    if rule == "head_dim":
+        if write.page_table is not None:
+            refuse_paged_head_dim(flags.TP)
+        out = _head_dim_attention(qt, k.transpose(1, 2), v.transpose(1, 2),
+                                  ck, cv, write, window, cfg.head_dim_)
+        return _out(p, out, cd)
     if write.page_table is not None and window is not None:
         raise ValueError("paged KV caches do not hold sliding-window (SWA) "
                          "rings; use the contiguous slot pool")
@@ -367,13 +429,78 @@ def _seq_split_attention(qt: torch.Tensor, kt: torch.Tensor,
     return merge_blocks(both[..., :-1], both[..., -1])[0].to(o.dtype)
 
 
+def _kernel2(qt: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lens: torch.Tensor, window: int | None) -> torch.Tensor:
+    return kops.flash_attention(qt, k, v, lens, causal=True, window=window,
+                                tuner=flags.KERNEL_TUNER)
+
+
+def split_dim_attention(qt: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lens: torch.Tensor, window: int | None, *,
+                        scale: float, group) -> torch.Tensor:
+    """Causal attention over the ranks' blocks of every head's dims: qt
+    (B, Hq, Sq, D_r), k, v (B, Hkv, Skv, D_r) this rank's dims, ``lens``
+    (B,) the keys each lane attends, queries end-aligned (as kernel 2).
+    The partial logits q_r · k_rᵀ in f32 summed over ``group`` (one
+    ``all_reduce``), then the scale of the whole head dim, the length,
+    causal and window masks and the softmax, as ``attention_ref``
+    computes them; P · v_r gives this rank's dims of the output.  Plain
+    ops: no kernel runs a contraction split across ranks."""
+    b, hq, sq, dr = qt.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qg = qt.reshape(b, hkv, hq // hkv, sq, dr).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    s = collectives.reduce_from_model(s.contiguous(), group) * scale
+    lens = lens.to(device=qt.device, dtype=torch.long)
+    kj = torch.arange(skv, device=qt.device)
+    qi = lens[:, None] - sq + torch.arange(sq, device=qt.device)[None, :]
+    mask = (kj[None, None, :] < lens[:, None, None]) \
+        & (qi[:, :, None] >= kj[None, None, :])
+    if window is not None:
+        mask = mask & ((qi[:, :, None] - kj[None, None, :]) < window)
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    top = s.amax(dim=-1, keepdim=True)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    pexp = torch.exp(s - top)
+    den = pexp.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", pexp, v.float())
+    o = torch.where(den == 0, torch.zeros_like(o),
+                    o / torch.where(den == 0, torch.ones_like(den), den))
+    return o.reshape(b, hq, sq, dr).to(qt.dtype)
+
+
+def _head_dim_attention(qt: torch.Tensor, kt: torch.Tensor,
+                        vt: torch.Tensor, ck: torch.Tensor,
+                        cv: torch.Tensor, write: CacheWrite,
+                        window: int | None, head_dim: int) -> torch.Tensor:
+    """The contiguous cache's write and attention under the "head_dim"
+    rule: every tensor holds this rank's D / n dims of every head, and
+    ``_cached_attention``'s three cases (per-lane rows, a chunk in
+    position order, a chunk past the ring's wrap, which reads the ring
+    in position order) each attend through ``split_dim_attention``."""
+    if flags.SEQ is not None:
+        raise NotImplementedError(
+            "a cache with its sequence on a mesh axis under the head_dim "
+            "attention split")
+    group = flags.TP.group
+
+    def attend(q, k, v, lens, win):
+        return split_dim_attention(q, k, v, lens, win,
+                                   scale=1.0 / math.sqrt(head_dim),
+                                   group=group)
+
+    return _cached_attention(qt, kt, vt, ck, cv, write, window, attend)
+
+
 def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
                       ck: torch.Tensor, cv: torch.Tensor, write: CacheWrite,
-                      window: int | None) -> torch.Tensor:
+                      window: int | None, attend=_kernel2) -> torch.Tensor:
     """The contiguous cache's write and attention: qt (B, Hq, L, D); kt,
     vt (B, Hkv, L, D) the new rows; ck, cv (B, Hkv, S, D), a ring of S
     rows under ``window`` (the module docstring's three cases), or one
-    block of the rows under a sequence split (``flags.SEQ``)."""
+    block of the rows under a sequence split (``flags.SEQ``).
+    ``attend(q, k, v, lens, window)``: the attention itself, kernel 2
+    unless the caller gives another."""
     if flags.SEQ is not None:
         return _seq_split_attention(qt, kt, vt, ck, cv, write, window,
                                     flags.SEQ)
@@ -394,8 +521,7 @@ def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         cv[r2, :, at] = new_v
         # No window mask: a ring (one row per lane) holds exactly the
         # window, and its rows are not in position order.
-        return kops.flash_attention(qt, ck, cv, write.kv_lens, causal=True,
-                                    tuner=flags.KERNEL_TUNER)
+        return attend(qt, ck, cv, write.kv_lens, None)
     at = write.pos % s_cache if window is not None else write.pos
     if write.pos < 0 or at + length > s_cache:
         raise ValueError(
@@ -407,15 +533,13 @@ def _cached_attention(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         # Rows are positions (always so without a window).
         ck[:, :, at:at + length] = kt
         cv[:, :, at:at + length] = vt
-        return kops.flash_attention(qt, ck, cv, write.kv_lens, causal=True,
-                                    window=window, tuner=flags.KERNEL_TUNER)
+        return attend(qt, ck, cv, write.kv_lens, window)
     # A chunk past the wrap: the ring in position order, then the chunk,
     # attended before the chunk overwrites the ring's oldest rows.
     order = (at + torch.arange(s_cache, device=ck.device)) % s_cache
     kbuf = torch.cat([ck.index_select(2, order), kt], dim=2)
     vbuf = torch.cat([cv.index_select(2, order), vt], dim=2)
-    out = kops.flash_attention(qt, kbuf, vbuf, write.kv_lens, causal=True,
-                               window=window, tuner=flags.KERNEL_TUNER)
+    out = attend(qt, kbuf, vbuf, write.kv_lens, window)
     ck[:, :, at:at + length] = kt
     cv[:, :, at:at + length] = vt
     return out
@@ -430,17 +554,21 @@ def cross_attention(p: dict, x: torch.Tensor, kv_feats: torch.Tensor,
     tensor-parallel context that splits the heads (``flags.TP.xattn``)
     the projections are this rank's heads, ``kv_norm`` runs over the
     whole features on every rank and ``wo`` is row-parallel."""
-    b, length, _ = x.shape
     hd = cfg.head_dim_
     cd = getattr(torch, cfg.compute_dtype)
-    tp = flags.TP
-    split = tp is not None and tp.xattn
+    rule = _rule("xattn")
+    split = flags.heads_split(rule)
     # Every rank norms the whole features; its heads read them (*f*).
     feats = cm.column_input(
         cm.rmsnorm(p["kv_norm"], kv_feats.to(cd), cfg.norm_eps), split)
-    q = _heads(cm.linear(p["wq"], cm.column_input(x, split), cd), hd)
-    k = _heads(cm.linear(p["wk"], feats, cd), hd)
-    v = _heads(cm.linear(p["wv"], feats, cd), hd)
+    x = cm.block_input(x, split)
+    b, length, _ = x.shape
+    q = _heads(cm.linear(p["wq"], x, cd), hd)
+    if rule == "kv_shared":
+        k, v = _shared_kv(p, feats, cd, hd, cfg.n_kv_heads)
+    else:
+        k = _heads(cm.linear(p["wk"], feats, cd), hd)
+        v = _heads(cm.linear(p["wv"], feats, cd), hd)
     if cfg.qk_norm:
         q = cm.rmsnorm({"g": cm.column_input(p["q_norm"]["g"], split)}, q,
                        cfg.norm_eps)
@@ -452,19 +580,47 @@ def cross_attention(p: dict, x: torch.Tensor, kv_feats: torch.Tensor,
     return cm.linear_rows(p["wo"], out, cd, split=split)
 
 
+def refuse_paged_head_dim(tp) -> None:
+    """The paged pool does not hold a "head_dim" attention split: kernel
+    3 reads whole heads, and no plain split-dim read of the pages is
+    written (ROADMAP.md A.6b item 7)."""
+    if tp is not None and tp.attn == "head_dim":
+        raise NotImplementedError(
+            "the paged KV pool under the head_dim attention split "
+            "(ROADMAP.md A.6b item 7); serve through the contiguous slot "
+            "pool")
+
+
+def local_kv(cfg: ArchConfig, tp) -> tuple[int, int]:
+    """(kv heads, head dim) of this rank's K/V cache under ``tp`` (a
+    ``launch/sharding.TPPlan`` or ``flags.TensorParallel``, or None):
+    its Hkv / n heads ("split"), the one kv head its q heads read
+    ("kv_shared"), D / n dims of every head ("head_dim"), or all of
+    them."""
+    hkv, d = cfg.n_kv_heads, cfg.head_dim_
+    rule = "whole" if tp is None else tp.attn
+    if rule == "split":
+        return hkv // tp.size, d
+    if rule == "kv_shared":
+        return 1, d
+    if rule == "head_dim":
+        return hkv, d // tp.size
+    return hkv, d
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                window: int | None, dtype: torch.dtype,
                device: torch.device, tp=None, seq_blocks: int = 1) -> dict:
     """Per-layer ``{"k","v"}`` of shape (B, Hkv, S, D): ``S = max_len``,
     or under a window the ring's ``min(window, max_len)`` rows.  On a
     mesh rank: ``tp`` (a plan that splits the attention heads) gives its
-    Hkv / size kv heads, and ``seq_blocks`` its S / seq_blocks rows."""
+    kv heads and head dim (``local_kv``), and ``seq_blocks`` its S /
+    seq_blocks rows."""
     s = min(window, max_len) if window is not None else max_len
     if s % seq_blocks:
         raise ValueError(f"{s} cache rows do not split into {seq_blocks} "
                          f"blocks")
-    hkv = cfg.n_kv_heads // tp.size if tp is not None and tp.attn \
-        else cfg.n_kv_heads
-    shape = (batch, hkv, s // seq_blocks, cfg.head_dim_)
+    hkv, d = local_kv(cfg, tp)
+    shape = (batch, hkv, s // seq_blocks, d)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -26,6 +26,17 @@ vocabulary-parallel logits through the gather (``gather_vocab``): the
 differentiable collectives of ``collectives.py``, which train as the
 reference's GSPMD step does.  Under an FSDP context (``flags.FSDP``)
 ``fsdp_params`` gathers a subtree's 'data' blocks.
+
+Under sequence parallelism (``flags.SP``, Megatron-SP) the residual
+stream holds this rank's rows of the sequence: a block's input is
+gathered once (``block_input``: ``collectives.gather_seq``, whose
+backward reduce-scatters the gradient of a split block's input, or
+keeps this rank's rows of a whole block's), a split block's row-parallel
+product ends in ``collectives.scatter_seq_sum`` and a whole one keeps
+its rows (``linear_rows``), the vocab-split embedding reduce-scatters
+the sequence (``embed``), and a norm over the rank's rows takes its gain
+through *f* (``row_norm``), since the rank holds only its rows' part of
+the gain's gradient.
 """
 from __future__ import annotations
 
@@ -57,12 +68,19 @@ def linear_rows(p: dict, x: torch.Tensor, compute_dtype: torch.dtype,
     tensor-parallel context (``flags.TP``) and ``split``, ``x`` holds
     this rank's columns and ``w`` its rows, and the partial products are
     summed by one ``all_reduce`` over the model group before the bias
-    (*g*: under autograd the gradient passes through)."""
+    (*g*: under autograd the gradient passes through).  Under sequence
+    parallelism the sum is a reduce-scatter to this rank's rows
+    (``collectives.scatter_seq_sum``), and a whole block keeps its rows
+    (``keep_rows``): the block's output is the residual's rows."""
     tp = flags.TP
     if tp is None or not split:
-        return linear(p, x, compute_dtype)
+        return keep_rows(linear(p, x, compute_dtype))
     out = _cast(x, compute_dtype) @ _cast(p["w"], compute_dtype)
-    out = collectives.reduce_from_model(out, tp.group)
+    sp = flags.SP
+    if sp is None:
+        out = collectives.reduce_from_model(out, tp.group)
+    else:
+        out = collectives.scatter_seq_sum(out, sp.group, sp.size)
     if "b" in p:
         out = out + _cast(p["b"], compute_dtype)
     return out
@@ -79,12 +97,16 @@ def embed(p: dict, tokens: torch.Tensor,
     tp = flags.TP
     if tp is None or not tp.vocab:
         rows = torch.index_select(p["table"], 0, tokens.reshape(-1))
-        return _cast(rows.view(*tokens.shape, -1), compute_dtype)
+        return keep_rows(_cast(rows.view(*tokens.shape, -1), compute_dtype))
     n = p["table"].shape[0]
     local = tokens.reshape(-1) - tp.index * n
     inside = (local >= 0) & (local < n)
     rows = torch.index_select(p["table"], 0, torch.where(inside, local, 0))
     rows = _cast(torch.where(inside[:, None], rows, 0.0), compute_dtype)
+    sp = flags.SP
+    if sp is not None:
+        return collectives.scatter_seq_sum(rows.view(*tokens.shape, -1),
+                                           sp.group, sp.size)
     rows = collectives.reduce_from_model(rows, tp.group)
     return rows.view(*tokens.shape, -1)
 
@@ -103,6 +125,42 @@ def column_input(x: torch.Tensor, split: bool) -> torch.Tensor:
         return x.view_as(x) if torch.is_grad_enabled() and x.requires_grad \
             else x
     return collectives.copy_to_model(x, tp.group)
+
+
+def block_input(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """A block's input ``x`` (B, L, d), read by its column-parallel
+    products: ``column_input`` (*f* where ``split``), or under sequence
+    parallelism (``flags.SP``) the model ranks' rows gathered on the
+    sequence dim, once per block (``collectives.gather_seq``; a split
+    block's readers each hold part of the gradient, which the backward
+    reduce-scatters; a whole block's hold all of it, and each rank keeps
+    its rows)."""
+    sp = flags.SP
+    if sp is None:
+        return column_input(x, split)
+    return collectives.gather_seq(x, sp.group, sp.size, sp.index,
+                                  reduce=split)
+
+
+def keep_rows(x: torch.Tensor) -> torch.Tensor:
+    """Under sequence parallelism, this rank's rows of ``x`` (B, S, ...),
+    which every model rank computed whole (``collectives.keep_seq``);
+    ``x`` itself otherwise."""
+    sp = flags.SP
+    if sp is None:
+        return x
+    return collectives.keep_seq(x, sp.group, sp.size, sp.index)
+
+
+def row_params(p: dict) -> dict:
+    """The parameters of a product or norm over the residual's rows (the
+    norms, zamba2's per-layer ``proj``): under sequence parallelism each
+    leaf goes through *f*, since this rank's rows give only their part
+    of its gradient; ``p`` itself otherwise."""
+    sp = flags.SP
+    if sp is None:
+        return p
+    return {k: collectives.copy_to_model(v, sp.group) for k, v in p.items()}
 
 
 def replicated_segment(w: torch.Tensor, lo: int, hi: int,

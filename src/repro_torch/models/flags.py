@@ -22,8 +22,14 @@ collective.  The scheduler sets it around each tick, as it does the
 tuner.  ``TensorParallel.moe`` splits the experts' hidden dim the
 same way (``models/moe.py``); ``mamba``, ``mlstm`` and ``slstm`` the
 recurrent blocks' heads or channels, their states holding this rank's
-(``models/mamba2.py``, ``models/xlstm.py``), and ``xattn`` the
-cross-attention heads (``attention.cross_attention``).
+(``models/mamba2.py``, ``models/xlstm.py``).  ``attn`` (the
+self-attention blocks, zamba2's shared one too) and ``xattn`` (the
+cross-attention blocks) are the attention rule of ``launch/sharding.
+attention_rule``: "split" (q and kv heads both over 'model'),
+"kv_shared" (the q heads split, each rank keeping the one kv head they
+read, gathered from the ranks' K/V columns), "head_dim" (every head's
+dims split in RoPE pairs, the logits summed over 'model'; the serve
+path only) or "whole" (``models/attention.py``).
 
 ``SEQ`` is a ``SeqSplit`` or None.  When set, every K/V cache a cached
 forward reads holds a contiguous block of the cache's rows, the other
@@ -33,6 +39,20 @@ softmax statistics out, and the ranks merge (``attention.merge_blocks``;
 the counterpart of the reference's caches with the sequence on 'data'
 or 'model').  The dry run and the lock-step engine set it
 (``serve/engine.make_decode_step``).
+
+``SP`` is a ``SeqParallel`` or None.  When set (the sharded step under
+``seq_shard``: Megatron-SP), the residual stream between blocks holds
+this rank's S / n rows of the sequence, ``n`` the 'model' extent: every
+block gathers its input's rows once and ends in a reduce-scatter on the
+sequence, or, where it runs whole, keeps its own rows of its output;
+the norms run on the rank's rows, their gains through *f*
+(``models/common.py``, ``models/lm.py``).
+
+``MOE_FF2D`` is an ``FF2DContext`` or None.  When set (the sharded step
+under ``moe_ff2d``), the experts' weights are this rank's block of
+their hidden dim over ('data', 'model') and are never gathered: the
+dispatch buffer is gathered over 'data' instead and the partial output
+reduce-scattered back (``models/moe.py``).
 
 ``FSDP`` is an ``FSDPContext`` or None.  When set, every leaf a forward
 reads whose training spec holds 'data' is this rank's block over the
@@ -67,6 +87,8 @@ from typing import Any
 KERNEL_TUNER = None
 TP = None
 SEQ = None
+SP = None
+MOE_FF2D = None
 FSDP = None
 MOE_DISPATCH_GROUPS = None
 UNROLL_FOR_ACCOUNTING = False
@@ -82,14 +104,42 @@ class TensorParallel:
     group: Any
     size: int
     index: int
-    attn: bool
+    attn: str
     ffn: bool
     vocab: bool
     moe: bool = False
     mamba: bool = False
     mlstm: bool = False
     slstm: bool = False
-    xattn: bool = False
+    xattn: str = "whole"
+
+
+def heads_split(rule: str) -> bool:
+    """Whether an attention rule splits the block over 'model' (its
+    output row-parallel): every rule but "whole"."""
+    return rule != "whole"
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqParallel:
+    """The 'model' axis the residual stream's sequence is split over
+    under Megatron-SP: ``group`` its process group, ``size`` its extent,
+    ``index`` this rank's block of rows (rows ``[index · S/size, (index
+    + 1) · S/size)`` of every sequence)."""
+
+    group: Any
+    size: int
+    index: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FF2DContext:
+    """The 'data' axis the weight-stationary experts gather their
+    dispatch buffer over: ``group``, ``size``, ``index``."""
+
+    group: Any
+    size: int
+    index: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +206,28 @@ def cache_seq(seq: SeqSplit | None):
         yield
     finally:
         SEQ = prev
+
+
+@contextlib.contextmanager
+def sequence_parallel(sp: SeqParallel | None):
+    global SP
+    prev = SP
+    SP = sp
+    try:
+        yield
+    finally:
+        SP = prev
+
+
+@contextlib.contextmanager
+def moe_ff2d(ctx: FF2DContext | None):
+    global MOE_FF2D
+    prev = MOE_FF2D
+    MOE_FF2D = ctx
+    try:
+        yield
+    finally:
+        MOE_FF2D = prev
 
 
 @contextlib.contextmanager

@@ -52,9 +52,13 @@ vocabulary inside the blocks (``models/common.py``), for every block
 kind: attention (a ``shared_attn`` layer's shared block too, its
 per-layer ``proj`` whole on every rank), cross-attention, Mamba2 and the
 xLSTM blocks, each by its own flag of the plan; a cache holds the local
-heads and channels (``init_caches(..., tp=...)``).  Under a sequence
-split of the caches (``flags.SEQ``) a K/V cache holds one block of the
-rows and decode merges the ranks' blocks (``models/attention.py``).
+heads and channels (``init_caches(..., tp=...)``); an attention block
+lies over 'model' by its plan's rule ("split", "kv_shared", "head_dim"
+or "whole", ``models/attention.py``).  Under a sequence split of the
+caches (``flags.SEQ``) a K/V cache holds one block of the rows and
+decode merges the ranks' blocks (``models/attention.py``).  Under
+sequence parallelism (``flags.SP``, the training step's Megatron-SP)
+``forward`` keeps the residual's rows of this rank between blocks.
 """
 from __future__ import annotations
 
@@ -290,21 +294,24 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
             p["xattn"], h, feats, cfg,
             impl="flash" if write is not None else impl)
         if cfg.d_ff:
-            x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
+            x, h = cm.add_rmsnorm(cm.row_params(p["ln2"]), x, out,
+                                  cfg.norm_eps)
             out = ffn.apply(p["ffn"], h, cfg)
     elif kind == "shared_attn":
         a = attention.self_attention(
             shared["attn"], h, cfg, rope=rope, window=window, cache=cache,
             write=write, impl=impl)
-        inner, h2 = cm.add_rmsnorm(shared["ln2"], h, a, cfg.norm_eps)
+        inner, h2 = cm.add_rmsnorm(cm.row_params(shared["ln2"]), h, a,
+                                   cfg.norm_eps)
         inner = inner + ffn.apply(shared["ffn"], h2, cfg)
-        out = cm.linear(p["proj"], inner, compute_dtype(cfg))
+        out = cm.linear(cm.row_params(p["proj"]), inner, compute_dtype(cfg))
     elif kind == "attn":
         out = attention.self_attention(
             p["attn"], h, cfg, rope=rope, window=window, cache=cache,
             write=write, impl=impl)
         if cfg.d_ff:
-            x, h = cm.add_rmsnorm(p["ln2"], x, out, cfg.norm_eps)
+            x, h = cm.add_rmsnorm(cm.row_params(p["ln2"]), x, out,
+                                  cfg.norm_eps)
             if cfg.n_experts:
                 out, aux = moe.apply(p["moe"], h, cfg)
             else:
@@ -313,7 +320,8 @@ def _apply_block(kind: str, p: dict, x: torch.Tensor, h: torch.Tensor,
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     if next_norm is None:
         return x + out, None, aux
-    return (*cm.add_rmsnorm(next_norm, x, out, cfg.norm_eps), aux)
+    return (*cm.add_rmsnorm(cm.row_params(next_norm), x, out, cfg.norm_eps),
+            aux)
 
 
 def _ln1(params: dict, cfg: ArchConfig, layer: int) -> dict:
@@ -358,10 +366,11 @@ def _layer_block(params: dict, layer: int, kind: str, x: torch.Tensor,
 
 
 def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Logits of the final-normed rows ``h``, in the compute dtype."""
+    """Logits of the final-normed rows ``h``, in the compute dtype; under
+    sequence parallelism every rank's rows gathered first."""
     cd = compute_dtype(cfg)
     tp = flags.TP
-    h = cm.column_input(h, tp is not None and tp.vocab)
+    h = cm.block_input(h, tp is not None and tp.vocab)
     if cfg.tie_embeddings:
         table = _gathered(params, "embed")["table"]
         return cm.gather_vocab(h.to(cd) @ table.to(cd).t())
@@ -394,15 +403,24 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
     counterpart of ``jax.checkpoint(group_body)``): only its inputs are
     kept, and it runs again in the backward (an FSDP layer's gather
-    with it)."""
+    with it).  Under sequence parallelism (``flags.SP``, the sharded
+    step's ``seq_shard``) the residual ``x`` and its norm ``h`` hold this
+    rank's S / n rows between blocks (the embedding reduce-scatters them,
+    every norm runs on them); each block gathers its input's rows and
+    gives back its own (``models/common.py``), and the head gathers them
+    all; RoPE reads the gathered rows' positions.  S must divide by n."""
     check_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
+    sp = flags.SP
+    if sp is not None and s % sp.size:
+        raise ValueError(f"sequence parallelism over {sp.size} model ranks "
+                         f"needs the sequence ({s}) to divide by them")
     window = window if window is not None else cfg.attn_window
     x = cm.embed(_gathered(params, "embed"), tokens, compute_dtype(cfg))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     rope = cm.rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-    h = cm.rmsnorm(_ln1(params, cfg, 0), x, cfg.norm_eps)
+    h = cm.rmsnorm(cm.row_params(_ln1(params, cfg, 0)), x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer, kind in enumerate(cfg.layer_kinds()):
         nxt = _next_norm(params, cfg, layer, params["final_norm"])

@@ -57,7 +57,7 @@ def _project(p: dict, xin: torch.Tensor, cfg: ArchConfig, di: int,
     n = cfg.ssm_state
     w = cm.replicated_segment(p["in_proj"]["w"], 2 * di, 2 * di + 2 * n,
                               split)
-    zxbcdt = cm.linear({"w": w}, cm.column_input(xin, split),
+    zxbcdt = cm.linear({"w": w}, cm.block_input(xin, split),
                        getattr(torch, cfg.compute_dtype))
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di],
             zxbcdt[..., 2 * di:2 * di + n],
@@ -113,7 +113,7 @@ def apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     b_ = conv_out[..., di:di + n]
     c_ = conv_out[..., di + n:]
 
-    bsz, length, _ = xin.shape
+    bsz, length, _ = z.shape        # the gathered rows under SP
     a = -torch.exp(p["a_log"].float())                           # (h,)
     delta = F.softplus(dt_raw.float() + p["dt_bias"].float())    # (B,L,h)
     log_decay = delta * a

@@ -37,6 +37,21 @@ global dispatch; ROADMAP.md, Divergences).  Under tensor parallelism
 'model': the dispatched tokens go through *f*, the down product ends in
 *g*; the router is replicated.
 
+Under sequence parallelism (``flags.SP``) the block gathers every model
+rank's rows first (``collectives.gather_seq``; the router runs whole on
+every rank, so the backward keeps this rank's rows), so capacity and
+places come from the same count as without it, and each rank keeps its
+rows of the combined output (``common.keep_rows``, whose backward
+gathers the rows' gradients: the router's gate weights read the
+experts' summed output, so every rank needs all of the gradient).  With the weight-stationary experts (``flags.MOE_FF2D``, the
+sharded step's ``moe_ff2d``) a rank holds its block of every expert's
+hidden dim over ('data', 'model') and the weights are never gathered:
+the dispatch buffer, this rank's rows, is gathered over 'data' in rank
+order, the rank's hidden slice computes the partial outputs of every
+data rank's rows, which a reduce-scatter over 'data' sums and sends back
+to their rank, and *g* sums them over 'model'
+(``collectives.gather_rows`` / ``scatter_rows_sum``).
+
 The body runs inside a captured CUDA graph, so it reads nothing back to
 the host and has no data-dependent shape: the one-hot is a comparison
 with ``arange(E)`` (``F.one_hot`` checks its indices on the host), and
@@ -153,6 +168,11 @@ def _dispatch_compute_combine(tokens: torch.Tensor, gate_idx: torch.Tensor,
     buf = torch.zeros((e * rows + 1, d), dtype=cd, device=tokens.device)
     buf = buf.index_copy(0, dest, src)
     dispatched = buf[:-1].view(e, rows, d)
+    ff2d = flags.MOE_FF2D
+    if ff2d is not None:
+        # Every data rank's rows, for this rank's slice of the experts.
+        dispatched = collectives.gather_rows(dispatched, ff2d.group,
+                                             ff2d.size, ff2d.index, 1)
 
     act = cm.act_fn(cfg.act)
     up = torch.bmm(dispatched, cm._cast(p["w_up"], cd))
@@ -161,6 +181,8 @@ def _dispatch_compute_combine(tokens: torch.Tensor, gate_idx: torch.Tensor,
     else:
         up = act(up)
     eout = torch.bmm(up, cm._cast(p["w_down"], cd))
+    if ff2d is not None:
+        eout = collectives.scatter_rows_sum(eout, ff2d.group, ff2d.size, 1)
     if split:
         eout = collectives.reduce_from_model(eout, tp.group)
 
@@ -193,7 +215,12 @@ def apply(p: dict, x: torch.Tensor, cfg: ArchConfig
     """x: (B, S, d) -> (out (B, S, d) in the compute dtype, aux 0-d f32).
     ``p``: ``router`` {"w" (d, E)}, ``w_up`` / ``w_gate`` (E, d, ff),
     ``w_down`` (E, ff, d) (this rank's hidden columns under tensor
-    parallelism)."""
+    parallelism).  Under sequence parallelism ``x`` and the output hold
+    this rank's rows (module docstring)."""
+    sp = flags.SP
+    if sp is not None:
+        x = collectives.gather_seq(x, sp.group, sp.size, sp.index,
+                                   reduce=False)
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
@@ -213,4 +240,4 @@ def apply(p: dict, x: torch.Tensor, cfg: ArchConfig
         args = (tokens, gate_idx, gate_w, p, cfg, capacity(batch[1] * t, cfg))
         out = _dispatch_compute_combine(*args) if batch[0] is None \
             else _dispatch_compute_combine(*args, batch=batch)
-    return out.view(b, s, d), aux
+    return cm.keep_rows(out.view(b, s, d)), aux

@@ -58,14 +58,14 @@ def mlstm_apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     """xin: (B, L, d).  Returns the block's output (B, L, d) in the
     compute dtype; with ``state`` {"mem"} the L tokens step it, in
     place."""
-    bsz, length, _ = xin.shape
     # The heads this rank holds (all, or its block: ``flags.TP.mlstm``).
     h, hd = p["w_if"]["w"].shape[-1] // 2, cfg.ssm_head_dim
     di = h * hd
     cd = getattr(torch, cfg.compute_dtype)
     tp = flags.TP
     split = tp is not None and tp.mlstm
-    xin = cm.column_input(xin, split)
+    xin = cm.block_input(xin, split)
+    bsz, length, _ = xin.shape
     q = cm.linear(p["wq"], xin, cd).view(bsz, length, h, hd) * (hd ** -0.5)
     k = cm.linear(p["wk"], xin, cd).view(bsz, length, h, hd)
     v = cm.linear(p["wv"], xin, cd).view(bsz, length, h, hd)
@@ -121,14 +121,15 @@ def slstm_apply(p: dict, xin: torch.Tensor, cfg: ArchConfig, *,
     """xin: (B, L, d).  Returns the block's output (B, L, d) in the
     compute dtype; with ``state`` {"c", "n", "m"} the L tokens step from
     it and it is updated in place, else they step from a fresh state."""
-    bsz, length, _ = xin.shape
     # The channels this rank holds (all, or its block: ``flags.TP.slstm``);
     # the recurrence is per channel, so none is read across ranks.
     di = p["w_zifo"]["w"].shape[-1] // 4
     cd = getattr(torch, cfg.compute_dtype)
     tp = flags.TP
     split = tp is not None and tp.slstm
-    zifo = cm.linear(p["w_zifo"], cm.column_input(xin, split), cd).float()
+    xin = cm.block_input(xin, split)
+    bsz, length, _ = xin.shape
+    zifo = cm.linear(p["w_zifo"], xin, cd).float()
     z = torch.tanh(zifo[..., :di])
     i_raw = zifo[..., di:2 * di]
     log_f = F.logsigmoid(zifo[..., 2 * di:3 * di])

@@ -19,7 +19,9 @@ tensor-parallel blocks (every block kind, by the plan) and every data
 replica runs the whole batch, except that a batch that does not split
 over 'data' puts the caches' sequence there, as the reference's
 ``cache_specs`` do (``cache_seq_model``: on 'model'); such a cache is
-prefilled one row a step (``models/attention.py``).
+prefilled one row a step (``models/attention.py``).  The attention
+blocks follow the serving plan's rule (``sharding.tp_plan``, cached;
+``force_attn`` names one for tests).
 """
 from __future__ import annotations
 
@@ -138,8 +140,10 @@ class ServeEngine:
                  executor=None, kernel_tuner=None,
                  dispatch_depth: int | str | None = None,
                  mesh=None, cache_seq_model: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 force_attn: str | None = None):
         self.cfg = cfg
+        self.force_attn = force_attn
         self.params = params
         self.window = window if window is not None else cfg.attn_window
         self.max_len = max_len
@@ -175,9 +179,11 @@ class ServeEngine:
                 params = sharding.local_tree(
                     self.params, sharding.serve_param_specs(
                         self.cfg, self.params, self.mesh,
-                        seq_over_model=whole), self.mesh)
-                tp = sharding.tensor_parallel(self.cfg, self.mesh,
-                                              seq_over_model=whole)
+                        seq_over_model=whole, force_attn=self.force_attn),
+                    self.mesh)
+                tp = sharding.tensor_parallel(
+                    self.cfg, self.mesh, seq_over_model=whole, cached=True,
+                    force_attn=self.force_attn)
             self._lock = (params, tp, make_decode_step(
                 self.cfg, window=self.window, kernel_tuner=self.kernel_tuner,
                 tp=tp, seq=self.seq))
@@ -282,7 +288,7 @@ class ServeEngine:
                 window=self.window, executor=self.executor, acc=self.acc,
                 kernel_tuner=self.kernel_tuner,
                 dispatch_depth=self.dispatch_depth, mesh=self.mesh,
-                device=self.device)
+                device=self.device, force_attn=self.force_attn)
         rids = [self._sched.submit(prompt[i], max_new_tokens=n_new)
                 for i in range(bsz)]
         outs = self._sched.run_until_idle()

@@ -39,8 +39,11 @@ the paged pool reuses no prefix for an arch that has one
 
 With ``mesh`` (a ``launch.mesh.Mesh`` of ('data', 'model')) each rank
 holds its part, by ``launch/sharding.cache_specs`` and
-``paged_cache_specs``: K/V heads split over 'model' where the attention
-heads do (``sharding.tp_plan``), and a recurrent state's heads or
+``paged_cache_specs`` under the serving plan (``sharding.tp_plan``,
+cached): K/V by the attention rule (its kv heads where both head counts
+split, the one kv head its q heads read under "kv_shared", its rotary
+pairs of every head's dims under "head_dim", which the paged pool
+refuses), and a recurrent state's heads or
 channels where its block's do (Mamba2's conv carry: this rank's x
 channels and the B/C channels whole); the slot pool holds only its replica's
 slot group (``lanes``, ``n_slots / data`` rows); the paged pool holds
@@ -61,7 +64,7 @@ from ..collectives import all_gather_into
 from ..configs.base import ArchConfig
 from ..core import strict
 from ..device import resolve_device
-from ..models import lm
+from ..models import attention, lm
 
 
 class SlotOverflowError(ValueError):
@@ -137,11 +140,12 @@ class _MeshPart:
     ``lm.init_caches(..., tp=plan)``; ``kv_heads``: the kv heads it
     holds)."""
 
-    def __init__(self, cfg: ArchConfig, n_slots: int, mesh):
+    def __init__(self, cfg: ArchConfig, n_slots: int, mesh,
+                 force_attn: str | None = None):
         if mesh is None:
             self.mesh, self.replica, self.n_replicas = None, 0, 1
             self.lo, self.local, self.plan = 0, n_slots, None
-            self.kv_heads = cfg.n_kv_heads
+            self.kv_heads, self.head_dim = cfg.n_kv_heads, cfg.head_dim_
             return
         from ..launch import sharding
 
@@ -150,9 +154,9 @@ class _MeshPart:
         self.local = n_slots // self.n_replicas
         self.replica = mesh.coord("data")
         self.lo = self.replica * self.local
-        self.plan = plan = sharding.tp_plan(cfg, mesh)
-        self.kv_heads = cfg.n_kv_heads // plan.size if plan.attn \
-            else cfg.n_kv_heads
+        self.plan = sharding.tp_plan(cfg, mesh, cached=True,
+                                     force_attn=force_attn)
+        self.kv_heads, self.head_dim = attention.local_kv(cfg, self.plan)
 
     @property
     def lanes(self) -> slice:
@@ -172,15 +176,18 @@ class _MeshPart:
 
 
 class SlotKVCachePool:
-    """Fixed-size cache slots with a free-list and per-slot positions."""
+    """Fixed-size cache slots with a free-list and per-slot positions.
+    ``force_attn``: the attention rule of the mesh plan
+    (``sharding.tp_plan``), for tests and the size-1 paths."""
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
                  window: int | None = None, dtype: torch.dtype | None = None,
-                 mesh=None, device: str | torch.device = "cuda"):
+                 mesh=None, device: str | torch.device = "cuda",
+                 force_attn: str | None = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         refuse_cross_attention(cfg, "SlotKVCachePool")
-        self.part = _MeshPart(cfg, n_slots, mesh)
+        self.part = _MeshPart(cfg, n_slots, mesh, force_attn)
         self._donated_to: str | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -400,7 +407,7 @@ class PagedKVCachePool:
                  page_size: int = 16, n_pages: int | None = None,
                  window: int | None = None, dtype: torch.dtype | None = None,
                  mesh=None, device: str | torch.device = "cuda",
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, force_attn: str | None = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         refuse_cross_attention(cfg, "PagedKVCachePool")
@@ -411,7 +418,8 @@ class PagedKVCachePool:
                 "windows: a wrapped write would straddle pages shared "
                 "read-only; use SlotKVCachePool for windowed archs")
         lm.check_ported(cfg)
-        self.part = _MeshPart(cfg, n_slots, mesh)
+        self.part = _MeshPart(cfg, n_slots, mesh, force_attn)
+        attention.refuse_paged_head_dim(self.part.plan)
         self._donated_to: str | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -428,7 +436,7 @@ class PagedKVCachePool:
         if self.n_pages < 2:
             raise ValueError(f"n_pages must be >= 2, got {self.n_pages}")
         dtype = dtype or lm.compute_dtype(cfg)
-        shape = (self.n_pages * ps, self.part.kv_heads, cfg.head_dim_)
+        shape = (self.n_pages * ps, self.part.kv_heads, self.part.head_dim)
         self.kinds = tuple(cfg.layer_kinds())
         self.caches = [
             {"k": torch.zeros(shape, dtype=dtype, device=self.device),
@@ -538,7 +546,10 @@ class PagedKVCachePool:
         (every rank passes the same lists: they follow from the host
         bookkeeping).  One ``all_gather`` over the data group of each
         replica's rows of every attention store, padded to the longest
-        list with scratch rows, then copied into place.  Nothing to do
+        list with scratch rows, then copied into place (the ranks of
+        one data group share their 'model' coordinate, so their stores
+        hold the same kv heads: a "kv_shared" rank's its one head, a
+        "head_dim" one's dims are never paged).  Nothing to do
         with one replica (no other copy exists) or no attention layer (an
         xLSTM stack: its states are slot rows of each replica's own)."""
         part = self.part

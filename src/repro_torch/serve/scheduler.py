@@ -64,7 +64,11 @@ reads a timing or the clock is taken on mesh rank 0 and broadcast
 (``_agree``), and every rank's trace records it; a mesh run also decides
 ``serve_mesh_batch``, the active-lane cap (``_decide_mesh_batch``).
 Prefill chunk-ops run in order (their collectives must meet).
-Speculation on a mesh needs a data extent of 1 (ROADMAP A.6b).
+Speculation on a mesh needs a data extent of 1 (ROADMAP A.6b).  The
+attention blocks lie over 'model' by the serving plan's rule
+(``sharding.tp_plan``, cached: "split", "kv_shared", "head_dim" or
+"whole"; ``force_attn`` names one for tests); the paged pool refuses
+"head_dim".
 """
 from __future__ import annotations
 
@@ -216,7 +220,8 @@ class ServeScheduler:
                  speculate: int | str | None = None,
                  max_spec_depth: int = 8,
                  spec_history: int = DEFAULT_SPEC_HISTORY,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 force_attn: str | None = None):
         refuse_cross_attention(cfg, "ServeScheduler")
         if admission not in ("greedy", "adaptive"):
             raise ValueError(
@@ -242,9 +247,11 @@ class ServeScheduler:
                     "(ROADMAP.md A.6b); serve it with a data extent of 1")
             self.mesh_desc = "x".join(
                 str(mesh.shape[a]) for a in mesh.axis_names)
-            self.tp = sharding.tensor_parallel(cfg, mesh)
+            self.tp = sharding.tensor_parallel(cfg, mesh, cached=True,
+                                               force_attn=force_attn)
             self.params = sharding.local_tree(
-                params, sharding.serve_param_specs(cfg, params, mesh), mesh)
+                params, sharding.serve_param_specs(
+                    cfg, params, mesh, force_attn=force_attn), mesh)
         self.slots_per_replica = n_slots // self.n_replicas
         self.kernel_tuner = kernel_tuner
         self.window = window if window is not None else cfg.attn_window
@@ -311,11 +318,12 @@ class ServeScheduler:
                                chunk=ps, inputs=(("fixed", True),))
             self.pool: Any = PagedKVCachePool(
                 cfg, n_slots, max_len, window=self.window, page_size=ps,
-                mesh=mesh, device=self.device)
+                mesh=mesh, device=self.device, force_attn=force_attn)
         else:
             self.pool = SlotKVCachePool(cfg, n_slots, max_len,
                                         window=self.window, mesh=mesh,
-                                        device=self.device)
+                                        device=self.device,
+                                        force_attn=force_attn)
         self.tick_key = DecisionKey("serve_tick", sig)
         if isinstance(dispatch_depth, str):
             if dispatch_depth != "auto":

@@ -27,7 +27,17 @@ step on its own blocks (SPMD), and the collectives are written out:
   batch ranks' count: the mean the reference's loss takes over the
   global batch (``sharding.grad_reduction``);
 * the clip norm is the norm of the whole gradient, each element counted
-  once (``global_norm``), and AdamW updates each rank's blocks in place.
+  once (``global_norm``), and AdamW updates each rank's blocks in place;
+* ``seq_shard`` (Megatron-SP, the reference's ``--seq-shard``): the
+  residual stream between blocks holds this rank's rows of the sequence
+  over 'model' (``flags.sequence_parallel``; ``models/lm.py``,
+  ``models/common.py``), the row-parallel sums reduce-scattered and the
+  blocks' inputs gathered in place of *g* and *f*;
+* ``moe_ff2d`` (the reference's ``--moe-ff2d``): the experts' hidden dim
+  over ('data', 'model'), d whole (``sharding.train_param_specs(...,
+  moe_ff2d=True)``), never gathered; the dispatch buffer goes to the
+  weights instead (``flags.moe_ff2d``, ``models/moe.py``), and their
+  gradients are whole for their slice (``sharding.grad_reduction``).
 
 ``make_train_step`` keeps the reference's signature; this step adds the
 mesh.  With one rank it computes what ``make_train_step`` does, op for
@@ -35,6 +45,7 @@ op.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
@@ -81,19 +92,50 @@ def contexts(cfg: ArchConfig, mesh, specs: Any, *,
     return tp, flags.FSDPContext(data, n_data, i_data, specs, batch, n, idx)
 
 
-def train_specs(cfg: ArchConfig, mesh, *, master: bool = False
-                ) -> tuple[Any, dict]:
-    """(parameter specs, optimizer-state specs) of ``cfg`` on ``mesh``."""
+def lever_contexts(cfg: ArchConfig, mesh, specs: Any, tp, *,
+                   seq_shard: bool = False, moe_ff2d: bool = False
+                   ) -> tuple[Any, flags.SeqParallel | None,
+                              flags.FF2DContext | None]:
+    """(the tensor-parallel context, the sequence-parallel one, the
+    weight-stationary experts' one) of the step's levers: ``seq_shard``
+    splits the residual's sequence over 'model' wherever the step runs
+    tensor parallelism (``tp`` not None); ``moe_ff2d`` gathers the
+    dispatch buffer over 'data' where the expert leaves' specs split
+    their hidden dim over ('data', 'model') (``specs``), and where they
+    fall back to whole (the hidden dim does not divide) the experts run
+    whole on every rank."""
+    sp = ff2d = None
+    if seq_shard and tp is not None:
+        sp = flags.SeqParallel(tp.group, tp.size, tp.index)
+    if moe_ff2d and cfg.n_experts:
+        spec = next(leaf_spec for (path, _), leaf_spec in zip(
+            tree.with_paths(lm.init_params(0, cfg, device="meta")),
+            sharding.spec_leaves(specs), strict=True)
+            if path[-2:] == ("moe", "w_up"))
+        if isinstance(spec[-1], tuple):
+            data, n, i = _axis(mesh, "data")
+            ff2d = flags.FF2DContext(data, n, i)
+        elif tp is not None:
+            tp = dataclasses.replace(tp, moe=False)
+    return tp, sp, ff2d
+
+
+def train_specs(cfg: ArchConfig, mesh, *, master: bool = False,
+                moe_ff2d: bool = False) -> tuple[Any, dict]:
+    """(parameter specs, optimizer-state specs) of ``cfg`` on ``mesh``
+    (``moe_ff2d``: the weight-stationary expert rules)."""
     meta = lm.init_params(0, cfg, device="meta")
-    pspec = sharding.train_param_specs(cfg, meta, mesh)
+    pspec = sharding.train_param_specs(cfg, meta, mesh, moe_ff2d=moe_ff2d)
     return pspec, sharding.opt_specs(pspec, master=master)
 
 
 def shard_train_state(params: Any, opt_state: dict, mesh, *,
-                      cfg: ArchConfig) -> tuple[Any, dict]:
+                      cfg: ArchConfig, moe_ff2d: bool = False
+                      ) -> tuple[Any, dict]:
     """This rank's blocks of the full ``params`` and ``opt_state``
     (``local_tree`` by ``train_param_specs`` / ``opt_specs``)."""
-    pspec, ospec = train_specs(cfg, mesh, master="master" in opt_state)
+    pspec, ospec = train_specs(cfg, mesh, master="master" in opt_state,
+                               moe_ff2d=moe_ff2d)
     local_opt = {k: (sharding.local_tree(v, ospec[k], mesh)
                      if k != "step" else v.clone())
                  for k, v in opt_state.items()}
@@ -149,7 +191,9 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                             attn_impl: str = "chunked", remat: bool = True,
                             accum_dtype: str = "float32",
                             lr_fn: Callable | None = None,
-                            split_at_one: bool = False) -> Callable:
+                            split_at_one: bool = False,
+                            seq_shard: bool = False,
+                            moe_ff2d: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (params, opt_state, metrics)`` run
     by every rank of ``mesh`` on its blocks (``shard_train_state``) and
     rows (``shard_batch``); the blocks are updated in place, as
@@ -158,17 +202,23 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     gradient's norm, on every rank.  ``split_at_one``: at a 'model'
     extent of 1 the blocks still run their tensor-parallel paths, with
     one-rank collectives (the vocab gather copies the logits), which
-    checks those paths on one card; off, the step pays none of them."""
-    pspec, _ = train_specs(cfg, mesh)
+    checks those paths on one card; off, the step pays none of them.
+    ``seq_shard`` and ``moe_ff2d``: the levers of the module docstring
+    (``lever_contexts``; ``shard_train_state`` with the same
+    ``moe_ff2d``)."""
+    pspec, _ = train_specs(cfg, mesh, moe_ff2d=moe_ff2d)
     specs = sharding.spec_leaves(pspec)
     reductions = [sharding.grad_reduction(s, mesh) for s in specs]
     tp, fsdp = contexts(cfg, mesh, pspec, split_at_one=split_at_one)
+    tp, sp, ff2d = lever_contexts(cfg, mesh, pspec, tp, seq_shard=seq_shard,
+                                  moe_ff2d=moe_ff2d)
     loss_fn = train_loop.make_loss_fn(cfg, attn_impl=attn_impl, remat=remat)
     adt = getattr(torch, accum_dtype)
     n = fsdp.batch_size
 
     def step(params, opt_state, batch):
-        with flags.tensor_parallel(tp), flags.fsdp(fsdp):
+        with flags.tensor_parallel(tp), flags.fsdp(fsdp), \
+                flags.sequence_parallel(sp), flags.moe_ff2d(ff2d):
             loss, grads = train_loop.loss_and_grads(loss_fn, params, batch,
                                                     accum, adt)
         grads = list(grads)

@@ -202,8 +202,9 @@ def test_train_cells_count_and_their_arguments_are_the_blocks(runs, arch,
                                                               tag):
     """A ported train cell is ``ok`` with positive flops, bytes and
     collective bytes; its argument bytes are the sum of rank 0's blocks
-    by the training specs; no head divides 'model' 16 for these archs,
-    so attention is whole."""
+    by the training specs; their q heads divide 'model' 16 and their 8
+    kv heads do not, so each kv head is shared by the two ranks whose q
+    heads read it ("kv_shared")."""
     rec = _cell(runs, arch, "train_4k", "single", tag)
     assert rec["status"] == "ok", rec.get("error")
     assert rec["accum"] == 2
@@ -211,7 +212,7 @@ def test_train_cells_count_and_their_arguments_are_the_blocks(runs, arch,
     assert rec["collective_bytes_per_device"] > 0
     assert rec["collective_detail"]["counts"]["all-gather"] > 0
     assert rec["peak_memory_bytes"] > 0 and isinstance(rec["fits"], bool)
-    assert rec["attention"] == "whole"
+    assert rec["attention"] == "kv_shared"
     assert rec["argument_bytes"] == _arg_bytes(arch, "train_4k",
                                                {"data": 16, "model": 16})
 

@@ -18,7 +18,8 @@ logits:
 Every step's logits within 1e-5 of the JAX decode step's
 (``jax.jit(make_decode_step)``, one token a step from the same weights)
 and the greedy tokens identical.  Without a spawn: ``merge_blocks`` and
-the plain version's log-sum-exp, and the dry run's refusals.
+the plain version's log-sum-exp, and the dry run's train cell with
+``--seq-shard`` and ``--moe-ff2d``.
 """
 import math
 
@@ -76,7 +77,7 @@ def seq_decode(rank, arrays):
             logits.append(eng.decode(tok)[:, -1].numpy())
         out[arch, shape] = {"logits": logits, "tokens": tokens,
                             "seq": (seq.size, seq.index), "rows": rows,
-                            "attn_split": tp.attn}
+                            "attn_split": tp.attn != "whole"}
     return out
 
 
@@ -249,12 +250,42 @@ def test_kernel_two_stores_its_statistics_in_every_schedule():
     assert kfa.lse_launches.name == "flash_attention_lse"
 
 
-def test_dry_run_refuses_the_unported_levers(tmp_path):
-    """``--seq-shard`` and ``--moe-ff2d`` still raise, naming A.6b item 4
-    (before the fake process group is joined)."""
-    from repro_torch.launch import dryrun
+# The cell cut to 8 layers (the count's time is its layers' ops).
+_BOTH_LEVERS = """
+import dataclasses, json, sys
+from repro_torch.launch import dryrun
+full = dryrun.get_config
+dryrun.get_config = lambda a: dataclasses.replace(full(a), n_layers=8)
+rec = dryrun.run_cell("mixtral-8x22b", "train_4k", False, out_dir=sys.argv[1],
+                      accum=2, seq_shard=True, moe_ff2d=True, tag="levers",
+                      verbose=False)
+print(json.dumps(rec, default=str))
+"""
 
-    for kw in ({"seq_shard": True}, {"moe_ff2d": True}):
-        with pytest.raises(NotImplementedError, match="A.6b item 4"):
-            dryrun.run_cell(QWEN3, "train_4k", False, out_dir=str(tmp_path),
-                            verbose=False, **kw)
+
+def test_dry_run_refuses_the_unported_levers(tmp_path):
+    """``--seq-shard`` and ``--moe-ff2d`` no longer raise: a train cell
+    (mixtral-8x22b ``train_4k`` on the single-pod mesh) counts with both
+    levers (the cell cut to 8 layers), and its JSON records them; the
+    weight-stationary experts
+    hold their hidden dim over both axes, so no FSDP gather moves them
+    and the step gathers its dispatch buffers over 'data' instead."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BOTH_LEVERS, str(tmp_path)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["seq_shard"] is True and rec["moe_ff2d"] is True
+    assert rec["attention"] == "kv_shared"
+    counts = rec["collective_detail"]["counts"]
+    assert counts["reduce-scatter"] > 0 and counts["all-gather"] > 0
+    with open(tmp_path / "mixtral-8x22b__train_4k__single__levers.json") as f:
+        assert json.load(f)["moe_ff2d"] is True

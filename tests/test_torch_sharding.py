@@ -234,8 +234,8 @@ def test_local_tree_and_serve_specs():
     shape = {"data": 2, "model": 2}
     specs = sharding.serve_param_specs(cfg, params, _stub(shape))
     plan = sharding.tp_plan(cfg, _stub(shape))
-    assert (plan.size, plan.attn, plan.ffn, plan.vocab) == (2, True, True,
-                                                            True)
+    assert (plan.size, plan.attn, plan.ffn, plan.vocab) == (2, "split",
+                                                            True, True)
     assert all("data" not in str(s) for s in sharding.spec_leaves(specs))
     halves = [sharding.local_tree(params, specs,
                                   _Rank(shape, {"data": 1, "model": m}))
@@ -256,16 +256,18 @@ def test_local_tree_and_serve_specs():
 
 
 def test_tp_plan_keeps_unsplittable_heads_whole_and_refuses_other_blocks():
-    """Heads that do not divide the model axis keep their attention block
-    whole on every rank; no block kind is refused any more: the
-    recurrent and cross-attention families split at a model extent of 2
-    and, where their heads or channels do not divide 16, run whole
-    there; MoE splits its experts."""
+    """Heads that split by no rule keep their attention block whole on
+    every rank (the reduced qwen3's 4 q and 2 kv heads over 8: the q
+    heads do not divide 8, and q/k-norm bars the head_dim split); no
+    block kind is refused any more: the recurrent and cross-attention
+    families split at a model extent of 2 and, where their heads or
+    channels do not divide 16, run whole there; MoE splits its
+    experts."""
     cfg = get_config("qwen3-0.6b").reduced()     # 4 q heads, 2 kv heads
     params = tlm.init_params(0, cfg, device="meta")
-    mesh = _stub({"data": 1, "model": 4})
+    mesh = _stub({"data": 1, "model": 8})
     plan = sharding.tp_plan(cfg, mesh)
-    assert not plan.attn and plan.ffn and plan.vocab
+    assert plan.attn == "whole" and plan.ffn and plan.vocab
     specs = sharding.serve_param_specs(cfg, params, mesh)
     for (path, _), spec in zip(tree.with_paths(params),
                                sharding.spec_leaves(specs), strict=True):
@@ -277,27 +279,28 @@ def test_tp_plan_keeps_unsplittable_heads_whole_and_refuses_other_blocks():
     splits = {
         ("zamba2-1.2b", 2): {"attn", "mamba"},
         ("zamba2-1.2b", 16): {"attn", "mamba"},       # 64 heads, 32 attn
-        # xlstm-350m: 4 heads of 512 in d_inner 2048.
-        ("xlstm-350m", 2): {"attn", "mlstm", "slstm"},
+        # xlstm-350m: 4 heads of 512 in d_inner 2048, no attention block.
+        ("xlstm-350m", 2): {"mlstm", "slstm"},
         ("xlstm-350m", 16): {"slstm"},
-        # llama-3.2-vision-11b: 32 q heads, 8 kv heads.
+        # llama-3.2-vision-11b: 32 q heads, 8 kv heads ("kv_shared" at 16).
         ("llama-3.2-vision-11b", 2): {"attn", "xattn"},
-        ("llama-3.2-vision-11b", 16): set(),
+        ("llama-3.2-vision-11b", 16): {"attn", "xattn"},
     }
     for (name, m), split in splits.items():
         plan = sharding.tp_plan(get_config(name),
                                 _stub({"data": 16 // m, "model": m}))
         assert plan.size == m
-        assert {f for f in families if getattr(plan, f)} == split, \
+        assert {f for f in families if plan.splits(f)} == split, \
             (name, m, plan)
         assert sharding.tp_plan(get_config(name),
                                 _stub({"data": 4, "model": 1})).size == 1
     # MoE splits its experts' hidden dim; grok's 48 q and 8 kv heads do
-    # not both divide 16, so its attention stays whole.
+    # not both divide 16, so its attention shares each kv head between
+    # the two ranks whose q heads read it.
     grok = sharding.tp_plan(get_config("grok-1-314b"),
                             _stub({"data": 16, "model": 16}))
-    assert (grok.size, grok.attn, grok.moe, grok.vocab) == (16, False, True,
-                                                           True)
+    assert (grok.size, grok.attn, grok.moe, grok.vocab) == (
+        16, "kv_shared", True, True)
     assert sharding.tp_plan(get_config("grok-1-314b"),
                             _stub({"data": 4, "model": 1})).size == 1
 
