@@ -2465,195 +2465,26 @@ def _train_phase(torch, dev, base, card_line):
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import common as cm
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.runtime import FaultTolerantTrainer, SimulatedFailure
     from repro_torch.serve import make_prefill_step
     from repro_torch.train import choose_plan, make_train_step
 
-    F = torch.nn.functional
-    gen = torch.Generator(device=dev).manual_seed(7)
-    scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.zero_()
-
     # ---- 8a: kernel 1's backward against its plain version -------------
-    records = []
-    # f32: the same closed form, sums in other orders (dγ over 4096-8192
-    # rows).  bf16: dx is rounded once to bf16 (one step, 2^-8 relative,
-    # |dx| up to ~8); dγ stays f32.
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
-
-    # The bound counts what the function must move (the kernel module's
-    # own count, ``rmsnorm.*_bwd_work``): its inputs read once and dx, dγ
-    # written once.  The dγ partial rows are this kernel's choice of
-    # grid, not the function's, so they stay out of the bound and are
-    # reported beside it (``partials_bytes``).
-
-    def partial_bytes(rows, d, item):
-        """The dγ partial rows' traffic: written once, read once.  Rows
-        per block: a register layout's (8..256 vectors, a power of two),
-        else 1 (the generic loop)."""
-        nv = d * item // 16
-        fixed = nv in (8, 16, 32, 64, 128, 256)
-        rpb = 8 * max(32 // min(nv, 32), 1) if fixed else 1
-        return 2 * min(-(-rows // rpb), krms.BWD_MAX_BLOCKS) * d * 4
-
-    def check(rec, outs, outs2, refs, dtype, cpu_refs=None):
-        """Against the plain version on the card, two calls' bits, and
-        (``cpu_refs``: the plain version run on the CPU on the same
-        inputs) each f32 gradient within 1e-3 of its norm of the CPU's."""
-        atol, rtol = tol[dtype]
-        errs = [within(torch, o, r, atol, rtol) for o, r in
-                zip(outs, refs, strict=True)]
-        rec["err"] = max(e for _, e in errs)
-        rec["ok"] = all(ok for ok, _ in errs)
-        rec["tol"] = f"atol={atol} rtol={rtol}"
-        rec["bit_identical_2_calls"] = all(
-            torch.equal(a, b) for a, b in zip(outs, outs2, strict=True))
-        if cpu_refs is not None and dtype == torch.float32:
-            rel = max(float((o.cpu().float() - c.float()).norm()
-                            / c.float().norm().clamp_min(1e-30))
-                      for o, c in zip(outs, cpu_refs, strict=True))
-            rec["cpu_rel_err"] = rel
-            rec["ok"] = rec["ok"] and rel <= 1e-3
-
-    def rms_bwd_case(rows, d, dtype):
-        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        outs = krms.rmsnorm_bwd(x, g, dy, eps=1e-6)
-        outs2 = krms.rmsnorm_bwd(x, g, dy, eps=1e-6)
-        refs = krms.rmsnorm_bwd_ref(x, g, dy, 1e-6)
-        cpu = krms.rmsnorm_bwd_ref(x.cpu(), g.cpu(), dy.cpu(), 1e-6) \
-            if d > 1024 else None
-        torch.cuda.synchronize()
-        item = x.element_size()
-        bound, by = work_bound(krms.rmsnorm_bwd_work(x, g, dy))
-        rec = dict(entry="rmsnorm", shape=f"rows={rows} d={d} "
-                   f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
-                   partials_bytes=partial_bytes(rows, d, item))
-        check(rec, outs, outs2, refs, dtype, cpu)
-        xl = x.detach().clone().requires_grad_()
-        gl = g.to(dtype).requires_grad_()
-        out = F.rms_norm(xl, (d,), gl, 1e-6)
-        rec["ms"] = time_ms(torch, lambda: krms.rmsnorm_bwd(
-            x, g, dy, eps=1e-6), flush=flush)
-        rec["plain_ms"] = time_ms(torch, lambda: krms.rmsnorm_bwd_ref(
-            x, g, dy, 1e-6), flush=flush)
-        rec["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-            out, (xl, gl), dy, retain_graph=True), flush=flush)
-        rec["library_note"] = "torch.autograd.grad through F.rms_norm"
-        records.append(rec)
-        log(f"[kernel rmsnorm_backward] {rec}")
-
-    def add_bwd_case(rows, d, dtype):
-        s = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        dh = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        ds = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        outs = krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6)
-        outs2 = krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6)
-        refs = krms.add_rmsnorm_bwd_ref(s, g, dh, ds, 1e-6)
-        cpu = krms.add_rmsnorm_bwd_ref(s.cpu(), g.cpu(), dh.cpu(), ds.cpu(),
-                                       1e-6) if d > 1024 else None
-        torch.cuda.synchronize()
-        item = s.element_size()
-        bound, by = work_bound(krms.add_rmsnorm_bwd_work(s, g, dh, ds))
-        rec = dict(entry="add_rmsnorm", shape=f"rows={rows} d={d} "
-                   f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
-                   partials_bytes=partial_bytes(rows, d, item),
-                   library_ms=None,
-                   library_note="no one PyTorch call; chain_ms: autograd "
-                                "through x + y and F.rms_norm")
-        check(rec, outs, outs2, refs, dtype, cpu)
-        xl = s.detach().clone().requires_grad_()
-        yl = torch.zeros_like(s).requires_grad_()
-        gl = g.to(dtype).requires_grad_()
-        sl = xl + yl
-        hl = F.rms_norm(sl, (d,), gl, 1e-6)
-        rec["ms"] = time_ms(torch, lambda: krms.add_rmsnorm_bwd(
-            s, g, dh, ds, eps=1e-6), flush=flush)
-        rec["plain_ms"] = time_ms(torch, lambda: krms.add_rmsnorm_bwd_ref(
-            s, g, dh, ds, 1e-6), flush=flush)
-        rec["chain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-            (sl, hl), (xl, yl, gl), (ds, dh), retain_graph=True),
-            flush=flush)
-        records.append(rec)
-        log(f"[kernel rmsnorm_backward] {rec}")
-
-    def qk_bwd_case(b, length, hq, hkv, d, dtype):
-        q = torch.randn(b, length, hq, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, length, hkv, d, generator=gen,
-                        device=dev).to(dtype)
-        dq = torch.randn(b, length, hq, d, generator=gen,
-                         device=dev).to(dtype)
-        dk = torch.randn(b, length, hkv, d, generator=gen,
-                         device=dev).to(dtype)
-        gq = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        gk = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        pos = torch.arange(length, device=dev).expand(b, length)
-        cos, sin = cm.rope_angles(pos, d, base.rope_theta)
-        args = (q, k, gq, gk, cos, sin, dq, dk)
-        outs = krms.qk_norm_rope_bwd(*args, eps=1e-6)
-        outs2 = krms.qk_norm_rope_bwd(*args, eps=1e-6)
-        refs = krms.qk_norm_rope_bwd_ref(*args, 1e-6)
-        torch.cuda.synchronize()
-        item = q.element_size()
-        rows_q, rows_k = b * length * hq, b * length * hkv
-        bound, by = work_bound(krms.qk_norm_rope_bwd_work(*args))
-        rec = dict(entry="qk_norm_rope",
-                   shape=f"B={b} S={length} Hq={hq} Hkv={hkv} D={d} "
-                         f"{str(dtype)[6:]}", bound_ms=bound, bound_by=by,
-                   partials_bytes=partial_bytes(rows_q, d, item)
-                   + partial_bytes(rows_k, d, item),
-                   library_ms=None,
-                   library_note="no one PyTorch call; chain_ms: autograd "
-                                "through F.rms_norm and apply_rope, q and k")
-        check(rec, outs, outs2, refs, dtype)
-        ql = q.detach().clone().requires_grad_()
-        kl = k.detach().clone().requires_grad_()
-        gql = gq.to(dtype).requires_grad_()
-        gkl = gk.to(dtype).requires_grad_()
-        qo = cm.apply_rope(F.rms_norm(ql, (d,), gql, 1e-6), cos, sin)
-        ko = cm.apply_rope(F.rms_norm(kl, (d,), gkl, 1e-6), cos, sin)
-        rec["ms"] = time_ms(torch, lambda: krms.qk_norm_rope_bwd(
-            *args, eps=1e-6), flush=flush)
-        rec["plain_ms"] = time_ms(torch, lambda: krms.qk_norm_rope_bwd_ref(
-            *args, 1e-6), flush=flush)
-        rec["chain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-            (qo, ko), (ql, kl, gql, gkl), (dq, dk), retain_graph=True),
-            flush=flush)
-        records.append(rec)
-        log(f"[kernel rmsnorm_backward] {rec}")
-
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in (4096, 8192):
-            rms_bwd_case(rows, 1024, dtype)
-            add_bwd_case(rows, 1024, dtype)
-        qk_bwd_case(8, 512, 16, 8, 128, dtype)      # B·S 4096
-    # The wide archs' rows (8: a decode-size batch; 4096: a training
-    # step's B·S): bf16 2048 in its register layout, every other width in
-    # the generic loop.  The rotary entry takes head rows only (its
-    # forward's widths), checked above.
-    for dtype in (torch.bfloat16, torch.float32):
-        for d in WIDE_WIDTHS:
-            for rows in (8, 4096):
-                rms_bwd_case(rows, d, dtype)
-                add_bwd_case(rows, d, dtype)
-    del scratch
-    bad = [r["shape"] for r in records if not r["ok"]]
-    nondet = [r["shape"] for r in records if not r["bit_identical_2_calls"]]
-    if bad or nondet:
-        fail(f"kernel 1's backward: outside tolerance {bad}; not "
-             f"bit-identical over two calls {nondet}")
-    log(f"[train] kernel 1's backward: {len(records)} cases within "
-        f"tolerance and bit-identical over two calls, "
-        f"{sum('cpu_rel_err' in r for r in records)} f32 wide cases within "
-        f"1e-3 of the CPU's (worst "
-        f"{max((r['cpu_rel_err'] for r in records if 'cpu_rel_err' in r), default=0):.3g})")
+    t_sweep = time.perf_counter()
+    records = _bwd_sweep(torch, dev, base)
+    _bwd_check(records, time.perf_counter() - t_sweep)
+    # The bound of one training step's backward calls (8c): 1 rmsnorm,
+    # 2L add_rmsnorm and L q/k at 8 x 512 (bf16), from the records above.
+    step_calls = {"rmsnorm": 1, "add_rmsnorm": 2 * base.n_layers,
+                  "qk_norm_rope": base.n_layers}
+    step_bound = sum(n * next(r["bound_ms"] for r in records
+                              if r["entry"] == e and (
+                                  r["shape"] == "rows=4096 d=1024 bfloat16"
+                                  or r["shape"].startswith("B=8 S=512")
+                                  and r["shape"].endswith("bfloat16")))
+                     for e, n in step_calls.items())
 
     # ---- 8b: full-width gradients, card vs CPU (f32) ---------------------
     t0 = time.perf_counter()
@@ -2786,6 +2617,15 @@ def _train_phase(torch, dev, base, card_line):
         else:
             group = "other"
         groups[group] += e.self_device_time_total
+    bwd_run = [e for e in kernels_run if "norm_bwd_rows" in e.key]
+    bwd_us = sum(e.self_device_time_total for e in bwd_run)
+    bwd_n = sum(e.count for e in bwd_run)
+    log(f"[train] kernel 1 backward device time per step: "
+        f"{bwd_us / 1e3:.3f} ms over {bwd_n} kernels "
+        f"({launches // n_steps} calls a step), bound of the same calls "
+        f"{step_bound:.3f} ms (8a's 4096 x 1024 and q/k bf16 records); "
+        f"{card_line}" if bwd_run else "[train] kernel 1 backward device "
+        "time per step: no backward kernel in the trace (not measured)")
     top = sorted(kernels_run, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[train] profiled step: wall {t_win * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms"
@@ -2923,9 +2763,319 @@ def _train_phase(torch, dev, base, card_line):
     return {"rmsnorm_backward": records}, {"rmsnorm_backward": launches}
 
 
+def _bwd_sweep(torch, dev, base) -> list:
+    """Phase 8a: kernel 1's backward against its plain version at the
+    training path's shapes and the wide archs' rows, bf16 and f32; each
+    record with its error, two calls' bits, clean-L2 time beside the
+    plain version, the library (or the chain a fused entry replaces) and
+    the bound, the kernel's plan and its device kernels a call."""
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import common as cm
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(7)
+    scratch = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    records = []
+    # f32: the same closed form, sums in other orders (dγ over 4096-8192
+    # rows).  bf16: dx is rounded once to bf16 (one step, 2^-8 relative,
+    # |dx| up to ~8); dγ in γ's type, each output held to the bf16
+    # tolerance where its rows or its own type are bf16.
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+
+    # The bound counts what the function must move (the kernel module's
+    # own count, ``rmsnorm.*_bwd_work``): its inputs read once and dx, dγ
+    # written once.  The dγ partial rows are this kernel's choice of
+    # grid, not the function's, so they stay out of the bound and are
+    # reported beside it (``partials_bytes``), with the plan the kernel
+    # took (``plan``: ``rmsnorm.bwd_plan``).
+
+    def plan_of(tokens, d, dtype, **kw):
+        """The kernel's plan for the call and its dγ partial rows'
+        traffic: one row per block (per segment), written once and read
+        once; none when one block takes the whole call.  A tree without
+        ``bwd_plan`` (an earlier one, run by ``bwd_main``): not known."""
+        if not hasattr(krms, "bwd_plan"):
+            return None, None
+        plan = krms.bwd_plan(tokens, d, dtype, **kw)
+        cols = d * (2 if kw.get("rope") else 1)
+        part = 2 * plan["blocks"] * cols * 4 if plan["blocks"] > 1 else 0
+        return plan, part
+
+    side = torch.cuda.Stream()
+
+    def kernels_per_call(fn):
+        """Device work one call of ``fn`` puts on its stream: the kernel,
+        copy and fill nodes of a CUDA graph that captures that call
+        alone (after a warm call on the capture's stream, after the
+        case's timed spans), read with `cuGraphGetNodes`.  Independent of a
+        profiler's trace, which in a long process can come back without
+        the kernels' events."""
+        import ctypes
+
+        cu = ctypes.CDLL("libcuda.so.1")
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, stream=side):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        raw = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+            fail("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+        count = 0
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+            count += kind.value in (0, 1, 2)    # kernel, memcpy, memset
+        del graph
+        return count
+
+    def check(rec, outs, outs2, refs, dtype, cpu_refs=None):
+        """Against the plain version on the card, two calls' bits, and
+        (``cpu_refs``: the plain version run on the CPU on the same
+        inputs) each f32 gradient within 1e-3 of its norm of the CPU's."""
+        def tol_of(out):
+            return tol[torch.bfloat16 if torch.bfloat16 in (dtype, out.dtype)
+                       else torch.float32]
+
+        errs = [within(torch, o, r, *tol_of(o)) for o, r in
+                zip(outs, refs, strict=True)]
+        rec["err"] = max(e for _, e in errs)
+        rec["ok"] = all(ok for ok, _ in errs)
+        rec["tol"] = " / ".join(sorted({f"atol={a} rtol={r}" for a, r in
+                                        map(tol_of, outs)}))
+        rec["bit_identical_2_calls"] = all(
+            torch.equal(a, b) for a, b in zip(outs, outs2, strict=True))
+        if cpu_refs is not None and dtype == torch.float32:
+            rel = max(float((o.cpu().float() - c.float()).norm()
+                            / c.float().norm().clamp_min(1e-30))
+                      for o, c in zip(outs, cpu_refs, strict=True))
+            rec["cpu_rel_err"] = rel
+            rec["ok"] = rec["ok"] and rel <= 1e-3
+
+    def gamma_name(g):
+        return "" if g.dtype == torch.float32 else f" γ {str(g.dtype)[6:]}"
+
+    def rms_bwd_case(rows, d, dtype, gdtype=torch.float32):
+        t_case = time.perf_counter()
+        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        g = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+             ).to(gdtype)
+        outs = krms.rmsnorm_bwd(x, g, dy, eps=1e-6)
+        outs2 = krms.rmsnorm_bwd(x, g, dy, eps=1e-6)
+        refs = krms.rmsnorm_bwd_ref(x, g, dy, 1e-6)
+        cpu = krms.rmsnorm_bwd_ref(x.cpu(), g.cpu(), dy.cpu(), 1e-6) \
+            if d > 1024 else None
+        torch.cuda.synchronize()
+        bound, by = work_bound(krms.rmsnorm_bwd_work(x, g, dy))
+        plan, part = plan_of(rows, d, dtype)
+        rec = dict(entry="rmsnorm", shape=f"rows={rows} d={d} "
+                   f"{str(dtype)[6:]}{gamma_name(g)}", bound_ms=bound,
+                   bound_by=by,
+                   partials_bytes=part, plan=plan)
+        check(rec, outs, outs2, refs, dtype, cpu)
+        xl = x.detach().clone().requires_grad_()
+        gl = g.to(dtype).requires_grad_()
+        out = F.rms_norm(xl, (d,), gl, 1e-6)
+        rec["ms"] = time_ms(torch, lambda: krms.rmsnorm_bwd(
+            x, g, dy, eps=1e-6), flush=flush)
+        rec["plain_ms"] = time_ms(torch, lambda: krms.rmsnorm_bwd_ref(
+            x, g, dy, 1e-6), flush=flush)
+        rec["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, (xl, gl), dy, retain_graph=True), flush=flush)
+        rec["library_note"] = "torch.autograd.grad through F.rms_norm"
+        rec["kernels_per_call"] = kernels_per_call(
+            lambda: krms.rmsnorm_bwd(x, g, dy, eps=1e-6))
+        rec["case_s"] = time.perf_counter() - t_case
+        records.append(rec)
+        log(f"[kernel rmsnorm_backward] {rec}")
+
+    def add_bwd_case(rows, d, dtype, gdtype=torch.float32):
+        t_case = time.perf_counter()
+        s = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        dh = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        ds = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        g = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+             ).to(gdtype)
+        outs = krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6)
+        outs2 = krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6)
+        refs = krms.add_rmsnorm_bwd_ref(s, g, dh, ds, 1e-6)
+        cpu = krms.add_rmsnorm_bwd_ref(s.cpu(), g.cpu(), dh.cpu(), ds.cpu(),
+                                       1e-6) if d > 1024 else None
+        torch.cuda.synchronize()
+        bound, by = work_bound(krms.add_rmsnorm_bwd_work(s, g, dh, ds))
+        plan, part = plan_of(rows, d, dtype, residual=True)
+        rec = dict(entry="add_rmsnorm", shape=f"rows={rows} d={d} "
+                   f"{str(dtype)[6:]}{gamma_name(g)}", bound_ms=bound,
+                   bound_by=by,
+                   partials_bytes=part, plan=plan,
+                   library_ms=None,
+                   library_note="no one PyTorch call; chain_ms: autograd "
+                                "through x + y and F.rms_norm")
+        check(rec, outs, outs2, refs, dtype, cpu)
+        xl = s.detach().clone().requires_grad_()
+        yl = torch.zeros_like(s).requires_grad_()
+        gl = g.to(dtype).requires_grad_()
+        sl = xl + yl
+        hl = F.rms_norm(sl, (d,), gl, 1e-6)
+        rec["ms"] = time_ms(torch, lambda: krms.add_rmsnorm_bwd(
+            s, g, dh, ds, eps=1e-6), flush=flush)
+        rec["plain_ms"] = time_ms(torch, lambda: krms.add_rmsnorm_bwd_ref(
+            s, g, dh, ds, 1e-6), flush=flush)
+        rec["chain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            (sl, hl), (xl, yl, gl), (ds, dh), retain_graph=True),
+            flush=flush)
+        rec["kernels_per_call"] = kernels_per_call(
+            lambda: krms.add_rmsnorm_bwd(s, g, dh, ds, eps=1e-6))
+        rec["case_s"] = time.perf_counter() - t_case
+        records.append(rec)
+        log(f"[kernel rmsnorm_backward] {rec}")
+
+    def qk_bwd_case(b, length, hq, hkv, d, dtype, gdtype=torch.float32):
+        t_case = time.perf_counter()
+        q = torch.randn(b, length, hq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, length, hkv, d, generator=gen,
+                        device=dev).to(dtype)
+        dq = torch.randn(b, length, hq, d, generator=gen,
+                         device=dev).to(dtype)
+        dk = torch.randn(b, length, hkv, d, generator=gen,
+                         device=dev).to(dtype)
+        gq = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+              ).to(gdtype)
+        gk = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+              ).to(gdtype)
+        pos = torch.arange(length, device=dev).expand(b, length)
+        cos, sin = cm.rope_angles(pos, d, base.rope_theta)
+        args = (q, k, gq, gk, cos, sin, dq, dk)
+        outs = krms.qk_norm_rope_bwd(*args, eps=1e-6)
+        outs2 = krms.qk_norm_rope_bwd(*args, eps=1e-6)
+        refs = krms.qk_norm_rope_bwd_ref(*args, 1e-6)
+        torch.cuda.synchronize()
+        bound, by = work_bound(krms.qk_norm_rope_bwd_work(*args))
+        plan, part = plan_of(b * length, d, dtype, heads=(hq, hkv),
+                             rope=True)
+        rec = dict(entry="qk_norm_rope",
+                   shape=f"B={b} S={length} Hq={hq} Hkv={hkv} D={d} "
+                         f"{str(dtype)[6:]}{gamma_name(gq)}", bound_ms=bound,
+                   bound_by=by,
+                   partials_bytes=part, plan=plan,
+                   library_ms=None,
+                   library_note="no one PyTorch call; chain_ms: autograd "
+                                "through F.rms_norm and apply_rope, q and k")
+        check(rec, outs, outs2, refs, dtype)
+        ql = q.detach().clone().requires_grad_()
+        kl = k.detach().clone().requires_grad_()
+        gql = gq.to(dtype).requires_grad_()
+        gkl = gk.to(dtype).requires_grad_()
+        qo = cm.apply_rope(F.rms_norm(ql, (d,), gql, 1e-6), cos, sin)
+        ko = cm.apply_rope(F.rms_norm(kl, (d,), gkl, 1e-6), cos, sin)
+        rec["ms"] = time_ms(torch, lambda: krms.qk_norm_rope_bwd(
+            *args, eps=1e-6), flush=flush)
+        rec["plain_ms"] = time_ms(torch, lambda: krms.qk_norm_rope_bwd_ref(
+            *args, 1e-6), flush=flush)
+        rec["chain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            (qo, ko), (ql, kl, gql, gkl), (dq, dk), retain_graph=True),
+            flush=flush)
+        rec["kernels_per_call"] = kernels_per_call(
+            lambda: krms.qk_norm_rope_bwd(*args, eps=1e-6))
+        rec["case_s"] = time.perf_counter() - t_case
+        records.append(rec)
+        log(f"[kernel rmsnorm_backward] {rec}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in (4096, 8192):
+            rms_bwd_case(rows, 1024, dtype)
+            add_bwd_case(rows, 1024, dtype)
+        qk_bwd_case(8, 512, 16, 8, 128, dtype)      # B·S 4096
+    # The wide archs' rows (8: a decode-size batch; 4096: a training
+    # step's B·S): every one held in registers (the generic loop takes
+    # only widths past 8192: BWD_GENERIC_WIDTH below).  The rotary entry
+    # takes head rows only (its forward's widths), checked above.
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in WIDE_WIDTHS:
+            for rows in (8, 4096):
+                rms_bwd_case(rows, d, dtype)
+                add_bwd_case(rows, d, dtype)
+    # γ in bf16, as a model with bf16 parameters has it (mixtral in phases
+    # 16 and 18): the kernel reads γ in its own type and writes dγ in it.
+    # The training path's shapes, mixtral's 6144 and the generic loop; one
+    # f32 case with a bf16 γ.
+    bf16 = torch.bfloat16
+    for rows, d in ((4096, 1024), (8, 6144), (4096, 6144),
+                    (8, BWD_GENERIC_WIDTH), (4096, BWD_GENERIC_WIDTH)):
+        rms_bwd_case(rows, d, bf16, gdtype=bf16)
+        add_bwd_case(rows, d, bf16, gdtype=bf16)
+    qk_bwd_case(8, 512, 16, 8, 128, bf16, gdtype=bf16)
+    rms_bwd_case(4096, 1024, torch.float32, gdtype=bf16)
+    # Past 8192 (norm_bwd_rows_generic), γ in f32.
+    for dtype in (bf16, torch.float32):
+        for rows in (8, 4096):
+            rms_bwd_case(rows, BWD_GENERIC_WIDTH, dtype)
+            add_bwd_case(rows, BWD_GENERIC_WIDTH, dtype)
+    del scratch
+    return records
+
+
+def _bwd_check(records, seconds: float) -> None:
+    """Phase 8a's gates: every case within tolerance, bit-identical over
+    two calls, and one or two device kernels a call; ``seconds``: the
+    sweep's wall time, logged beside them."""
+    bad = [r["shape"] for r in records if not r["ok"]]
+    nondet = [r["shape"] for r in records if not r["bit_identical_2_calls"]]
+    # One C call a call, at most two device kernels (one is the design).
+    launches_bad = [(r["entry"], r["shape"], r["kernels_per_call"])
+                    for r in records if not 1 <= r["kernels_per_call"] <= 2]
+    if bad or nondet or launches_bad:
+        fail(f"kernel 1's backward: outside tolerance {bad}; not "
+             f"bit-identical over two calls {nondet}; kernels per call "
+             f"not 1-2 {launches_bad}")
+    added = sum(r["case_s"] for r in records if "γ" in r["shape"]
+                or f"d={BWD_GENERIC_WIDTH}" in r["shape"])
+    log(f"[train] kernel 1's backward: {len(records)} cases within "
+        f"tolerance and bit-identical over two calls, "
+        f"{sum('cpu_rel_err' in r for r in records)} f32 wide cases within "
+        f"1e-3 of the CPU's (worst "
+        f"{max((r['cpu_rel_err'] for r in records if 'cpu_rel_err' in r), default=0):.3g}), "
+        f"device kernels per call "
+        f"{sorted({r['kernels_per_call'] for r in records})}; the sweep "
+        f"{seconds:.1f} s, the cases with γ in bf16 or past 8192 "
+        f"{added:.1f} s")
+
+
+def bwd_main(src: str = "src") -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.bwd_main('<tree>/src')"``:
+    phase 8a alone (kernel 1's backward sweep and its gates) for the port
+    under ``src``: a parent's tree, to compare two trees in one call
+    (parent, change, change, parent)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("bwd_main needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    log(f"[build] {sorted(build.build_all())} from {os.path.abspath(src)}")
+    log(_card_line())
+    t_sweep = time.perf_counter()
+    records = _bwd_sweep(torch, torch.device("cuda"), get_config("qwen3-0.6b"))
+    _bwd_check(records, time.perf_counter() - t_sweep)
+
+
 # Kernel 1's backward at the wide archs' rows (phase 8), and one AdamW step
 # of three wide archs cut to whole pattern groups: (arch, layers, batch).
 WIDE_WIDTHS = (1536, 2048, 2560, 4096, 5120, 6144)
+# A width past the backward's register layouts (8192), for its generic loop.
+BWD_GENERIC_WIDTH = 12288
 WIDE_STEPS = (("h2o-danube-1.8b", 2, 8), ("zamba2-1.2b", 6, 8),
               ("llama-3.2-vision-11b", 5, 2))
 

@@ -256,7 +256,7 @@ class KernelTuner:
         graph capture raises."""
         winner = self._plans.get(call)
         if winner is None:
-            if kfa._capturing():
+            if build.capturing():
                 raise RuntimeError(
                     f"kernel tuner: no plan for {call} while a CUDA graph "
                     f"is captured; a search would synchronise inside the "

@@ -110,6 +110,31 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@functools.cache
+def _sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device (the current one where it has no index)."""
+    import torch
+
+    index = device.index
+    return _sms(torch.cuda.current_device() if index is None else index)
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph: a wrapper
+    then may not make or grow a scratch buffer (the graph would keep its
+    address after it is freed)."""
+    import torch
+
+    return torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
+
+
 # Set by ``plain_on_meta``: meta tensors take the wrappers' plain
 # versions.
 _PLAIN_META = False

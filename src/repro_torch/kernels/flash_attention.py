@@ -185,11 +185,6 @@ def scratch_buffer(buf: torch.Tensor):
         _bound.buf = prev
 
 
-def _capturing() -> bool:
-    return torch.cuda.is_available() \
-        and torch.cuda.is_current_stream_capturing()
-
-
 def _scratch_ptr(plan: AttentionPlan, skv: int, device: torch.device,
                  stream: int) -> int:
     """Address of the scratch for ``plan`` (0 when the plan needs none):
@@ -208,7 +203,7 @@ def _scratch_ptr(plan: AttentionPlan, skv: int, device: torch.device,
                 f"attention scratch: the bound buffer holds "
                 f"{bound.numel()} bytes, the call needs {need}")
         return bound.data_ptr()
-    if _capturing():
+    if build.capturing():
         raise RuntimeError("attention scratch: a graph capture must bind "
                            "its own buffer (scratch_buffer)")
     key = (device.index, stream)

@@ -16,13 +16,13 @@ the plain version; the hardware key keeps CPU winners apart).
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable
 
 import torch
 
 from . import adjacent_difference as _adjdiff
 from . import artificial_work as _awork
+from . import build
 from . import flash_attention as _kfa
 from . import reduce_scan as _rscan
 from . import rmsnorm as _krms
@@ -30,17 +30,11 @@ from . import tuning
 from .autotune import device_seconds
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def num_sms(x: torch.Tensor) -> int:
     """SMs of the card that holds ``x``; 1 for a CPU tensor."""
     if x.device.type != "cuda":
         return 1
-    index = x.device.index
-    return _sm_count(torch.cuda.current_device() if index is None else index)
+    return build.sm_count(x.device)
 
 
 def _block(kernel: str, x: torch.Tensor, block: int | None, tuner,

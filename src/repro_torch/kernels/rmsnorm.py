@@ -58,14 +58,19 @@ DEFAULT_WARPS = 8
 # rotary entry takes head rows of 8..128 vectors (bf16 head dims
 # 64..1024) and no others.
 _ROPE_VECTORS = (8, 16, 32, 64, 128)
-# The backward: the register layouts of 8..256 vectors (a power of two;
-# the rotary entry 8..128, as its forward), and a generic loop for any
-# other width that is a multiple of 8, up to BWD_MAX_D elements (its
-# partial row of dγ sits in shared memory); partial rows of dγ for at
-# most BWD_MAX_BLOCKS blocks per tensor (both mirror kBwdMaxD and
-# kBwdMaxBlocks in csrc/rmsnorm.cu).
+# The backward (csrc/rmsnorm.cu, one kernel a call): rows of up to
+# BWD_REG_MAX_D elements held in registers, bf16 or f32 (the rotary entry:
+# head rows of 8..128 vectors, as its forward); a generic loop for any
+# wider width that is a multiple of 8, up to BWD_MAX_D elements (its partial
+# row of dγ sits in shared memory).  dγ's partial rows, one per block (the
+# grid is at most the card's SMs), sit in a scratch per device and stream
+# after a header of BWD_SCRATCH_HEADER bytes (an arrival counter the kernel
+# leaves at zero).  These mirror kBwdRegMaxD, kBwdMaxD and kBwdHeader in
+# csrc/rmsnorm.cu.
+BWD_REG_MAX_D = 8192
 BWD_MAX_D = 49152
-BWD_MAX_BLOCKS = 264
+BWD_SCRATCH_HEADER = 128
+_GAMMA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
@@ -195,10 +200,11 @@ def _lib():
             "repro_add_rmsnorm": [vp, vp, vp, vp, vp, i, i, f, i, i, vp],
             "repro_qk_norm_rope": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
                                    i, i, f, i, vp],
-            "repro_rmsnorm_bwd": [vp] * 6 + [i, i, f, i, vp],
-            "repro_add_rmsnorm_bwd": [vp] * 7 + [i, i, f, i, vp],
-            "repro_qk_norm_rope_bwd": [vp] * 13 + [i, i, i, i, i, f, i,
-                                                   vp]}
+            "repro_rmsnorm_bwd": [vp] * 6 + [i, i, f, i, i, vp],
+            "repro_add_rmsnorm_bwd": [vp] * 7 + [i, i, f, i, i, vp],
+            "repro_qk_norm_rope_bwd": [vp] * 13 + [i, i, i, i, i, f, i, i,
+                                                   vp],
+            "repro_rmsnorm_bwd_plan": [i] * 7 + [vp]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -224,12 +230,16 @@ def _rows_input(name: str, x: torch.Tensor, *, dtype=None) -> int:
     return _DTYPES[x.dtype]
 
 
-def _gamma(name: str, gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _check_gamma(name: str, gamma: torch.Tensor, x: torch.Tensor) -> None:
     d = x.shape[-1]
     if gamma.shape != (d,) or gamma.device != x.device:
         raise ValueError(f"{name}: gamma {tuple(gamma.shape)} on "
                          f"{gamma.device} does not match (..., {d}) on "
                          f"{x.device}")
+
+
+def _gamma(name: str, gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    _check_gamma(name, gamma, x)
     return gamma.float().contiguous()
 
 
@@ -408,11 +418,64 @@ def _bwd_rows(name: str, x: torch.Tensor, *grads: torch.Tensor,
     return code, out
 
 
-def _partial_rows(x: torch.Tensor) -> int:
-    """dγ's partial rows of one backward segment: one per block, at most
-    ``BWD_MAX_BLOCKS`` and never more than x has rows.  The scratch is
-    this many rows of d floats, so it grows with d."""
-    return min(x.numel() // x.shape[-1], BWD_MAX_BLOCKS)
+def _partial_rows(x: torch.Tensor, tokens: int | None = None) -> int:
+    """dγ's partial rows a backward call may write: one per block, and
+    the kernel's grid is at most min(its tokens, the card's SMs); tokens
+    are x's rows unless given."""
+    rows = x.numel() // x.shape[-1] if tokens is None else tokens
+    return min(rows, build.sm_count(x.device))
+
+
+# The backward's scratch, per (device index, stream): grow-only, zeroed
+# once when it is made; the kernel leaves its counter at zero after every
+# call, so no call zeroes it again.
+_bwd_scratch: dict = {}
+
+
+def _bwd_scratch_ptr(x: torch.Tensor, stream: int, partial_rows: int,
+                     cols: int) -> int:
+    """Address of the scratch of x's device and ``stream`` holding
+    ``partial_rows`` rows of ``cols`` floats after its header.  A graph
+    capture cannot make or grow it (the address would be baked into the
+    graph and then freed); it reuses one made before."""
+    need = BWD_SCRATCH_HEADER + 4 * partial_rows * cols
+    key = (x.device.index, stream)
+    buf = _bwd_scratch.get(key)
+    if buf is None or buf.numel() < need:
+        if build.capturing():
+            raise RuntimeError("rmsnorm backward: a graph capture cannot "
+                               "make its scratch; run one call of this "
+                               "size on the stream before capturing")
+        buf = torch.zeros(need, dtype=torch.uint8, device=x.device)
+        _bwd_scratch[key] = buf
+    return buf.data_ptr()
+
+
+def _bwd_gamma(name: str, gamma: torch.Tensor, x: torch.Tensor
+               ) -> tuple[torch.Tensor, int]:
+    """γ as the backward kernel reads it (its own type, f32 or bf16,
+    contiguous) and its type code; dγ is written in that type."""
+    _check_gamma(name, gamma, x)
+    if gamma.dtype not in _GAMMA_DTYPES:
+        raise TypeError(f"{name}: gamma dtype {gamma.dtype} not supported "
+                        f"on the card (float32, bfloat16)")
+    return gamma.contiguous(), _GAMMA_DTYPES[gamma.dtype]
+
+
+def bwd_plan(tokens: int, d: int, dtype: torch.dtype, *, heads=(1, 0),
+             residual: bool = False, rope: bool = False) -> dict:
+    """The plan the backward kernel takes for a call of this shape on the
+    current card (csrc/rmsnorm.cu ``repro_rmsnorm_bwd_plan``; launches
+    nothing): threads a row (0: the generic loop), tokens a stage, stages,
+    blocks, finishing blocks, dγ columns a finisher sums, dynamic shared
+    memory, row elements a thread holds."""
+    plan = (ctypes.c_int * 8)()
+    build.check(_lib().repro_rmsnorm_bwd_plan(
+        tokens, heads[0], heads[1], d, _DTYPES[dtype], int(residual),
+        int(rope), plan), "rmsnorm_bwd_plan")
+    keys = ("threads_per_row", "tokens_per_stage", "stages", "blocks",
+            "finishers", "finish_cols", "smem_bytes", "elems_per_thread")
+    return dict(zip(keys, list(plan), strict=True))
 
 
 def _bwd_count(entry: str) -> None:
@@ -421,11 +484,12 @@ def _bwd_count(entry: str) -> None:
 
 
 # The backward's work: its inputs read once, dx and dγ written once (dγ's
-# partial rows are the kernel's choice of grid, not the function's).
+# partial rows are the kernel's choice of grid, not the function's; γ and
+# dγ in γ's type).
 def rmsnorm_bwd_work(x: torch.Tensor, gamma, dy, **_) -> build.Work:
     return build.Work(other_flops=8 * x.numel(),
                       bytes=3 * x.numel() * x.element_size()
-                      + 8 * x.shape[-1])
+                      + 2 * gamma.numel() * gamma.element_size())
 
 
 def add_rmsnorm_bwd_work(s: torch.Tensor, gamma, dh, ds,
@@ -433,7 +497,7 @@ def add_rmsnorm_bwd_work(s: torch.Tensor, gamma, dh, ds,
     tensors = 3 if ds is None else 4
     return build.Work(other_flops=9 * s.numel(),
                       bytes=tensors * s.numel() * s.element_size()
-                      + 8 * s.shape[-1])
+                      + 2 * gamma.numel() * gamma.element_size())
 
 
 def qk_norm_rope_bwd_work(q: torch.Tensor, k: torch.Tensor, gamma_q,
@@ -442,7 +506,9 @@ def qk_norm_rope_bwd_work(q: torch.Tensor, k: torch.Tensor, gamma_q,
     elems = q.numel() + k.numel()
     return build.Work(other_flops=14 * elems,
                       bytes=3 * elems * q.element_size()
-                      + 2 * cos.numel() * 4 + 16 * q.shape[-1])
+                      + 2 * cos.numel() * 4
+                      + 2 * (gamma_q.numel() + gamma_k.numel())
+                      * gamma_q.element_size())
 
 
 @build.counted("rmsnorm_backward", rmsnorm_bwd_work)
@@ -450,26 +516,25 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dγ) of ``rmsnorm`` for the output gradient dy: dx in x's type,
     dγ in γ's, dγ summed over the rows in a fixed order (two calls give
-    the same bits).  One C call, two kernels: the rows, then the sum of
-    dγ's partial rows."""
+    the same bits).  One C call, one kernel: dγ is summed across blocks
+    and written in γ's type inside it."""
     if build.plain(x):
         return rmsnorm_bwd_ref(x, gamma, dy, eps)
     _require_card("rmsnorm_bwd", x)
     code, (dy,) = _bwd_rows("rmsnorm_bwd", x, dy)
-    g = _gamma("rmsnorm_bwd", gamma, x)
+    g, gcode = _bwd_gamma("rmsnorm_bwd", gamma, x)
     d = x.shape[-1]
     dx = torch.empty_like(x)
-    dg = torch.zeros(d, dtype=torch.float32, device=x.device)
-    if x.numel():
-        stream = _stream(x)
-        part = torch.empty(_partial_rows(x) * d, dtype=torch.float32,
-                           device=x.device)
-        build.check(_lib().repro_rmsnorm_bwd(
-            x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            dg.data_ptr(), part.data_ptr(), x.numel() // d, d, float(eps),
-            code, stream), "rmsnorm_bwd")
-        _bwd_count("rmsnorm")
-    return dx, dg.to(gamma.dtype)
+    if not x.numel():
+        return dx, torch.zeros_like(g)
+    dg = torch.empty_like(g)
+    stream = _stream(x)
+    build.check(_lib().repro_rmsnorm_bwd(
+        x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dg.data_ptr(), _bwd_scratch_ptr(x, stream, _partial_rows(x), d),
+        x.numel() // d, d, float(eps), code, gcode, stream), "rmsnorm_bwd")
+    _bwd_count("rmsnorm")
+    return dx, dg
 
 
 @build.counted("rmsnorm_backward", add_rmsnorm_bwd_work)
@@ -485,20 +550,21 @@ def add_rmsnorm_bwd(s: torch.Tensor, gamma: torch.Tensor, dh: torch.Tensor,
     grads = (dh,) if ds is None else (dh, ds)
     code, grads = _bwd_rows("add_rmsnorm_bwd", s, *grads)
     dh, ds = grads[0], (grads[1] if ds is not None else None)
-    g = _gamma("add_rmsnorm_bwd", gamma, s)
+    g, gcode = _bwd_gamma("add_rmsnorm_bwd", gamma, s)
     d = s.shape[-1]
     dx = torch.empty_like(s)
-    dg = torch.zeros(d, dtype=torch.float32, device=s.device)
-    if s.numel():
-        stream = _stream(s)
-        part = torch.empty(_partial_rows(s) * d, dtype=torch.float32,
-                           device=s.device)
-        build.check(_lib().repro_add_rmsnorm_bwd(
-            s.data_ptr(), dh.data_ptr(), None if ds is None else ds.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), dg.data_ptr(), part.data_ptr(),
-            s.numel() // d, d, float(eps), code, stream), "add_rmsnorm_bwd")
-        _bwd_count("add_rmsnorm")
-    return dx, dg.to(gamma.dtype)
+    if not s.numel():
+        return dx, torch.zeros_like(g)
+    dg = torch.empty_like(g)
+    stream = _stream(s)
+    build.check(_lib().repro_add_rmsnorm_bwd(
+        s.data_ptr(), dh.data_ptr(), None if ds is None else ds.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+        _bwd_scratch_ptr(s, stream, _partial_rows(s), d),
+        s.numel() // d, d, float(eps), code, gcode, stream),
+        "add_rmsnorm_bwd")
+    _bwd_count("add_rmsnorm")
+    return dx, dg
 
 
 @build.counted("rmsnorm_backward", qk_norm_rope_bwd_work)
@@ -508,7 +574,8 @@ def qk_norm_rope_bwd(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
                      dk_out: torch.Tensor, *, eps: float = 1e-6
                      ) -> tuple[torch.Tensor, ...]:
     """(dq, dk, dγq, dγk) of ``qk_norm_rope`` for the gradients of q' and
-    k', both tensors in one launch."""
+    k', both tensors in one launch: a block takes a run of tokens with all
+    their q and k head rows, and reads each token's cos/sin row once."""
     if build.plain(q):
         return qk_norm_rope_bwd_ref(q, k, gamma_q, gamma_k, cos, sin,
                                     dq_out, dk_out, eps)
@@ -525,26 +592,30 @@ def qk_norm_rope_bwd(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
     hkv = k.shape[2]
     for name, t in (("cos", cos), ("sin", sin)):
         if t.shape != (b, length, d // 2) or t.dtype != torch.float32 \
-                or t.device != q.device or not t.is_contiguous():
+                or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(f"qk_norm_rope_bwd: {name} must be (B, L, D/2) "
-                             f"float32, contiguous, on q's device")
-    gq = _gamma("qk_norm_rope_bwd", gamma_q, q)
-    gk = _gamma("qk_norm_rope_bwd", gamma_k, k)
+                             f"float32, contiguous, 16-byte aligned, on q's "
+                             f"device")
+    gq, gcode = _bwd_gamma("qk_norm_rope_bwd", gamma_q, q)
+    gk, gcode_k = _bwd_gamma("qk_norm_rope_bwd", gamma_k, k)
+    if gcode_k != gcode:
+        raise TypeError(f"qk_norm_rope_bwd: gamma_q {gamma_q.dtype} and "
+                        f"gamma_k {gamma_k.dtype} differ")
     dq, dk = torch.empty_like(q), torch.empty_like(k)
-    dgq = torch.zeros(d, dtype=torch.float32, device=q.device)
-    dgk = torch.zeros(d, dtype=torch.float32, device=q.device)
-    if q.numel():
-        stream = _stream(q)
-        part = torch.empty(2 * BWD_MAX_BLOCKS * d, dtype=torch.float32,
-                           device=q.device)
-        build.check(_lib().repro_qk_norm_rope_bwd(
-            q.data_ptr(), k.data_ptr(), dq_out.data_ptr(), dk_out.data_ptr(),
-            gq.data_ptr(), gk.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dgq.data_ptr(), dgk.data_ptr(),
-            part.data_ptr(), b * length * hq, b * length * hkv, hq, hkv, d,
-            float(eps), code, stream), "qk_norm_rope_bwd")
-        _bwd_count("qk_norm_rope")
-    return dq, dk, dgq.to(gamma_q.dtype), dgk.to(gamma_k.dtype)
+    if not q.numel():
+        return dq, dk, torch.zeros_like(gq), torch.zeros_like(gk)
+    dgq, dgk = torch.empty_like(gq), torch.empty_like(gk)
+    stream = _stream(q)
+    scratch = _bwd_scratch_ptr(q, stream, _partial_rows(q, b * length), 2 * d)
+    build.check(_lib().repro_qk_norm_rope_bwd(
+        q.data_ptr(), k.data_ptr(), dq_out.data_ptr(), dk_out.data_ptr(),
+        gq.data_ptr(), gk.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dgq.data_ptr(), dgk.data_ptr(),
+        scratch, b * length * hq, b * length * hkv, hq, hkv, d, float(eps),
+        code, gcode, stream), "qk_norm_rope_bwd")
+    _bwd_count("qk_norm_rope")
+    return dq, dk, dgq, dgk
 
 
 # ---------------------------------------------------------------------------

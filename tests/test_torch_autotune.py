@@ -23,7 +23,7 @@ from repro_torch import bridge
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.acc import StaticCoreChunk
 from repro_torch.core.calibration import CalibrationCache
-from repro_torch.kernels import autotune, ops, tuning
+from repro_torch.kernels import autotune, build, ops, tuning
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels.autotune import KernelTuner, shape_bucket
@@ -256,7 +256,7 @@ def test_a_miss_during_a_capture_raises(monkeypatch):
     not."""
     t = _tuner()
     plan, _ = _attend(t)
-    monkeypatch.setattr(kfa, "_capturing", lambda: True)
+    monkeypatch.setattr(build, "capturing", lambda: True)
     assert _attend(t)[0] == plan
     with pytest.raises(RuntimeError, match="captured"):
         _attend(t, sq=2)

@@ -420,7 +420,7 @@ def card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph", capture)
-    monkeypatch.setattr(kfa, "_capturing", lambda: capturing[0])
+    monkeypatch.setattr(build, "capturing", lambda: capturing[0])
     monkeypatch.setattr(tgraphs, "_on_card", lambda t: True)
     monkeypatch.setattr(tgraphs, "_streams", {})
     krms.reset_counts()

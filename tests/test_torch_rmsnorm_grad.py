@@ -10,7 +10,9 @@ source.
 
 The CUDA backward runs only on the card; ``chip_smoke.py`` phase 8 holds
 it against these plain versions there and checks that two calls give
-the same bits.
+the same bits.  Since the backward became one kernel a call, the meta
+tests also hold each entry to one C call with no zeroed or cast dγ, and
+its scratch to one buffer per device and stream, made once.
 """
 import pathlib
 import re
@@ -221,6 +223,7 @@ def card(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(krms, "_lib", lambda: lib)
     monkeypatch.setattr(krms, "_require_card", lambda name, x: None)
+    monkeypatch.setattr(build, "sm_count", lambda device: SMS)
 
     class _Stream:
         cuda_stream = 0
@@ -229,6 +232,11 @@ def card(monkeypatch):
     krms.reset_counts()
     yield lib
     krms.reset_counts()
+
+
+# The stand-in card's SMs (an H100 SXM's): the backward's grid, and so its
+# scratch's partial rows, is at most this many blocks.
+SMS = 132
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -333,10 +341,111 @@ def test_backward_refuses_rows_without_a_layout(card, d, dtype):
 def test_backward_constants_match_the_cuda_source():
     src = (pathlib.Path(krms.__file__).parent / "csrc" / "rmsnorm.cu"
            ).read_text()
-    assert int(re.search(r"kBwdMaxBlocks = (\d+);", src).group(1)) \
-        == krms.BWD_MAX_BLOCKS
+    # The grid is sized from the card (its SMs), not capped by a constant.
+    assert "kBwdMaxBlocks" not in src
+    assert "return small ? 1 : (groups < c.sms ? groups : c.sms);" in src
+    assert "const int grid = a.tokens < c.sms ? a.tokens : c.sms;" in src
     assert int(re.search(r"kBwdMaxD = (\d+);", src).group(1)) \
         == krms.BWD_MAX_D
+    assert int(re.search(r"kBwdHeader = (\d+);", src).group(1)) \
+        == krms.BWD_SCRATCH_HEADER
+    threads = int(re.search(r"kBwdThreads = (\d+);", src).group(1))
+    elems = int(re.search(r"kBwdRegElems = (\d+);", src).group(1))
+    assert "kBwdRegMaxD = kBwdThreads * kBwdRegElems;" in src
+    assert threads * elems == krms.BWD_REG_MAX_D
+
+
+@pytest.fixture
+def scratch(monkeypatch):
+    """A fresh scratch table, so each test sees its own buffers."""
+    table = {}
+    monkeypatch.setattr(krms, "_bwd_scratch", table)
+    return table
+
+
+def _bwd_calls(entry, dtype, gdtype):
+    """One call of a backward entry on meta tensors at the training path's
+    shapes, γ in ``gdtype``."""
+    x = _meta(4096, 1024, dtype=dtype)
+    g = torch.empty(1024, dtype=gdtype, device="meta")
+    if entry == "rmsnorm":
+        return krms.rmsnorm_bwd(x, g, x, eps=EPS)
+    if entry == "add_rmsnorm":
+        return krms.add_rmsnorm_bwd(x, g, x, x, eps=EPS)
+    q = _meta(8, 512, 16, 128, dtype=dtype)
+    k = _meta(8, 512, 8, 128, dtype=dtype)
+    gq = torch.empty(128, dtype=gdtype, device="meta")
+    cos = torch.empty(8, 512, 64, device="meta")
+    return krms.qk_norm_rope_bwd(q, k, gq, gq, cos, cos, q, k, eps=EPS)
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry", ["rmsnorm", "add_rmsnorm", "qk_norm_rope"])
+def test_backward_entry_is_one_c_call_with_no_zeroed_dgamma(card, scratch,
+                                                             entry, dtype,
+                                                             gdtype):
+    """A warm call (its scratch made) is exactly one C call; no tensor op
+    zeroes, fills or casts anything (dγ is written by the kernel in γ's
+    type, γ read in its own); the x and γ type codes reach the kernel."""
+    _bwd_calls(entry, dtype, gdtype)
+    card.calls.clear()
+    with _Record() as rec:
+        outs = _bwd_calls(entry, dtype, gdtype)
+    assert [c[0] for c in card.calls] == [f"repro_{entry}_bwd"]
+    assert not {"zeros", "zeros_like", "fill_", "zero_", "to", "float",
+                "copy_", "full"} & set(rec.calls)
+    assert all(t.dtype == gdtype for t in outs[len(outs) // 2:])
+    assert all(t.dtype == dtype for t in outs[:len(outs) // 2])
+    args = card.calls[0][1]
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    assert args[-3:-1] == (codes[dtype], codes[gdtype])
+
+
+def test_backward_scratch_is_made_once_per_device_and_stream(card, scratch,
+                                                             monkeypatch):
+    """The first call makes the scratch (zeroed, header and partial rows);
+    a second call on the same stream reuses it, a wider one grows it, a
+    call on another stream gets its own."""
+    with _Record() as rec:
+        _bwd_calls("rmsnorm", torch.bfloat16, torch.float32)
+    assert rec.calls.count("zeros") == 1
+    (key, buf), = scratch.items()
+    assert buf.numel() == krms.BWD_SCRATCH_HEADER \
+        + 4 * SMS * 1024
+    assert card.calls[0][1][5] == buf.data_ptr()
+    _bwd_calls("add_rmsnorm", torch.bfloat16, torch.float32)
+    _bwd_calls("rmsnorm", torch.float32, torch.bfloat16)
+    assert list(scratch) == [key] and scratch[key] is buf
+    x = _meta(4096, 2048)
+    krms.rmsnorm_bwd(x, torch.empty(2048, device="meta"), x, eps=EPS)
+    assert scratch[key] is not buf and scratch[key].numel() \
+        == krms.BWD_SCRATCH_HEADER + 4 * SMS * 2048
+
+    class _Other:
+        cuda_stream = 7
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Other())
+    _bwd_calls("qk_norm_rope", torch.bfloat16, torch.bfloat16)
+    assert len(scratch) == 2 and scratch[(key[0], 7)].numel() \
+        == krms.BWD_SCRATCH_HEADER + 4 * SMS * 2 * 128
+
+
+def test_backward_refuses_a_gamma_type_it_cannot_write(card, scratch):
+    """dγ is written in γ's type by the kernel: f32 or bf16; another type,
+    or two different types of γq and γk, is refused before any launch."""
+    x = _meta(8, 1024)
+    with pytest.raises(TypeError, match="gamma"):
+        krms.rmsnorm_bwd(x, torch.empty(1024, dtype=torch.float16,
+                                        device="meta"), x, eps=EPS)
+    q = _meta(2, 3, 4, 128)
+    cos = torch.empty(2, 3, 64, device="meta")
+    with pytest.raises(TypeError, match="gamma"):
+        krms.qk_norm_rope_bwd(q, q, torch.empty(128, device="meta"),
+                              torch.empty(128, dtype=torch.bfloat16,
+                                          device="meta"),
+                              cos, cos, q, q, eps=EPS)
+    assert card.calls == []
 
 
 def test_cpu_backward_never_counts_a_launch():

@@ -1,7 +1,7 @@
-"""Kernel 1's backward at every width its forward takes: the register
-layouts (8..256 16-byte vectors: bf16 rows up to 2048, f32 up to 1024)
-and the generic loop for any other multiple of 8 (the rows of the
-1536..6144-wide archs), on the CPU.
+"""Kernel 1's backward at every width its forward takes: rows of up to
+8192 elements held in registers (bf16 and f32, every registry width:
+1024..6144) and the generic loop for any wider multiple of 8, on the
+CPU.
 
 The wrappers' checks and launch arguments on meta tensors (the card
 branch with a recording library), the plain backward against the JAX
@@ -26,13 +26,13 @@ from repro.configs import get_config as jax_config
 from repro.kernels import ops as kops
 from repro.models import lm as jlm
 from repro_torch import bridge
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels import rmsnorm as krms
 
-from test_torch_rmsnorm_grad import _meta, card  # noqa: F401  (fixture)
+from test_torch_rmsnorm_grad import SMS, _meta, card  # noqa: F401
 from test_torch_xlstm import grad_parity
 
-WIDTHS = [1536, 2048, 2560, 4096, 5120, 6144]
+WIDTHS = [1536, 2048, 2560, 4096, 5120, 6144, 8192]
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 SRC = (pathlib.Path(krms.__file__).parent / "csrc" / "rmsnorm.cu"
@@ -43,8 +43,9 @@ SRC = (pathlib.Path(krms.__file__).parent / "csrc" / "rmsnorm.cu"
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_backward_takes_every_wide_row(card, d, dtype):  # noqa: F811
     """``rmsnorm_bwd`` and ``add_rmsnorm_bwd`` launch once each at the
-    width, with d and the row count as the kernel reads them and a
-    scratch of min(rows, BWD_MAX_BLOCKS) partial rows of d floats."""
+    width, with d and the row count as the kernel reads them and the
+    stream's scratch: a header and min(rows, the card's SMs) partial rows
+    of d floats."""
     rows = 4096
     x = _meta(rows, d, dtype=dtype)
     g = torch.empty(d, device="meta")
@@ -57,8 +58,9 @@ def test_backward_takes_every_wide_row(card, d, dtype):  # noqa: F811
     assert card.calls[1][1][7:9] == (rows, d)
     assert dx.shape == ds.shape == x.shape and dx.dtype == dtype
     assert dg.shape == dgs.shape == (d,)
-    assert krms._partial_rows(x) == krms.BWD_MAX_BLOCKS
+    assert krms._partial_rows(x) == SMS
     assert krms._partial_rows(_meta(8, d, dtype=dtype)) == 8
+    assert card.calls[0][1][5] == card.calls[1][1][6]     # one scratch
     assert krms.bwd_launches.count == 2
 
 
@@ -117,22 +119,61 @@ def test_plain_backward_matches_the_reference_vjp(d, dtype):
 
 
 def test_backward_constants_and_layouts_match_the_cuda_source():
-    """``BWD_MAX_D`` / ``BWD_MAX_BLOCKS`` are the source's; the register
-    layouts are 8..256 vectors (256 for both types, not for the rotary
-    entry), every other width goes to the generic loop, and its partial
-    row fits the card's shared memory (227 KB a block)."""
-    assert int(re.search(r"kBwdMaxBlocks = (\d+);", SRC).group(1)) \
-        == krms.BWD_MAX_BLOCKS
+    """``BWD_MAX_D`` / ``BWD_REG_MAX_D`` are the source's, and no
+    constant caps the grid (the card's SMs do); plain rows are held by 1..512 threads (a power of two, 16
+    elements each: 8192 at most, bf16 or f32), the rotary entry's head
+    rows of 8..128 vectors by 2 vectors a thread, every wider width goes to
+    the generic loop, and its partial row fits the card's shared memory
+    (227 KB a block)."""
+    assert "kBwdMaxBlocks" not in SRC and not hasattr(krms,
+                                                       "BWD_MAX_BLOCKS")
     assert int(re.search(r"kBwdMaxD = (\d+);", SRC).group(1)) \
         == krms.BWD_MAX_D
     assert krms.BWD_MAX_D * 4 <= 227 * 1024
+    threads = int(re.search(r"kBwdThreads = (\d+);", SRC).group(1))
+    elems = int(re.search(r"kBwdRegElems = (\d+);", SRC).group(1))
+    assert threads * elems == krms.BWD_REG_MAX_D == 8192
     body = SRC[SRC.index("int launch_bwd_any("):]
     body = body[:body.index("\n}\n")]
-    cases = [int(c) for c in re.findall(r"case (\d+):", body)]
-    assert cases == [8, 16, 32, 64, 128, 256]
-    assert "sizeof(T) == 4" not in body
-    assert "launch_bwd_generic<T>" in body
-    assert "static_assert(NV <= 256" in SRC
+    rope = body[:body.index("if (a.d > kBwdRegMaxD)")]
+    plain = body[body.index("if (a.d > kBwdRegMaxD)"):]
+    assert [int(c) for c in re.findall(r"case (\d+):", rope)] \
+        == list(krms._ROPE_VECTORS)
+    assert [int(c) for c in re.findall(r"case (\d+):", plain)] \
+        == [2 ** i for i in range(10)]
+    assert "return launch_bwd_generic<T>" in plain
+    assert "static_assert(TPR * VPT * N <= kBwdRegMaxD" in SRC
+
+
+def _source_threads_per_row(d, itemsize):
+    """Threads a plain row of d takes in the source's layouts: the least
+    power of two holding it at kBwdRegElems elements each, or None (the
+    generic loop) past kBwdRegMaxD."""
+    elems = int(re.search(r"kBwdRegElems = (\d+);", SRC).group(1))
+    if d > krms.BWD_REG_MAX_D:
+        return None
+    per = elems // (16 // itemsize) * (16 // itemsize)
+    t = 1
+    while t * per < d:
+        t *= 2
+    return t
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", sorted({get_config(n).d_model
+                                      for n in ARCH_NAMES} | {8192}))
+def test_every_registry_width_is_held_in_registers(d, dtype):
+    """Every registry width (and 8192) has a register layout of the
+    source in both types: the threads a row takes are among the source's
+    cases and at most a block; the next width past 8192 does not."""
+    body = SRC[SRC.index("int launch_bwd_any("):]
+    body = body[body.index("if (a.d > kBwdRegMaxD)"):body.index("\n}\n")]
+    cases = {int(c) for c in re.findall(r"case (\d+):", body)}
+    threads = int(re.search(r"kBwdThreads = (\d+);", SRC).group(1))
+    item = torch.empty(0, dtype=dtype).element_size()
+    tpr = _source_threads_per_row(d, item)
+    assert tpr in cases and tpr <= threads
+    assert _source_threads_per_row(krms.BWD_REG_MAX_D + 8, item) is None
 
 
 # ---------------------------------------------------------------------------
