@@ -176,7 +176,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
               row and the next decode step against ``lm.forward`` (the
               chunk-parallel GLA; 2e-3) (``[hybrid chunked]``); tokens
               contiguous == paged.  bf16 serving as in phase 9 (16
-              requests, prompts 64-256, both pools, speculation off; each
+              requests, prompts 32-128, both pools, speculation off; each
               forward 45 kernel-1 launches; K/V and state MiB of each
               pool), ``graph_identity`` (tokens, K/V and every state row),
               a profiled serve window (idle share, kernels by group), a
@@ -188,7 +188,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
               attends, kernel 1 is its path's one kernel), as phase 11:
               f32 logits card vs CPU, the per-token prefill against the
               chunk-parallel forward (``[xlstm chunked]``), contiguous ==
-              paged; bf16 serving of 16 requests (prompts 64-256, 64 new
+              paged; bf16 serving of 16 requests (prompts 32-128, 64 new
               tokens, 8 slots, ``max_len`` 1024, both pools, speculation
               off; 25 kernel-1 launches a forward), ``graph_identity``
               (every state row), a profiled window and a decode census;
@@ -204,7 +204,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               group; then 8 requests (prompt 256, 64 new tokens, features
               from ``make_batch``) through ``serve_cross_attention``
               (the engine's lock-step path; 89 kernel-1 launches a
-              forward), TTFT and each decode step beside its bound.
+              forward), TTFT and each decode step beside its bound; the
+              same requests on a one-rank NCCL mesh (what ``launch/
+              serve.py --mesh 1,1`` runs for the arch, with this phase's
+              weights), 16 new tokens each, bit-equal to the no-mesh
+              run's first 16 (``[serve13 mesh]``).
 14. tune    — measured kernel plans (``_tune_phase``, alone:
               ``tune_main()``), every tuner over a fresh temporary
               store.  Kernel 1's forward at every candidate warp count
@@ -257,7 +261,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
               no-mesh kernel calls (``[mesh algorithms]``); one
               int8-compressed data-parallel step at full width and 2
               layers, each quantisation group's synced gradient within
-              one int8 quantum of the plain f32 mean (``[mesh dp]``).
+              one int8 quantum of the plain f32 mean (``[mesh dp]``);
+              8 of the requests (32 new tokens) through the asyncio
+              front end, all submitted before the first tick, on the
+              mesh and off it: tokens bit-equal, each stream its
+              record's (``[mesh frontend]``); the scheduler's
+              ``decode_cost_analysis`` on the mesh equal to the no-mesh
+              count, its collectives counted as calls with 0 bytes
+              (``[mesh cost]``).
 16. fsdp    — the FSDP × TP training step (``train/sharded.py``) at
               world size 1 over NCCL (``_fsdp_phase``, alone:
               ``fsdp_main()``): qwen3-0.6b at full width and depth, f32,
@@ -325,9 +336,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
               summed over the one-rank 'model' axis, plain attention),
               4 x 64-token prompts + 16 new tokens: in f32 the
               scheduler's tokens those of kernel 2's path (no mesh) and
-              every lock-step decode step's logits within 2e-3 of it; in
-              bf16 both lock-step paths' ms a step (``[head_dim
-              serve]``).
+              every lock-step decode step's logits within 2e-3 of it, and
+              through the paged pool (pages of 9 rows: the contiguous
+              run's 81 rows in 9 pages) the contiguous "head_dim" pool's
+              tokens with neither kernel 2 nor kernel 3 launched, both
+              pools' f32 step replay ms; in bf16 both lock-step paths'
+              ms a step (``[head_dim serve]``).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3969,10 +3983,11 @@ def _decode_bound_ms(cfg, params, positions, iters) -> float:
     return (weights + 2 * lanes * state + kv + logits) / HBM_BYTES_PER_S * 1e3
 
 
-# The recurrent archs' served prompts (phases 11-12): 64-256 tokens
-# (64-512 before phase 18 came); they prefill token by token, and the
-# cut pays for phase 18.
-RECURRENT_PROMPTS = (64, 257)
+# The recurrent archs' served prompts (phases 11-12): 32-128 tokens
+# (64-512 before phase 18 came, 64-256 before the mesh serving checks of
+# phases 13, 15 and 18 came); they prefill token by token, and the cuts
+# pay for those phases.
+RECURRENT_PROMPTS = (32, 129)
 
 
 def _hybrid_phase(torch, dev):
@@ -4342,8 +4357,18 @@ def _vision_phase(torch, dev):
                 "flash_attention": kfa.launches.count,
                 "paged_flash_attention": kfa.paged_launches.count}
     by_key = {str(k): v for k, v in kfa.launches.by_key.items()}
+    cross_launched = any(key[2] == nf for key in kfa.launches.by_key)
     k1_line, problems = fspy.report(args.requests, cfg)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    mesh_run = _vision_mesh13(torch, dev, cfg, p16, args, executor, out)
+    log(f"[serve13 mesh] {VISION_ARCH} lock-step bf16 on a 1x1 mesh: "
+        + json.dumps(mesh_run))
+    if not mesh_run["tokens_bit_equal"]:
+        problems.append("the 1x1 mesh's lock-step tokens differ from the "
+                        "no-mesh run's")
+    if not mesh_run["launches"].get("rmsnorm") \
+            or not mesh_run["launches"].get("flash_attention"):
+        problems.append(f"the 1x1 mesh run launched {mesh_run['launches']}")
     if tuple(out.shape) != (8, 64) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         problems.append(f"served tokens {tuple(out.shape)} out of shape or "
@@ -4351,7 +4376,7 @@ def _vision_phase(torch, dev):
     if launches["rmsnorm"] <= 0 or launches["flash_attention"] <= 0 \
             or launches["paged_flash_attention"]:
         problems.append(f"the lock-step path skipped a kernel: {launches}")
-    if not any(key[2] == nf for key in kfa.launches.by_key):
+    if not cross_launched:
         problems.append("no cross-attention launch of kernel 2 over the "
                         "frontend tokens")
     # The same requests timed by part: the prefill (TTFT of the batch)
@@ -4416,7 +4441,58 @@ def _vision_phase(torch, dev):
         "peak_mib": peak, "kernel1_per_forward": kernel1_per_forward(cfg),
         "seconds": time.perf_counter() - t_phase}))
     bench.close()
-    return bench.records, {f"phase 13 {VISION_ARCH} lock-step": launches}
+    return bench.records, {
+        f"phase 13 {VISION_ARCH} lock-step": launches,
+        f"phase 13 {VISION_ARCH} lock-step mesh 1x1": mesh_run["launches"]}
+
+
+VISION_MESH_NEW = 16
+
+
+def _vision_mesh13(torch, dev, cfg, params, args, executor, want) -> dict:
+    """What ``launch/serve.py --mesh 1,1`` runs for a cross-attention
+    arch (``serve_cross_attention`` on a one-rank NCCL mesh), with phase
+    13's weights and requests, ``VISION_MESH_NEW`` new tokens each
+    (``main`` would draw the 11B weights on the host): its tokens
+    against the first ones of the no-mesh run's (``want``), its makespan
+    and the kernels' launches."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import serve_cross_attention
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_distributed("cuda", init_method=f"file://{tmp}/rdv",
+                                  rank=0, world_size=1, timeout_s=120)
+        try:
+            mesh = mesh_lib.make_serve_mesh(1, 1)
+            krms.reset_counts()
+            for counter in (kfa.launches, kfa.paged_launches):
+                counter.reset()
+            short = argparse.Namespace(**{**vars(args),
+                                          "new_tokens": VISION_MESH_NEW})
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.monotonic()
+                got = serve_cross_attention(cfg, params, short, executor,
+                                            dev, mesh=mesh)
+                torch.cuda.synchronize()
+                took = time.monotonic() - t0
+            launches = {"rmsnorm": krms.launches.count,
+                        "flash_attention": kfa.launches.count,
+                        "paged_flash_attention": kfa.paged_launches.count}
+        finally:
+            dist.destroy_process_group()
+    return {"tokens_bit_equal": torch.equal(got, want[:, :VISION_MESH_NEW]),
+            "new_tokens": VISION_MESH_NEW, "makespan_s": took,
+            "tok_s": got.numel() / took,
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 def _phase_main(n: int, phase) -> None:
@@ -5227,6 +5303,62 @@ def _mesh_serve15(torch, dev, cfg, params, prompts, mesh, *, paged):
     return run, sched
 
 
+MESH_FRONTEND_REQUESTS, MESH_FRONTEND_NEW = 8, 32
+
+
+def _mesh_frontend15(torch, dev, cfg, params, prompts, mesh):
+    """Phase 5's first ``MESH_FRONTEND_REQUESTS`` prompts through the
+    asyncio front end (``ServeFrontend``), every one submitted before
+    the first tick, over a scheduler with the pinned decisions of
+    ``_mesh_serve15`` (contiguous) on ``mesh`` or none; then the
+    scheduler's ``decode_cost_analysis``.  The records' tokens in
+    submission order, whether each stream gave its record's tokens, the
+    makespan, the kernels' launches and the count."""
+    import asyncio
+
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.core.adaptive import adaptive
+    from repro_torch.core.executor import SequentialExecutor
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.serve import ServeFrontend, ServeScheduler
+
+    sched = ServeScheduler(cfg, params, n_slots=8, max_len=1024,
+                           executor=adaptive(SequentialExecutor(),
+                                             StaticCoreChunk(cores=1)),
+                           dispatch_depth=8, mesh=mesh, device=dev)
+    sched.warmup()
+    torch.cuda.synchronize()
+    krms.reset_counts()
+    for counter in (kfa.launches, kfa.paged_launches):
+        counter.reset()
+
+    async def replay():
+        async with ServeFrontend(sched, max_queue=64) as fe:
+            streams = [await fe.submit(p, MESH_FRONTEND_NEW, wait=True)
+                       for p in prompts[:MESH_FRONTEND_REQUESTS]]
+
+            async def drain(stream):
+                return [t async for t in stream]
+
+            got = await asyncio.gather(*(drain(s) for s in streams))
+            return [s.rid for s in streams], got
+
+    t0 = time.monotonic()
+    rids, streamed = asyncio.run(replay())
+    torch.cuda.synchronize()
+    makespan = time.monotonic() - t0
+    tokens = [sched.requests[r].out for r in rids]
+    launches = {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+    cost = sched.decode_cost_analysis()
+    return {"tokens": tokens, "streamed_equal": streamed == tokens,
+            "makespan_s": makespan,
+            "launches": {k: v for k, v in launches.items() if v},
+            "cost": cost}
+
+
 def _mesh_algorithms15(torch, dev, mexec) -> tuple[dict, list]:
     """The mesh branches of reduce, inclusive_scan, adjacent_difference
     and artificial_work (``*_on_mesh``, the code each entry runs on a
@@ -5405,6 +5537,47 @@ def _mesh_phase(torch, dev):
                                         f"{k}")
                 path_launches[f"phase 15 {MESH_ARCH} mesh 1x1 {pool}"] = \
                     on_mesh["launches"]
+            fronts = {name: _mesh_frontend15(torch, dev, cfg, params,
+                                             prompts, m)
+                      for name, m in (("no_mesh", None), ("mesh", mesh))}
+            a, b = fronts["mesh"], fronts["no_mesh"]
+            ca, cb = dict(a["cost"]), dict(b["cost"])
+            coll = ca.pop("collective_bytes")
+            cb.pop("collective_bytes")
+            rec = {"card": card, "requests": MESH_FRONTEND_REQUESTS,
+                   "new_tokens": MESH_FRONTEND_NEW,
+                   "tokens_bit_equal": a["tokens"] == b["tokens"],
+                   "streamed_equal": a["streamed_equal"]
+                   and b["streamed_equal"],
+                   "makespan_s": {k: r["makespan_s"]
+                                  for k, r in fronts.items()},
+                   "launches": {k: r["launches"] for k, r in fronts.items()}}
+            log("[mesh frontend] " + json.dumps(rec))
+            full = all(len(t) == MESH_FRONTEND_NEW for t in a["tokens"])
+            if not (rec["tokens_bit_equal"] and rec["streamed_equal"]
+                    and full):
+                problems.append("frontend: the mesh front end's tokens "
+                                "differ from the no-mesh front end's (or "
+                                "from its streams, or are short)")
+            if not a["launches"].get("rmsnorm") \
+                    or not a["launches"].get("flash_attention"):
+                problems.append(f"frontend: the mesh run launched "
+                                f"{a['launches']}")
+            path_launches[f"phase 15 {MESH_ARCH} mesh 1x1 frontend"] = \
+                a["launches"]
+            same_cost = ca == cb
+            log("[mesh cost] " + json.dumps({
+                "card": card, "equal_to_no_mesh": same_cost,
+                "collective_bytes": coll["bytes"],
+                "collective_calls": coll["counts"],
+                "flops_per_device": ca["flops_per_device"],
+                "hbm_bytes_per_device": ca["hbm_bytes_per_device"],
+                "bound_s": ca["bound_s"], "n_devices": ca["n_devices"],
+                "path": ca["path"]}))
+            if not same_cost or coll["bytes"]["total"] != 0:
+                problems.append("decode_cost_analysis on the 1x1 mesh is "
+                                "not the no-mesh count with no collective "
+                                "bytes")
             del params
             torch.cuda.empty_cache()
             probe = _nccl_probe15(torch, dev, mesh)
@@ -5730,11 +5903,13 @@ SEQ_WINDOW = 64
 
 
 def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged,
-                **sched_kw):
+                step_reps: int = 0, **sched_kw):
     """One serve run with every decision pinned (one core, depth 4, the
-    paged pool's page size 16, chunks of at most 64) on ``mesh`` or
-    none (``sched_kw``: more of the scheduler's keywords): the tokens,
-    tok/s and the kernels' launches."""
+    paged pool's page size 16 unless ``sched_kw`` gives one, chunks of at
+    most 64) on ``mesh`` or none (``sched_kw``: more of the scheduler's
+    keywords): the tokens, tok/s and the kernels' launches; with
+    ``step_reps``, the median ms of that many replays of the fused
+    step's graph (``step_ms``)."""
     from repro_torch.core.acc import StaticCoreChunk
     from repro_torch.core.adaptive import adaptive
     from repro_torch.core.executor import SequentialExecutor
@@ -5742,7 +5917,8 @@ def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged,
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.serve import ServeScheduler
 
-    kw = dict(paged=True, page_size=16) if paged else {}
+    kw = dict(paged=True, page_size=sched_kw.pop("page_size", 16)) \
+        if paged else {}
     sched = ServeScheduler(cfg, params, n_slots=TP_PROMPTS,
                            max_len=max(len(p) for p in prompts) + TP_NEW + 1,
                            executor=adaptive(SequentialExecutor(),
@@ -5763,8 +5939,10 @@ def _tp_serve17(torch, dev, cfg, params, prompts, mesh, *, paged,
     launches = {"rmsnorm": krms.launches.count,
                 "flash_attention": kfa.launches.count,
                 "paged_flash_attention": kfa.paged_launches.count}
+    extra = {"step_ms": _replay_ms(torch, sched._fused_step().runner,
+                                   reps=step_reps)} if step_reps else {}
     return {"tokens": tokens,
-            "tok_s": sum(len(t or ()) for t in tokens) / took,
+            "tok_s": sum(len(t or ()) for t in tokens) / took, **extra,
             "tp": None if sched.tp is None else {
                 k: v for k, v in dataclasses.asdict(
                     dataclasses.replace(sched.tp, group=None)).items()
@@ -6101,6 +6279,9 @@ def tp_main() -> None:
 # the weight-stationary experts at world size 1 over NCCL.
 SP_ARCH, SP_STEPS = "qwen3-0.6b", 3
 HEAD_DIM_ARCH, HEAD_DIM_PROMPT_LEN = "musicgen-medium", 64
+# The paged "head_dim" run's page size: 9 pages of 9 rows are the
+# contiguous run's 64 + 16 + 1 rows, so both attend views of one shape.
+HEAD_DIM_PAGE = 9
 
 
 def _head_dim_engine18(torch, dev, cfg, params, prompts, mesh):
@@ -6193,10 +6374,14 @@ def _levers_phase(torch, dev):
             serve = {}
             for name, m, kw in (("kernel 2", None, {}),
                                 ("head_dim 1x1", mesh,
-                                 {"force_attn": "head_dim"})):
+                                 {"force_attn": "head_dim", "step_reps": 5}),
+                                ("head_dim 1x1 paged", mesh,
+                                 {"force_attn": "head_dim", "step_reps": 5,
+                                  "paged": True,
+                                  "page_size": HEAD_DIM_PAGE})):
+                kw.setdefault("paged", False)
                 serve[name] = _tp_serve17(torch, dev, cfg32, p32,
-                                          list(prompts), m, paged=False,
-                                          **kw)
+                                          list(prompts), m, **kw)
             lock = {name: _head_dim_engine18(torch, dev, cfg32, p32,
                                              prompts, m)
                     for name, m in (("kernel 2", None),
@@ -6219,6 +6404,13 @@ def _levers_phase(torch, dev):
                    "f32_scheduler_tokens_equal":
                        serve["head_dim 1x1"]["tokens"]
                        == serve["kernel 2"]["tokens"],
+                   "f32_paged_tokens_equal_contiguous":
+                       serve["head_dim 1x1 paged"]["tokens"]
+                       == serve["head_dim 1x1"]["tokens"],
+                   "f32_step_ms": {
+                       k: serve[k]["step_ms"]
+                       for k in ("head_dim 1x1", "head_dim 1x1 paged")},
+                   "page_size": HEAD_DIM_PAGE,
                    "f32_scheduler_launches": {
                        k: r["launches"] for k, r in serve.items()},
                    "f32_lockstep_max_abs_logit_err": err,
@@ -6246,6 +6438,20 @@ def _levers_phase(torch, dev):
                                 f"kernel 2 expected")
             path_launches[f"phase 18 {HEAD_DIM_ARCH} head_dim 1x1 "
                           f"contiguous"] = mesh_run["launches"]
+            paged_run = serve["head_dim 1x1 paged"]
+            if not (rec["f32_paged_tokens_equal_contiguous"]
+                    and all(t is not None and len(t) == TP_NEW
+                            for t in paged_run["tokens"])):
+                problems.append("head_dim serve: the paged pool's tokens "
+                                "differ from the contiguous pool's")
+            if paged_run["launches"].get("flash_attention") \
+                    or paged_run["launches"].get("paged_flash_attention") \
+                    or not paged_run["launches"].get("rmsnorm"):
+                problems.append(f"head_dim paged serve launched "
+                                f"{paged_run['launches']}: kernel 1 and "
+                                f"neither kernel 2 nor 3 expected")
+            path_launches[f"phase 18 {HEAD_DIM_ARCH} head_dim 1x1 "
+                          f"paged"] = paged_run["launches"]
         finally:
             dist.destroy_process_group()
     log(f"[phase 18] {time.perf_counter() - t_phase:.1f}s")

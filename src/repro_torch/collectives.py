@@ -124,7 +124,7 @@ def gather_dim(t: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     out = torch.empty((size * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     all_gather_into(out, t, group)
-    if dim == 0:
+    if dim == 0 or size == 1:
         return out
     return torch.cat(out.chunk(size), dim=dim)
 

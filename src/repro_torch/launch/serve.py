@@ -37,9 +37,11 @@ process per rank under ``torchrun`` (NCCL on the cards, gloo with
 and only rank 0 prints.  Every arch the scheduler serves takes any model
 extent: each block splits its heads or channels over 'model' where they
 divide and runs whole where they do not (``launch/sharding.tp_plan``;
-zamba2's Mamba2 heads, xlstm's mLSTM heads and sLSTM channels too).  A
-cross-attention arch and ``--frontend`` are refused on a mesh (ROADMAP.md
-A.6b item 5):
+zamba2's Mamba2 heads, xlstm's mLSTM heads and sLSTM channels too).
+``--speculate`` and ``--paged`` take any mesh.  ``--frontend`` replays
+the same trace on every rank, rank 0 deciding which arrivals each tick
+takes (``serve/frontend.py``), and a cross-attention arch runs the
+lock-step batch on every rank's tensor-parallel block:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch qwen3-0.6b --reduced --device cpu --mesh 2,2 --no-cal-cache
@@ -121,19 +123,20 @@ def prompts(n: int, prompt_len: int, vocab: int, seed: int) -> list:
 
 def serve_cross_attention(cfg, params, args, executor,
                           device: torch.device,
-                          tuner=None) -> torch.Tensor:
+                          tuner=None, mesh=None) -> torch.Tensor:
     """A cross-attention (VLM) arch carries per-request frontend features
     the scheduler does not model: ``--requests`` rows of ``--prompt-len``
     tokens and their features (``make_batch``, seed ``--seed``) go
     through the engine's lock-step batch path (with the measured kernel
-    plans of ``tuner``, if given).  Returns the tokens (B, new
-    tokens)."""
+    plans of ``tuner``, if given; on ``mesh`` every rank runs the whole
+    batch on its tensor-parallel blocks, and only mesh rank 0 prints).
+    Returns the tokens (B, new tokens)."""
     batch = make_batch(cfg, args.requests, args.prompt_len, kind="prefill",
                        seed=args.seed, device=device)
     engine = ServeEngine(cfg, params, batch=args.requests,
                          max_len=args.prompt_len + args.new_tokens + 1,
                          executor=executor, kernel_tuner=tuner,
-                         device=device)
+                         mesh=mesh, device=device)
     t0 = time.monotonic()
     out = engine.generate(batch["tokens"], args.new_tokens,
                           frontend_feats=batch["frontend_feats"])
@@ -141,6 +144,8 @@ def serve_cross_attention(cfg, params, args, executor,
         torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
     gen = int(out.shape[0] * out.shape[1])
+    if not _leads(mesh):
+        return out
     print(f"arch={cfg.name} (cross-attention: lock-step batch path) "
           f"requests={args.requests}")
     print(f"generated {gen} tokens in {dt:.2f}s ({gen / dt:.1f} tok/s)")
@@ -148,10 +153,17 @@ def serve_cross_attention(cfg, params, args, executor,
     return out
 
 
-def serve_frontend(sched: ServeScheduler, args) -> None:
+def _leads(mesh) -> bool:
+    """Whether this process prints: off a mesh, or mesh rank 0."""
+    return mesh is None or mesh.rank == mesh.leader
+
+
+def serve_frontend(sched: ServeScheduler, args) -> ServeFrontend:
     """Async front-end replay: a seeded heavy-tailed open-loop trace with
     streaming consumers and per-request SLO deadlines — the mode whose
-    headline is goodput, not throughput."""
+    headline is goodput, not throughput.  On a mesh every rank replays
+    the same trace (its front end follows rank 0's arrivals) and only
+    mesh rank 0 prints.  Returns the front end (its ``records``)."""
     trace = heavy_tailed_trace(
         args.requests, rate_rps=args.rate_rps,
         max_prompt=max(args.prompt_len, 8), max_new=args.new_tokens,
@@ -184,6 +196,8 @@ def serve_frontend(sched: ServeScheduler, args) -> None:
              if r.first_token_at is not None]
     goodput = stats["goodput_tokens"] / makespan if makespan else 0.0
     eligible = max(stats["submitted"] - stats["cancelled"], 1)
+    if not _leads(sched.mesh):
+        return frontend
     print(f"arch={sched.cfg.name} frontend requests={args.requests} "
           f"slots={sched.pool.n_slots} admission={sched.admission} "
           f"ticks={len(sched.trace)}")
@@ -194,6 +208,7 @@ def serve_frontend(sched: ServeScheduler, args) -> None:
           f"miss rate {stats['missed'] / eligible:.1%} | "
           f"ttft p50={percentile(ttfts, 50) * 1e3:.0f}ms "
           f"p99={percentile(ttfts, 99) * 1e3:.0f}ms")
+    return frontend
 
 
 def print_paged_stats(sched: ServeScheduler) -> None:
@@ -312,15 +327,13 @@ def main(argv=None) -> None:
     acc = AdaptiveCoreChunk(cache=cache)
     executor = adaptive(SequentialExecutor(), acc)
     tuner = make_kernel_tuner(cache) if args.kernel_autotune else None
-    if mesh is not None and ("cross_attn" in cfg.layer_kinds()
-                             or args.frontend):
-        raise NotImplementedError(
-            "--mesh serves through the scheduler's tick loop: the "
-            "cross-attention engine path and --frontend on a mesh wait for "
-            "ROADMAP.md A.6b item 5")
     if "cross_attn" in cfg.layer_kinds():
-        serve_cross_attention(cfg, params, args, executor, device, tuner)
-        finish(None, cache, args, tuner)
+        serve_cross_attention(cfg, params, args, executor, device, tuner,
+                              mesh=mesh)
+        if lead:
+            finish(None, cache, args, tuner)
+        if mesh is not None:
+            _leave_mesh()
         return
     max_len = args.prompt_len + args.new_tokens + 1
     admission = args.admission or \
@@ -337,8 +350,11 @@ def main(argv=None) -> None:
     sched.warmup()
     if args.frontend:
         serve_frontend(sched, args)
-        print_paged_stats(sched)
-        finish(sched, cache, args, tuner)
+        if lead:
+            print_paged_stats(sched)
+            finish(sched, cache, args, tuner)
+        if mesh is not None:
+            _leave_mesh()
         return
 
     t_start = time.monotonic()

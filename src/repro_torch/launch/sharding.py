@@ -230,14 +230,11 @@ def paged_cache_specs(cfg: ArchConfig, mesh, n_slots: int,
     replicated over the data axes (prefix sharing lets any lane map any
     page, so each replica holds every page and the lane updates are
     exchanged); KV heads shard over 'model' as in ``cache_specs``
-    (``plan``: by the port's attention rule, which the paged pool takes
-    for "split", "kv_shared" and "whole" and refuses for "head_dim").
-    Recurrent state stays slot-major, with the ``cache_specs`` rule."""
+    (``plan``: by the port's attention rule, every one of the four:
+    under "head_dim" a store row holds the rank's rotary pairs of every
+    kv head's dims).  Recurrent state stays slot-major, with the
+    ``cache_specs`` rule."""
     axis_sizes = dict(mesh.shape)
-    if plan is not None:
-        from ..models.attention import refuse_paged_head_dim
-
-        refuse_paged_head_dim(plan)
     hax, dax = _heads_spec(cfg.n_kv_heads, cfg.head_dim_, axis_sizes) \
         if plan is None else _kv_entries(cfg, plan)
     slot_specs = cache_specs(cfg, mesh, n_slots, max_len, plan=plan)

@@ -30,7 +30,9 @@ prior holds).  Two cache layouts:
   ``(n_pages * ps, Hkv, D)`` read through a page table; the new rows land
   with one ``index_copy_`` per store and attention runs through
   ``paged_flash_attention`` straight off the pages (no contiguous view
-  is gathered).
+  is gathered), except under the "head_dim" split below, whose rank
+  holds D / n dims of every row: its lanes' rows are gathered through
+  the table and attended by ``split_dim_attention``.
 
 Under a sliding window ``W`` the contiguous cache is a ring of ``S =
 min(W, max_len)`` rows (``init_cache``; the counterpart of the
@@ -341,22 +343,21 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     ck, cv = cache["k"], cache["v"]
     qt = q.transpose(1, 2).contiguous()
-    if rule == "head_dim":
-        if write.page_table is not None:
-            refuse_paged_head_dim(flags.TP)
-        out = _head_dim_attention(qt, k.transpose(1, 2), v.transpose(1, 2),
-                                  ck, cv, write, window, cfg.head_dim_)
-        return _out(p, out, cd)
     if write.page_table is not None and window is not None:
         raise ValueError("paged KV caches do not hold sliding-window (SWA) "
                          "rings; use the contiguous slot pool")
+    if rule == "head_dim":
+        if write.page_table is not None:
+            _paged_write(k, v, ck, cv, write)
+            out = _paged_head_dim_attention(qt, ck, cv, write,
+                                            cfg.head_dim_)
+        else:
+            out = _head_dim_attention(qt, k.transpose(1, 2),
+                                      v.transpose(1, 2), ck, cv, write,
+                                      window, cfg.head_dim_)
+        return _out(p, out, cd)
     if write.page_table is not None:
-        # k, v are (B, L, Hkv, D): token-major, the stores' layout.
-        if write.rows is not None:
-            k, v = k[write.rows], v[write.rows]
-        hkv = k.shape[2]
-        ck.index_copy_(0, write.flat, k.reshape(-1, hkv, hd).to(ck.dtype))
-        cv.index_copy_(0, write.flat, v.reshape(-1, hkv, hd).to(cv.dtype))
+        _paged_write(k, v, ck, cv, write)
         out = kops.paged_flash_attention(
             qt, ck, cv, write.page_table, write.kv_lens,
             page_size=write.page_size, causal=True,
@@ -365,6 +366,41 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         out = _cached_attention(qt, k.transpose(1, 2), v.transpose(1, 2),
                                 ck, cv, write, window)
     return _out(p, out, cd)
+
+
+def _paged_write(k: torch.Tensor, v: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor, write: CacheWrite) -> None:
+    """The new K/V rows, k, v (B, L, Hkv, D) token-major as the stores
+    are, into the paged stores at ``write.flat`` (a dropped lane's rows
+    to the scratch page 0)."""
+    if write.rows is not None:
+        k, v = k[write.rows], v[write.rows]
+    hkv, hd = k.shape[2], k.shape[3]
+    ck.index_copy_(0, write.flat, k.reshape(-1, hkv, hd).to(ck.dtype))
+    cv.index_copy_(0, write.flat, v.reshape(-1, hkv, hd).to(cv.dtype))
+
+
+def _paged_head_dim_attention(qt: torch.Tensor, ck: torch.Tensor,
+                              cv: torch.Tensor, write: CacheWrite,
+                              head_dim: int) -> torch.Tensor:
+    """Attention over the paged stores under the "head_dim" rule: every
+    store row holds this rank's D / n dims of every kv head (the K
+    already rotated by the rank's block of the frequencies when it was
+    written).  Each lane's rows are read through its page table into a
+    (B, Hkv, n_blocks · ps, D / n) view, in position order, and attended
+    through ``split_dim_attention``; rows at or past a lane's length
+    (unmapped blocks read the scratch page 0) are masked.  Plain ops:
+    kernel 3 reads whole heads."""
+    ps = write.page_size
+    table = write.page_table.long()
+    b = table.shape[0]
+    rows = (table[:, :, None] * ps
+            + torch.arange(ps, device=table.device)).reshape(b, -1)
+    k = ck[rows].transpose(1, 2)
+    v = cv[rows].transpose(1, 2)
+    return split_dim_attention(qt, k, v, write.kv_lens, None,
+                               scale=1.0 / math.sqrt(head_dim),
+                               group=flags.TP.group)
 
 
 def merge_blocks(o: torch.Tensor, lse: torch.Tensor
@@ -578,17 +614,6 @@ def cross_attention(p: dict, x: torch.Tensor, kv_feats: torch.Tensor,
                impl=impl, causal=False)
     out = out.transpose(1, 2).reshape(b, length, q.shape[2] * hd)
     return cm.linear_rows(p["wo"], out, cd, split=split)
-
-
-def refuse_paged_head_dim(tp) -> None:
-    """The paged pool does not hold a "head_dim" attention split: kernel
-    3 reads whole heads, and no plain split-dim read of the pages is
-    written (ROADMAP.md A.6b item 7)."""
-    if tp is not None and tp.attn == "head_dim":
-        raise NotImplementedError(
-            "the paged KV pool under the head_dim attention split "
-            "(ROADMAP.md A.6b item 7); serve through the contiguous slot "
-            "pool")
 
 
 def local_kv(cfg: ArchConfig, tp) -> tuple[int, int]:

@@ -98,11 +98,17 @@ def embed(p: dict, tokens: torch.Tensor,
     if tp is None or not tp.vocab:
         rows = torch.index_select(p["table"], 0, tokens.reshape(-1))
         return keep_rows(_cast(rows.view(*tokens.shape, -1), compute_dtype))
-    n = p["table"].shape[0]
-    local = tokens.reshape(-1) - tp.index * n
-    inside = (local >= 0) & (local < n)
-    rows = torch.index_select(p["table"], 0, torch.where(inside, local, 0))
-    rows = _cast(torch.where(inside[:, None], rows, 0.0), compute_dtype)
+    if tp.size == 1:
+        # One rank holds every row: no token lies outside them.
+        rows = _cast(torch.index_select(p["table"], 0, tokens.reshape(-1)),
+                     compute_dtype)
+    else:
+        n = p["table"].shape[0]
+        local = tokens.reshape(-1) - tp.index * n
+        inside = (local >= 0) & (local < n)
+        rows = torch.index_select(p["table"], 0,
+                                  torch.where(inside, local, 0))
+        rows = _cast(torch.where(inside[:, None], rows, 0.0), compute_dtype)
     sp = flags.SP
     if sp is not None:
         return collectives.scatter_seq_sum(rows.view(*tokens.shape, -1),

@@ -27,7 +27,9 @@ agree with.
 Over the paged pool (``make_paged_decode_step``) the loop is the same;
 the page table rides in as data, fixed for the dispatch (the host
 resolves allocation and copy-on-write before it), and every attention
-reads the pages through the paged kernel.
+reads the pages through the paged kernel (under the "head_dim" split
+over 'model', through the table in plain ops:
+``attention._paged_head_dim_attention``).
 
 Every factory takes ``kernel_tuner`` (an ``autotune.KernelTuner``, the
 reference's measured kernel blocks; None: the one ``models.flags``

@@ -39,6 +39,23 @@ unbounded latency for everyone.
   the decide→execute→observe→refine loop applied at the request level,
   the outermost layer of the stack.
 
+On a serving mesh (``ServeScheduler(mesh=...)``) every rank runs its own
+front end and event loop, fed the same requests in the same order (the
+same seeded trace), and their ticks must meet.  Arrivals land by wall
+clock, so at a given tick the ranks' queues could differ: mesh rank 0
+decides.  Its submissions (with their arrival stamps and deadlines),
+rejections and cancellations since the last tick are broadcast before
+each tick (``Mesh.agree``, as the scheduler's deadline sweep is), and
+every other rank applies them in the same order, so the same ids land
+in the same ticks everywhere.  Another rank's ``submit`` waits for rank
+0's verdict on its request of the same ordinal (the id, or the same
+``QueueFullError`` / ``PromptTooLongError``), and its ``cancel`` waits
+for the request to end and says whether rank 0 cancelled it.  A rank
+never admits a request rank 0 has not admitted, and every rank's
+records hold the same tokens.  ``stop`` is the last agreement: rank 0
+sends its close and the others agree until they have it, so every rank
+must stop its front end.
+
 The serve loop runs on the event loop (scheduler ticks are milliseconds
 on the fused path; a tick's device wait is the natural scheduling
 quantum).  Typed errors (``PromptTooLongError``, ``QueueFullError``)
@@ -142,6 +159,19 @@ class ServeFrontend:
         self._task: asyncio.Task | None = None
         self._wake: asyncio.Event | None = None
         self._space: asyncio.Event | None = None
+        # On a mesh (module docstring): rank 0's outbox of events since
+        # the last tick; another rank's verdicts by submission ordinal,
+        # the submits waiting for one, and the streams it opened.
+        mesh = sched.mesh
+        self._mesh = mesh
+        self._lead = mesh is None or mesh.rank == mesh.leader
+        self._attempts = 0
+        self._outbox: list[tuple] = []
+        self._verdicts: dict[int, tuple] = {}
+        self._owed: dict[int, asyncio.Future] = {}
+        self._opened: dict[int, TokenStream] = {}
+        self._agreed: asyncio.Event | None = None
+        self._closed = mesh is None
 
     # -- lifecycle -----------------------------------------------------------
     async def __aenter__(self) -> "ServeFrontend":
@@ -156,6 +186,8 @@ class ServeFrontend:
             return
         self._wake = asyncio.Event()
         self._space = asyncio.Event()
+        self._agreed = asyncio.Event()
+        self._closed = self._mesh is None
         self._space.set()
         self._task = asyncio.create_task(self._serve(), name="serve-loop")
 
@@ -169,6 +201,14 @@ class ServeFrontend:
                 await task
             except asyncio.CancelledError:
                 pass
+        if self._mesh is not None:
+            # The last agreement: rank 0's events since the last tick and
+            # its close; another rank agrees until it has the close.
+            if self._lead:
+                self._tell(("close",))
+                self._agree_arrivals()
+            while not self._closed:
+                self._agree_arrivals()
         self.sched.flush()
         self._pump()
         for rid in list(self._streams):
@@ -193,26 +233,117 @@ class ServeFrontend:
         if self._task is None:
             raise RuntimeError("ServeFrontend not started "
                                "(use 'async with' or call start())")
+        idx = self._attempts
+        self._attempts += 1
+        if not self._lead:
+            return await self._follow(idx)
         while self.queue_depth() >= self.max_queue:
             if not wait:
                 self.rejected += 1
+                self._tell(("reject", idx))
                 raise QueueFullError(self.queue_depth(), self.max_queue)
             self._space.clear()
             await self._space.wait()
-        rid = self.sched.submit(tokens, max_new_tokens, deadline=deadline)
+        try:
+            rid = self.sched.submit(tokens, max_new_tokens,
+                                    deadline=deadline)
+        except PromptTooLongError as e:
+            self._tell(("too_long", idx, e.prompt_len, e.max_len))
+            raise
+        req = self.sched.requests[rid]
+        self._tell(("submit", idx, rid, req.tokens.tolist(),
+                    req.max_new_tokens, deadline, req.arrival))
+        stream = self._open(rid, req.arrival, deadline)
+        self._wake.set()
+        return stream
+
+    def _open(self, rid: int, submitted_at: float,
+              deadline: float | None) -> TokenStream:
         self.records[rid] = RequestRecord(
-            rid=rid, submitted_at=self.clock(), deadline=deadline)
+            rid=rid, submitted_at=submitted_at, deadline=deadline)
         stream = TokenStream(self, rid)
         self._streams[rid] = stream
         self._emitted[rid] = 0
-        self._wake.set()
         return stream
+
+    def _tell(self, event: tuple) -> None:
+        """Rank 0's event for the other ranks (nothing off a mesh).  It
+        wakes the serve loop: a rank that owes this verdict waits in the
+        agreement until rank 0 runs one."""
+        if self._mesh is not None:
+            self._outbox.append(event)
+            self._wake.set()
+
+    async def _follow(self, idx: int) -> TokenStream:
+        """Another rank's ``submit``: rank 0's verdict on its submission
+        of the same ordinal (module docstring)."""
+        if idx not in self._verdicts:
+            fut = asyncio.get_running_loop().create_future()
+            self._owed[idx] = fut
+            self._wake.set()
+            await fut
+        verdict = self._verdicts.pop(idx)
+        if verdict[0] == "reject":
+            raise QueueFullError(self.queue_depth(), self.max_queue)
+        if verdict[0] == "too_long":
+            raise PromptTooLongError(verdict[1], verdict[2])
+        return self._opened.pop(verdict[1])
+
+    def _agree_arrivals(self) -> None:
+        """Before each tick on a mesh: rank 0's events since the last
+        one, broadcast, and applied in order on every other rank."""
+        def take():
+            events, self._outbox = self._outbox, []
+            return events
+
+        events = self.sched._agree(take)
+        if not self._lead:
+            for ev in events:
+                self._apply(ev)
+        self._closed = self._closed or ("close",) in events
+        self._agreed.set()
+        self._agreed.clear()
+
+    def _apply(self, ev: tuple) -> None:
+        kind = ev[0]
+        if kind == "close":
+            return
+        if kind == "cancel":
+            self.sched.cancel(ev[1])
+            self._pump()
+            return
+        idx = ev[1]
+        if kind == "submit":
+            _, _, rid, toks, new, deadline, arrival = ev
+            got = self.sched.submit(toks, new, deadline=deadline,
+                                    arrival=arrival)
+            if got != rid:
+                raise RuntimeError(f"rank 0 gave request id {rid}, this "
+                                   f"rank's scheduler {got}: the ranks' "
+                                   f"schedulers have diverged")
+            self._opened[rid] = self._open(rid, arrival, deadline)
+            self._verdicts[idx] = ("ok", rid)
+        elif kind == "reject":
+            self.rejected += 1
+            self._verdicts[idx] = ("reject",)
+        else:
+            self._verdicts[idx] = ("too_long",) + tuple(ev[2:])
+        fut = self._owed.pop(idx, None)
+        if fut is not None:
+            fut.set_result(None)
 
     async def cancel(self, rid: int) -> bool:
         """Cancel ``rid`` mid-flight: its slot is released immediately;
         tokens it has in a not-yet-drained dispatch are dropped."""
+        if not self._lead:
+            req = self.sched.requests.get(rid)
+            while req is not None and req.state not in TERMINAL_STATES:
+                self._wake.set()
+                await self._agreed.wait()
+            return req is not None and req.state is RequestState.CANCELLED
         ok = self.sched.cancel(rid)
         if ok:
+            self._tell(("cancel", rid))
             self._pump()    # closes the stream via the sentinel
         return ok
 
@@ -237,6 +368,10 @@ class ServeFrontend:
     # -- serve loop ----------------------------------------------------------
     async def _serve(self) -> None:
         while True:
+            if self._mesh is not None:
+                self._agree_arrivals()
+                if self._closed:        # rank 0 has stopped
+                    return
             if self.sched.pending:
                 self.sched.tick()
                 self._pump()
@@ -247,7 +382,8 @@ class ServeFrontend:
                 self.sched.flush()   # land any straggler fused tokens
                 self._pump()
                 self._wake.clear()
-                if self.sched.pending:      # raced with a submit
+                if self.sched.pending or self._owed \
+                        or self._outbox:     # raced with a submit
                     continue
                 await self._wake.wait()
 

@@ -42,16 +42,17 @@ holds its part, by ``launch/sharding.cache_specs`` and
 ``paged_cache_specs`` under the serving plan (``sharding.tp_plan``,
 cached): K/V by the attention rule (its kv heads where both head counts
 split, the one kv head its q heads read under "kv_shared", its rotary
-pairs of every head's dims under "head_dim", which the paged pool
-refuses), and a recurrent state's heads or
-channels where its block's do (Mamba2's conv carry: this rank's x
-channels and the B/C channels whole); the slot pool holds only its replica's
-slot group (``lanes``, ``n_slots / data`` rows); the paged pool holds
-every page (replicated over 'data': prefix sharing lets any lane map
-any page) and its replica's slot group of recurrent state rows.  The
-host bookkeeping (free list, positions, page tables, prefix cache) is
-the whole pool's and the same on every rank.  A paged replica's writes
-reach the others' copies of the stores through ``exchange_rows``.
+pairs of every head's dims under "head_dim"), and a recurrent state's
+heads or channels where its block's do (Mamba2's conv carry: this
+rank's x channels and the B/C channels whole); the slot pool holds only
+its replica's slot group (``lanes``, ``n_slots / data`` rows); the
+paged pool holds every page (replicated over 'data': prefix sharing
+lets any lane map any page) and its replica's slot group of recurrent
+state rows.  The host bookkeeping (free list, positions, page tables,
+prefix cache) is the whole pool's and the same on every rank.  A paged
+replica's writes reach the others' copies of the stores through
+``exchange_rows``, and a fork into another replica's slot group takes
+its state rows there (``fork``).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ from typing import Any
 
 import torch
 
-from ..collectives import all_gather_into
+from ..collectives import all_gather_into, broadcast
 from ..configs.base import ArchConfig
 from ..core import strict
 from ..device import resolve_device
@@ -368,10 +369,12 @@ class PagedKVCachePool:
     recurrent layer its state as slot rows ``(n_slots, ...)``, as in the
     slot pool.  The model reads a slot's rows through its table with the
     paged flash-attention kernel (``models/attention.py``), so the serve
-    path never builds a contiguous view; ``read_slot`` / ``write_slot``
-    gather and scatter one (tests and tools), and ``slot_caches`` is what
-    a prefill chunk of one slot runs over (the stores whole, the slot's
-    state rows).
+    path builds no contiguous view, except under the "head_dim" split
+    (a rank holds D / n dims of every row), whose plain-ops attention
+    gathers each lane's rows through its table; ``read_slot`` /
+    ``write_slot`` gather and scatter one (tests and tools), and
+    ``slot_caches`` is what a prefill chunk of one slot runs over (the
+    stores whole, the slot's state rows).
 
     ``prefix_cache`` (default on) is the reference's switch, and as
     there it stays off for any arch with a recurrent layer: a reused
@@ -419,7 +422,6 @@ class PagedKVCachePool:
                 "read-only; use SlotKVCachePool for windowed archs")
         lm.check_ported(cfg)
         self.part = _MeshPart(cfg, n_slots, mesh, force_attn)
-        attention.refuse_paged_head_dim(self.part.plan)
         self._donated_to: str | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -548,8 +550,9 @@ class PagedKVCachePool:
         replica's rows of every attention store, padded to the longest
         list with scratch rows, then copied into place (the ranks of
         one data group share their 'model' coordinate, so their stores
-        hold the same kv heads: a "kv_shared" rank's its one head, a
-        "head_dim" one's dims are never paged).  Nothing to do
+        hold the same part of every row: a "split" rank's kv heads, a
+        "kv_shared" rank's one head, a "head_dim" rank's D / n dims of
+        every head).  Nothing to do
         with one replica (no other copy exists) or no attention layer (an
         xLSTM stack: its states are slot rows of each replica's own)."""
         part = self.part
@@ -631,7 +634,11 @@ class PagedKVCachePool:
     def fork(self, src: int, owner: Any = None) -> int | None:
         """Clone ``src`` into a fresh slot sharing every mapped page
         copy-on-write (refcounts bumped; the first divergent write on
-        either side triggers the copy).  None when no slot is free."""
+        either side triggers the copy); its recurrent state rows are
+        copied.  None when no slot is free.  On a mesh every rank calls
+        it (the bookkeeping is the same everywhere); where the new slot
+        lies in another replica's slot group than ``src``, the state
+        rows go there over 'data' (``_send_state_rows``)."""
         if not self._free:
             return None
         slot = self._free.pop()
@@ -641,18 +648,47 @@ class PagedKVCachePool:
             if pid:
                 self.page_refs[pid] += 1
             self.page_tables[slot][j] = pid
-        states = any(kind not in lm.ATTN_KINDS for kind in self.kinds)
-        if states and self.part.holds(src) != self.part.holds(slot):
-            raise NotImplementedError(
-                "forking a slot's recurrent state into another data "
-                "replica's slot group")
-        if states and self.part.holds(slot):
-            i, j = self.part.index(slot), self.part.index(src)
-            for kind, c in zip(self.kinds, self.caches, strict=True):
-                if kind not in lm.ATTN_KINDS:
-                    for t in c.values():
-                        t[i].copy_(t[j])
+        states = [t for kind, c in zip(self.kinds, self.caches, strict=True)
+                  if kind not in lm.ATTN_KINDS for t in c.values()]
+        part = self.part
+        if not states:
+            return slot
+        if part.mesh is not None and \
+                src // part.local != slot // part.local:
+            self._send_state_rows(states, src, slot)
+        elif part.holds(slot):
+            i, j = part.index(slot), part.index(src)
+            for t in states:
+                t[i].copy_(t[j])
         return slot
+
+    def _send_state_rows(self, states: list, src: int, slot: int) -> None:
+        """``src``'s state rows into ``slot``, which lies in another data
+        replica's slot group: over each data group (the ranks that share
+        a 'model' coordinate, so hold the same tensor-parallel block of
+        every state) ``src``'s replica broadcasts its rows, packed into
+        one buffer per dtype, and ``slot``'s replica copies them in.
+        Every rank of the mesh takes part; the rest receive and drop."""
+        part = self.part
+        mesh = part.mesh
+        at = {"data": src // part.local, "model": mesh.coord("model")}
+        root = int(mesh.ranks[tuple(at[a] for a in mesh.axis_names)])
+        mine = part.holds(src)
+        j = src - part.lo
+        for dtype in dict.fromkeys(t.dtype for t in states):
+            group = [t for t in states if t.dtype == dtype]
+            if mine:
+                buf = torch.cat([t[j].reshape(-1) for t in group])
+            else:
+                buf = torch.empty(sum(t[0].numel() for t in group),
+                                  dtype=dtype, device=self.device)
+            broadcast(buf, root, mesh.groups["data"])
+            if part.holds(slot):
+                i, off = part.index(slot), 0
+                for t in group:
+                    n = t[0].numel()
+                    t[i].copy_(buf[off:off + n].view(t[i].shape))
+                    off += n
 
     def release(self, slot: int) -> None:
         if self.owner[slot] is None and slot in self._free:

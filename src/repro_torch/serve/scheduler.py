@@ -22,11 +22,13 @@ prefix is cached maps its pages read-only and prefills only past them,
 every write range is made exclusively writable (copy-on-write) before a
 prefill wave or a dispatch, and the prefill chunk-ops of a tick that
 also decodes are capped by a ``serve_prefill_interleave`` decision.
-Every attention then runs through the paged kernel.  With ``speculate``
-decode drafts from each lane's history and verifies ``d`` tokens per
-round (``serve_spec_depth``, refined from the acceptance the drains
-observe).  With ``admission="adaptive"`` the number of requests admitted
-per tick is a ``serve_admission`` decision (the front end's mode).
+Every attention then runs through the paged kernel (under the
+"head_dim" split over 'model', through the page table in plain ops).
+With ``speculate`` decode drafts from each lane's history and verifies
+``d`` tokens per round (``serve_spec_depth``, refined from the
+acceptance the drains observe).  With ``admission="adaptive"`` the
+number of requests admitted per tick is a ``serve_admission`` decision
+(the front end's mode).
 Under a sliding window (h2o-danube-1.8b) the slot pool's caches are
 rings (``models/attention.py``): a prefill chunk never crosses the
 ring's end and is never padded, and the paged pool and speculation
@@ -63,12 +65,15 @@ so every rank's request state stays the same.  Every decision that
 reads a timing or the clock is taken on mesh rank 0 and broadcast
 (``_agree``), and every rank's trace records it; a mesh run also decides
 ``serve_mesh_batch``, the active-lane cap (``_decide_mesh_batch``).
-Prefill chunk-ops run in order (their collectives must meet).
-Speculation on a mesh needs a data extent of 1 (ROADMAP A.6b).  The
+Prefill chunk-ops run in order (their collectives must meet).  Under
+speculation each replica runs the verify rounds its own lanes need; a
+lane still emits exactly its budget, so the host bookkeeping needs no
+read, and the history ring and the rounds, verifies and tokens are
+gathered over 'data' with the tokens (``_gather_stats``).  The
 attention blocks lie over 'model' by the serving plan's rule
 (``sharding.tp_plan``, cached: "split", "kv_shared", "head_dim" or
-"whole"; ``force_attn`` names one for tests); the paged pool refuses
-"head_dim".
+"whole"; ``force_attn`` names one for tests), in either pool.
+``decode_cost_analysis`` counts this rank's step and its collectives.
 """
 from __future__ import annotations
 
@@ -241,10 +246,6 @@ class ServeScheduler:
             from ..launch import sharding
 
             self.n_replicas = serve_mesh_replicas(mesh, n_slots)
-            if speculate is not None and self.n_replicas > 1:
-                raise NotImplementedError(
-                    "speculative decoding over several data replicas "
-                    "(ROADMAP.md A.6b); serve it with a data extent of 1")
             self.mesh_desc = "x".join(
                 str(mesh.shape[a]) for a in mesh.axis_names)
             self.tp = sharding.tensor_parallel(cfg, mesh, cached=True,
@@ -453,6 +454,18 @@ class ServeScheduler:
                           device=local.device)
         all_gather_into(out, local, group=self.mesh.groups["data"])
         return out.movedim(0, dim).contiguous()
+
+    def _gather_stats(self, stats: torch.Tensor) -> torch.Tensor:
+        """A speculative dispatch's (rounds, verifies, emitted) over every
+        replica: each replica ran its own rounds on its own lanes, so the
+        loop rounds are the most any ran and the verifies and tokens
+        their sums, on the device (the drain reads them with the
+        tokens)."""
+        if self.mesh is None or self.n_replicas == 1:
+            return stats
+        each = self._gather_lanes(stats[None])
+        return torch.stack([each[:, 0].amax(), each[:, 1].sum(),
+                            each[:, 2].sum()])
 
     def _exchange(self, writes) -> None:
         """A paged mesh pool's exchange of the rows each replica wrote:
@@ -1142,39 +1155,44 @@ class ServeScheduler:
         speculative step at the live width): every lane one step at its
         live position, run once eagerly under a cost count
         (``analysis/roofline.count_costs``: tensor ops by their formulas
-        and bytes, each kernel by its own count).  The reference's keys
-        (one card: no collective bytes), the flops split into tensor-core
-        and other, and the bound those give (the larger of the bytes
-        over the memory rate and the flops over their peaks).  Every
-        lane's budget is 0, so the step drops every write as a spent lane
-        does (``fused_body``'s ``keep``) and does the same work: the
-        pool, the tokens, the history and the live step's state are left
-        as they were (the paged pool's scratch page 0, which takes the
-        dropped rows, restored), and the launch counters too.
+        and bytes, each kernel by its own count).  The reference's keys,
+        the flops split into tensor-core and other, and the bound those
+        give (the larger of the bytes over the memory rate and the flops
+        over their peaks).  Every lane's budget is 0, so the step drops
+        every write as a spent lane does (``fused_body``'s ``keep``) and
+        does the same work: the pool, the tokens, the history and the
+        live step's state are left as they were (the paged pool's
+        scratch page 0, which takes the dropped rows, restored), and the
+        launch counters too.
+
+        On a mesh it counts this rank's step over its replica's lanes,
+        under its tensor-parallel context: ``collective_bytes`` holds
+        its collectives by kind (``roofline.collective_bytes``: a group
+        of one rank counts its calls and no bytes) and
+        ``collective_wire_bytes_per_device`` their ring-wire bytes.  The
+        step's collectives must meet, so every rank of the mesh calls it.
         """
         from ..analysis import roofline
 
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "decode_cost_analysis counts one card's step; a mesh "
-                "step's per-device count with its collective bytes is the "
-                "dry-run roofline's (ROADMAP.md A.7b)")
-        n, dev = self.pool.n_slots, self.device
+        dev = self.device
+        lanes = self.pool.lanes
+        n = lanes.stop - lanes.start
         spec = self._fused and self._spec and self._spec_depth >= 2
         step = self._spec_step(self._spec_depth) if spec \
             else self._fused_step()
-        table = self.pool.page_table_array() if self.paged else None
+        table = self.pool.page_table_array()[lanes] if self.paged else None
         hist = None
         if spec:
-            hist = (self._dev_hist.clone() if self._dev_hist is not None
+            hist = (self._dev_hist[lanes].clone()
+                    if self._dev_hist is not None
                     else torch.full((n, self.spec_history), -1,
                                     dtype=torch.long, device=dev))
         st = StepState.empty(n, self.max_dispatch_depth, dev,
                              None if table is None else table.shape,
                              None if hist is None else hist.shape)
         if self._dev_toks is not None:
-            st.toks.copy_(self._dev_toks)
-        st.poss.copy_(self.pool.positions_array())
+            st.toks.copy_(self._dev_toks[lanes])
+        st.poss.copy_(self.pool.positions_array()[lanes])
         if table is not None:
             st.table.copy_(table)
         if hist is not None:
@@ -1185,7 +1203,7 @@ class ServeScheduler:
                    for k, t in c.items() if k in ("k", "v") and ps]
         before = build.snapshot()
         try:
-            with strict.allow_sync():
+            with strict.allow_sync(), flags.tensor_parallel(self.tp):
                 costs = roofline.count_costs(step.runner.body, self.params,
                                              caches, st)
         finally:
@@ -1193,10 +1211,13 @@ class ServeScheduler:
                 t[:ps].copy_(rows)
             build.restore(before)
         bound_s, bound_by = costs.bound()
+        detail = roofline.collective_bytes(costs.collectives)
         return {"flops_per_device": costs.flops,
                 "hbm_bytes_per_device": costs.bytes,
-                "collective_wire_bytes_per_device": 0.0,
-                "n_devices": 1,
+                "collective_wire_bytes_per_device":
+                    detail["bytes"]["wire_total"],
+                "n_devices": 1 if self.mesh is None else self.mesh.size,
+                "collective_bytes": detail,
                 "tensor_flops": costs.tensor_flops,
                 "other_flops": costs.other_flops,
                 "bound_s": bound_s, "bound_by": bound_by,
@@ -1485,6 +1506,7 @@ class ServeScheduler:
                           steps[lanes])
                 self.host_roundtrips += reads
                 new_hist = self._gather_lanes(new_hist)
+                stats = self._gather_stats(stats)
             else:
                 new_hist = None
                 new_caches, out_buf, final_toks = fused(

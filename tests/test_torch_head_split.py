@@ -11,10 +11,12 @@ attention_rule``), held against the JAX package on gloo CPU ranks.
   scheduler's tokens; its (1, 4) sharded step within 2e-5 of the JAX
   step (the loss within 1e-5).  A reduced qwen1.5-32b with 6 q and 6 kv
   heads in both packages (6 does not divide 4; head_dim 16 splits into
-  4 blocks of rotary pairs) on (1, 4), "head_dim": the contiguous pool's
-  tokens the JAX scheduler's, every lock-step decode step's logits
-  within 1e-5 of the JAX decode step's, the greedy tokens the same; the
-  paged pool refuses it naming A.6b.
+  4 blocks of rotary pairs) on (1, 4), "head_dim": both pools' tokens,
+  and the paged pool's under speculation, the JAX scheduler's; every
+  lock-step decode step's logits, through the contiguous engine and
+  through the paged stores (a rank's rows D / 4 dims of every head,
+  read through the page table), within 1e-5 of the JAX decode step's,
+  the greedy tokens the same.
 * The dry run's qwen1.5-32b ``decode_32k`` on the single-pod mesh fits
   the card with no ``--cache-seq-model``: its cache splits 16 ways.
 """
@@ -177,10 +179,23 @@ def test_local_caches_are_the_plan_cache_specs_blocks(arch, rule):
                                                          "model": r}))
                  .flatten().tolist() for r in range(4)]
         assert heads == [[r * hkv // 4] for r in range(4)]
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        sharding.paged_cache_specs(cfg, _stub(mesh_shape), 2, 16,
-                                   plan=dataclasses.replace(plan,
-                                                            attn="head_dim"))
+    # The paged stores (rows, Hkv, D) under "head_dim": a rank's rows
+    # hold its rotary pairs of every kv head's dims.
+    hd = dataclasses.replace(plan, attn="head_dim")
+    store = sharding.paged_cache_specs(cfg, _stub(mesh_shape), 2, 16,
+                                       plan=hd)[0]["k"]
+    assert store[:2] == (None, None)
+    assert isinstance(store[2], sharding.Segments)
+    d = cfg.head_dim_
+    for r in range(4):
+        block = sharding.local_shard(
+            torch.arange(d)[None, None, :].expand(3, cfg.n_kv_heads, d),
+            store, _Rank(mesh_shape, {"data": 0, "model": r}))
+        w = d // 8
+        assert block[0, 0].tolist() == \
+            list(range(r * w, (r + 1) * w)) \
+            + list(range(d // 2 + r * w, d // 2 + (r + 1) * w))
+        assert tuple(block.shape) == (3,) + attention.local_kv(cfg, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -209,15 +224,15 @@ def head_split(rank, arrays) -> dict:
             QWEN15: _qwen15_6(get_config(QWEN15))}
     for arch, cfg in cfgs.items():
         params = bridge.from_reference(arrays[arch], cfg, device="cpu")
-        for paged in (False, True):
-            kw = dict(SERVE, paged=True, page_size=8) if paged else SERVE
-            try:
-                sched = ServeScheduler(cfg, params,
-                                       acc=StaticCoreChunk(cores=2),
-                                       mesh=mesh, device="cpu", **kw)
-            except NotImplementedError as e:
-                out[arch, paged] = {"refused": str(e)}
+        for paged in (False, True, "spec"):
+            kw = SERVE if not paged else dict(
+                SERVE, paged=True, page_size=8,
+                speculate=2 if paged == "spec" else None)
+            if paged == "spec" and arch != QWEN15:
                 continue
+            sched = ServeScheduler(cfg, params,
+                                   acc=StaticCoreChunk(cores=2),
+                                   mesh=mesh, device="cpu", **kw)
             sched.warmup()
             rids = [sched.submit(p, n) for p, (_, n) in
                     zip(_prompts(), SERVE_SPEC, strict=True)]
@@ -225,7 +240,8 @@ def head_split(rank, arrays) -> dict:
             out[arch, paged] = {
                 "tokens": [outs[r] for r in rids], "attn": sched.tp.attn,
                 "kv": [(c["k"].shape[1], c["k"].shape[-1])
-                       for c in sched.pool.caches]}
+                       for c in sched.pool.caches],
+                "verifies": sched.spec_stats()["verifies"]}
     # The lock-step decode of the "head_dim" qwen1.5, one token a step.
     cfg = cfgs[QWEN15]
     eng = ServeEngine(cfg, bridge.from_reference(arrays[QWEN15], cfg,
@@ -240,12 +256,44 @@ def head_split(rank, arrays) -> dict:
         logits.append(eng.decode(tok)[:, -1].numpy())
     out["decode"] = {"logits": logits, "attn": eng._lockstep()[1].attn,
                      "rows": tuple(eng.caches[0]["k"].shape)}
+    out["paged_decode"] = _paged_decode(cfg, arrays[QWEN15], mesh)
     out["plan22"] = sharding.tp_plan(
         cfgs[QWEN3], mesh_lib.make_serve_mesh(2, 2), cached=True).attn
     tmesh = mesh_lib.make_mesh((1, 4), ("data", "model"))
     out["train"] = train_run(rank, tmesh, cfgs[QWEN3], arrays[QWEN3],
                              adamw.AdamWConfig(lr=LR, eps=EPS))
     return out
+
+
+def _paged_decode(cfg, arrays, mesh) -> dict:
+    """The lock-step decode of ``_decode_prompt`` through a "head_dim"
+    paged pool's stores: both lanes one token a step, written through
+    their page tables, every step's last logits."""
+    from repro_torch import bridge
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.serve import ServeScheduler
+
+    sched = ServeScheduler(cfg, bridge.from_reference(arrays, cfg,
+                                                      device="cpu"),
+                           n_slots=DECODE_BATCH, max_len=DECODE_MAX,
+                           acc=StaticCoreChunk(cores=2), paged=True,
+                           page_size=8, dispatch_depth=1, mesh=mesh,
+                           device="cpu")
+    pool = sched.pool
+    slots = [pool.acquire(i) for i in range(DECODE_BATCH)]
+    for s in slots:
+        pool.ensure_writable(s, 0, PROMPT + NEW)
+    table = pool.page_table_array()[slots]
+    prompt = torch.from_numpy(_decode_prompt())
+    logits = []
+    with flags.tensor_parallel(sched.tp):
+        for t in range(PROMPT + NEW):
+            tok = prompt[:, t:t + 1] if t < PROMPT \
+                else torch.from_numpy(logits[-1]).argmax(-1)[:, None]
+            out, _ = tlm.forward_cached(sched.params, tok, pool.caches, t,
+                                        cfg, page_table=table, page_size=8)
+            logits.append(out[:, -1].numpy())
+    return {"logits": logits, "store": tuple(pool.caches[0]["k"].shape)}
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +398,15 @@ def test_kv_shared_sharded_step_matches_jax(run):
                {r: res[r]["train"] for r in res}, jref)
 
 
+def _decode_matches(dec: dict, ref: tuple) -> None:
+    jlogits, jtokens = ref
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(dec["logits"], jlogits, strict=True))
+    assert diff <= 1e-5, diff
+    toks = [np.argmax(lg, -1).tolist() for lg in dec["logits"][PROMPT - 1:-1]]
+    assert toks == jtokens
+
+
 def test_head_dim_serving_matches_jax(run):
     """The 6-head qwen1.5 on (1, 4) is "head_dim": the contiguous pool's
     tokens are the JAX scheduler's on every rank, every lock-step decode
@@ -357,7 +414,6 @@ def test_head_dim_serving_matches_jax(run):
     greedy tokens, and a rank's cache rows hold 4 of each head's 16
     dims."""
     res, ref, _ = run
-    jlogits, jtokens = ref["decode"]
     for r in res:
         got = res[r][QWEN15, False]
         assert got["attn"] == "head_dim"
@@ -365,20 +421,27 @@ def test_head_dim_serving_matches_jax(run):
         assert set(got["kv"]) == {(6, 4)}
         dec = res[r]["decode"]
         assert dec["attn"] == "head_dim" and dec["rows"][1:] == (6, 32, 4)
-        diff = max(float(np.abs(a - b).max())
-                   for a, b in zip(dec["logits"], jlogits, strict=True))
-        assert diff <= 1e-5, diff
-        toks = [np.argmax(lg, -1).tolist() for lg in dec["logits"][PROMPT
-                                                                    - 1:-1]]
-        assert toks == jtokens
+        _decode_matches(dec, ref["decode"])
 
 
-def test_paged_pool_refuses_head_dim(run):
-    """The paged pool under "head_dim" raises ``NotImplementedError``
-    naming A.6b, on every rank."""
-    res, *_ = run
+def test_paged_pool_serves_head_dim(run):
+    """The paged pool under "head_dim" on (1, 4): a rank's page stores
+    hold 4 of each of the 6 kv heads' 16 dims; its tokens, and with
+    speculation (verifies drained) too, are the JAX scheduler's on every
+    rank; the lock-step decode through the paged stores gives every
+    step's logits within 1e-5 of the JAX decode step's and the same
+    greedy tokens."""
+    res, ref, _ = run
     for r in res:
-        assert "A.6b" in res[r][QWEN15, True]["refused"]
+        for mode in (True, "spec"):
+            got = res[r][QWEN15, mode]
+            assert got["attn"] == "head_dim"
+            assert got["tokens"] == ref["tokens"][QWEN15], mode
+            assert set(got["kv"]) == {(6, 4)}
+        assert res[r][QWEN15, "spec"]["verifies"] > 0
+        dec = res[r]["paged_decode"]
+        assert dec["store"][1:] == (6, 4)
+        _decode_matches(dec, ref["decode"])
 
 
 def test_dry_run_qwen15_decode_fits_without_cache_seq_model(run):
