@@ -226,9 +226,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               measured on the first dispatch over a full pool, on its
               own lanes) and each winner against its prior; the
               contiguous runs again with every online decision pinned,
-              analytic and tuned in turns A B B A after eight warm
-              requests each, and one forward's host time each way; ``decode_cost_analysis`` of
-              the live step mid-run beside the measured step; the launch
+              analytic then tuned after eight warm requests each, and
+              one forward's host time each way; ``decode_cost_analysis``
+              of the live step mid-run beside the measured step; the launch
               audit of the live steps (clean) and of the injected host
               copy (a violation); f32: tuned decode logits within 2e-3
               of the analytic ones, tuned paged tokens == tuned
@@ -356,6 +356,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
               root, must be flagged on exactly the lines that raised the
               guard's error, plus the explicit device syncs the guard
               leaves quiet (named); every host pattern quiet under both.
+20. reduced — every head dim the reference's kernels take
+              (``_reduced_phase``, alone: ``reduced_main()``; budget
+              60 s).  Kernels 2 and 3 at head dim 256 (qwen3-0.6b's
+              16 / 8 heads, the wide class) and 16 (the reduced configs'
+              4 / 2): decode B 8 over kv 1-1024 and a prefill chunk Sq
+              256 into kv 700, bf16 and f32, each timed like phase 3
+              beside its bound, plain version and SDPA (kernel 3 at page
+              size 8, bit-equal to kernel 2); kernel 2 non-causal and
+              with its rows' log-sum-exp at 256 (``[kernel
+              flash_attention_lse d256]``); the edge sweep of both at
+              head dims 16, 32 and 256, page sizes 8 and 16, windows of
+              kernel 2 (``[sweep ...]``, ``[reduced sweep]``).  Then
+              each of the ten registry archs at its own ``.reduced()``
+              config (f32, head dim 16: q/k-norm as kernel 1's
+              ``rmsnorm`` then the rotation where the rotary entry has
+              no layout) on the card and on the CPU, the same weights
+              from seed 0: 4 requests x 8 new tokens through the
+              scheduler, contiguous and, where the reference takes
+              them, paged (page size 8) with speculation at 4; the
+              vision arch through the engine's lock-step path with its
+              features; tokens equal to the CPU's, every card forward
+              held to its kernel-1 count (``ForwardSpy``); one training
+              step's gradients within 1e-3 of each leaf's norm of the
+              CPU's, and the AdamW step's loss and gradient norm
+              (``[reduced]``).  The reduced qwen3 at head dim 256 served
+              both ways, tokens equal to the CPU's (``[reduced d256]``),
+              and ``launch/serve.py --arch qwen3-0.6b --reduced`` in its
+              own process, exit 0 (``[reduced cli]``).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1024,9 +1052,11 @@ def main() -> None:
     # ----------------------------- 17. TP blocks, sequence-split decode
     # ------------------------------- 18. attention rules, SP, ff2d experts
     # ---------------------------------------------------------- 19. lint
+    # ------------------------------- 20. the reduced configs, head dim 256
     for n, phase in enumerate((_xlstm_phase, _vision_phase, _tune_phase,
                                _mesh_phase, _fsdp_phase, _tp_phase,
-                               _levers_phase, _lint_phase), start=12):
+                               _levers_phase, _lint_phase, _reduced_phase),
+                              start=12):
         stamps[f"{n} {phase.__name__[1:].removesuffix('_phase')}"] = \
             time.perf_counter()
         phase_records, phase_launches = phase(torch, dev)
@@ -1295,16 +1325,23 @@ def kernel1_per_forward(cfg) -> int:
     """Kernel 1's launches in one ``lm.forward_cached``: layer 0's ln1,
     one residual add + norm per layer (the last one's with the final
     norm), and per attention layer (``attn``, or ``shared_attn``: the
-    shared block) the add + ln2 inside it and, with qk-norm, a q/k-norm
-    + rotary launch; per ``cross_attn`` layer the add + ln2 and
-    ``kv_norm``.  (3 if qk-norm else 2) * L + 1 for an attention stack;
-    1 + 38 + 6 = 45 for zamba2-1.2b, 1 + 24 = 25 for xlstm-350m,
-    1 + 40 + 32 + 2 * 8 = 89 for llama-3.2-vision-11b."""
+    shared block) the add + ln2 inside it and, with qk-norm, one q/k-norm
+    + rotary launch, or two norms where the rotary entry has no layout
+    for the head dim (``rmsnorm.rope_has_layout``: the reduced configs'
+    16); per ``cross_attn`` layer the add + ln2 and ``kv_norm``.  (3 if
+    qk-norm else 2) * L + 1 for an attention stack; 1 + 38 + 6 = 45 for
+    zamba2-1.2b, 1 + 24 = 25 for xlstm-350m, 1 + 40 + 32 + 2 * 8 = 89
+    for llama-3.2-vision-11b."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm as krms
+
     kinds = cfg.layer_kinds()
     n_attn = sum(kind in ("attn", "shared_attn") for kind in kinds)
     n_cross = kinds.count("cross_attn")
-    return 1 + cfg.n_layers + n_attn * (2 if cfg.qk_norm else 1) \
-        + 2 * n_cross
+    qk = 0 if not cfg.qk_norm else 1 if krms.rope_has_layout(
+        cfg.head_dim_, getattr(torch, cfg.compute_dtype)) else 2
+    return 1 + cfg.n_layers + n_attn * (1 + qk) + 2 * n_cross
 
 
 # Host calls that launch device work, as the profiler names them.
@@ -1544,10 +1581,10 @@ def paged_stores(torch, kc, vc, lens, ps, gen):
 
 
 def edge_sweep(torch, kfa, dev, seed, page_sizes=(), heads=EDGE_HEADS,
-               dims=(128,), sqs=EDGE_SQ, windows=None):
+               dims=(128,), sqs=EDGE_SQ, windows=None, kvs=EDGE_KV):
     """Kernels 2 and 3 at the schedules' edges.  For each (Hq, Hkv) of
     ``heads``, head dim of ``dims``, dtype and Sq of ``sqs``, one call
-    whose lanes sit at every kv length of EDGE_KV that is at least Sq
+    whose lanes sit at every kv length of ``kvs`` that is at least Sq
     (queries are end-aligned); and kernel 2 with sliding windows
     (``windows``: (Hq, Hkv, D, Sq, window) cases; by default phase 3's
     EDGE_WINDOWS at qwen3-0.6b's heads when no page size is given).
@@ -1572,8 +1609,8 @@ def edge_sweep(torch, kfa, dev, seed, page_sizes=(), heads=EDGE_HEADS,
         # rounded to bf16.
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         for hq, hkv, d, sq, window in cases:
-            lens_l = [kv for kv in EDGE_KV if kv >= sq]
-            b, skv = len(lens_l), max(EDGE_KV)
+            lens_l = [kv for kv in kvs if kv >= sq]
+            b, skv = len(lens_l), max(kvs)
             q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dtype)
             kc = torch.randn(b, hkv, skv, d, generator=gen,
                              device=dev).to(dtype)
@@ -4788,14 +4825,13 @@ def _tune_serve(torch, dev, cfg, params, prompts, store, *, paged):
 def _tune_pinned(torch, dev, cfg, params, prompts, store) -> dict:
     """Phase 5's requests over the contiguous pool with every online
     decision pinned (dispatch depth 8, no speculation, a static one-core
-    chunk plan), analytic and tuned (the winners already in ``store``:
-    no search) in turns A B B A, so the comparison holds no decision's
-    spread.  Each arm serves eight of the requests (8 tokens each)
-    before its timed window: the tuned step's first dispatch over the
-    full pool captures it anew with its measured plans, and the analytic
-    arm does the same work.  Then
-    one ``forward_cached`` at L = 128, 16 and 1 each way: the host time
-    of the call and its synced span (median of 20)."""
+    chunk plan), analytic then tuned (the winners already in ``store``:
+    no search), so the comparison holds no decision's spread.  Each arm
+    serves eight of the requests (8 tokens each) before its timed
+    window: the tuned step's first dispatch over the full pool captures
+    it anew with its measured plans, and the analytic arm does the same
+    work.  Then one ``forward_cached`` at L = 128, 16 and 1 each way:
+    the host time of the call and its synced span (median of 20)."""
     from repro_torch.core.acc import StaticCoreChunk
     from repro_torch.core.adaptive import adaptive
     from repro_torch.core.calibration import CalibrationCache
@@ -4806,7 +4842,7 @@ def _tune_pinned(torch, dev, cfg, params, prompts, store) -> dict:
 
     tuner = make_kernel_tuner(CalibrationCache.persistent(store))
     runs = []
-    for tuned in (False, True, True, False):
+    for tuned in (False, True):
         sched = ServeScheduler(cfg, params, n_slots=8, max_len=1024,
                                executor=adaptive(SequentialExecutor(),
                                                  StaticCoreChunk(cores=1)),
@@ -4927,10 +4963,7 @@ def _tune_count_card_vs_cpu(torch, dev) -> list:
     from repro_torch.models import lm
     from repro_torch.serve import ServeScheduler
 
-    # Head dim 64: the smallest the rotary entry has a register layout
-    # for in bf16 (the reduced config's 16 has none on the card).
-    base = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                               head_dim=64)
+    base = get_config("qwen3-0.6b").reduced()
     keys = ("flops_per_device", "hbm_bytes_per_device", "tensor_flops",
             "other_flops", "kernels")
     problems = []
@@ -4952,7 +4985,7 @@ def _tune_count_card_vs_cpu(torch, dev) -> list:
                 sched.tick()
             counts[where] = sched.decode_cost_analysis()
         same = all(counts["cpu"][k] == counts["cuda"][k] for k in keys)
-        log(f"[tune count] reduced qwen3-0.6b (head dim 64) {dtype} decode "
+        log(f"[tune count] reduced qwen3-0.6b {dtype} decode "
             f"iteration: cpu { {k: counts['cpu'][k] for k in keys[:4]} }, "
             f"card { {k: counts['cuda'][k] for k in keys[:4]} }; "
             f"equal: {same}")
@@ -6628,6 +6661,318 @@ def lint_main() -> None:
     strict.enable()
     torch.ones(1, device="cuda")        # the guard needs a live context
     _lint_phase(torch, torch.device("cuda"))
+
+
+# Phase 20: every registry arch at its own ``.reduced()`` config (f32,
+# head dim 16: the reference's smoke size) served and trained on the card
+# against the CPU, the serve CLI's ``--reduced``, the reduced qwen3 at
+# head dim 256 (kernels 2 and 3's wide class) end to end, and kernels 2
+# and 3 at head dims 16, 32 and 256.  The sweep's Sq cross the split
+# path's 16 packed rows (group 2 and 1) and the wgmma tile's 64; its kv
+# lengths the 64-key tiles and the 128- (f32) and 256-key (bf16) splits.
+REDUCED_BUDGET_S = 60.0
+REDUCED_SQ = (1, 8, 9, 17, 33, 65)
+REDUCED_KV = (1, 64, 65, 128, 129, 256, 257, 1024)
+REDUCED_DIMS = (16, 32, 256)
+REDUCED_HEADS = ((16, 8), (4, 4))
+
+
+def _reduced_kernels20(torch, dev):
+    """Kernels 2 and 3 at head dims 256 (qwen3-0.6b's heads, 16 / 8) and
+    16 (the reduced configs' 4 / 2): decode B 8 over kv 1-1024 (split)
+    and a prefill chunk Sq 256 into kv 700 (tile), bf16 and f32, timed
+    beside the bound, the plain version and SDPA (kernel 3 at page size
+    8, bit-equal to kernel 2); kernel 2 non-causal (cross-attention:
+    Sq 1 and 256 over 700 keys) and with its rows' log-sum-exp at head
+    dim 256 (within the plain version's tolerance, its output bit-equal
+    to the call without); then the edge sweep of both kernels at
+    ``REDUCED_DIMS``, page sizes 8 and 16, and windows of kernel 2.
+    Returns ({kernel: [record]}, problems)."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    bench = KernelBench(torch, dev, seed=200,
+                        kernels=("flash_attention", "paged_flash_attention"),
+                        perm_seed=201)
+    lens_rng = torch.Generator().manual_seed(202)
+    decode_lens = torch.randint(1, 1025, (8,), generator=lens_rng).tolist()
+    decode_lens[0], decode_lens[1] = 1, 1024
+    for d, hq, hkv in ((256, 16, 8), (16, 4, 2)):
+        tag = f"head dim {d}"
+        for dtype in (torch.bfloat16, torch.float32):
+            bench.attn_case(f"{tag} decode", 8, hq, hkv, 1, 1024, d,
+                            decode_lens, None, dtype)
+            bench.attn_case(f"{tag} prefill", 1, hq, hkv, 256, 1024, d,
+                            [700], None, dtype)
+            bench.paged_case(f"{tag} decode", 8, hq, hkv, 1, decode_lens, d,
+                             8, dtype)
+            bench.paged_case(f"{tag} prefill", 1, hq, hkv, 256, [700], d, 8,
+                             dtype)
+            if d == 256:
+                for sq in (1, 256):
+                    bench.attn_case(f"{tag} cross", 2, hq, hkv, sq, 700, d,
+                                    [700, 700], None, dtype, causal=False)
+    bench.check("kernels 2 and 3 at head dims 16 and 256")
+    problems = []
+    gen = torch.Generator(device=dev).manual_seed(203)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        for sq, lens_l in ((1, decode_lens), (256, [700, 1024])):
+            b = len(lens_l)
+            q = torch.randn(b, 16, sq, 256, generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn(b, 8, 1024, 256, generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn(b, 8, 1024, 256, generator=gen,
+                            device=dev).to(dtype)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+            out, lse = kfa.flash_attention(q, k, v, lens, return_lse=True)
+            plain = kfa.flash_attention(q, k, v, lens)
+            ref, ref_lse = kfa.attention_ref(q, k, v, lens, return_lse=True)
+            ok, err = within(torch, out, ref, tol, tol)
+            lse_err = float((lse - ref_lse).abs().max())
+            rec = dict(case=f"B={b} Hq=16 Hkv=8 D=256 Sq={sq} "
+                            f"{str(dtype)[6:]}", tol=f"o {tol}; lse 1e-4",
+                       path=kfa.attention_plan(b, 16, 8, sq, dtype).path,
+                       err=err, lse_err=lse_err,
+                       bit_equal_without_lse=torch.equal(out, plain))
+            log(f"[kernel flash_attention_lse d256] {rec}")
+            if not (ok and lse_err <= 1e-4 and rec["bit_equal_without_lse"]):
+                problems.append(f"lse at head dim 256: {rec}")
+    t0 = time.perf_counter()
+    problems += edge_sweep(
+        torch, kfa, dev, seed=204, page_sizes=(8, 16), heads=REDUCED_HEADS,
+        dims=REDUCED_DIMS, sqs=REDUCED_SQ, kvs=REDUCED_KV,
+        windows=[(16, 8, d, sq, w) for d in (16, 256)
+                 for sq, w in ((17, 128), (100, 40))])
+    log(f"[reduced sweep] {time.perf_counter() - t0:.1f}s")
+    bench.close()
+    return bench.records, problems
+
+
+def _reduced_prompts(torch, vocab: int) -> list:
+    rng = torch.Generator().manual_seed(205)
+    return [torch.randint(0, vocab, (n,), generator=rng)
+            for n in (5, 9, 17, 30)]
+
+
+def _reduced_serve20(torch, cfg, params, prompts, where, *, paged=False,
+                     speculate=None):
+    """Greedy tokens of ``prompts`` (8 new each) through the scheduler on
+    ``where``: 4 slots, fixed chunks, fused decode at depth 4 (replays of
+    captured graphs on the card), the paged pool at page size 8."""
+    from repro_torch.core.acc import StaticCoreChunk
+    from repro_torch.serve import ServeScheduler
+
+    sched = ServeScheduler(cfg, params, n_slots=4, max_len=64,
+                           acc=StaticCoreChunk(cores=2), dispatch_depth=4,
+                           paged=paged, page_size=8 if paged else "auto",
+                           speculate=speculate, device=where)
+    ids = [sched.submit(p, max_new_tokens=8) for p in prompts]
+    got = sched.run_until_idle()
+    return [list(got[i]) for i in ids]
+
+
+def _reduced_pools(cfg) -> list:
+    """The pools the reference serves ``cfg`` over: contiguous always;
+    paged unless a window rings its cache; speculation on the paged pool
+    where every layer is position-masked attention
+    (``decode_loop._check_spec_arch``)."""
+    kinds = set(cfg.layer_kinds())
+    pools = [("contiguous", False, None)]
+    if cfg.attn_window is None:
+        spec = 4 if kinds <= {"attn", "shared_attn"} else None
+        pools.append(("paged" + (" + spec 4" if spec else ""), True, spec))
+    return pools
+
+
+def _reduced_arch20(torch, dev, cfg, p_cpu):
+    """One arch at ``cfg`` (f32): its served tokens on the card against
+    the CPU's over each pool the reference takes (a cross-attention arch
+    through the engine's lock-step path with its features), every card
+    forward held to its kernel-1 count (``ForwardSpy``); one training
+    step's gradients within 1e-3 of each leaf's norm of the CPU's, and
+    the step's loss and gradient norm.  Returns (record, problems)."""
+    from repro_torch import tree
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import make_train_step
+
+    p_dev = _to_device(p_cpu, dev)
+    problems, rec = [], {"arch": cfg.name, "head_dim": cfg.head_dim_,
+                         "layers": cfg.n_layers}
+    prompts = _reduced_prompts(torch, cfg.vocab_size)
+    if "cross_attn" in cfg.layer_kinds():
+        batch = make_batch(cfg, 2, 16, kind="prefill", seed=206,
+                           device="cpu")
+        outs = {}
+        for where, params in (("cpu", p_cpu), (dev, p_dev)):
+            engine = ServeEngine(cfg, params, batch=2, max_len=32,
+                                 device=where)
+            with ForwardSpy(lm, krms) as fspy:
+                outs[str(where)] = engine.generate(
+                    batch["tokens"].to(where), 8,
+                    frontend_feats=batch["frontend_feats"].to(where)
+                ).tolist()
+            if where == dev:
+                line, bad = fspy.report(2, cfg)
+                problems += bad
+        rec["lockstep_tokens_equal_cpu"] = outs["cpu"] == outs[str(dev)]
+        if not rec["lockstep_tokens_equal_cpu"]:
+            problems.append("lock-step tokens differ from the CPU's")
+    else:
+        for pool, paged, spec in _reduced_pools(cfg):
+            want = _reduced_serve20(torch, cfg, p_cpu, prompts, "cpu",
+                                    paged=paged, speculate=spec)
+            with ForwardSpy(lm, krms) as fspy:
+                got = _reduced_serve20(torch, cfg, p_dev, prompts, dev,
+                                       paged=paged, speculate=spec)
+            line, bad = fspy.report(4, cfg)
+            rec[f"{pool}_tokens_equal_cpu"] = got == want
+            problems += [f"{pool}: {b}" for b in bad]
+            if got != want:
+                problems.append(f"{pool} tokens differ from the CPU's: "
+                                f"{got} vs {want}")
+    # Training: gradients card vs CPU, then one AdamW step each side.
+    batch = make_batch(cfg, 2, 32, kind="train", seed=207, device="cpu")
+    grads = {}
+    for where, params in (("cpu", p_cpu), (dev, p_dev)):
+        flat = [t.detach().requires_grad_() for t in tree.leaves(params)]
+        b = {k: v.to(where) for k, v in batch.items()}
+        loss = lm.loss_fn(tree.unflatten(params, flat), b, cfg)
+        # A leaf the loss does not read (zamba2's) has a zero gradient.
+        grads[str(where)] = [
+            torch.zeros(t.shape) if g is None else g.cpu() for t, g in zip(
+                flat, torch.autograd.grad(loss, flat, allow_unused=True),
+                strict=True)]
+    worst = max(float((gg - gc_).norm() / gc_.norm().clamp_min(1e-30))
+                if gc_.norm() > 0 or gg.norm() > 0 else 0.0
+                for gc_, gg in zip(grads["cpu"], grads[str(dev)],
+                                   strict=True))
+    steps = {}
+    for where in ("cpu", dev):
+        params = lm.init_params(0, cfg, device=where)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), accum=1,
+                               remat=True)
+        b = {k: v.to(where) for k, v in batch.items()}
+        _, _, m = step(params, adamw.init_state(params), b)
+        steps[str(where)] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, nc), (lg, ng) = steps["cpu"], steps[str(dev)]
+    rec.update(grad_worst_rel=worst, step_loss_cpu=lc, step_loss_card=lg,
+               step_grad_norm_cpu=nc, step_grad_norm_card=ng)
+    # Tolerance: f32 on both sides, sums in other orders (phase 8's gate).
+    if not (worst <= 1e-3 and abs(lg - lc) <= 1e-4 * abs(lc)
+            and abs(ng - nc) <= 1e-3 * nc and math.isfinite(lg)):
+        problems.append(f"training step card vs CPU: {rec}")
+    return rec, problems
+
+
+def _reduced_cli20() -> subprocess.Popen:
+    """The serve CLI on the reduced qwen3, on the card, as a user runs
+    it; started in the background (it reaches the card in its own
+    process)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-0.6b", "--reduced", "--no-cal-cache"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _reduced_phase(torch, dev):
+    """Phase 20 (see the module docstring).  Returns ({kernel: [record]},
+    {path: {kernel: launches}})."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    records, problems = _reduced_kernels20(torch, dev)
+    t_kernels = time.perf_counter() - t_phase
+    # After the timed kernel cases: the CLI's process shares the card.
+    cli = _reduced_cli20()
+
+    counters = (krms.launches, kfa.launches, kfa.paged_launches)
+
+    def read():
+        return {"rmsnorm": krms.launches.count,
+                "flash_attention": kfa.launches.count,
+                "paged_flash_attention": kfa.paged_launches.count}
+
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    for name in ARCH_NAMES:
+        cfg = get_config(name).reduced()
+        rec, bad = _reduced_arch20(torch, dev, cfg,
+                                   lm.init_params(0, cfg, device="cpu"))
+        log(f"[reduced] {json.dumps(rec)}")
+        problems += [f"{name}: {b}" for b in bad]
+    reduced_launches = read()
+    t_archs = time.perf_counter() - t0
+    log(f"[reduced] ten archs at their .reduced() configs: launches "
+        f"{reduced_launches}, by key: kernel 2 "
+        f"{dict(kfa.launches.by_key)}, kernel 3 "
+        f"{dict(kfa.paged_launches.by_key)} ({t_archs:.1f}s)")
+    for name, count in reduced_launches.items():
+        if count <= 0:
+            problems.append(f"the reduced archs launched no {name} kernel")
+
+    # The reduced qwen3 at head dim 256: kernels 2 and 3's wide class on
+    # a served path (the fused rotary entry has a layout there).
+    for c in counters:
+        c.reset()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              head_dim=256)
+    p_cpu = lm.init_params(0, cfg, device="cpu")
+    p_dev = _to_device(p_cpu, dev)
+    prompts = _reduced_prompts(torch, cfg.vocab_size)
+    rec = {"arch": cfg.name, "head_dim": 256}
+    for pool, paged, spec in _reduced_pools(cfg):
+        want = _reduced_serve20(torch, cfg, p_cpu, prompts, "cpu",
+                                paged=paged, speculate=spec)
+        got = _reduced_serve20(torch, cfg, p_dev, prompts, dev, paged=paged,
+                               speculate=spec)
+        rec[f"{pool}_tokens_equal_cpu"] = got == want
+        if got != want:
+            problems.append(f"head dim 256 {pool} tokens differ from the "
+                            f"CPU's: {got} vs {want}")
+    wide_launches = read()
+    rec["launches"] = wide_launches
+    log(f"[reduced d256] {json.dumps(rec)}")
+    if not (wide_launches["flash_attention"]
+            and wide_launches["paged_flash_attention"]):
+        problems.append(f"head dim 256 served without kernels 2 and 3: "
+                        f"{wide_launches}")
+
+    out, _ = cli.communicate(timeout=300)
+    tail = out.strip().splitlines()[-3:]
+    log(f"[reduced cli] python -m repro_torch.launch.serve --arch "
+        f"qwen3-0.6b --reduced: rc {cli.returncode}; {tail}")
+    if cli.returncode != 0:
+        problems.append(f"the serve CLI --reduced exited "
+                        f"{cli.returncode}: {out[-2000:]}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[reduced phase] {seconds:.1f}s of its {REDUCED_BUDGET_S:.0f}s "
+        f"budget (kernels and sweep {t_kernels:.1f}s, ten archs "
+        f"{t_archs:.1f}s)")
+    if seconds > REDUCED_BUDGET_S:
+        problems.append(f"the phase took {seconds:.1f}s, over its "
+                        f"{REDUCED_BUDGET_S:.0f}s budget")
+    if problems:
+        fail("phase 20: " + "; ".join(problems))
+    return records, {"phase 20 reduced archs (head dim 16)":
+                     reduced_launches,
+                     "phase 20 reduced qwen3 at head dim 256": wide_launches}
+
+
+def reduced_main() -> None:
+    """``python3 -c "import chip_smoke; chip_smoke.reduced_main()"``:
+    the build and phase 20 alone."""
+    _phase_main(20, _reduced_phase)
 
 
 def _to_device(tree, dev):

@@ -5,7 +5,6 @@ Runs on the CUDA card unless ``--device cpu``.
     PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
 """
 import argparse
-import dataclasses
 
 import numpy as np
 import torch
@@ -80,10 +79,7 @@ print(f"\nLM autotune for {cfg.name} @ train_4k: "
 # 5. The same decision drives serving: the continuous-batching scheduler
 #    picks per-tick batch width and prefill chunk from the queued tokens,
 #    and every chunk it runs is timed back into the calibration cache.
-# Head dim 64: the reduced config's 16 has no register layout in the
-# card's rotary kernel (kernel 1's qk_norm_rope).
-scfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                           head_dim=64)
+scfg = get_config("qwen3-0.6b").reduced()
 sched = ServeScheduler(scfg, lm.init_params(0, scfg, device=dev),
                        n_slots=2, max_len=48,
                        executor=adaptive(SequentialExecutor()), device=dev)

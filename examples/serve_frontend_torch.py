@@ -8,7 +8,6 @@ the CUDA card unless ``--device cpu``.
 """
 import argparse
 import asyncio
-import dataclasses
 import time
 
 from repro_torch.configs import get_config
@@ -23,10 +22,7 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--device", default="cuda")
 args = ap.parse_args()
 
-# Head dim 64: the reduced config's 16 has no register layout in the
-# card's rotary kernel (kernel 1's qk_norm_rope).
-cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                          head_dim=64)
+cfg = get_config("qwen3-0.6b").reduced()
 params = lm.init_params(0, cfg, device=args.device)
 sched = ServeScheduler(cfg, params, n_slots=2, max_len=64,
                        executor=adaptive(SequentialExecutor(),

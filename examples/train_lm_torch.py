@@ -6,7 +6,6 @@ mid-run failure.  Runs on the CUDA card unless ``--device cpu``.
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu [--steps 200]
 """
 import argparse
-import dataclasses
 import os
 import shutil
 import tempfile
@@ -31,10 +30,7 @@ ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
 args = ap.parse_args()
 
 shutil.rmtree(args.ckpt, ignore_errors=True)
-# Head dim 64: the reduced config's 16 has no register layout in the
-# card's rotary kernel (kernel 1's qk_norm_rope).
-cfg = dataclasses.replace(get_config(args.arch).reduced(),
-                          head_dim=64)
+cfg = get_config(args.arch).reduced()
 params = lm.init_params(0, cfg, device=args.device, dtype=lm.param_dtype(cfg))
 opt_state = adamw.init_state(params)
 n = sum(p.numel() for p in tree.leaves(params))

@@ -30,11 +30,12 @@ using repro_fa::launch;
 // scores (natural units, -inf for a row with no visible key: the partial
 // softmax statistics a sequence-split decode merges across ranks; `out` is
 // the same with or without it); scratch: the split
-// path's partials, B * Hkv * ceil(Skv / chunk) * 2080 floats (may be null
-// on the tile path).  chunk: the split path's keys per split, a multiple
-// of 64 in bf16 and of 32 in f32 (256 and 128 by default); block_rows:
-// the tile path's schedule, 64 (wgmma, bf16) or 16 (the split kernel's
-// loop).  dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
+// path's partials, B * Hkv * ceil(Skv / chunk) * 2080 floats for D <=
+// 128, 4128 for 136 <= D <= 256 (may be null on the tile path); D a
+// multiple of 8 up to 256.  chunk: the split path's keys per split, a
+// multiple of 64 in bf16 and of 32 in f32 (256 and 128 by default);
+// block_rows: the tile path's schedule, 64 (wgmma, bf16) or 16 (the split
+// kernel's loop).  dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
 // Returns the CUDA error code of the first launch that failed (0 on
 // success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -45,7 +46,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      float scale, int causal, int window,
                                      int dtype, int chunk, int block_rows,
                                      void* stream) {
-  if (D > kMaxD || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (D <= 0 || D > kMaxD || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -48,10 +48,11 @@
 //   warpgroup owns 64 packed rows; QK^T is wgmma m64n64k16 from shared
 //   memory (Q and K K-major), the online softmax runs on the accumulator
 //   fragments, P is rounded to bf16 into wgmma's register A operand, and
-//   P.V is wgmma m64n128k16 with V read MN-major through the descriptor's
-//   transpose bit; f32 accumulators stay in registers.  K/V tiles of 64
-//   keys arrive by cp.async into a kTileStages-deep ring while an earlier
-//   tile computes.  f32 stays off the tensor cores: Hopper takes f32
+//   P.V is wgmma m64n128k16 (once per 128 columns of the head-dim class)
+//   with V read MN-major through the descriptor's transpose bit; f32
+//   accumulators stay in registers.  K/V tiles of 64 keys arrive by
+//   cp.async into a ring (kTileStages deep in the narrow class, 2 in the
+//   wide one) while an earlier tile computes.  f32 stays off the tensor cores: Hopper takes f32
 //   operands only as TF32 (~3 digits), which would break the f32 logits
 //   gate (card vs CPU within 2e-3) and the f32 token-identity runs that
 //   rest on it; the f32 tile path is the split kernel's CUDA-core loop
@@ -73,20 +74,34 @@
 namespace repro_fa {
 
 constexpr int kThreads = 128;    // one warpgroup per block, both paths
-// Head dims below kMaxD (64, 80: a multiple of 8, the wrapper checks)
-// run zero-padded to it: Q, K and V arrive as 16-byte chunks c with
-// 8c < D (4c in f32) and zeros past D, so the padded columns add 0 to
-// every score and give 0 in P.V, whose columns at or past D are never
-// stored.  A row is D * sizeof(T) bytes (a paged store row Hkv * D *
-// sizeof(T)), a multiple of 16, so every chunk stays 16-byte aligned.
-constexpr int kMaxD = 128;
+// Head-dim classes.  Every kernel is instantiated for a class width kD,
+// and a head dim D (a multiple of 8, the wrapper checks) runs zero-padded
+// to its class's: D <= kNarrowD in the narrow class, 136 <= D <= kMaxD
+// in the wide one (256: the widest N that wgmma takes).  Q, K and V
+// arrive as 16-byte chunks c with 8c < D (4c in f32) and zeros past D, so
+// the padded columns add 0 to every score and give 0 in P.V, whose
+// columns at or past D are never stored.  A row is D * sizeof(T) bytes
+// (a paged store row Hkv * D * sizeof(T)), a multiple of 16, so every
+// chunk stays 16-byte aligned.
+constexpr int kNarrowD = 128;
+constexpr int kMaxD = 256;
 constexpr int kSplitRows = 16;   // packed rows of a split-path block
 constexpr int kTileRows = 64;    // packed rows of a tensor-core block
 constexpr int kTileKeys = 64;    // keys per tensor-core tile
-constexpr int kTileStages = 3;   // tensor-core ring depth (two blocks an SM)
+constexpr int kTileStages = 3;   // narrow ring depth (two blocks an SM)
 constexpr int kTabSlot = 64;     // store rows staged per tile (one a key)
-// Scratch of one split: (m, l) and acc[kMaxD] for each of its rows.
-constexpr int kPartFloats = kSplitRows * (kMaxD + 2);
+// Scratch of one split: (m, l) and acc[kD] for each of its rows.
+__host__ __device__ constexpr int part_floats(int kD) {
+  return kSplitRows * (kD + 2);
+}
+// log2 of the 16-byte chunks of 8 bf16 in a row padded to kD: a copy
+// index splits into (row, chunk) by a shift and a mask (a signed division
+// would cost the narrow class instructions it did not have).
+__host__ __device__ constexpr int chunk_shift(int kD) {
+  return kD == kNarrowD ? 4 : 5;
+}
+static_assert(kNarrowD / 8 == 1 << chunk_shift(kNarrowD) &&
+              kMaxD / 8 == 1 << chunk_shift(kMaxD), "chunks a row");
 
 // The schedule, from (Hq, Hkv, Sq) only; kernels/flash_attention.py's
 // attention_plan gives the same answer.
@@ -351,13 +366,13 @@ __device__ __forceinline__ void wgmma_commit_wait() {
 // phase, ldmatrix's or a lane's, land on 8 different bank groups), per-row
 // scratch, the final (m, l), and two table slots.  bf16 keeps Q as bf16 rows; f32 as f32 rows and also the tile's
 // scores.
-template <typename T> struct SplitSmem {
+template <typename T, int kD> struct SplitSmem {
   static constexpr int KT = Vec<T>::kKeys;
   // bf16 rows are padded by 16 bytes for ldmatrix; f32 K rows are not,
   // their 16-byte chunks are swizzled instead (chunk c of key j at c ^ (j %
   // 8)), and f32 reads V by column: three f32 blocks fit an SM.
   static constexpr int kRow =
-      kMaxD * static_cast<int>(sizeof(T)) + (sizeof(T) == 2 ? 16 : 0);
+      kD * static_cast<int>(sizeof(T)) + (sizeof(T) == 2 ? 16 : 0);
   static constexpr int kVRow = kRow;
   __device__ static int kchunk(int j, int c) {
     return sizeof(T) == 2 ? c : c ^ (j & 7);
@@ -365,7 +380,7 @@ template <typename T> struct SplitSmem {
   // bf16: Q as bf16 rows, and per-warp row maxima and sums in place of
   // the scores; three bf16 blocks fit an SM as well.
   static constexpr int kQBytes =
-      sizeof(T) == 2 ? kSplitRows * kRow : kSplitRows * kMaxD * 4;
+      sizeof(T) == 2 ? kSplitRows * kRow : kSplitRows * kD * 4;
   static constexpr int kSBytes =
       sizeof(T) == 2 ? 2 * 4 * kSplitRows * 4 : kSplitRows * KT * 4;
   static constexpr int kQ = 0;
@@ -376,6 +391,9 @@ template <typename T> struct SplitSmem {
   static constexpr int kML = kA + kSplitRows * 4;
   static constexpr int kTab = kML + kSplitRows * 8;
   static constexpr int kBytes = kTab + 2 * kTabSlot * 4;
+  // bf16's four warps' partial sums of P.V land on the K stages at the end.
+  static_assert(sizeof(T) != 2 || 4 * kSplitRows * kD * 4 <= kV - kK,
+                "the warps' partial sums must fit in the K stages");
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -427,16 +445,17 @@ template <typename T> __device__ __forceinline__ float row_lse(float m,
 // over its own keys; the four partial sums are added in warp order at the
 // end.  f32 multiplies in IEEE f32 on the CUDA cores: thread (key j, row
 // group) scores its rows, a warp runs the softmax of its rows, and thread
-// d accumulates column d of every row.
-template <typename T, typename KV>
+// d (and d + 128 in the wide class) accumulates that column of every row.
+template <typename T, typename KV, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_split_kernel(const T* __restrict__ q, KV kv,
                    const int* __restrict__ kv_lens, T* __restrict__ out,
                    float* __restrict__ part, float* __restrict__ lse, int Hq,
                    int Hkv, int Sq, int Skv, int D, float scale, int causal,
                    int window, int chunk) {
-  using S = SplitSmem<T>;
+  using S = SplitSmem<T, kD>;
   constexpr bool kMma = sizeof(T) == 2;
+  constexpr int kCols = kD / kThreads;   // output columns a thread owns
   constexpr int KT = S::KT;
   constexpr int N = Vec<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -475,8 +494,8 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
   // Q rows: bf16 by cp.async into the first group (zeros past the rows and
   // past D), f32 as f32 (unrolled, every load in flight before a store).
   if constexpr (kMma) {
-    for (int i = tid; i < kSplitRows * (kMaxD / 8); i += kThreads) {
-      const int r = i >> 4, c = i & 15;
+    for (int i = tid; i < kSplitRows * (kD / 8); i += kThreads) {
+      const int r = i >> chunk_shift(kD), c = i & (kD / 8 - 1);
       const bool ok = r < rows && c * 8 < D;
       cp_async16(smem + S::kQ + r * S::kRow + c * 16,
                  ok ? q_row(r) + c * 8 : q, ok);
@@ -484,8 +503,8 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
   } else {
     float* Qs = reinterpret_cast<float*>(smem + S::kQ);
 #pragma unroll
-    for (int i = tid; i < kSplitRows * kMaxD; i += kThreads) {
-      const int r = i / kMaxD, dd = i % kMaxD;
+    for (int i = tid; i < kSplitRows * kD; i += kThreads) {
+      const int r = i / kD, dd = i % kD;
       Qs[i] = r < rows && dd < D ? Vec<T>::scalar(q_row(r)[dd]) : 0.f;
     }
   }
@@ -494,7 +513,7 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     unsigned char* Kst = smem + S::kK + stage * KT * S::kRow;
     unsigned char* Vst = smem + S::kV + stage * KT * S::kVRow;
     const int* ts = tab + stage * kTabSlot;
-    constexpr int nvec = kMaxD / N;              // zeros past D
+    constexpr int nvec = kD / N;                 // zeros past D
     for (int i = tid; i < KT * nvec; i += kThreads) {
       const int row = i / nvec, c = i % nvec, kj = k0 + row;
       const bool ok = kj < lim && c * N < D;
@@ -505,9 +524,12 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     }
   };
 
-  float acc[kSplitRows];             // column tid of every row, at the end
+  // Column tid + kThreads * cc of every row, at the end.
+  float acc[kCols][kSplitRows];
 #pragma unroll
-  for (int r = 0; r < kSplitRows; ++r) acc[r] = 0.f;
+  for (int cc = 0; cc < kCols; ++cc)
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) acc[cc][r] = 0.f;
 
   if constexpr (kMma) {
     // Fragments (g = lane / 4, t = lane % 4): S and O of a 16 x 8 tile hold
@@ -515,9 +537,9 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     const int g = lane >> 2, t4 = lane & 3;
     const float scale_log2 = scale * 1.4426950408889634f;
     float* Red = Ss;                 // row maxima: [warp][row]
-    float o[kMaxD / 8][4];
+    float o[kD / 8][4];
 #pragma unroll
-    for (int n = 0; n < kMaxD / 8; ++n)
+    for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, lw[2] = {0.f, 0.f};
@@ -537,7 +559,7 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
 #pragma unroll
         for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < kMaxD / 16; ++ks) {
+      for (int ks = 0; ks < kD / 16; ++ks) {
         uint32_t a[4], bk[4];
         ldsm_x4(a, Qb + (lane & 15) * S::kRow + (ks * 16 + (lane >> 4) * 8) * 2);
         ldsm_x4(bk, Kst + (kw + (lane & 7) + (lane >> 4) * 8) * S::kRow +
@@ -589,11 +611,11 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
           pa[2 * n + hh] = pack_bf16(p0, p1);
         }
 #pragma unroll
-      for (int n = 0; n < kMaxD / 8; ++n)
+      for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
 #pragma unroll
-      for (int dp = 0; dp < kMaxD / 16; ++dp) {
+      for (int dp = 0; dp < kD / 16; ++dp) {
         uint32_t bv[4];
         ldsm_x4_t(bv, Vst + (kw + (lane & 7) + ((lane >> 3) & 1) * 8) * S::kVRow +
                           (dp * 16 + (lane >> 4) * 8) * 2);
@@ -615,10 +637,10 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     float* Ow = reinterpret_cast<float*>(smem + S::kK);  // [warp][row][d]
     float* Lw = Ss + 4 * kSplitRows;                     // [warp][row]
 #pragma unroll
-    for (int n = 0; n < kMaxD / 8; ++n)
+    for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        Ow[(warp * kSplitRows + g + 8 * (i >> 1)) * kMaxD + 8 * n + 2 * t4 +
+        Ow[(warp * kSplitRows + g + 8 * (i >> 1)) * kD + 8 * n + 2 * t4 +
            (i & 1)] = o[n][i];
     if (t4 == 0) {
       Lw[warp * kSplitRows + g] = lw[0];
@@ -627,11 +649,13 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     }
     __syncthreads();
 #pragma unroll
-    for (int r = 0; r < kSplitRows; ++r) {
-      const float* c = Ow + r * kMaxD + tid;
-      acc[r] = ((c[0] + c[kSplitRows * kMaxD]) + c[2 * kSplitRows * kMaxD]) +
-               c[3 * kSplitRows * kMaxD];
-    }
+    for (int cc = 0; cc < kCols; ++cc)
+#pragma unroll
+      for (int r = 0; r < kSplitRows; ++r) {
+        const float* c = Ow + r * kD + tid + kThreads * cc;
+        acc[cc][r] = ((c[0] + c[kSplitRows * kD]) + c[2 * kSplitRows * kD]) +
+                     c[3 * kSplitRows * kD];
+      }
     if (tid < kSplitRows)
       MLs[2 * tid + 1] = ((Lw[tid] + Lw[kSplitRows + tid]) +
                           Lw[2 * kSplitRows + tid]) + Lw[3 * kSplitRows + tid];
@@ -650,8 +674,8 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
       const T* Vst = reinterpret_cast<const T*>(smem + S::kV + stage * KT * S::kVRow);
       constexpr int kVStride = S::kVRow / static_cast<int>(sizeof(T));
       // Scores: thread (key j, row group rg) scores rows rg + RG * i over
-      // all kMaxD columns (Q and K are zero past D), with N partial sums
-      // per row so that no chain of FMAs is longer than kMaxD / N.
+      // all kD columns (Q and K are zero past D), with N partial sums
+      // per row so that no chain of FMAs is longer than kD / N.
       {
         const int j = tid % KT, rg = tid / KT, kj = k0 + j;
         const T* kr = reinterpret_cast<const T*>(Kst + j * S::kRow);
@@ -661,14 +685,14 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
 #pragma unroll
           for (int e = 0; e < N; ++e) sc[i][e] = 0.f;
 #pragma unroll
-        for (int c = 0; c < kMaxD; c += N) {
+        for (int c = 0; c < kD; c += N) {
           float kf[N];
           Vec<T>::load(kr + S::kchunk(j, c / N) * N, kf);
 #pragma unroll
           for (int i = 0; i < RPT; ++i) {
             const int r = rg + RG * i;
             if (r < rows) {
-              const float* qr = Qs + r * kMaxD + c;
+              const float* qr = Qs + r * kD + c;
 #pragma unroll
               for (int e = 0; e < N; ++e) sc[i][e] += qr[e] * kf[e];
             }
@@ -719,24 +743,27 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
         }
       }
       __syncthreads();
-      // P.V: thread tid owns column tid of every row.
-      if (tid < D) {
+      // P.V: thread tid owns column tid + kThreads * cc of every row.
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        const int col = tid + kThreads * cc;
+        if (col >= D) continue;
 #pragma unroll
         for (int r = 0; r < kSplitRows; ++r)
-          if (r < rows) acc[r] *= As[r];
+          if (r < rows) acc[cc][r] *= As[r];
 #pragma unroll 2
         for (int j = 0; j < KT; j += 4) {
-          const float v0 = Vec<T>::scalar(Vst[(j + 0) * kVStride + tid]);
-          const float v1 = Vec<T>::scalar(Vst[(j + 1) * kVStride + tid]);
-          const float v2 = Vec<T>::scalar(Vst[(j + 2) * kVStride + tid]);
-          const float v3 = Vec<T>::scalar(Vst[(j + 3) * kVStride + tid]);
+          const float v0 = Vec<T>::scalar(Vst[(j + 0) * kVStride + col]);
+          const float v1 = Vec<T>::scalar(Vst[(j + 1) * kVStride + col]);
+          const float v2 = Vec<T>::scalar(Vst[(j + 2) * kVStride + col]);
+          const float v3 = Vec<T>::scalar(Vst[(j + 3) * kVStride + col]);
 #pragma unroll
           for (int r = 0; r < kSplitRows; ++r) {
             if (r < rows) {
               const float4 p = *reinterpret_cast<const float4*>(Ss + r * KT + j);
-              float x = acc[r];
+              float x = acc[cc][r];
               x += p.x * v0; x += p.y * v1; x += p.z * v2; x += p.w * v3;
-              acc[r] = x;
+              acc[cc][r] = x;
             }
           }
         }
@@ -757,12 +784,15 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
 
   if (chunk > 0) {
     float* pb = part + ((static_cast<int64_t>(b) * Hkv + hk) * gridDim.x +
-                        blockIdx.x) * kPartFloats;
+                        blockIdx.x) * part_floats(kD);
     if (tid < 2 * rows) pb[tid] = MLs[tid];
-    if (tid < D) {
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc) {
+      const int col = tid + kThreads * cc;
+      if (col >= D) continue;
 #pragma unroll
       for (int r = 0; r < kSplitRows; ++r)
-        if (r < rows) pb[2 * kSplitRows + r * kMaxD + tid] = acc[r];
+        if (r < rows) pb[2 * kSplitRows + r * kD + col] = acc[cc][r];
     }
     return;
   }
@@ -771,14 +801,19 @@ flash_split_kernel(const T* __restrict__ q, KV kv,
     lse[(static_cast<int64_t>(b) * Hq + hk * group + gr % group) * Sq +
         gr / group] = row_lse<T>(MLs[2 * tid], MLs[2 * tid + 1]);
   }
-  if (tid >= D) return;
 #pragma unroll
-  for (int r = 0; r < kSplitRows; ++r) {
-    if (r < rows) {
-      const float lr = MLs[2 * r + 1];
-      const int gr = r0 + r;
-      out[((static_cast<int64_t>(b) * Hq + hk * group + gr % group) * Sq +
-           gr / group) * D + tid] = Vec<T>::from(lr == 0.f ? 0.f : acc[r] / lr);
+  for (int cc = 0; cc < kCols; ++cc) {
+    const int col = tid + kThreads * cc;
+    if (col >= D) continue;
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      if (r < rows) {
+        const float lr = MLs[2 * r + 1];
+        const int gr = r0 + r;
+        out[((static_cast<int64_t>(b) * Hq + hk * group + gr % group) * Sq +
+             gr / group) * D + col] =
+            Vec<T>::from(lr == 0.f ? 0.f : acc[cc][r] / lr);
+      }
     }
   }
 }
@@ -790,11 +825,11 @@ template <typename T> __device__ __forceinline__ float exp_of(float x) {
   else return expf(x);
 }
 
-// Merge of the split path: block (row r, hk, b), thread = column; splits
-// [lo / chunk, ceil(hi / chunk)) in split order, as flash_split_kernel
-// wrote them.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Merge of the split path: block (row r, hk, b) of kD threads, thread =
+// column; splits [lo / chunk, ceil(hi / chunk)) in split order, as
+// flash_split_kernel wrote them.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kD)
 flash_combine_kernel(const float* __restrict__ part,
                      const int* __restrict__ kv_lens, T* __restrict__ out,
                      float* __restrict__ lse, int Hq, int Hkv, int Sq,
@@ -811,19 +846,20 @@ flash_combine_kernel(const float* __restrict__ part,
   const int s0 = rng.lo / chunk;
   const int s1 = rng.hi > 0 ? (rng.hi + chunk - 1) / chunk : 0;
   const float* pb =
-      part + (static_cast<int64_t>(b) * Hkv + hk) * n_x * kPartFloats;
+      part + (static_cast<int64_t>(b) * Hkv + hk) * n_x * part_floats(kD);
   float mm = -INFINITY;
 #pragma unroll 4
-  for (int s = s0; s < s1; ++s) mm = fmaxf(mm, pb[s * kPartFloats + 2 * r]);
+  for (int s = s0; s < s1; ++s)
+    mm = fmaxf(mm, pb[s * part_floats(kD) + 2 * r]);
   float ll = 0.f, o = 0.f;
   if (mm != -INFINITY) {
 #pragma unroll 4
     for (int s = s0; s < s1; ++s) {
-      const float* ps = pb + s * kPartFloats;
+      const float* ps = pb + s * part_floats(kD);
       const float ms = ps[2 * r];
       const float c = ms == -INFINITY ? 0.f : exp_of<T>(ms - mm);
       ll += ps[2 * r + 1] * c;
-      o += ps[2 * kSplitRows + r * kMaxD + tid] * c;
+      o += ps[2 * kSplitRows + r * kD + tid] * c;
     }
   }
   const int s = r / group, h = hk * group + r % group;
@@ -837,28 +873,35 @@ flash_combine_kernel(const float* __restrict__ part,
 // ------------------------------------------- tile path, bf16 tensor cores
 //
 // Shared memory in wgmma's no-swizzle core-matrix layouts, D padded to
-// kMaxD with zeros: Q and K K-major, byte (row, d) at (row / 8) * 2048 +
-// (d / 8) * 128 + (row % 8) * 16 + (d % 8) * 2 (lbo 128, sbo 2048); V
-// MN-major, byte (key, d) at (d / 8) * 1024 + (key / 8) * 128 + (key % 8)
-// * 16 + (d % 8) * 2 (lbo 128 along keys, sbo 1024 along d).  Every copy
-// is one 16-byte core-matrix row.
-struct TileSmem {
+// the class's kD with zeros: Q and K K-major, byte (row, d) at (row / 8) *
+// 16 kD + (d / 8) * 128 + (row % 8) * 16 + (d % 8) * 2 (lbo 128, sbo
+// 16 kD); V MN-major, byte (key, d) at (d / 8) * 1024 + (key / 8) * 128 +
+// (key % 8) * 16 + (d % 8) * 2 (lbo 128 along keys, sbo 1024 along d).
+// Every copy is one 16-byte core-matrix row.  The narrow class keeps
+// kTileStages stages (112 KB, two blocks an SM); the wide one's matrices
+// are twice the size, so it keeps 2 (160 KB; 3 would take 225 KB, one
+// block an SM either way).
+template <int kD> struct TileSmem {
+  static constexpr int kStages = kD <= kNarrowD ? kTileStages : 2;
+  static constexpr int kSbo = 16 * kD;                 // bytes per 8 rows
   static constexpr int kQ = 0;
-  static constexpr int kMat = kTileRows * kMaxD * 2;   // 16 KB
+  static constexpr int kMat = kTileRows * kD * 2;      // 16 or 32 KB
   static constexpr int kK = kQ + kMat;
-  static constexpr int kV = kK + kTileStages * kMat;
-  static constexpr int kTab = kV + kTileStages * kMat;
-  static constexpr int kBytes = kTab + kTileStages * kTabSlot * 4;
+  static constexpr int kV = kK + kStages * kMat;
+  static constexpr int kTab = kV + kStages * kMat;
+  static constexpr int kBytes = kTab + kStages * kTabSlot * 4;
+  static_assert(kBytes <= 232448, "over the 227 KB a block may hold");
 };
 
+template <int kD>
 __device__ __forceinline__ int kmajor(int row, int c) {   // c: d / 8
-  return (row >> 3) * 2048 + c * 128 + (row & 7) * 16;
+  return (row >> 3) * TileSmem<kD>::kSbo + c * 128 + (row & 7) * 16;
 }
 __device__ __forceinline__ int vmajor(int key, int c) {
   return c * 1024 + (key >> 3) * 128 + (key & 7) * 16;
 }
 
-template <typename KV>
+template <typename KV, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
                   const int* __restrict__ kv_lens,
@@ -866,9 +909,12 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
                   int Hq, int Hkv, int Sq, int Skv, int D, float scale_log2,
                   int causal, int window) {
   using bf16 = __nv_bfloat16;
+  using TS = TileSmem<kD>;
+  constexpr int kChunks = kD / 8;        // 16-byte chunks of a padded row
+  constexpr int kHalves = kD / 128;      // P.V's m64n128 accumulators
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* Qs = smem + TileSmem::kQ;
-  int* tab = reinterpret_cast<int*>(smem + TileSmem::kTab);
+  unsigned char* Qs = smem + TS::kQ;
+  int* tab = reinterpret_cast<int*>(smem + TS::kTab);
 
   const int b = blockIdx.z, hk = blockIdx.y;
   const int group = Hq / Hkv, R = Sq * group;
@@ -882,27 +928,29 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
   const int t0 = (rng.lo / kTileKeys) * kTileKeys;
   const typename KV::Lane src = kv.lane(b, hk);
 
-  // Q: 64 packed rows x 16 chunks of 8, zeros past the rows and past D.
-  for (int i = tid; i < kTileRows * (kMaxD / 8); i += kThreads) {
-    const int r = i >> 4, c = i & 15, gr = r0 + r;
+  // Q: 64 packed rows x kChunks chunks of 8, zeros past the rows and D.
+  for (int i = tid; i < kTileRows * kChunks; i += kThreads) {
+    const int r = i >> chunk_shift(kD), c = i & (kChunks - 1);
+    const int gr = r0 + r;
     const bool ok = r < rows && c * 8 < D;
     const bf16* p = q;
     if (ok) {
       const int s = gr / group, h = hk * group + gr % group;
       p = q + ((static_cast<int64_t>(b) * Hq + h) * Sq + s) * D + c * 8;
     }
-    cp_async16(Qs + kmajor(r, c), p, ok);
+    cp_async16(Qs + kmajor<kD>(r, c), p, ok);
   }
 
   auto issue = [&](int stage, int k0) {
-    unsigned char* Kst = smem + TileSmem::kK + stage * TileSmem::kMat;
-    unsigned char* Vst = smem + TileSmem::kV + stage * TileSmem::kMat;
+    unsigned char* Kst = smem + TS::kK + stage * TS::kMat;
+    unsigned char* Vst = smem + TS::kV + stage * TS::kMat;
     const int* ts = tab + stage * kTabSlot;
-    for (int i = tid; i < kTileKeys * (kMaxD / 8); i += kThreads) {
-      const int row = i >> 4, c = i & 15, kj = k0 + row;
+    for (int i = tid; i < kTileKeys * kChunks; i += kThreads) {
+      const int row = i >> chunk_shift(kD), c = i & (kChunks - 1);
+      const int kj = k0 + row;
       const bool ok = kj < lim && c * 8 < D;
       const int64_t off = ok ? src.offset(ts, row, kj) + c * 8 : 0;
-      cp_async16(Kst + kmajor(row, c), src.kb + off, ok);
+      cp_async16(Kst + kmajor<kD>(row, c), src.kb + off, ok);
       cp_async16(Vst + vmajor(row, c), src.vb + off, ok);
     }
   };
@@ -910,9 +958,12 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
   // Accumulator fragment of m64nN: element i of thread (warp, lane) is
   // row 16 * warp + lane / 4 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) +
   // 2 * (lane % 4) + (i & 1).  A thread holds two rows, h = 0 and 1.
-  float o[64];
+  // o[hv] holds columns [128 hv, 128 hv + 128).
+  float o[kHalves][64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int hv = 0; hv < kHalves; ++hv)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[hv][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   int qpos[2];
   bool row_ok[2];
@@ -924,16 +975,16 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
   }
 
   auto compute = [&](int stage, int k0) {
-    const unsigned char* Kst = smem + TileSmem::kK + stage * TileSmem::kMat;
-    const unsigned char* Vst = smem + TileSmem::kV + stage * TileSmem::kMat;
+    const unsigned char* Kst = smem + TS::kK + stage * TS::kMat;
+    const unsigned char* Vst = smem + TS::kV + stage * TS::kMat;
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kMaxD / 16; ++ks)
-      wgmma_m64n64k16_ss(s, gmma_desc(Qs + ks * 256, 128, 2048),
-                         gmma_desc(Kst + ks * 256, 128, 2048), ks > 0);
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_m64n64k16_ss(s, gmma_desc(Qs + ks * 256, 128, TS::kSbo),
+                         gmma_desc(Kst + ks * 256, 128, TS::kSbo), ks > 0);
     wgmma_commit_wait();
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -966,16 +1017,22 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
       a[i >> 3][(i >> 1) & 3] = *reinterpret_cast<uint32_t*>(&pk);
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int hv = 0; hv < kHalves; ++hv)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[hv][i] *= alpha[(i >> 1) & 1];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTileKeys / 16; ++kk)
-      wgmma_m64n128k16_rs(o, a[kk], gmma_desc(Vst + kk * 256, 128, 1024), 1);
+#pragma unroll
+      for (int hv = 0; hv < kHalves; ++hv)   // V columns 128 hv ..: d / 8 = 16 hv
+        wgmma_m64n128k16_rs(o[hv], a[kk],
+                            gmma_desc(Vst + hv * 16 * 1024 + kk * 256, 128,
+                                      1024), 1);
     wgmma_commit_wait();
   };
 
-  kv_ring<kTileStages>(src, tab, t0, rng.hi, kTileKeys, lim, issue,
-                        compute);
+  kv_ring<TS::kStages>(src, tab, t0, rng.hi, kTileKeys, lim, issue,
+                       compute);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -993,12 +1050,15 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
           row_lse<bf16>(m[h], l[h]);
     const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = 8 * j + 2 * (lane & 3);
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-            o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
-    }
+    for (int hv = 0; hv < kHalves; ++hv)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * hv + 8 * j + 2 * (lane & 3);
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[hv][4 * j + 2 * h] * inv,
+                                    o[hv][4 * j + 2 * h + 1] * inv);
+      }
   }
 }
 
@@ -1009,30 +1069,31 @@ int allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// One C call of either kernel: the schedule from (Hq, Hkv, Sq), the
-// launches (the split path's merge after its splits, on the same stream),
-// and the CUDA error code of the first launch that failed (0 on success).
-// `chunk` is the split path's keys per split: a positive multiple of the
-// split tile Vec<T>::kKeys (64 keys bf16, 32 f32), Vec<T>::kChunk by
-// default; splits sit at absolute multiples of it.  `block_rows` is the
-// tile path's schedule: kTileRows, the wgmma warpgroup (bf16 only, its
-// default), or kSplitRows, the split kernel's loop over the whole kv range
-// (f32's only schedule).  `part` is the wrapper's scratch: B * Hkv *
-// ceil(Skv / chunk) splits of kPartFloats floats, needed by the split
-// path only.  `lse`, where not null, receives each query row's
-// log-sum-exp of its scaled scores, f32 (B, Hq, Sq) in natural units
-// (-inf for a row with no visible key): one store a row, in whichever
-// kernel writes the row's output; the output's bits do not depend on it.
-template <typename T, typename KV>
-int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
-           int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
-           int causal, int window, int chunk, int block_rows,
-           cudaStream_t s, float* lse = nullptr) {
+// One C call of either kernel in the head-dim class kD: the schedule from
+// (Hq, Hkv, Sq), the launches (the split path's merge after its splits,
+// on the same stream), and the CUDA error code of the first launch that
+// failed (0 on success).  `chunk` is the split path's keys per split: a
+// positive multiple of the split tile Vec<T>::kKeys (64 keys bf16, 32
+// f32), Vec<T>::kChunk by default; splits sit at absolute multiples of
+// it.  `block_rows` is the tile path's schedule: kTileRows, the wgmma
+// warpgroup (bf16 only, its default), or kSplitRows, the split kernel's
+// loop over the whole kv range (f32's only schedule).  `part` is the
+// wrapper's scratch: B * Hkv * ceil(Skv / chunk) splits of
+// part_floats(kD) floats, needed by the split path only.  `lse`, where
+// not null, receives each query row's log-sum-exp of its scaled scores,
+// f32 (B, Hq, Sq) in natural units (-inf for a row with no visible key):
+// one store a row, in whichever kernel writes the row's output; the
+// output's bits do not depend on it.
+template <typename T, typename KV, int kD>
+int launch_class(const void* q, KV kv, const int* kv_lens, void* out,
+                 void* part, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                 float scale, int causal, int window, int chunk,
+                 int block_rows, cudaStream_t s, float* lse) {
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
   const int R = Sq * (Hq / Hkv);
-  static int split_ready =
-      allow_smem(flash_split_kernel<T, KV>, SplitSmem<T>::kBytes);
+  static int split_ready = allow_smem(flash_split_kernel<T, KV, kD>,
+                                      SplitSmem<T, kD>::kBytes);
   if (split_ready != 0) return split_ready;
   if (use_split(Hq, Hkv, Sq)) {
     if (part == nullptr || chunk <= 0 || chunk % Vec<T>::kKeys != 0)
@@ -1040,8 +1101,8 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
     const int n_x = (Skv + chunk - 1) / chunk;
     float* pf = static_cast<float*>(part);
     if (n_x > 0) {
-      flash_split_kernel<T, KV>
-          <<<dim3(n_x, Hkv, B), kThreads, SplitSmem<T>::kBytes, s>>>(
+      flash_split_kernel<T, KV, kD>
+          <<<dim3(n_x, Hkv, B), kThreads, SplitSmem<T, kD>::kBytes, s>>>(
               qt, kv, kv_lens, ot, pf, lse, Hq, Hkv, Sq, Skv, D, scale,
               causal, window, chunk);
       const cudaError_t e = cudaGetLastError();
@@ -1055,34 +1116,51 @@ int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(R, Hkv, B);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(kD);
     cfg.dynamicSmemBytes = 0;
     cfg.stream = s;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return static_cast<int>(cudaLaunchKernelEx(
-        &cfg, flash_combine_kernel<T>, static_cast<const float*>(pf), kv_lens,
-        ot, lse, Hq, Hkv, Sq, Skv, D, causal, window, chunk, n_x));
+        &cfg, flash_combine_kernel<T, kD>, static_cast<const float*>(pf),
+        kv_lens, ot, lse, Hq, Hkv, Sq, Skv, D, causal, window, chunk, n_x));
   }
   if (block_rows != kSplitRows && (sizeof(T) != 2 || block_rows != kTileRows))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 2) {
     if (block_rows == kTileRows) {
-      static int tile_ready =
-          allow_smem(flash_tile_kernel<KV>, TileSmem::kBytes);
+      static int tile_ready = allow_smem(flash_tile_kernel<KV, kD>,
+                                         TileSmem<kD>::kBytes);
       if (tile_ready != 0) return tile_ready;
       const dim3 grid((R + kTileRows - 1) / kTileRows, Hkv, B);
-      flash_tile_kernel<KV><<<grid, kThreads, TileSmem::kBytes, s>>>(
+      flash_tile_kernel<KV, kD><<<grid, kThreads, TileSmem<kD>::kBytes, s>>>(
           qt, kv, kv_lens, ot, lse, Hq, Hkv, Sq, Skv, D,
           scale * 1.4426950408889634f, causal, window);
       return static_cast<int>(cudaGetLastError());
     }
   }
   const dim3 grid((R + kSplitRows - 1) / kSplitRows, Hkv, B);
-  flash_split_kernel<T, KV><<<grid, kThreads, SplitSmem<T>::kBytes, s>>>(
-      qt, kv, kv_lens, ot, nullptr, lse, Hq, Hkv, Sq, Skv, D, scale, causal,
-      window, 0);
+  flash_split_kernel<T, KV, kD>
+      <<<grid, kThreads, SplitSmem<T, kD>::kBytes, s>>>(
+          qt, kv, kv_lens, ot, nullptr, lse, Hq, Hkv, Sq, Skv, D, scale,
+          causal, window, 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One C call: the class of D (at most kNarrowD, else kMaxD; the entry
+// points refuse a D over kMaxD or not a multiple of 8), then its launch.
+template <typename T, typename KV>
+int launch(const void* q, KV kv, const int* kv_lens, void* out, void* part,
+           int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
+           int causal, int window, int chunk, int block_rows,
+           cudaStream_t s, float* lse = nullptr) {
+  if (D <= kNarrowD)
+    return launch_class<T, KV, kNarrowD>(q, kv, kv_lens, out, part, B, Hq,
+                                         Hkv, Sq, Skv, D, scale, causal,
+                                         window, chunk, block_rows, s, lse);
+  return launch_class<T, KV, kMaxD>(q, kv, kv_lens, out, part, B, Hq, Hkv,
+                                    Sq, Skv, D, scale, causal, window, chunk,
+                                    block_rows, s, lse);
 }
 
 }  // namespace repro_fa

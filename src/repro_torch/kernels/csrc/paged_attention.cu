@@ -33,16 +33,16 @@ using repro_fa::PagedKV;
 // q (B, Hq, Sq, D), k_store/v_store (n_pages * page_size, Hkv, D), out like
 // q, all contiguous and 16-byte aligned; page_table (B, n_blocks) and
 // kv_lens (B,) int32 on the device; scratch, chunk and block_rows as for
-// kernel 2 with Skv = n_blocks * page_size.  dtype: 0 = float32, 1 =
-// bfloat16.  Returns the CUDA error code of the first launch that failed
-// (0 on success).
+// kernel 2 with Skv = n_blocks * page_size; D a multiple of 8 up to
+// 256.  dtype: 0 = float32, 1 = bfloat16.  Returns the CUDA error code of
+// the first launch that failed (0 on success).
 extern "C" int repro_paged_flash_attention(
     const void* q, const void* k_store, const void* v_store,
     const void* page_table, const void* kv_lens, void* out, void* scratch,
     int B, int Hq, int Hkv, int Sq, int n_blocks, int page_size, int n_pages,
     int D, float scale, int causal, int dtype, int chunk, int block_rows,
     void* stream) {
-  if (D > kMaxD || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+  if (D <= 0 || D > kMaxD || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       page_size <= 0 || n_pages <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;

@@ -31,6 +31,12 @@ Kernel 2 may also return each query row's log-sum-exp (``return_lse``):
 the partial softmax statistics by which the blocks of a cache cut over
 ranks merge (``models/attention.merge_blocks``).
 
+Both take every head dim that is a multiple of 8 up to ``MAX_D`` (256,
+the widest N of ``wgmma``), as the TPU kernel takes any; the kernels are
+instantiated for two classes, ``head_dim_class``: a head dim runs
+zero-padded to 128 (``NARROW_D``) or to 256.  ``check_head_dim`` is the
+rule, on any device.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``attention_ref``, ``paged_attention_ref``) for CPU tensors.
 Kernel 2's counter keys each launch by (B, Sq, Skv, window or 0, dtype
@@ -64,8 +70,29 @@ SPLIT_ROWS = 16        # kSplitRows: packed rows of a split-path block
 # any positive multiple of the split tile (kv_tile: Vec<T>::kKeys).
 SPLIT_CHUNK = {torch.bfloat16: 256, torch.float32: 128}
 TILE_ROWS = 64         # kTileRows: packed rows of a tensor-core block
-MAX_D = 128            # kMaxD
-PART_BYTES = 4 * SPLIT_ROWS * (MAX_D + 2)   # one split's (m, l, acc)
+NARROW_D = 128         # kNarrowD: the narrow head-dim class
+MAX_D = 256            # kMaxD: the wide class, and the widest head dim
+
+
+def check_head_dim(name: str, d: int) -> None:
+    """Raise unless the kernels take head dim ``d``: a multiple of 8 from
+    8 to ``MAX_D``."""
+    if d < 8 or d % 8 or d > MAX_D:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 "
+                         f"from 8 to {MAX_D}")
+
+
+def head_dim_class(d: int) -> int:
+    """The padded width the kernels run head dim ``d`` at: ``NARROW_D``
+    up to it, ``MAX_D`` above (``check_head_dim`` first)."""
+    check_head_dim("head_dim_class", d)
+    return NARROW_D if d <= NARROW_D else MAX_D
+
+
+def part_bytes(d: int) -> int:
+    """One split's partials at head dim ``d``: (m, l) and the padded
+    accumulator row of each of its rows, f32."""
+    return 4 * SPLIT_ROWS * (head_dim_class(d) + 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +125,13 @@ class AttentionPlan:
         return [(s * self.chunk, min((s + 1) * self.chunk, skv))
                 for s in range(self.n_splits(skv))]
 
-    def scratch_bytes(self, skv: int) -> int:
+    def scratch_bytes(self, skv: int, d: int) -> int:
         """Bytes of partials the split path writes for a kv extent
-        ``skv`` (kernel 2: the cache length; kernel 3: n_blocks * ps)."""
+        ``skv`` (kernel 2: the cache length; kernel 3: n_blocks * ps) at
+        head dim ``d``."""
         if self.path != "split":
             return 0
-        return self.b * self.hkv * self.n_splits(skv) * PART_BYTES
+        return self.b * self.hkv * self.n_splits(skv) * part_bytes(d)
 
 
 @functools.lru_cache(maxsize=256)
@@ -185,15 +213,16 @@ def scratch_buffer(buf: torch.Tensor):
         _bound.buf = prev
 
 
-def _scratch_ptr(plan: AttentionPlan, skv: int, device: torch.device,
-                 stream: int) -> int:
-    """Address of the scratch for ``plan`` (0 when the plan needs none):
+def _scratch_ptr(plan: AttentionPlan, skv: int, d: int,
+                 device: torch.device, stream: int) -> int:
+    """Address of the scratch for ``plan`` at head dim ``d`` (0 when the
+    plan needs none):
     the buffer bound by ``scratch_buffer``, which must be large enough,
     or else a grow-only buffer per ``device`` and ``stream`` (the kernels
     of one call, and calls on one stream, run in order).  A graph
     capture must run on a bound buffer: growing a per-stream one would
     free an address an earlier capture baked in."""
-    need = plan.scratch_bytes(skv)
+    need = plan.scratch_bytes(skv, d)
     if need == 0:
         return 0
     bound = getattr(_bound, "buf", None)
@@ -347,9 +376,7 @@ def _check(q, k, v, kv_lens):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; all float32 or all bfloat16")
-    if d % 8 or d > 128:
-        raise ValueError(f"flash_attention: head dim {d} must be a "
-                         f"multiple of 8 and at most 128")
+    check_head_dim("flash_attention", d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous, "
@@ -402,7 +429,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if return_lse else None
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                _scratch_ptr(plan, skv, q.device, stream), b,
+                _scratch_ptr(plan, skv, d, q.device, stream), b,
                 hq, hkv, sq, skv, d, float(scale), int(causal),
                 0 if window is None else int(window), _DTYPES[q.dtype],
                 plan.chunk or 0, plan.block_rows, stream)
@@ -477,9 +504,7 @@ def _check_paged(q, k_store, v_store, page_table, kv_lens, page_size):
         raise TypeError(f"paged_flash_attention: dtypes {q.dtype}/"
                         f"{k_store.dtype}/{v_store.dtype}; all float32 or "
                         f"all bfloat16")
-    if d % 8 or d > 128:
-        raise ValueError(f"paged_flash_attention: head dim {d} must be a "
-                         f"multiple of 8 and at most 128")
+    check_head_dim("paged_flash_attention", d)
     for name, t in (("q", q), ("k_store", k_store), ("v_store", v_store)):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"paged_flash_attention: {name} must be "
@@ -530,9 +555,10 @@ def paged_flash_attention(q: torch.Tensor, k_store: torch.Tensor,
     err = _paged_fn()(
         q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        _scratch_ptr(plan, n_blocks * ps, q.device, stream), b, hq, hkv, sq,
-        n_blocks, ps, k_store.shape[0] // ps, d, float(scale), int(causal),
-        _DTYPES[q.dtype], plan.chunk or 0, plan.block_rows, stream)
+        _scratch_ptr(plan, n_blocks * ps, d, q.device, stream), b, hq, hkv,
+        sq, n_blocks, ps, k_store.shape[0] // ps, d, float(scale),
+        int(causal), _DTYPES[q.dtype], plan.chunk or 0, plan.block_rows,
+        stream)
     build.check(err, "paged_flash_attention")
     paged_launches.add((b, sq, ps, _DTYPES[q.dtype]))
     return out

@@ -28,8 +28,10 @@ The backward (the JAX package's custom VJP, ``repro.kernels.ops``
 ``*_bwd_ref`` and counters ``bwd_launches`` / ``bwd_entry_launches``.
 ``RMSNormFn``, ``AddRMSNormFn`` and ``QKNormRopeFn`` join each forward
 entry to its backward as a ``torch.autograd.Function``; the model calls
-those.  A raw forward entry called on the card with grad mode on and an
-input that requires grad raises: its output would have no autograd node.
+those, and ``QKNormThenRopeFn`` (``rmsnorm`` on q and k, then the
+rotation) where the rotary entry has no layout for the head dim.  A raw
+forward entry called on the card with grad mode on and an input that
+requires grad raises: its output would have no autograd node.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ DEFAULT_WARPS = 8
 # 8..256 vectors of 16 bytes (bf16 d 64..2048, f32 d 32..1024).  Other
 # widths that are a multiple of 8 take the kernel's generic loop.  The
 # rotary entry takes head rows of 8..128 vectors (bf16 head dims
-# 64..1024) and no others.
+# 64..1024) and no others (``rope_has_layout``).
 _ROPE_VECTORS = (8, 16, 32, 64, 128)
 # The backward (csrc/rmsnorm.cu, one kernel a call): rows of up to
 # BWD_REG_MAX_D elements held in registers, bf16 or f32 (the rotary entry:
@@ -71,6 +73,15 @@ BWD_REG_MAX_D = 8192
 BWD_MAX_D = 49152
 BWD_SCRATCH_HEADER = 128
 _GAMMA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rope_has_layout(d: int, dtype: torch.dtype) -> bool:
+    """Whether the rotary entry (``qk_norm_rope`` and its backward) has a
+    register layout for head rows of ``d`` elements of ``dtype``: 8..128
+    vectors of 16 bytes.  The model runs the unfused composition where it
+    has none (``models.common.qk_norm_rope``)."""
+    nbytes = d * dtype.itemsize
+    return nbytes % 16 == 0 and nbytes // 16 in _ROPE_VECTORS
 
 
 def reset_counts() -> None:
@@ -365,7 +376,7 @@ def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, gamma_q: torch.Tensor,
     if k.shape != (b, length, hkv, d) or k.device != q.device:
         raise ValueError(f"qk_norm_rope: k {tuple(k.shape)} does not match "
                          f"q {tuple(q.shape)}")
-    if d * q.element_size() // 16 not in _ROPE_VECTORS:
+    if not rope_has_layout(d, q.dtype):
         raise ValueError(f"qk_norm_rope: head dim {d} in {q.dtype} has no "
                          f"register layout in the kernel")
     for name, t in (("cos", cos), ("sin", sin)):
@@ -663,6 +674,39 @@ class AddRMSNormFn(torch.autograd.Function):
         else:
             dx, dg = add_rmsnorm_bwd(s, gamma, dh, ds, eps=ctx.eps)
         return dx, dx, dg, None, None
+
+
+class QKNormThenRopeFn(torch.autograd.Function):
+    """``rmsnorm`` on q and on k, then the rotary embedding of both: the
+    composition the model runs where the rotary entry has no register
+    layout (``rope_has_layout``), with the fused entry's values (the same
+    arithmetic, rounded at the same places).  One autograd node for q
+    and k, as ``QKNormRopeFn``, so the backward accumulates into what
+    feeds them in the same order: it rotates each gradient back
+    (``rope_bwd_ref``, plain ops like the rotation itself), rounds it to
+    the input's type and runs ``rmsnorm_bwd`` on q and on k.
+    ``QKNormThenRopeFn.apply(q, k, gamma_q, gamma_k, cos, sin, eps[,
+    warps_q, warps_k])``."""
+
+    @staticmethod
+    def forward(ctx, q, k, gamma_q, gamma_k, cos, sin, eps, warps_q=None,
+                warps_k=None):
+        ctx.save_for_backward(q, k, gamma_q, gamma_k, cos, sin)
+        ctx.eps = eps
+        return (rope_ref(rmsnorm(q, gamma_q, eps=eps, warps=warps_q), cos,
+                         sin),
+                rope_ref(rmsnorm(k, gamma_k, eps=eps, warps=warps_k), cos,
+                         sin))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dq_out, dk_out):
+        q, k, gq, gk, cos, sin = ctx.saved_tensors
+        dq, dgq = rmsnorm_bwd(q, gq, rope_bwd_ref(dq_out, cos, sin).to(
+            q.dtype), eps=ctx.eps)
+        dk, dgk = rmsnorm_bwd(k, gk, rope_bwd_ref(dk_out, cos, sin).to(
+            k.dtype), eps=ctx.eps)
+        return dq, dk, dgq, dgk, None, None, None, None, None
 
 
 class QKNormRopeFn(torch.autograd.Function):

@@ -125,10 +125,10 @@ def cap_attention(plan: kfa.AttentionPlan, skv: int) -> kfa.AttentionPlan:
 
 
 def attention_scratch_reserve(b: int, hq: int, hkv: int, widths, skv: int,
-                              dtype) -> int:
+                              dtype, d: int) -> int:
     """The largest scratch any candidate plan of any of ``widths`` (query
-    lengths) needs over ``skv``: what a capture must bind so that every
-    plan a tuner may pick fits."""
-    return max((p.scratch_bytes(skv) for sq in widths
+    lengths) needs over ``skv`` at head dim ``d``: what a capture must
+    bind so that every plan a tuner may pick fits."""
+    return max((p.scratch_bytes(skv, d) for sq in widths
                 for p in candidates_attention(b, hq, hkv, sq, skv, dtype)),
                default=0)

@@ -242,8 +242,16 @@ def add_rmsnorm(p: dict, x: torch.Tensor, y: torch.Tensor,
 def qk_norm_rope(pq: dict, pk: dict, q: torch.Tensor, k: torch.Tensor,
                  cos: torch.Tensor, sin: torch.Tensor, eps: float = 1e-5
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q- and k-norm, then the rotary embedding of both, in one launch
-    of kernel 1: the values of ``apply_rope(rmsnorm(...))``."""
+    """q- and k-norm, then the rotary embedding of both: the values of
+    ``apply_rope(rmsnorm(...))``.  In one launch of kernel 1's rotary
+    entry where it has a register layout for the head dim and type
+    (``rmsnorm.rope_has_layout``), else as that composition: kernel 1's
+    ``rmsnorm`` on q and on k, then ``apply_rope``
+    (``rmsnorm.QKNormThenRopeFn``: the same bits)."""
+    if not krms.rope_has_layout(q.shape[-1], q.dtype):
+        return krms.QKNormThenRopeFn.apply(
+            q, k, pq["g"], pk["g"], cos, sin, eps, _warps("rmsnorm", q),
+            _warps("rmsnorm", k))
     if build.records_grad(q, k, pq["g"], pk["g"]):
         return krms.QKNormRopeFn.apply(q, k, pq["g"], pk["g"], cos, sin,
                                        eps)

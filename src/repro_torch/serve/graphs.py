@@ -259,11 +259,12 @@ class StepRunner:
         skv = store.shape[2] if st.table is None \
             else st.table.shape[1] * self.page_size
         hq, hkv = self.heads
+        d = store.shape[-1]
         if self.tuner is not None:
             return tuning.attention_scratch_reserve(
-                len(st.toks), hq, hkv, self.widths, skv, store.dtype)
+                len(st.toks), hq, hkv, self.widths, skv, store.dtype, d)
         return max(kfa.attention_plan(len(st.toks), hq, hkv, sq,
-                                      store.dtype).scratch_bytes(skv)
+                                      store.dtype).scratch_bytes(skv, d)
                    for sq in self.widths)
 
     def _run_and_capture(self) -> Capture:

@@ -361,13 +361,13 @@ def test_attention_plan_at_the_family_shapes(name, dtype):
     assert decode.path == ("tile" if hq // hkv > tfa.SPLIT_ROWS else "split")
     assert tfa.attention_plan(1, hq, hkv, 256, dtype).path == "tile"
     if name == "granite-34b":
-        assert decode.path == "tile" and decode.scratch_bytes(8192) == 0
+        assert decode.path == "tile" and decode.scratch_bytes(8192, d) == 0
 
 
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_wrappers_accept_the_family_head_dims(d):
-    """Kernels 2 and 3 take head dims 64 and 80 inside kMaxD 128; a dim
-    off the 8-element vector or past 128 is refused."""
+    """Kernels 2 and 3 take head dims 64 and 80 inside the narrow class
+    (128); a dim off the 8-element vector or past kMaxD 256 is refused."""
     q = torch.zeros(2, 4, 1, d)
     k = torch.zeros(2, 2, 16, d)
     lens = torch.full((2,), 16, dtype=torch.int32)
@@ -375,7 +375,7 @@ def test_wrappers_accept_the_family_head_dims(d):
     store = torch.zeros(32, 2, d)
     table = torch.zeros(2, 2, dtype=torch.int32)
     tfa._check_paged(q, store, store, table, lens, 16)
-    for bad in (84, 136):
+    for bad in (84, 264):
         with pytest.raises(ValueError, match="head dim"):
             tfa._check(torch.zeros(2, 4, 1, bad), torch.zeros(2, 2, 16, bad),
                        torch.zeros(2, 2, 16, bad), lens)

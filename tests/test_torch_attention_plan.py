@@ -49,7 +49,7 @@ def test_main_path_prefill_chunks_take_the_tile_path(sq, dtype):
     plan = tfa.attention_plan(1, HQ, HKV, sq, dtype)
     assert plan.path == "tile"
     assert plan.chunk is None
-    assert plan.scratch_bytes(MAX_LEN) == 0
+    assert plan.scratch_bytes(MAX_LEN, 128) == 0
     # bf16 on the tensor cores in 64-row blocks; f32 stays IEEE f32 on
     # the CUDA cores in 16-row blocks.
     if dtype == torch.bfloat16:
@@ -111,23 +111,28 @@ def test_splits_cover_the_extent_without_gap_or_overlap(skv, dtype):
         skv / tfa.SPLIT_CHUNK[dtype])
 
 
+@pytest.mark.parametrize("d,width", [(128, 128), (16, 128), (256, 256),
+                                     (136, 256)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ps", PAGE_SIZES)
 @pytest.mark.parametrize("sq", [1, 2, 4, 8])
-def test_scratch_fits_the_largest_main_path_shape(sq, ps, dtype):
+def test_scratch_fits_the_largest_main_path_shape(sq, ps, dtype, d, width):
     """The split kernel writes split s of (b, hk) at float offset
-    ((b * Hkv + hk) * n_splits + s) * (16 * (128 + 2)), rows' (m, l)
-    first, then acc[row][128]: the last float it writes lies inside."""
+    ((b * Hkv + hk) * n_splits + s) * (16 * (W + 2)), rows' (m, l)
+    first, then acc[row][W], W the head dim's class width (128 or 256):
+    the last float it writes lies inside."""
     plan = tfa.attention_plan(SLOTS, HQ, HKV, sq, dtype)
     skv = math.ceil(MAX_LEN / ps) * ps
     n = plan.n_splits(skv)
-    part_floats = tfa.SPLIT_ROWS * (tfa.MAX_D + 2)
-    assert tfa.PART_BYTES == 4 * part_floats
+    assert tfa.head_dim_class(d) == width
+    part_floats = tfa.SPLIT_ROWS * (width + 2)
+    assert tfa.part_bytes(d) == 4 * part_floats
     last = ((SLOTS * HKV - 1) * n + n - 1) * part_floats \
-        + 2 * tfa.SPLIT_ROWS + (plan.rows - 1) * tfa.MAX_D + tfa.MAX_D - 1
-    assert 4 * (last + 1) <= plan.scratch_bytes(skv)
-    # The whole slot pool's decode scratch stays small next to the cache.
-    assert plan.scratch_bytes(skv) <= 8 * 2 ** 20
+        + 2 * tfa.SPLIT_ROWS + (plan.rows - 1) * width + width - 1
+    assert 4 * (last + 1) <= plan.scratch_bytes(skv, d)
+    # The whole slot pool's decode scratch stays small next to the cache
+    # (8 MiB in the narrow class, twice it in the wide one).
+    assert plan.scratch_bytes(skv, d) <= 8 * 2 ** 20 * width // 128
 
 
 def test_scratch_buffer_grows_only():
@@ -136,13 +141,17 @@ def test_scratch_buffer_grows_only():
     key = (dev.index, 12345)
     tfa._scratch.pop(key, None)
     try:
-        p1 = tfa._scratch_ptr(plan, 256, dev, 12345)
-        assert tfa._scratch[key].numel() == plan.scratch_bytes(256)
-        assert tfa._scratch_ptr(plan, 128, dev, 12345) == p1
-        tfa._scratch_ptr(plan, 1024, dev, 12345)
-        assert tfa._scratch[key].numel() == plan.scratch_bytes(1024)
+        p1 = tfa._scratch_ptr(plan, 256, 128, dev, 12345)
+        assert tfa._scratch[key].numel() == plan.scratch_bytes(256, 128)
+        assert tfa._scratch_ptr(plan, 128, 128, dev, 12345) == p1
+        tfa._scratch_ptr(plan, 1024, 128, dev, 12345)
+        assert tfa._scratch[key].numel() == plan.scratch_bytes(1024, 128)
+        # The wide class's partials are larger: the buffer grows for it.
+        tfa._scratch_ptr(plan, 1024, 256, dev, 12345)
+        assert tfa._scratch[key].numel() == plan.scratch_bytes(1024, 256) \
+            > plan.scratch_bytes(1024, 128)
         tile = tfa.attention_plan(1, HQ, HKV, 256, torch.bfloat16)
-        assert tfa._scratch_ptr(tile, 1024, dev, 12345) == 0
+        assert tfa._scratch_ptr(tile, 1024, 256, dev, 12345) == 0
     finally:
         tfa._scratch.pop(key, None)
 
@@ -156,7 +165,8 @@ def _constant(name: str) -> int:
 def test_plan_constants_match_the_cuda_source():
     assert _constant("kSplitRows") == tfa.SPLIT_ROWS
     assert _constant("kTileRows") == tfa.TILE_ROWS
-    assert _constant("kMaxD") == tfa.MAX_D
+    assert _constant("kMaxD") == tfa.MAX_D == 256
+    assert _constant("kNarrowD") == tfa.NARROW_D == 128
     assert _constant("kTileKeys") == 64
     assert re.search(r"return Sq \* \(Hq / Hkv\) <= kSplitRows;", HEADER)
     # Vec<float> first, then Vec<__nv_bfloat16>: tile keys and chunk.

@@ -72,7 +72,7 @@ def test_attention_candidates_are_legal(arch, dtype):
                 kfa.with_value(prior, prior.chunk), skv) \
                 if prior.path == "split" else cands[0] == prior
             reserve = tuning.attention_scratch_reserve(
-                SLOTS, hq, hkv, tdl.STEP_WIDTHS, skv, dtype)
+                SLOTS, hq, hkv, tdl.STEP_WIDTHS, skv, dtype, cfg.head_dim_)
             for p in cands:
                 kfa.check_plan("test", p, SLOTS, hq, hkv, sq, dtype)
                 if p.path == "split":
@@ -80,10 +80,11 @@ def test_attention_candidates_are_legal(arch, dtype):
                     assert p.kv_tile <= p.chunk <= tuning.round_up(
                         skv, p.kv_tile)
                     if sq in tdl.STEP_WIDTHS:
-                        assert p.scratch_bytes(skv) <= reserve
+                        assert p.scratch_bytes(skv, cfg.head_dim_) \
+                            <= reserve
                 else:
                     assert p.block_rows in kfa.tile_schedules(dtype)
-                    assert p.scratch_bytes(skv) == 0
+                    assert p.scratch_bytes(skv, cfg.head_dim_) == 0
 
 
 def test_candidates_at_the_main_path():
@@ -300,7 +301,7 @@ def test_graphs_reserve_every_candidates_scratch_and_recapture_on_a_new_winner( 
     assert t.searches > 0 and step.runner._plans
     assert graphs.scratch_bytes == tuning.attention_scratch_reserve(
         3, tcfg.n_heads, tcfg.n_kv_heads, tdl.STEP_WIDTHS, 48,
-        torch.float32)
+        torch.float32, tcfg.head_dim_)
     step(params, caches, *args, _meta(3), _meta(3), [2, 2, 2])
     assert dict(graphs.captures) == {"fused": 1}
     t.forget()

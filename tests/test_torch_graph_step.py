@@ -638,7 +638,8 @@ def test_scratch_is_reserved_once_before_the_first_capture(meta_model, card,
     pt = (table,) if paged else ()
     skv = MAX_LEN
     need = max(kfa.attention_plan(N, tcfg.n_heads, tcfg.n_kv_heads, sq,
-                                  torch.float32).scratch_bytes(skv)
+                                  torch.float32).scratch_bytes(
+                                      skv, tcfg.head_dim_)
                for sq in (1, 2, 4, 8))
     caches, _, _ = _step_fn(tcfg, None, paged, graphs)(
         params, caches, *pt, _meta(N), _meta(N), [1, 1, 1])

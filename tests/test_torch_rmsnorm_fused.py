@@ -131,9 +131,11 @@ def test_forward_calls_the_fused_entries(monkeypatch):
     ``add_rmsnorm`` except the last (2·n_layers − 1 calls), one
     ``qk_norm_rope`` per layer, and the plain norm twice (layer 0's ln1
     and the final norm): 3·n_layers + 1 launches of kernel 1 on the
-    card, 85 at qwen3-0.6b's 28 layers."""
+    card, 85 at qwen3-0.6b's 28 layers.  Head dim 32: the smallest the
+    rotary entry has a register layout for in f32 (the reduced 16 runs
+    the unfused composition, ``tests/test_torch_head_dims.py``)."""
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                              n_layers=3)
+                              n_layers=3, head_dim=32)
     params = tlm.init_params(0, cfg, device="cpu")
     calls = {"rmsnorm": 0, "add_rmsnorm": 0, "qk_norm_rope": 0}
 

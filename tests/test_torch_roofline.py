@@ -24,7 +24,7 @@ from repro_torch.analysis import roofline
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.acc import StaticCoreChunk
-from repro_torch.kernels import build
+from repro_torch.kernels import build, rmsnorm
 from repro_torch.models import lm
 from repro_torch.serve import ServeScheduler
 
@@ -109,9 +109,14 @@ def test_count_of_one_forward_matches_its_closed_form(dtype):
     rows, d = b * length, cfg.d_model
     heads = b * length * (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim_
     # Two plain norms (layer 0's ln1, the final one), 2L - 1 residual
-    # adds with their norms, L q/k-norms with the rotation.
+    # adds with their norms, L q/k-norms: with the rotation in one launch
+    # where the rotary entry has a layout for the head dim, else kernel
+    # 1's plain norm of the q and the k rows (the reduced head dim 16;
+    # the rotation is then plain ops).
+    qk = 10 if rmsnorm.rope_has_layout(cfg.head_dim_,
+                                       getattr(torch, dtype)) else 4
     assert norms == 4 * rows * d * 2 + 5 * rows * d * (2 * cfg.n_layers - 1) \
-        + 10 * heads * cfg.n_layers
+        + qk * heads * cfg.n_layers
     weights = sum(t.numel() * t.element_size()
                   for t in (p["embed"]["table"],))
     assert costs.bytes >= weights
